@@ -7,7 +7,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
 
 1. Print the card (``nvidia-smi`` name and power limit), turn TF32 off for
    matmuls and cuDNN (the fp32 parity below depends on it), and build every
-   kernel of the served path from ``mxnet_tpu_torch/csrc`` (nvcc, sm_90a).
+   kernel source in ``mxnet_tpu_torch/csrc`` at once (nvcc, sm_90a).
 2. Kernel phase: the fused matmul kernel against its plain PyTorch version
    on the card, at every kernel-form region shape of the ResNet-50 NHWC
    forward at buckets 1 and 8 (the shapes recorded from the forward
@@ -25,7 +25,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
    every forward must launch the kernel exactly 32 times. The same requests
    through a server with MXNET_FUSION_KERNEL=0 (the plain composition on
    the card) must agree: logits within 1e-3 of max |logit|, top-1 1.0.
-4. Print the ``kernels`` JSON line, then the result line
+4. Flash kernel phase: the three flash-attention kernels (forward, dq,
+   dk/dv) against their plain PyTorch versions, and the autograd function
+   they make against dense autograd of ``flash_attention_reference``, at
+   the training path's shape (8, 8, 2048, 64) causal in bf16 and fp32 and
+   on a ragged grid (T 1/17/129/1000, causal or not, D 32/64/128, with and
+   without an lse cotangent). Times each kernel and PyTorch's
+   ``scaled_dot_product_attention`` (forward, and forward + backward;
+   timed as a yardstick only) as CUDA-graph replays and each plain
+   version with CUDA events, and computes each kernel's bound at
+   the card's bf16 tensor-core peak and memory rate, causal half counted.
+5. Train phase: the causal-LM ``TransformerParallel`` at the full
+   ``bench_transformer_lm`` configuration (vocab 32768, d 512, 8 heads,
+   8 layers, d_ff 2048, 1 expert, bf16; B 8, T 2048; SGD lr 0.01). The
+   first step's loss and gradients (B 2: the plain attention's T x T
+   scores of 8 layers at B 8 would not fit) against the same step with
+   ``_local_attention`` swapped for the plain version; then 3 warm and 10
+   timed steps with launch counts reset just before: every step launches
+   each flash kernel exactly 8 times, and the loss stays finite and falls.
+6. Print the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -46,6 +64,21 @@ KERNEL_REGIONS = 32       # kernel-form regions of one ResNet-50 NHWC forward
 PATH_TOL = 1e-4           # fp32 kernel vs plain, relative to max |plain|
 GRID_TOL = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 2e-3}
 SERVE_TOL = 1e-3          # logits, relative to max |logit|
+
+FLASH_SHAPE = (8, 8, 2048, 64)   # (B, H, T, D) of the train path
+# flash kernels vs their plain versions, relative to max |plain|: both
+# compute in fp32 from the same inputs, in another summation order (fp32);
+# each output is then rounded once to bf16 (one bf16 ulp is 2^-8)
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+FLASH_GRID_T = (1, 17, 129, 1000)
+FLASH_GRID_D = (32, 64, 128)
+TRAIN_CFG = dict(vocab=32768, d_model=512, n_heads=8, n_layers=8,
+                 d_ff=2048, n_experts=1)
+TRAIN_B, TRAIN_T, TRAIN_LR = 8, 2048, 0.01
+TRAIN_WARM, TRAIN_TIMED = 3, 10
+COMPARE_B = 2                    # batch of the kernel-vs-plain train step
+LOSS_TOL = 1e-2                  # first-step loss, relative
+GRAD_TOL = 2e-2                  # gradients, relative to max |plain grad|
 
 
 def log(*args):
@@ -70,6 +103,36 @@ def card_peaks(name):
     if "H200" in n:
         return 67.0e12, 4.8e12
     return 67.0e12, 3.35e12   # H100 SXM
+
+
+def card_bf16_peak(name):
+    """Dense bf16 tensor-core FLOP/s from the card's data sheet."""
+    n = name.upper()
+    if "H100" in n and "PCIE" in n:
+        return 756e12
+    if "H100" in n and "NVL" in n:
+        return 835e12
+    return 989e12   # H100 SXM, H200
+
+
+def time_events_ms(fn, reps=5):
+    """Time of one ``fn`` call from CUDA events around ``reps`` calls,
+    without a CUDA graph: for calls that allocate too much to capture
+    twenty of, and that run long enough (ms) to hide the host's
+    enqueue."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def time_ms(fn, reps=20, replays=5):
@@ -471,6 +534,316 @@ def serve_phase(mx, sym, card, results):
     return launches
 
 
+# ------------------------------------------------------------ flash phase
+
+def flash_module():
+    import importlib
+
+    # the package's ``flash_attention`` name is the function
+    return importlib.import_module("mxnet_tpu_torch.parallel.flash_attention")
+
+
+def flash_bound_ms(kind, shape, causal, itemsize, bf16_peak, bytes_per_s):
+    """Least time of one launch: operations over the bf16 tensor-core peak
+    against bytes over the memory rate. Operations per live (q, k) pair:
+    4*D forward (QK^T, PV), 6*D dq (S, dP, dS.K), 8*D dk/dv (S, dP, P^T.dO,
+    dS^T.Q); causal counts the T(T+1)/2 live pairs. Bytes: each input read
+    once and each output written once (n = one (B, H, T, D) tensor, r = one
+    (B, H, T) fp32 row vector): forward 3n in, n + r out; dq 4n + 2r in, n
+    out; dk/dv 4n + 2r in, 2n out."""
+    B, H, T, D = shape
+    pairs = T * (T + 1) / 2.0 if causal else float(T * T)
+    ops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * B * H * pairs * D
+    n = B * H * T * D * itemsize
+    r = B * H * T * 4
+    nbytes = {"fwd": 4 * n + r, "dq": 5 * n + 2 * r, "dkv": 6 * n + 2 * r}[kind]
+    t_ops = ops / bf16_peak * 1e3
+    t_bytes = nbytes / bytes_per_s * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), ops, nbytes
+
+
+def flash_inputs(shape, dtype, gen):
+    import torch
+
+    q, k, v, do = (torch.randn(*shape, device="cuda", generator=gen)
+                   .to(dtype) for _ in range(4))
+    dlse = torch.randn(*shape[:3], device="cuda", generator=gen)
+    return q, k, v, do, dlse
+
+
+def rel_err(out, ref, what):
+    import torch
+
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError("%s: kernel %s %s != plain %s %s"
+                             % (what, tuple(out.shape), out.dtype,
+                                tuple(ref.shape), ref.dtype))
+    if not (torch.isfinite(out.float()).all()
+            and torch.isfinite(ref.float()).all()):
+        raise AssertionError("%s: non-finite output" % what)
+    err = (out.float() - ref.float()).abs().max().item()
+    return err, err / max(1.0, ref.float().abs().max().item())
+
+
+def check_flash(FA, q, k, v, do, dlse, causal, tol, what):
+    """Each kernel against its plain version on the same inputs, then the
+    autograd function against dense autograd of the reference. Returns
+    the max abs error of each kernel."""
+    import torch
+
+    D = q.shape[-1]
+    scale = D ** -0.5
+    errs = {}
+
+    def hold(kernel, out, ref, name, bar=tol):
+        err, rel = rel_err(out, ref, "%s %s" % (what, name))
+        if rel > bar:
+            raise AssertionError("%s disagrees with its plain version at %s "
+                                 "(%s): max abs err %.3g, %.3g of max |plain|"
+                                 " > %.1g" % (kernel, what, name, err, rel,
+                                              bar))
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+
+    o, lse = FA.flash_forward(q, k, v, causal)
+    ro, rlse = FA.flash_forward_reference(q, k, v, causal, scale)
+    hold(FA.FWD, o, ro, "o")
+    hold(FA.FWD, lse, rlse, "lse", FLASH_TOL["float32"])
+    delta = (do.float() * o.float()).sum(-1)
+    if dlse is not None:
+        delta = delta - dlse
+    delta = delta.contiguous()
+    dq = FA.flash_backward_dq(q, k, v, do, lse, delta, causal)
+    hold(FA.DQ, dq, FA.flash_backward_dq_reference(q, k, v, do, lse, delta,
+                                                   causal, scale), "dq")
+    dk, dv = FA.flash_backward_dkv(q, k, v, do, lse, delta, causal)
+    rdk, rdv = FA.flash_backward_dkv_reference(q, k, v, do, lse, delta,
+                                               causal, scale)
+    hold(FA.DKV, dk, rdk, "dk")
+    hold(FA.DKV, dv, rdv, "dv")
+    del o, lse, ro, rlse, dq, dk, dv, rdk, rdv
+
+    # the whole function: forward kernel + both backward kernels vs dense
+    # autograd of flash_attention_reference
+    sides = []
+    for fn in (lambda *a: FA.flash_attention(*a, causal=causal,
+                                             return_lse=True),
+               lambda *a: FA.flash_attention_reference(*a, causal=causal)):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out, lse = fn(*leaves)
+        outs, cots = [out], [do]
+        if dlse is not None:
+            outs.append(lse)
+            cots.append(dlse)
+        torch.autograd.backward(outs, cots)
+        sides.append([out.detach(), lse.detach()]
+                     + [t.grad for t in leaves])
+        del out, lse, leaves
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *sides):
+        err, rel = rel_err(a, b, "%s autograd %s" % (what, name))
+        bar = FLASH_TOL["float32"] if name == "lse" else tol
+        if rel > bar:
+            raise AssertionError("flash_attention autograd disagrees with the"
+                                 " reference at %s (%s): %.3g of max |plain|"
+                                 " > %.1g" % (what, name, rel, bar))
+    return errs
+
+
+def flash_phase(card, peaks, results):
+    import torch
+
+    FA = flash_module()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    path_err = {}
+    for dtype in ("bfloat16", "float32"):
+        ins = flash_inputs(FLASH_SHAPE, getattr(torch, dtype), gen)
+        errs = check_flash(FA, *ins, causal=True, tol=FLASH_TOL[dtype],
+                           what="%s %s causal" % (FLASH_SHAPE, dtype))
+        log("flash path %s %s causal: max abs err %s"
+            % (FLASH_SHAPE, dtype, errs))
+        if dtype == "bfloat16":
+            path_err = errs
+        del ins
+    n_grid = 0
+    for dtype in ("float32", "bfloat16"):
+        for T in FLASH_GRID_T:
+            for D in FLASH_GRID_D:
+                for causal in (False, True):
+                    for with_dlse in (False, True):
+                        q, k, v, do, dlse = flash_inputs(
+                            (1, 2, T, D), getattr(torch, dtype), gen)
+                        check_flash(FA, q, k, v, do,
+                                    dlse if with_dlse else None, causal,
+                                    FLASH_TOL[dtype],
+                                    "grid T=%d D=%d %s causal=%s dlse=%s"
+                                    % (T, D, dtype, causal, with_dlse))
+                        n_grid += 1
+    log("flash grid: %d cases agree (T %s, D %s, causal and not, with and "
+        "without dlse, fp32 and bf16)" % (n_grid, FLASH_GRID_T,
+                                           FLASH_GRID_D))
+
+    # times at the path shape, bf16 causal
+    q, k, v, do, dlse = flash_inputs(FLASH_SHAPE, torch.bfloat16, gen)
+    scale = FLASH_SHAPE[3] ** -0.5
+    o, lse = FA.flash_forward(q, k, v, True)
+    delta = ((do.float() * o.float()).sum(-1) - dlse).contiguous()
+    runs = {
+        FA.FWD: ("fwd", lambda: FA.flash_forward(q, k, v, True),
+                 lambda: FA.flash_forward_reference(q, k, v, True, scale)),
+        FA.DQ: ("dq", lambda: FA.flash_backward_dq(q, k, v, do, lse, delta,
+                                                   True),
+                lambda: FA.flash_backward_dq_reference(q, k, v, do, lse,
+                                                       delta, True, scale)),
+        FA.DKV: ("dkv", lambda: FA.flash_backward_dkv(q, k, v, do, lse,
+                                                      delta, True),
+                 lambda: FA.flash_backward_dkv_reference(q, k, v, do, lse,
+                                                         delta, True,
+                                                         scale)),
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = time_ms(lambda: sdpa(q, k, v, is_causal=True))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(
+        sdpa(*leaves, is_causal=True), leaves, do))
+    del leaves
+    timing = {}
+    for name, (kind, kernel, plain) in runs.items():
+        ms = time_ms(kernel)
+        plain_ms = time_events_ms(plain)
+        bnd, by, ops, nbytes = flash_bound_ms(kind, FLASH_SHAPE, True, 2,
+                                              peaks["bf16_flops"],
+                                              peaks["bytes_per_s"])
+        timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                            bound_by=by, ops=ops, bytes=nbytes,
+                            library_ms=lib_fwd if kind == "fwd" else None,
+                            max_abs_err=path_err[name])
+        log("flash %s %s bf16 causal: ms=%.4f plain_ms=%.4f bound_ms=%.4f "
+            "(%s; %.4g GFLOP, %.4g MB) achieved %.2f TFLOP/s"
+            % (name, FLASH_SHAPE, ms, plain_ms, bnd, by, ops / 1e9,
+               nbytes / 1e6, ops / ms / 1e9))
+    kern_sum = sum(t["ms"] for t in timing.values())
+    log("flash yardstick (torch scaled_dot_product_attention, is_causal, "
+        "bf16, timed only): fwd %.4f ms, fwd+bwd %.4f ms (bwd %.4f); the "
+        "three kernels: fwd %.4f ms, fwd+dq+dkv %.4f ms, on %s"
+        % (lib_fwd, lib_fwd_bwd, lib_fwd_bwd - lib_fwd,
+           timing[FA.FWD]["ms"], kern_sum, card))
+    results["flash"] = dict(shape=FLASH_SHAPE, kernels=timing,
+                            sdpa_fwd_ms=lib_fwd,
+                            sdpa_fwd_bwd_ms=lib_fwd_bwd, grid_cases=n_grid)
+    return timing
+
+
+# ------------------------------------------------------------ train phase
+
+def plain_local_attention(q, k, v, mesh=None):
+    return flash_module().flash_attention_reference(q, k, v, causal=True)[0]
+
+
+def train_phase(mx, card, results, timing):
+    import importlib
+
+    import torch
+    from mxnet_tpu_torch import cuda_build
+
+    FA = flash_module()
+    TT = importlib.import_module("mxnet_tpu_torch.parallel.transformer")
+    tp = mx.parallel.TransformerParallel(mx.parallel.make_mesh({"dp": 1}),
+                                         dtype="bfloat16", **TRAIN_CFG)
+    rng = np.random.RandomState(0)
+    tok = rng.randint(0, TRAIN_CFG["vocab"], (TRAIN_B, TRAIN_T)) \
+        .astype(np.int32)
+    tok, tgt = tp.shard_batch(tok, np.roll(tok, -1, axis=1))
+
+    # the first step's loss and gradients against plain attention
+    params = tp.init(0)
+    n_params = sum(p.numel() for p in params.values())
+    ctok, ctgt = tok[:COMPARE_B], tgt[:COMPARE_B]
+    loss_k, grads_k = tp.value_and_grad(params, ctok, ctgt)
+    real = TT._local_attention
+    TT._local_attention = plain_local_attention
+    try:
+        loss_p, grads_p = tp.value_and_grad(params, ctok, ctgt)
+    finally:
+        TT._local_attention = real
+    loss_k, loss_p = loss_k.item(), loss_p.item()
+    if not (np.isfinite(loss_k) and
+            abs(loss_k - loss_p) <= LOSS_TOL * abs(loss_p)):
+        raise AssertionError("first-step loss %.6f (kernels) vs %.6f (plain)"
+                             % (loss_k, loss_p))
+    worst, worst_name = 0.0, None
+    for name in grads_p:
+        err, rel = rel_err(grads_k[name], grads_p[name], "grad " + name)
+        if rel > worst:
+            worst, worst_name = rel, name
+    if worst > GRAD_TOL:
+        raise AssertionError("first-step gradient of %s disagrees with plain"
+                             " attention: %.3g of max |plain grad| > %.1g"
+                             % (worst_name, worst, GRAD_TOL))
+    log("train: first step at B=%d: loss %.6f (kernels) vs %.6f (plain "
+        "attention); worst gradient %s at %.3g of its max |plain grad|, "
+        "%d tensors" % (COMPARE_B, loss_k, loss_p, worst_name, worst,
+                        len(grads_p)))
+    del grads_k, grads_p
+
+    # the main path: 3 warm and 10 timed steps at full size
+    params = tp.init(0)
+    step = tp.step_fn(lr=TRAIN_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_step = TRAIN_CFG["n_layers"]
+    cuda_build.reset_launch_counts()
+    losses = []
+    for i in range(TRAIN_WARM):
+        params, loss = step(params, tok, tgt)
+        losses.append(loss.item())
+        counts = cuda_build.launch_counts()
+        for name in FA.KERNELS:
+            if counts.get(name, 0) != per_step * (i + 1):
+                raise AssertionError("step %d: %s launched %d times, want %d"
+                                     % (i, name, counts.get(name, 0),
+                                        per_step * (i + 1)))
+    t0 = time.perf_counter()
+    timed = []
+    for _ in range(TRAIN_TIMED):
+        params, loss = step(params, tok, tgt)
+        timed.append(loss)
+    timed[-1].item()   # fence
+    wall = time.perf_counter() - t0
+    losses += [t.item() for t in timed]
+    launches = cuda_build.launch_counts()
+    n_steps = TRAIN_WARM + TRAIN_TIMED
+    for name in FA.KERNELS:
+        if launches.get(name, 0) != per_step * n_steps:
+            raise AssertionError("%s launched %d times over %d steps, want %d"
+                                 % (name, launches.get(name, 0), n_steps,
+                                    per_step * n_steps))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("train losses not finite and falling: %s"
+                             % losses)
+    ms_step = wall / TRAIN_TIMED * 1e3
+    tok_s = TRAIN_B * TRAIN_T / (wall / TRAIN_TIMED)
+    peak = torch.cuda.max_memory_allocated()
+    kern_ms = per_step * sum(timing[n]["ms"] for n in FA.KERNELS)
+    log("train: %d params, B=%d T=%d bf16, %d steps: losses %s"
+        % (n_params, TRAIN_B, TRAIN_T, n_steps,
+           " ".join("%.6f" % x for x in losses)))
+    log("train: %.3f ms/step, %.1f tokens/s, peak memory %.3f GB, flash "
+        "launches per step %s; the flash kernels' device time is %.3f ms of "
+        "the step (%.3f of it, from the kernel phase's per-launch times), "
+        "on %s" % (ms_step, tok_s, peak / 1e9,
+                   {n: launches[n] // n_steps for n in FA.KERNELS}, kern_ms,
+                   kern_ms / ms_step, card))
+    results["train"] = dict(params=n_params, B=TRAIN_B, T=TRAIN_T,
+                            losses=losses, ms_per_step=ms_step,
+                            tokens_per_s=tok_s, peak_bytes=peak,
+                            launches=launches, flash_ms_per_step=kern_ms,
+                            first_step=dict(loss_kernel=loss_k,
+                                            loss_plain=loss_p,
+                                            worst_grad=worst,
+                                            worst_grad_name=worst_name))
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the detailed results here")
@@ -493,9 +866,10 @@ def main():
                                           torch.version.cuda,
                                           sys.version.split()[0]))
     peaks = card_peaks(card.split(",")[0])
-    results = {"card": card, "peaks": {"fp32_flops": peaks[0],
-                                       "bytes_per_s": peaks[1]},
-               "kernel_cases": []}
+    results = {"card": card, "peaks": {
+        "fp32_flops": peaks[0], "bytes_per_s": peaks[1],
+        "bf16_flops": card_bf16_peak(card.split(",")[0])},
+        "kernel_cases": []}
 
     # every kernel source in the checkout, one nvcc each, all at once
     t0 = time.perf_counter()
@@ -515,6 +889,8 @@ def main():
     path_err, totals = kernel_phase(mx, sym, peaks, results)
     results["kernel_totals"] = totals
     launches = serve_phase(mx, sym, card, results)
+    timing = flash_phase(card, results["peaks"], results)
+    flash_launches = train_phase(mx, card, results, timing)
 
     t8 = totals[8]
     kernels = {"kernels": [{
@@ -525,6 +901,18 @@ def main():
         "ms": t8["ms"], "plain_ms": t8["plain_ms"],
         "bound_ms": t8["bound_ms"], "bound_by": t8["bound_by"],
         "library_ms": t8["library_ms"]}]}
+    replaces = {"flash_attention_fwd": 106, "flash_attention_bwd_dq": 202,
+                "flash_attention_bwd_dkv": 236}
+    for name, line in replaces.items():
+        t = timing[name]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "mxnet_tpu/parallel/flash_attention.py:%d" % line,
+            "launches": flash_launches[name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     if opts.out:
         if os.path.dirname(opts.out):
             os.makedirs(os.path.dirname(opts.out), exist_ok=True)

@@ -2,8 +2,9 @@
 
 ``import mxnet_tpu_torch as mx`` gives the same public names as
 ``mxnet_tpu`` for the ported slices: the symbol frontend (``mx.sym``),
-model builders (``mx.models``), the graph-pass layer (``mx.graph_pass``)
-and inference serving (``mx.serving``). Entry points run on the CUDA card
+model builders (``mx.models``), the graph-pass layer (``mx.graph_pass``),
+inference serving (``mx.serving``) and the kernels and transformer
+training step (``mx.parallel``). Entry points run on the CUDA card
 unless the caller passes ``mx.cpu()``. The package imports torch and
 numpy, never jax and nothing of ``mxnet_tpu``.
 """
@@ -18,6 +19,7 @@ from . import graph_pass
 from . import executor
 from . import models
 from . import serving
+from . import parallel
 from .convert import params_from_jax
 
 __version__ = "0.1.0"

@@ -23,6 +23,17 @@ the flags the ported slice reads:
     Read for parity of the flag surface. Its space-to-depth stem rewrite
     is a TPU lane-utilisation device and is not ported: the port's
     Convolution computes the same convolution directly.
+``MXNET_FLASH_ATTENTION_BWD`` (default 1)
+    Run the flash-attention backward as the tiled recompute kernels
+    (parallel/flash_attention.py): the forward saves only (q, k, v, o,
+    lse). 0 is the explicit escape hatch to dense autodiff of the plain
+    formula, which materializes the T x T scores in the backward.
+``MXNET_FLASH_BLOCK_Q`` / ``MXNET_FLASH_BLOCK_K`` (1024),
+``MXNET_FLASH_BWD_BLOCK_Q`` / ``MXNET_FLASH_BWD_BLOCK_K`` (512)
+    Read for parity of the flag surface. They bound the TPU kernels' VMEM
+    blocks; the CUDA kernels pick their own tiles (64 x 64, sized for
+    shared memory and registers) and mask ragged T, so they have no use
+    for them.
 """
 import os
 
@@ -38,6 +49,11 @@ _DEFAULTS = {
     "MXNET_SERVING_DEADLINE_MS": 0,
     "MXNET_FUSION_KERNEL": 1,
     "MXNET_FUSION_MIN_BYTES": 0,
+    "MXNET_FLASH_ATTENTION_BWD": 1,
+    "MXNET_FLASH_BLOCK_Q": 1024,
+    "MXNET_FLASH_BLOCK_K": 1024,
+    "MXNET_FLASH_BWD_BLOCK_Q": 512,
+    "MXNET_FLASH_BWD_BLOCK_K": 512,
 }
 
 

@@ -1,7 +1,7 @@
-"""Card-only tests of the port: the CUDA kernel against its plain version,
-the wrapper's checks and launch counter, and the served small ResNet on
-the card against the same server on the CPU. Every test skips where there
-is no card.
+"""Card-only tests of the port: the CUDA kernels against their plain
+versions, the wrappers' checks and launch counters, the served small ResNet
+on the card against the same server on the CPU, and the flash-attention
+kernels at small ragged shapes. Every test skips where there is no card.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 that has only PyTorch with CUDA:
@@ -10,8 +10,12 @@ that has only PyTorch with CUDA:
 
 Tolerances: fp32 1e-4 (summation order over K); bf16 2e-2 and fp16 4e-3
 (one rounding of the output at that width, relative to the plain version
-computed in fp32 from the same rounded inputs).
+computed in fp32 from the same rounded inputs). The flash kernels use the
+same fp32 and bf16 bars, relative to max |plain|: both sides compute in
+fp32 from the same inputs and differ in summation order, then round once.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +24,8 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import cuda_build
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.parallel import fused as F
+
+FA = importlib.import_module("mxnet_tpu_torch.parallel.flash_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -143,3 +149,89 @@ def test_served_small_resnet_on_card_matches_cpu(card):
         assert launches == (6 if dev == "cuda" else 0)
     np.testing.assert_allclose(outs["cuda"], outs["cpu"], rtol=1e-4,
                                atol=1e-4)
+
+
+# ------------------------------------------------------- flash attention
+
+_FLASH_SHAPES = [(1, 2, 1, 64), (2, 1, 17, 32), (1, 2, 129, 64),
+                 (1, 1, 70, 128), (1, 1, 33, 8), (1, 1, 65, 40)]
+
+
+def _flash_inputs(B, H, T, D, dtype, gen):
+    q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
+                   .to(dtype) for _ in range(4))
+    dlse = torch.randn(B, H, T, device="cuda", generator=gen)
+    return q, k, v, do, dlse
+
+
+def _near(out, ref, tol, what):
+    assert out.shape == ref.shape and out.dtype == ref.dtype, what
+    assert torch.isfinite(out.float()).all(), what
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol * max(1.0, ref.float().abs().max().item()), (what, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_match_plain(card, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tol = _TOL[dtype]
+    for B, H, T, D in _FLASH_SHAPES:
+        for causal in (False, True):
+            what = (B, H, T, D, causal)
+            q, k, v, do, dlse = _flash_inputs(B, H, T, D,
+                                              getattr(torch, dtype), gen)
+            scale = D ** -0.5
+            o, lse = FA.flash_forward(q, k, v, causal)
+            ro, rlse = FA.flash_forward_reference(q, k, v, causal, scale)
+            _near(o, ro, tol, what + ("o",))
+            _near(lse, rlse, 1e-4, what + ("lse",))
+            delta = ((do.float() * o.float()).sum(-1) - dlse).contiguous()
+            dq = FA.flash_backward_dq(q, k, v, do, lse, delta, causal)
+            rdq = FA.flash_backward_dq_reference(q, k, v, do, lse, delta,
+                                                 causal, scale)
+            _near(dq, rdq, tol, what + ("dq",))
+            dk, dv = FA.flash_backward_dkv(q, k, v, do, lse, delta, causal)
+            rdk, rdv = FA.flash_backward_dkv_reference(q, k, v, do, lse,
+                                                       delta, causal, scale)
+            _near(dk, rdk, tol, what + ("dk",))
+            _near(dv, rdv, tol, what + ("dv",))
+
+
+def test_flash_attention_grads_and_launch_counts(card):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do, dlse = _flash_inputs(2, 2, 100, 64, torch.float32, gen)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    cuda_build.reset_launch_counts()
+    o, lse = FA.flash_attention(*leaves, causal=True, return_lse=True)
+    torch.autograd.backward([o, lse], [do, dlse])
+    assert cuda_build.launch_counts() == {FA.FWD: 1, FA.DQ: 1, FA.DKV: 1}
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    ro, rlse = FA.flash_attention_reference(*refs, causal=True)
+    torch.autograd.backward([ro, rlse], [do, dlse])
+    _near(o, ro, 1e-4, "o")
+    _near(lse, rlse, 1e-4, "lse")
+    for name, a, b in zip("qkv", leaves, refs):
+        _near(a.grad, b.grad, 1e-4, "d" + name)
+
+
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(card):
+    q = torch.randn(1, 2, 16, 64, device="cuda")
+    with pytest.raises(MXNetError, match="differ"):
+        FA.flash_forward(q, q.cpu(), q)
+    with pytest.raises(MXNetError, match="dtype"):
+        FA.flash_forward(q.double(), q.double(), q.double())
+    for D in (12, 136):
+        bad = torch.randn(1, 2, 16, D, device="cuda")
+        with pytest.raises(MXNetError, match="head dim"):
+            FA.flash_forward(bad, bad, bad)
+    nc = q.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(MXNetError, match="contiguous"):
+        FA.flash_forward(nc, q, q)
+    odd = torch.randn(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    with pytest.raises(MXNetError, match="aligned"):
+        FA.flash_forward(odd, q, q)
+    lse = torch.zeros(1, 2, 16, device="cuda")
+    with pytest.raises(MXNetError, match="lse and delta"):
+        FA.flash_backward_dq(q, q, q, q, lse.cpu(), lse)
+    with pytest.raises(MXNetError, match="lse and delta"):
+        FA.flash_backward_dkv(q, q, q, q, lse, lse.double())

@@ -1,0 +1,147 @@
+"""Port parity: flash attention (mxnet_tpu_torch/parallel/flash_attention.py)
+against the JAX package's Pallas kernels, run in interpret mode as
+tests/test_flash_attention_bwd.py runs them on the CPU.
+
+On the CPU the port's forward, dq and dk/dv wrappers take their plain
+versions, so what is held to the Pallas kernels here is the arithmetic the
+CUDA kernels share with them (fp32 scores, the saved lse, delta folding of
+the lse cotangent) and the autograd.Function around them; the CUDA kernels
+are held to the same plain versions on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
+
+Tolerances: fp32 rtol = atol = 1e-5, the reference's own bar for its
+backward kernels (both sides compute in fp32, in another summation order);
+bf16 2e-2 of max |reference|, one bf16 rounding of each output, with the
+JAX side computing its prime-T fallback with bf16-rounded scores.
+"""
+import functools
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu import config as jconfig
+from mxnet_tpu.parallel import attention_reference as jattention_reference
+from mxnet_tpu.parallel import flash_attention as jflash
+from mxnet_tpu_torch import config as tconfig
+from mxnet_tpu_torch.parallel import attention_reference
+
+# the module (the package's ``flash_attention`` name is the function)
+tfa = importlib.import_module("mxnet_tpu_torch.parallel.flash_attention")
+
+_BLOCKS = dict(block_q=16, block_k=16, block_q_bwd=16, block_k_bwd=16)
+
+
+def _inputs(B, H, T, D, seed, with_dlse):
+    r = np.random.RandomState(seed)
+    q, k, v, do = (r.randn(B, H, T, D).astype(np.float32) for _ in range(4))
+    dlse = (r.randn(B, H, T).astype(np.float32) if with_dlse
+            else np.zeros((B, H, T), np.float32))
+    return q, k, v, do, dlse
+
+
+def _jax_side(q, k, v, do, dlse, causal, dtype):
+    """(o, lse, dq, dk, dv) of the Pallas kernels, interpreted; one jit
+    around the vjp (eager dispatch compiles op by op, several times
+    slower). Flags are read while it traces."""
+    fn = functools.partial(jflash, causal=causal, interpret=True,
+                           return_lse=True, **_BLOCKS)
+
+    @jax.jit
+    def fwd_bwd(q, k, v, do, dlse):
+        (o, lse), vjp = jax.vjp(fn, q, k, v)
+        return (o, lse) + tuple(vjp((do, dlse)))
+
+    args = [jnp.asarray(a).astype(dtype) for a in (q, k, v, do)]
+    with jax.default_matmul_precision("highest"):
+        outs = fwd_bwd(*args, jnp.asarray(dlse))
+    return [np.asarray(a, np.float32) for a in outs]
+
+
+def _torch_side(q, k, v, do, dlse, causal, dtype):
+    leaves = [torch.from_numpy(a).to(dtype).requires_grad_() for a in
+              (q, k, v)]
+    o, lse = tfa.flash_attention(*leaves, causal=causal, return_lse=True)
+    outs, cots = [o], [torch.from_numpy(do).to(dtype)]
+    if dlse.any():  # else lse gets no cotangent at all (dlse is None)
+        outs.append(lse)
+        cots.append(torch.from_numpy(dlse))
+    torch.autograd.backward(outs, cots)
+    return [a.detach().float().numpy() for a in
+            [o, lse] + [t.grad for t in leaves]]
+
+
+def _assert_close(ours, ref, dtype, what):
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), ours, ref):
+        assert a.shape == b.shape, (what, name, a.shape, b.shape)
+        if dtype == "float32":
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5,
+                                       err_msg="%s %s" % (what, name))
+        else:
+            err = float(np.abs(a - b).max())
+            assert err <= 2e-2 * max(1.0, float(np.abs(b).max())), \
+                (what, name, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_matches_pallas_interpret(causal, dtype):
+    # the causal cases carry an lse cotangent, which the Pallas backward
+    # folds into delta; the others give lse no cotangent at all
+    ins = _inputs(2, 2, 32, 16, seed=0, with_dlse=causal)
+    ref = _jax_side(*ins, causal, getattr(jnp, dtype))
+    ours = _torch_side(*ins, causal, getattr(torch, dtype))
+    _assert_close(ours, ref, dtype, "causal=%s" % causal)
+
+
+def test_flash_prime_T_lse_cotangent():
+    # T = 37 has no block divisor: the JAX package takes _dense_with_lse
+    # and autodiff, the port still its kernels' (plain) forms
+    ins = _inputs(1, 2, 37, 8, seed=37, with_dlse=True)
+    ref = _jax_side(*ins, True, jnp.float32)
+    ours = _torch_side(*ins, True, torch.float32)
+    _assert_close(ours, ref, "float32", "T=37")
+
+
+def test_flash_bwd_escape_hatch(monkeypatch):
+    # MXNET_FLASH_ATTENTION_BWD=0 on both sides: dense autodiff of the
+    # plain formula, and the port never calls its backward kernels
+    def boom(*args, **kwargs):
+        raise AssertionError("backward kernel called under the hatch")
+
+    monkeypatch.setattr(tfa, "flash_backward_dq", boom)
+    monkeypatch.setattr(tfa, "flash_backward_dkv", boom)
+    ins = _inputs(1, 2, 32, 16, seed=5, with_dlse=True)
+    jconfig.set_flag("MXNET_FLASH_ATTENTION_BWD", 0)
+    tconfig.set_flag("MXNET_FLASH_ATTENTION_BWD", 0)
+    try:
+        ref = _jax_side(*ins, True, jnp.float32)
+        ours = _torch_side(*ins, True, torch.float32)
+    finally:
+        jconfig.set_flag("MXNET_FLASH_ATTENTION_BWD", None)
+        tconfig.set_flag("MXNET_FLASH_ATTENTION_BWD", None)
+    _assert_close(ours, ref, "float32", "hatch")
+
+
+def test_flash_residuals_are_linear_in_T():
+    # the autograd.Function saves q, k, v, o and lse: nothing T x T
+    T = 40
+    leaves = [torch.randn(1, 2, T, 8, requires_grad=True) for _ in range(3)]
+    out = tfa.flash_attention(*leaves, causal=True)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 5
+    assert all(t.shape[-1] != T or t.dim() == 3 for t in saved), \
+        [tuple(t.shape) for t in saved]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_reference_matches_jax(causal):
+    q, k, v, _, _ = _inputs(2, 2, 24, 8, seed=7, with_dlse=False)
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(jattention_reference(q, k, v, causal=causal))
+    out = attention_reference(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal=causal).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
