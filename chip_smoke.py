@@ -43,7 +43,30 @@ Phases, each fatal on failure (exit code != 0, no result line):
    ``_local_attention`` swapped for the plain version; then 3 warm and 10
    timed steps with launch counts reset just before: every step launches
    each flash kernel exactly 8 times, and the loss stays finite and falls.
-6. Print the ``kernels`` JSON line, then the result line
+6. Batched-matmul kernel phase: ``fused_batch_matmul`` against its plain
+   version at the four region shapes of the symbolic attention block's
+   step (the scores with their 1/sqrt(D) scale, read through the
+   transposed view of k; the context with its residual add) at the
+   fusion bench's size (B 8, T 64, D 128) and at the wide size (B 8,
+   T 2048, D 512), and on a ragged grid (B 1/3, M and N 1/17/129, K
+   8/100, every epilogue kind, fp32 and bf16). Times the kernel, the plain
+   version and ``torch.bmm`` / ``torch.baddbmm`` with the same epilogue (a
+   yardstick, never used by the port), all as CUDA-graph replays, and
+   computes the bound (fp32 CUDA-core peak against bytes at the memory
+   rate).
+7. Module train phase: the attention block of ``bench_all.py``'s fusion
+   bench (16 classes, fp32, ``mx.init.Uniform(0.05)``, SGD lr 0.01,
+   ``kvstore="local"``) through ``mx.mod.Module`` on the card. The
+   training bind carves exactly two ``batch_dot`` regions; the first
+   ``forward_backward``'s outputs and all 10 parameter gradients with the
+   kernels match ``MXNET_FUSION_KERNEL=0`` within 1e-5 of each one's own
+   max |value| and are non-zero (but k_bias's, which the softmax makes
+   0), and so do an MLP's (``fc1 + relu`` on ``fused_matmul``). Then
+   ``fit`` for 2 epochs of 8 batches with launch counts reset just
+   before: exactly 2 ``fused_batch_matmul`` launches per step, finite
+   losses, accuracy, ms/step and samples/s; and 3 warm + 10 timed steps
+   at both sizes with peak memory.
+8. Print the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -61,7 +84,7 @@ import numpy as np
 BUCKETS = (1, 2, 4, 8)
 ROW = (224, 224, 3)
 KERNEL_REGIONS = 32       # kernel-form regions of one ResNet-50 NHWC forward
-PATH_TOL = 1e-4           # fp32 kernel vs plain, relative to max |plain|
+PATH_TOL = 1e-4           # fp32 kernel vs plain, over max(1, max |plain|)
 GRID_TOL = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 2e-3}
 SERVE_TOL = 1e-3          # logits, relative to max |logit|
 
@@ -78,7 +101,30 @@ TRAIN_B, TRAIN_T, TRAIN_LR = 8, 2048, 0.01
 TRAIN_WARM, TRAIN_TIMED = 3, 10
 COMPARE_B = 2                    # batch of the kernel-vs-plain train step
 LOSS_TOL = 1e-2                  # first-step loss, relative
-GRAD_TOL = 2e-2                  # gradients, relative to max |plain grad|
+GRAD_TOL = 2e-2                  # gradients, over max(1, max |plain grad|)
+
+# the symbolic attention block of bench_all.py's fusion bench (its full,
+# non-QUICK size) and the wide size of bench_transformer_lm's T and d_model
+BLOCK_SIZES = {"bench": dict(B=8, T=64, D=128),
+               "wide": dict(B=8, T=2048, D=512)}
+BLOCK_CLASSES, BLOCK_LR, BLOCK_INIT_SCALE = 16, 0.01, 0.05
+FIT_BATCHES, FIT_EPOCHS = 8, 2
+MODULE_WARM, MODULE_TIMED = 3, 10
+# kernel vs MXNET_FUSION_KERNEL=0 on the first step, relative to max |value|:
+# both sides compute fp32 products of the same inputs in another order
+MODULE_TOL = 1e-5
+# a parameter whose gradient is 0 up to rounding -> the one whose max
+# |gradient| scales its error
+ZERO_GRAD_SCALE = {"k_bias": "k_weight"}
+BMM_GRID_B, BMM_GRID_MN, BMM_GRID_K = (1, 3), (1, 17, 129), (8, 100)
+BMM_GRID_EPILOGUES = [
+    (("scalar", "_div_scalar", 8.0),), (("res", "elemwise_add"),),
+    (("scalar", "_mul_scalar", 0.5), ("res", "elemwise_add"),
+     ("act", "relu")),
+    (("res", "elemwise_mul"), ("act", "tanh")),
+    (("act", "sigmoid"), ("scalar", "_rminus_scalar", 1.0)),
+    (("act", "softrelu"), ("scalar", "_minus_scalar", 0.5)),
+    (("act", "softsign"), ("scalar", "_plus_scalar", 0.25))]
 
 
 def log(*args):
@@ -573,6 +619,8 @@ def flash_inputs(shape, dtype, gen):
 
 
 def rel_err(out, ref, what):
+    """(max abs error, that error over max(1, max |ref|)): relative for
+    outputs of magnitude 1 and above, absolute below."""
     import torch
 
     if out.shape != ref.shape or out.dtype != ref.dtype:
@@ -770,19 +818,24 @@ def train_phase(mx, card, results, timing):
             abs(loss_k - loss_p) <= LOSS_TOL * abs(loss_p)):
         raise AssertionError("first-step loss %.6f (kernels) vs %.6f (plain)"
                              % (loss_k, loss_p))
-    worst, worst_name = 0.0, None
+    worst, worst_name, own = 0.0, None, {}
     for name in grads_p:
         err, rel = rel_err(grads_k[name], grads_p[name], "grad " + name)
+        own[name] = err / max(grads_p[name].float().abs().max().item(),
+                              1e-30)
         if rel > worst:
             worst, worst_name = rel, name
     if worst > GRAD_TOL:
         raise AssertionError("first-step gradient of %s disagrees with plain"
-                             " attention: %.3g of max |plain grad| > %.1g"
-                             % (worst_name, worst, GRAD_TOL))
+                             " attention: %.3g of max(1, max |plain grad|) > "
+                             "%.1g" % (worst_name, worst, GRAD_TOL))
+    own_worst = max(own, key=own.get)
     log("train: first step at B=%d: loss %.6f (kernels) vs %.6f (plain "
-        "attention); worst gradient %s at %.3g of its max |plain grad|, "
-        "%d tensors" % (COMPARE_B, loss_k, loss_p, worst_name, worst,
-                        len(grads_p)))
+        "attention); worst gradient %s at %.3g of max(1, its max |plain "
+        "grad|), %d tensors; of its own max |plain grad| (not checked) the "
+        "worst is %s at %.3g" % (COMPARE_B, loss_k, loss_p, worst_name,
+                                 worst, len(grads_p), own_worst,
+                                 own[own_worst]))
     del grads_k, grads_p
 
     # the main path: 3 warm and 10 timed steps at full size
@@ -844,6 +897,401 @@ def train_phase(mx, card, results, timing):
     return launches
 
 
+# ------------------------------------------------ batched matmul phase
+
+def bmm_path_cases(B, T, D, gen):
+    """The two fused_batch_matmul calls of one attention-block step, as
+    the fuse pass hands them over: the scores q . k^T / sqrt(D), with k^T
+    the (0, 2, 1) view of k, and the context attn . v + x."""
+    import torch
+
+    q, k, v, x = (torch.randn(B, T, D, device="cuda", generator=gen)
+                  for _ in range(4))
+    attn = torch.softmax(torch.randn(B, T, T, device="cuda", generator=gen),
+                         -1)
+    return [
+        dict(region="scores", x=q, w=k.permute(0, 2, 1), extras=[],
+             epilogue=(("scalar", "_div_scalar", float(np.sqrt(D))),)),
+        dict(region="context", x=attn, w=v, extras=[x],
+             epilogue=(("res", "elemwise_add"),)),
+    ]
+
+
+def bmm_library_fn(case):
+    """The yardstick: cuBLAS's batched GEMM with the same epilogue
+    (timed only, never used by the port)."""
+    import torch
+
+    if case["extras"]:
+        return torch.baddbmm(case["extras"][0], case["x"], case["w"])
+    return torch.bmm(case["x"], case["w"]).div_(case["epilogue"][0][2])
+
+
+def bmm_bound_ms(case, peaks):
+    B, M, K = case["x"].shape
+    N = case["w"].shape[2]
+    nbytes = (B * M * K + B * K * N + (len(case["extras"]) + 1) * B * M * N
+              ) * case["x"].element_size()
+    t_bytes = nbytes / peaks[1] * 1e3
+    t_ops = 2.0 * B * M * N * K / peaks[0] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                 else "operations")
+
+
+def bmm_check(F, x, w, extras, epilogue, tol, what):
+    import torch
+
+    out = F.fused_batch_matmul(x, w, extras, epilogue)
+    ref = F.fused_batch_matmul_reference(x, w, extras, epilogue)
+    torch.cuda.synchronize()
+    err, rel = rel_err(out, ref, what)
+    if rel > tol:
+        raise AssertionError("fused_batch_matmul disagrees with its plain "
+                             "version at %s: max abs err %.3g, %.3g of max "
+                             "|plain| > %.1g" % (what, err, rel, tol))
+    return err
+
+
+def bmm_phase(peaks, results):
+    import torch
+    from mxnet_tpu_torch.parallel import fused as F
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    path_err, totals = 0.0, {}
+    for size, cfg in BLOCK_SIZES.items():
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bound_ms": 0.0, "t_ops": 0.0, "t_bytes": 0.0}
+        for case in bmm_path_cases(cfg["B"], cfg["T"], cfg["D"], gen):
+            x, w, ex, ep = case["x"], case["w"], case["extras"], \
+                case["epilogue"]
+            what = "%s %s %s x %s" % (size, case["region"], tuple(x.shape),
+                                      tuple(w.shape))
+            err = bmm_check(F, x, w, ex, ep, PATH_TOL, what)
+            path_err = max(path_err, err)
+            ms = time_ms(lambda: F.fused_batch_matmul(x, w, ex, ep))
+            plain = time_ms(lambda: F.fused_batch_matmul_reference(x, w, ex,
+                                                                   ep))
+            lib = time_ms(lambda: bmm_library_fn(case))
+            bnd, by = bmm_bound_ms(case, peaks)
+            row = dict(size=size, region=case["region"],
+                       x=tuple(x.shape), w=tuple(w.shape),
+                       w_transposed=not w.is_contiguous(), max_abs_err=err,
+                       ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                       bound_by=by)
+            results["bmm_cases"].append(row)
+            log("bmm %s %s x%s w%s%s err=%.3g ms=%.4f plain_ms=%.4f "
+                "library_ms=%.4f bound_ms=%.4f (%s)"
+                % (size, case["region"], tuple(x.shape), tuple(w.shape),
+                   " (transposed view)" if row["w_transposed"] else "", err,
+                   ms, plain, lib, bnd, by))
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                tot[key] += row[key]
+            tot["t_ops" if by == "operations" else "t_bytes"] += bnd
+        tot["bound_by"] = ("operations" if tot["t_ops"] >= tot["t_bytes"]
+                           else "bytes")
+        totals[size] = tot
+        log("bmm per step %s (2 launches): ms=%.4f plain_ms=%.4f "
+            "library_ms=%.4f bound_ms=%.4f (%s)"
+            % (size, tot["ms"], tot["plain_ms"], tot["library_ms"],
+               tot["bound_ms"], tot["bound_by"]))
+        del case, x, w, ex
+    n = 0
+    for dtype in ("float32", "bfloat16"):
+        td = getattr(torch, dtype)
+        for B in BMM_GRID_B:
+            for M in BMM_GRID_MN:
+                for N in BMM_GRID_MN:
+                    for K in BMM_GRID_K:
+                        for ep in BMM_GRID_EPILOGUES:
+                            x = torch.randn(B, M, K, device="cuda",
+                                            generator=gen).to(td)
+                            w = torch.randn(B, N, K, device="cuda",
+                                            generator=gen).to(td)
+                            w = w.permute(0, 2, 1) if n % 2 else \
+                                w.transpose(1, 2).contiguous()
+                            ex = [torch.randn(B, M, N, device="cuda",
+                                              generator=gen).to(td)
+                                  for s in ep if s[0] == "res"]
+                            bmm_check(F, x, w, ex, ep, GRID_TOL[dtype],
+                                      "grid B=%d M=%d N=%d K=%d %s %s"
+                                      % (B, M, N, K, ep, dtype))
+                            n += 1
+    log("bmm grid: %d cases agree (B %s, M and N %s, K %s, %d epilogues, "
+        "transposed and contiguous w, fp32 and bf16)"
+        % (n, BMM_GRID_B, BMM_GRID_MN, BMM_GRID_K, len(BMM_GRID_EPILOGUES)))
+    results["bmm_totals"] = totals
+    results["bmm_grid_cases"] = n
+    return path_err, totals
+
+
+# --------------------------------------------------- Module train phase
+
+def attention_block(mx, T, D, classes=BLOCK_CLASSES):
+    """bench_all.py's fusion-bench train arm (``tblock``)."""
+    data = mx.sym.var("data")
+    q = mx.sym.FullyConnected(data, num_hidden=D, flatten=False, name="q")
+    k = mx.sym.FullyConnected(data, num_hidden=D, flatten=False, name="k")
+    v = mx.sym.FullyConnected(data, num_hidden=D, flatten=False, name="v")
+    scores = mx.sym.batch_dot(q, mx.sym.transpose(k, axes=(0, 2, 1)))
+    attn = mx.sym.softmax(scores / float(np.sqrt(D)), axis=-1)
+    ctxv = mx.sym.batch_dot(attn, v)
+    out = mx.sym.FullyConnected(ctxv + data, num_hidden=D, flatten=False,
+                                name="proj")
+    flat = mx.sym.Flatten(out)
+    return mx.sym.SoftmaxOutput(
+        mx.sym.FullyConnected(flat, num_hidden=classes, name="head"),
+        name="softmax")
+
+
+def mlp(mx):
+    """tests/test_fusion.py's ``_mlp`` at MNIST widths: ``fc1 + relu``
+    carves onto fused_matmul."""
+    data = mx.sym.var("data")
+    h = mx.sym.Activation(mx.sym.FullyConnected(data, num_hidden=128,
+                                                name="fc1"), act_type="relu")
+    return mx.sym.SoftmaxOutput(mx.sym.FullyConnected(h, num_hidden=10,
+                                                      name="fc2"),
+                                name="softmax")
+
+
+def block_data(B, T, D, n_batches=1, seed=0):
+    rng = np.random.RandomState(seed)
+    x = rng.rand(B * n_batches, T, D).astype(np.float32)
+    y = (np.arange(B * n_batches) % BLOCK_CLASSES).astype(np.float32)
+    return x, y
+
+
+def bound_module(mx, sym, dshape, lshape, seed=0):
+    mod = mx.mod.Module(sym, context=mx.gpu())
+    mod.bind(data_shapes=[("data", dshape)],
+             label_shapes=[("softmax_label", lshape)], for_training=True)
+    np.random.seed(seed)
+    mod.init_params(mx.init.Uniform(BLOCK_INIT_SCALE))
+    return mod
+
+
+def first_step_vs_plain(mx, mod, batch, kernel, what):
+    """The first forward_backward with the kernels and with
+    MXNET_FUSION_KERNEL=0 (no update between): the outputs and every
+    parameter gradient within MODULE_TOL of their own max |value| (k_bias,
+    whose gradient is 0 up to rounding, at k_weight's), and every gradient
+    with the kernels but k_bias's non-zero, so that a dropped gradient
+    fails. Returns (worst, launches)."""
+    import torch
+    from mxnet_tpu_torch import cuda_build
+
+    sides = []
+    launches = 0
+    for flag in (1, 0):
+        mx.config.set_flag("MXNET_FUSION_KERNEL", flag)
+        try:
+            cuda_build.reset_launch_counts()
+            mod.forward_backward(batch)
+            torch.cuda.synchronize()
+            if flag:
+                launches = cuda_build.launch_counts().get(kernel, 0)
+            elif cuda_build.launch_counts().get(kernel, 0):
+                raise AssertionError("MXNET_FUSION_KERNEL=0 still launched "
+                                     "%s" % kernel)
+            grp = mod._exec_group
+            sides.append([("output", mod.get_outputs()[0]._data.clone())] + [
+                (n, g[0]._data.clone())
+                for n, g in zip(grp.param_names, grp.grad_arrays)])
+        finally:
+            mx.config.set_flag("MXNET_FUSION_KERNEL", None)
+    kern, plain = dict(sides[0]), dict(sides[1])
+    worst, worst_name = -1.0, None
+    for name in plain:
+        err, _rel = rel_err(kern[name], plain[name], "%s %s" % (what, name))
+        # the softmax cancels a shift of a row's scores: k_bias's gradient
+        # is 0 up to rounding, so it is judged at its layer's scale
+        scale = plain[ZERO_GRAD_SCALE.get(name, name)].abs().max().item()
+        if name not in ZERO_GRAD_SCALE and not kern[name].abs().max().item():
+            raise AssertionError("%s: the %s gradient with the kernels is "
+                                 "all zero" % (what, name))
+        rel = err / max(scale, 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    if worst > MODULE_TOL:
+        raise AssertionError("%s: first-step %s with the kernels disagrees "
+                             "with MXNET_FUSION_KERNEL=0: %.3g of max |value| "
+                             "> %.1g" % (what, worst_name, worst, MODULE_TOL))
+    log("%s: first step through %s (%d launches) vs MXNET_FUSION_KERNEL=0: "
+        "outputs and %d gradients agree, worst %s at %.3g of its max |value|"
+        % (what, kernel, launches, len(sides[0]) - 1, worst_name, worst))
+    return worst, launches
+
+
+def timed_steps(mx, mod, batch, per_step):
+    """MODULE_WARM + MODULE_TIMED forward_backward + update steps; the
+    timed ones fenced once at the end. Returns (ms/step, peak bytes,
+    bytes resident before the steps, losses): the peak counts what the
+    earlier phases left allocated too."""
+    import torch
+    from mxnet_tpu_torch import cuda_build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    cuda_build.reset_launch_counts()
+    label = batch.label[0]._data.long()
+    losses = []
+
+    def loss():
+        p = mod.get_outputs()[0]._data
+        return -torch.log(p.gather(1, label[:, None]).clamp_min(1e-12)).mean()
+
+    for _ in range(MODULE_WARM):
+        mod.forward_backward(batch)
+        mod.update()
+        losses.append(loss().item())
+    t0 = time.perf_counter()
+    timed = []
+    for _ in range(MODULE_TIMED):
+        mod.forward_backward(batch)
+        mod.update()
+        timed.append(loss())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses += [t.item() for t in timed]
+    n = MODULE_WARM + MODULE_TIMED
+    got = cuda_build.launch_counts().get("fused_batch_matmul", 0)
+    if got != per_step * n:
+        raise AssertionError("fused_batch_matmul launched %d times over %d "
+                             "steps, want %d" % (got, n, per_step * n))
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite losses %s" % losses)
+    return wall / MODULE_TIMED * 1e3, torch.cuda.max_memory_allocated(), \
+        resident, losses
+
+
+def module_phase(mx, card, results):
+    import torch
+    from mxnet_tpu_torch import cuda_build
+
+    out = {}
+    # the MLP: fc1 + relu on fused_matmul, through its new gradient
+    msym = mlp(mx)
+    rng = np.random.RandomState(1)
+    mlp_x = rng.rand(64, 784).astype(np.float32)
+    my = (np.arange(64) % 10).astype(np.float32)
+    mmod = bound_module(mx, msym, mlp_x.shape, my.shape)
+    mbatch = mx.io.DataBatch(data=[mx.nd.array(mlp_x, ctx=mx.gpu())],
+                             label=[mx.nd.array(my, ctx=mx.gpu())])
+    regions = mmod._exec_group.execs[0].fused_regions()
+    if [r["base_op"] for r in regions] != ["FullyConnected"]:
+        raise AssertionError("MLP training bind regions %s" % regions)
+    worst, launches = first_step_vs_plain(mx, mmod, mbatch, "fused_matmul",
+                                          "mlp (64, 784)")
+    if launches != 1:
+        raise AssertionError("MLP step launched fused_matmul %d times, want 1"
+                             % launches)
+    out["mlp_first_step_worst"] = worst
+    del mmod
+
+    cfg = BLOCK_SIZES["bench"]
+    B, T, D = cfg["B"], cfg["T"], cfg["D"]
+    sym = attention_block(mx, T, D)
+    x, y = block_data(B, T, D, FIT_BATCHES)
+    mod = bound_module(mx, sym, (B, T, D), (B,))
+    regions = mod._exec_group.execs[0].fused_regions()
+    log("module: training bind regions %s" % [(r["base_op"], r["members"])
+                                              for r in regions])
+    if [r["base_op"] for r in regions] != ["batch_dot", "batch_dot"]:
+        raise AssertionError("want exactly 2 batch_dot regions, got %s"
+                             % regions)
+    batch = mx.io.DataBatch(data=[mx.nd.array(x[:B], ctx=mx.gpu())],
+                            label=[mx.nd.array(y[:B], ctx=mx.gpu())])
+    worst, launches = first_step_vs_plain(mx, mod, batch,
+                                          "fused_batch_matmul",
+                                          "attention block %s" % (cfg,))
+    if launches != 2:
+        raise AssertionError("attention step launched fused_batch_matmul %d "
+                             "times, want 2" % launches)
+    if len(mod._exec_group.param_names) != 10:
+        raise AssertionError("want 10 parameters, got %s"
+                             % mod._exec_group.param_names)
+    out["block_first_step_worst"] = worst
+
+    # the main path: Module.fit, 2 epochs of 8 batches, on the card
+    fmod = mx.mod.Module(sym, context=mx.gpu())
+    it = mx.io.NDArrayIter(mx.nd.array(x, ctx=mx.gpu()),
+                           mx.nd.array(y, ctx=mx.gpu()), batch_size=B,
+                           label_name="softmax_label")
+    stamps, losses = [], []
+
+    def on_batch(param):
+        p = param.locals["self"].get_outputs()[0]._data
+        lab = param.locals["data_batch"].label[0]._data.long()
+        losses.append(-torch.log(p.gather(1, lab[:, None]).clamp_min(1e-12))
+                      .mean().item())
+        stamps.append(time.perf_counter())
+
+    metric = mx.metric.create(["acc", "ce"])
+    np.random.seed(0)
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    fmod.fit(it, num_epoch=FIT_EPOCHS, optimizer="sgd",
+             optimizer_params={"learning_rate": BLOCK_LR}, kvstore="local",
+             initializer=mx.init.Uniform(BLOCK_INIT_SCALE),
+             eval_metric=metric, batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    fit_launches = cuda_build.launch_counts().get("fused_batch_matmul", 0)
+    steps = FIT_EPOCHS * FIT_BATCHES
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError("fit losses %s" % losses)
+    if fit_launches != 2 * steps:
+        raise AssertionError("fit launched fused_batch_matmul %d times over "
+                             "%d steps, want exactly 2 per step"
+                             % (fit_launches, steps))
+    step_ms = np.diff(stamps) * 1e3
+    names_vals = {k: float(v) for k, v in metric.get_name_value()}
+    log("module fit: %d epochs x %d batches of %s: losses %s; last epoch's "
+        "train metrics %s; fused_batch_matmul launches %d (%d per step)"
+        % (FIT_EPOCHS, FIT_BATCHES, (B, T, D),
+           " ".join("%.6f" % v for v in losses), names_vals, fit_launches,
+           fit_launches // steps))
+    log("module fit: %.3f ms/step (median of %d steps, metric update "
+        "included), %.1f samples/s, fit wall %.3f s, on %s"
+        % (np.median(step_ms), len(step_ms), B / np.median(step_ms) * 1e3,
+           fit_wall, card))
+    out["fit"] = dict(losses=losses, metrics=names_vals,
+                      launches=fit_launches, steps=steps,
+                      ms_per_step_median=float(np.median(step_ms)),
+                      step_ms=step_ms.tolist(), wall_s=fit_wall)
+
+    # the step at both sizes, forward_backward + update
+    out["steps"] = {}
+    for size, c in BLOCK_SIZES.items():
+        if size == "bench":
+            smod, sbatch = mod, batch
+        else:
+            ssym = attention_block(mx, c["T"], c["D"])
+            sx, sy = block_data(c["B"], c["T"], c["D"])
+            smod = bound_module(mx, ssym, sx.shape, sy.shape)
+            sbatch = mx.io.DataBatch(
+                data=[mx.nd.array(sx, ctx=mx.gpu())],
+                label=[mx.nd.array(sy, ctx=mx.gpu())])
+        smod.init_optimizer(kvstore="local", optimizer="sgd",
+                            optimizer_params={"learning_rate": BLOCK_LR})
+        ms, peak, resident, slosses = timed_steps(mx, smod, sbatch,
+                                                  per_step=2)
+        out["steps"][size] = dict(cfg=c, ms_per_step=ms,
+                                  samples_per_s=c["B"] / ms * 1e3,
+                                  peak_bytes=peak, resident_bytes=resident,
+                                  losses=slosses)
+        log("module step %s %s: %.3f ms/step, %.1f samples/s, peak memory "
+            "%.3f GB (%.3f GB of it resident before the steps), 2 "
+            "fused_batch_matmul launches per step, losses %s, on %s"
+            % (size, c, ms, c["B"] / ms * 1e3, peak / 1e9, resident / 1e9,
+               " ".join("%.6f" % v for v in slosses), card))
+        del smod, sbatch
+    results["module"] = out
+    return fit_launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the detailed results here")
@@ -869,7 +1317,7 @@ def main():
     results = {"card": card, "peaks": {
         "fp32_flops": peaks[0], "bytes_per_s": peaks[1],
         "bf16_flops": card_bf16_peak(card.split(",")[0])},
-        "kernel_cases": []}
+        "kernel_cases": [], "bmm_cases": []}
 
     # every kernel source in the checkout, one nvcc each, all at once
     t0 = time.perf_counter()
@@ -891,6 +1339,8 @@ def main():
     launches = serve_phase(mx, sym, card, results)
     timing = flash_phase(card, results["peaks"], results)
     flash_launches = train_phase(mx, card, results, timing)
+    bmm_err, bmm_totals = bmm_phase(peaks, results)
+    bmm_launches = module_phase(mx, card, results)
 
     t8 = totals[8]
     kernels = {"kernels": [{
@@ -913,6 +1363,15 @@ def main():
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    wide = bmm_totals["wide"]
+    kernels["kernels"].append({
+        "name": "fused_batch_matmul", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/fused_matmul.cu",
+        "replaces": "mxnet_tpu/parallel/fused.py:292",
+        "launches": bmm_launches, "max_abs_err": bmm_err,
+        "ms": wide["ms"], "plain_ms": wide["plain_ms"],
+        "bound_ms": wide["bound_ms"], "bound_by": wide["bound_by"],
+        "library_ms": wide["library_ms"]})
     if opts.out:
         if os.path.dirname(opts.out):
             os.makedirs(os.path.dirname(opts.out), exist_ok=True)

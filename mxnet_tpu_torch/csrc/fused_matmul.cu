@@ -2,17 +2,20 @@
 // loaded with ctypes (mxnet_tpu_torch/parallel/fused.py).
 //
 // Replaces: mxnet_tpu/parallel/fused.py fused_matmul (kernel body
-// _mm_kernel). It computes out = epilogue(X . W^T) when wt (W is (N, K),
-// the FullyConnected layout) or epilogue(X . W) (W is (K, N), a 1x1 HWIO
-// convolution weight), accumulated in fp32. The whole epilogue runs on the
+// _mm_kernel) and fused_batch_matmul (kernel body _bmm_kernel). It computes
+// out = epilogue(X . W^T) when wt (W is (N, K), the FullyConnected layout)
+// or epilogue(X . W) (W is (K, N), a 1x1 HWIO convolution weight),
+// accumulated in fp32; the batched entry does the same for each of B
+// (X[b], W[b]) pairs, blockIdx.z walking the batch. The whole epilogue runs on the
 // accumulator in registers, in grammar order, before the single store of
 // each output element, so no interior tensor of a fusion region (the
 // pre-bias, pre-activation, pre-residual values) reaches device memory.
 //
 // Bound: bytes = X (M*K) + W (N*K) + extras (N per vector step, M*N per
 // residual step) + out (M*N), each at its element width; operations =
-// 2*M*N*K. At the ResNet-50 1x1 shapes (K, N of 64..2048) the operations
-// bound in fp32 on the CUDA cores. The product stays in full fp32 (no TF32,
+// 2*M*N*K (all times B when batched). At the ResNet-50 1x1 shapes (K, N of
+// 64..2048) and at the attention block's batch_dot shapes (K of 64..2048)
+// the operations bound in fp32 on the CUDA cores. The product stays in full fp32 (no TF32,
 // no tensor cores) to hold parity with the reference; wgmma/TMA tiles are
 // later work.
 //
@@ -24,7 +27,11 @@
 // ty+16i and columns tx+16j, so one warp's shared reads are a broadcast
 // (X) and 16 consecutive words (W). Ragged M, N and K edges are masked:
 // zero fill on load, no store outside the output. Element types (fp32,
-// bf16, fp16) are runtime codes, uniform across the grid.
+// bf16, fp16) are runtime codes, uniform across the grid. The batched form
+// offsets X, W, out and the residual extras by per-batch element strides;
+// the 2-d form is the same kernel with B = 1 and strides 0. A transposed
+// batch_dot operand (the view transpose(k, (0, 2, 1)) of a contiguous
+// (B, N, K) k) is read in place through the wt form, with no copy.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -79,6 +86,10 @@ __device__ __forceinline__ float load_f(const void* p, int64_t i, int dt) {
   return __half2float(static_cast<const __half*>(p)[i]);
 }
 
+__device__ __forceinline__ int64_t elem_bytes(int dt) {
+  return dt == DT_F32 ? 4 : 2;
+}
+
 __device__ __forceinline__ void store_f(void* p, int64_t i, int dt,
                                         float v) {
   if (dt == DT_F32) {
@@ -90,16 +101,18 @@ __device__ __forceinline__ void store_f(void* p, int64_t i, int dt,
   }
 }
 
+// ``mn`` is the element's offset in a residual extra (batch offset
+// included), ``n`` its column (the index into a vector extra).
 __device__ __forceinline__ float apply_epilogue(const FmEpilogue& ep,
-                                                float y, int64_t m,
-                                                int64_t n, int64_t N) {
+                                                float y, int64_t mn,
+                                                int64_t n) {
   for (int s = 0; s < ep.n_steps; ++s) {
     const float v = ep.scalar[s];
     switch (ep.code[s]) {
       case ST_VADD: y += load_f(ep.ptr[s], n, ep.dtype[s]); break;
       case ST_VMUL: y *= load_f(ep.ptr[s], n, ep.dtype[s]); break;
-      case ST_RES_ADD: y += load_f(ep.ptr[s], m * N + n, ep.dtype[s]); break;
-      case ST_RES_MUL: y *= load_f(ep.ptr[s], m * N + n, ep.dtype[s]); break;
+      case ST_RES_ADD: y += load_f(ep.ptr[s], mn, ep.dtype[s]); break;
+      case ST_RES_MUL: y *= load_f(ep.ptr[s], mn, ep.dtype[s]); break;
       case ST_RELU: y = y < 0.f ? 0.f : y; break;  // NaN propagates
       case ST_SIGMOID: y = 1.f / (1.f + expf(-y)); break;
       case ST_TANH: y = tanhf(y); break;
@@ -118,8 +131,9 @@ __device__ __forceinline__ float apply_epilogue(const FmEpilogue& ep,
 
 __global__ void __launch_bounds__(NT)
 fused_matmul_kernel(const void* __restrict__ x, const void* __restrict__ w,
-                    void* __restrict__ out, int M, int N, int K, int x_dt,
-                    int w_dt, int out_dt, int wt, FmEpilogue ep) {
+                    void* __restrict__ out, int M, int N, int K,
+                    int64_t x_bs, int64_t w_bs, int x_dt, int w_dt,
+                    int out_dt, int wt, FmEpilogue ep) {
   __shared__ float As[BK][BM + 1];
   __shared__ float Bs[BK][BN + 1];
   const int tid = threadIdx.x;
@@ -127,6 +141,15 @@ fused_matmul_kernel(const void* __restrict__ x, const void* __restrict__ w,
   const int ty = tid / (BN / TN);
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
+  // this block's batch: X and W move by their strides, the output by M*N
+  // (it is contiguous (B, M, N)); the base pointers move once here so the
+  // tile loads index as in the 2-d form. The residual extras are indexed
+  // with the batch offset o_off (each has its own element type).
+  const int64_t b = blockIdx.z;
+  const int64_t o_off = b * (int64_t)M * N;
+  x = static_cast<const char*>(x) + b * x_bs * elem_bytes(x_dt);
+  w = static_cast<const char*>(w) + b * w_bs * elem_bytes(w_dt);
+  out = static_cast<char*>(out) + o_off * elem_bytes(out_dt);
 
   float acc[TM][TN];
 #pragma unroll
@@ -192,8 +215,9 @@ fused_matmul_kernel(const void* __restrict__ x, const void* __restrict__ w,
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + (BN / TN) * j;
       if (n >= N) continue;
-      const float y = apply_epilogue(ep, acc[i][j], m, n, N);
-      store_f(out, (int64_t)m * N + n, out_dt, y);
+      const int64_t mn = (int64_t)m * N + n;
+      const float y = apply_epilogue(ep, acc[i][j], o_off + mn, n);
+      store_f(out, mn, out_dt, y);
     }
   }
 }
@@ -217,8 +241,26 @@ extern "C" int fused_matmul_launch(const void* x, const void* w, void* out,
                                    int out_dt, int wt, const FmEpilogue* ep,
                                    void* stream) {
   if (M <= 0 || N <= 0) return (int)cudaSuccess;
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, 1);
   fused_matmul_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      x, w, out, M, N, K, x_dt, w_dt, out_dt, wt, *ep);
+      x, w, out, M, N, K, 0, 0, x_dt, w_dt, out_dt, wt, *ep);
+  return (int)cudaGetLastError();
+}
+
+// The batched form: out[b] = epilogue(X[b] . W[b]) for b < B (W[b]^T when
+// wt). X[b] starts x_bs elements after X[b-1], W[b] w_bs after W[b-1]; the
+// output and the residual extras are contiguous (B, M, N). Same return
+// contract as fused_matmul_launch.
+extern "C" int fused_batch_matmul_launch(const void* x, const void* w,
+                                         void* out, int B, int M, int N,
+                                         int K, long long x_bs,
+                                         long long w_bs, int x_dt, int w_dt,
+                                         int out_dt, int wt,
+                                         const FmEpilogue* ep, void* stream) {
+  if (B <= 0 || M <= 0 || N <= 0) return (int)cudaSuccess;
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, B);
+  fused_matmul_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+      x, w, out, M, N, K, (int64_t)x_bs, (int64_t)w_bs, x_dt, w_dt, out_dt,
+      wt, *ep);
   return (int)cudaGetLastError();
 }

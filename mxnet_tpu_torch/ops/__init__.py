@@ -10,3 +10,4 @@ from . import broadcast_reduce
 from . import matrix
 from . import nn
 from . import fused
+from . import optimizer_ops

@@ -1,8 +1,9 @@
 """Broadcasting binary ops.
 
 Counterpart of ``mxnet_tpu/ops/broadcast_reduce.py``, limited to
-``broadcast_add`` (the ResNet residual) and ``broadcast_mul`` (the
-``bn_fold`` weight scale).
+``broadcast_add`` (the ResNet and attention residuals), ``broadcast_mul``
+(the ``bn_fold`` weight scale) and ``broadcast_sub`` / ``broadcast_div``
+(Symbol and NDArray arithmetic).
 """
 from __future__ import annotations
 
@@ -39,10 +40,13 @@ def _bcast_infer(attrs, in_shapes, aux_shapes):
 
 def _register():
     for name, f in (("broadcast_add", torch.add),
-                    ("broadcast_mul", torch.mul)):
+                    ("broadcast_sub", torch.sub),
+                    ("broadcast_mul", torch.mul),
+                    ("broadcast_div", torch.div)):
         register_op(name, lambda attrs, a, b, _f=f: _f(a, b), num_inputs=2,
                     input_names=["lhs", "rhs"], infer_shape=_bcast_infer)
     alias_op("broadcast_add", "broadcast_plus")
+    alias_op("broadcast_sub", "broadcast_minus")
 
 
 _register()

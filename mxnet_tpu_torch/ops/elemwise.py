@@ -61,6 +61,7 @@ _SCALAR = {
     "_rminus_scalar": lambda x, s: s - x,
     "_mul_scalar": lambda x, s: x * s,
     "_div_scalar": lambda x, s: x / s,
+    "_rdiv_scalar": lambda x, s: s / x,
 }
 
 

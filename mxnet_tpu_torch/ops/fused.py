@@ -10,20 +10,28 @@ Lowering, decided per call from shapes and dtypes (the JAX package's rule):
 
 * **Fused kernel** (parallel/fused.py) when ``MXNET_FUSION_KERNEL`` is on
   and the region has a matmul form: FullyConnected, 2-d ``dot`` and 1x1
-  stride-1 channels-last Convolution, in float dtypes, with an epilogue
-  the kernel encodes. On a CUDA tensor that is the hand-written kernel; on
-  a CPU tensor the wrapper computes its plain version.
+  stride-1 channels-last Convolution onto ``fused_matmul``, 3-d
+  ``batch_dot`` onto ``fused_batch_matmul``, in float dtypes, with an
+  epilogue the kernel encodes. On a CUDA tensor that is the hand-written
+  kernel; on a CPU tensor the wrapper computes its plain version.
 * **Reference composition** otherwise (general convolutions, NCHW, vector
-  steps on a non-last axis): the same registry ops the unfused graph would
-  run, in the same order, inside this one node.
+  steps on a non-last axis or after a batch_dot, transposed dot flags):
+  the same registry ops the unfused graph would run, in the same order,
+  inside this one node.
 
-Forward only in this slice: the reference-recompute backward belongs to
-the training slice.
+Gradients: the region's forward is a ``torch.autograd.Function``
+(:class:`_FusedRegionFn`) whose backward re-runs the reference
+composition under autograd and differentiates it, the counterpart of
+the JAX package's ``jax.custom_vjp`` (kernel forward, reference-recompute
+backward). The kernel writes its output through ctypes, so without the
+Function a training walk would lose every fused region's gradient.
 """
 from __future__ import annotations
 
 import functools
 import json
+
+import torch
 
 from ..base import MXNetError, dtype_name
 from ..config import get_flag
@@ -188,8 +196,9 @@ def _try_kernel(base, battrs, kern_steps, base_inputs, extras, out_shape,
         return None
     if kern_steps is None:
         return None
-    # batch_dot regions lower onto fused_batch_matmul, which is not ported
-    # yet: they take the reference composition
+    if base.name == "batch_dot":
+        return _try_batch_kernel(F, battrs, kern_steps, base_inputs, extras,
+                                 out_shape, out_dtype)
     form = _kernel_matmul_form(base, battrs, base_inputs, extras)
     if form is None:
         return None
@@ -210,7 +219,39 @@ def _try_kernel(base, battrs, kern_steps, base_inputs, extras, out_shape,
     return out.reshape(out_shape)
 
 
-def _fused_region(attrs, *inputs):
+def _try_batch_kernel(F, battrs, kern_steps, base_inputs, extras, out_shape,
+                      out_dtype):
+    """The batch_dot lowering onto fused_batch_matmul, or None. As in the
+    JAX package, transposed-operand flags and vector steps stay on the
+    reference composition. A ``transpose(k, (0, 2, 1))`` operand arrives
+    as a view and is handed over as it is: the kernel reads it in place."""
+    if battrs.get("transpose_a") or battrs.get("transpose_b"):
+        return None
+    if any(s[0] in ("bias", "vmul", "vadd") for s in kern_steps):
+        return None
+    x, w = base_inputs[0], base_inputs[1]
+    if x.dim() != 3 or w.dim() != 3:
+        return None
+    B, M, K = x.shape
+    N = w.shape[2]
+    if x.stride(2) != 1 or x.stride(1) != K:
+        x = x.contiguous()
+    if not ((w.stride(2) == 1 and w.stride(1) == N)
+            or (w.stride(1) == 1 and w.stride(2) == K)):
+        w = w.contiguous()
+    res = []
+    for e in extras:
+        if e.numel() != B * M * N:
+            return None
+        res.append(e.reshape(B, M, N).contiguous())
+    out = F.fused_batch_matmul(x, w, extras=res, epilogue=kern_steps,
+                               out_dtype=out_dtype)
+    return out.reshape(out_shape)
+
+
+def _region_forward(attrs, inputs):
+    """The region's value: the kernel lowering where it applies, else the
+    reference composition."""
     base, battrs, steps, n_base = fused_region_parts(attrs)
     base_inputs = list(inputs[:n_base])
     extras = list(inputs[n_base:])
@@ -226,6 +267,46 @@ def _fused_region(attrs, *inputs):
             if out is not None:
                 return out
     return _apply_reference(base, battrs, steps, base_inputs, extras)
+
+
+class _FusedRegionFn(torch.autograd.Function):
+    """Kernel (or plain) forward, reference-recompute backward: the
+    backward re-runs the unfused composition on the saved region inputs
+    under autograd and returns its input gradients, so every epilogue
+    combination is differentiable without a hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, attrs, *inputs):
+        ctx.attrs = attrs
+        ctx.save_for_backward(*inputs)
+        return _region_forward(attrs, inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        base, battrs, steps, n_base = fused_region_parts(ctx.attrs)
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need) for t, need in
+                   zip(saved, needs)]
+            out = _apply_reference(base, battrs, steps, ins[:n_base],
+                                   ins[n_base:])
+            wrt = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, grad,
+                                             allow_unused=True))
+        result = [None]
+        for t, need in zip(ins, needs):
+            g = next(grads) if need else None
+            if need and g is None:
+                g = torch.zeros_like(t)
+            result.append(g)
+        return tuple(result)
+
+
+def _fused_region(attrs, *inputs):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _FusedRegionFn.apply(attrs, *inputs)
+    return _region_forward(attrs, inputs)
 
 
 def _fused_num_inputs(attrs):

@@ -1,11 +1,13 @@
-"""Shape-manipulation ops: Reshape, Flatten, transpose, Cast.
+"""Shape-manipulation ops and products: Reshape, Flatten, transpose, Cast,
+dot, batch_dot.
 
 Counterpart of ``mxnet_tpu/ops/matrix.py``, limited to the ops the ported
-slice emits.
+slices emit.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..base import MXNetError, torch_dtype
 from .param import Bool, DType, Shape
@@ -111,7 +113,46 @@ def _cast(attrs, x):
     return x.to(torch_dtype(attrs.dtype))
 
 
+def _dot(attrs, a, b):
+    if attrs.transpose_a:
+        a = a.t() if a.dim() == 2 else torch.movedim(a, 0, -1)
+    if attrs.transpose_b:
+        b = b.t() if b.dim() == 2 else torch.movedim(b, -1, 0)
+    if a.dim() <= 2 and b.dim() <= 2:
+        return torch.matmul(a, b)
+    # numpy dot: contract a's last axis with b's first
+    return torch.tensordot(a, b, dims=([a.dim() - 1], [0]))
+
+
+def _dot_infer(attrs, in_shapes, aux_shapes):
+    a, b = in_shapes
+    if a is None or b is None:
+        return None
+    ash = tuple(reversed(a)) if attrs.transpose_a else a
+    bsh = tuple(reversed(b)) if attrs.transpose_b else b
+    return ([a, b], [ash[:-1] + bsh[1:]], aux_shapes)
+
+
+def _batch_dot(attrs, a, b):
+    if attrs.transpose_a:
+        a = a.transpose(-1, -2)
+    if attrs.transpose_b:
+        b = b.transpose(-1, -2)
+    return torch.matmul(a, b)
+
+
 def _register():
+    register_op("dot", _dot,
+                params={"transpose_a": Bool(default=False),
+                        "transpose_b": Bool(default=False)},
+                num_inputs=2, input_names=["lhs", "rhs"],
+                infer_shape=_dot_infer,
+                doc="Dot product (numpy semantics; 2-d is a matmul)")
+    register_op("batch_dot", _batch_dot,
+                params={"transpose_a": Bool(default=False),
+                        "transpose_b": Bool(default=False)},
+                num_inputs=2, input_names=["lhs", "rhs"],
+                doc="Batched matrix product over the leading axis")
     register_op("Reshape", _reshape,
                 params={"shape": Shape(default=()),
                         "reverse": Bool(default=False),

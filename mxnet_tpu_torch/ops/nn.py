@@ -1,10 +1,10 @@
 """Neural-network layer ops: the ResNet op set.
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` for FullyConnected, Convolution,
-Pooling, Activation, softmax, BatchNorm (inference) and SoftmaxOutput
-(forward). Layouts follow the JAX package: a channels-last Convolution
-(``layout="NHWC"``) takes spatial-major HWIO weights, a channels-first one
-OIHW. The channels-last forms run as ``torch.nn.functional`` calls on a
+Pooling, Activation, softmax, BatchNorm (inference) and SoftmaxOutput (a
+loss head whose backward injects MXNet's gradient). Layouts follow the
+JAX package: a channels-last Convolution (``layout="NHWC"``) takes
+spatial-major HWIO weights, a channels-first one OIHW. The channels-last forms run as ``torch.nn.functional`` calls on a
 channels_last *view* of the same memory (a permute, no copy).
 """
 from __future__ import annotations
@@ -249,14 +249,68 @@ def _bn_infer(attrs, in_shapes, aux_shapes):
 
 # --- SoftmaxOutput ----------------------------------------------------------
 
-def _softmax_output(attrs, data, label):
-    """Forward only: softmax over the class axis. The loss gradient this
-    head injects belongs to the training slice."""
+def _so_axis(attrs, data):
     if attrs.preserve_shape:
-        axis = data.ndim - 1
-    else:
-        axis = 1 if data.ndim > 1 else 0
-    return torch.softmax(data, dim=axis)
+        return data.ndim - 1
+    return 1 if data.ndim > 1 else 0
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    """Softmax forward; the backward ignores the head gradient (unless
+    ``out_grad``) and injects ``(p - onehot) * grad_scale``, normalized by
+    ``normalization`` — the JAX package's ``jax.custom_vjp``
+    (``mxnet_tpu/ops/nn.py`` ``_softmax_output_fn``). The label gets a zero
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, attrs, data, label):
+        out = torch.softmax(data, dim=_so_axis(attrs, data))
+        ctx.attrs = attrs
+        ctx.save_for_backward(out, label)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        attrs = ctx.attrs
+        out, label = ctx.saved_tensors
+        ax = _so_axis(attrs, out)
+        if tuple(label.shape) == tuple(out.shape):
+            onehot = label.to(out.dtype)
+            valid = torch.ones(label.shape[:1], dtype=out.dtype,
+                               device=out.device)
+            scale = 1.0
+        else:
+            lab = label.to(torch.int64)
+            onehot = torch.movedim(
+                F.one_hot(lab.clamp(0, out.shape[ax] - 1),
+                          out.shape[ax]).to(out.dtype), -1, ax)
+            # one_hot of an out-of-range label (an ignore label) is 0 in
+            # the JAX package; clamp + mask reproduces that
+            in_range = ((lab >= 0) & (lab < out.shape[ax])).to(out.dtype)
+            onehot = onehot * in_range.unsqueeze(ax)
+            valid = torch.ones(lab.shape, dtype=out.dtype, device=out.device)
+            scale = 1.0
+            if attrs.use_ignore:
+                keep = (lab != int(attrs.ignore_label)).to(out.dtype)
+                valid = keep
+                onehot = onehot * keep.unsqueeze(ax)
+                scale = onehot.sum(dim=ax, keepdim=True)
+        grad = (out * scale - onehot) * attrs.grad_scale
+        if attrs.normalization == "batch":
+            grad = grad / out.shape[0]
+        elif attrs.normalization == "valid":
+            grad = grad / torch.clamp(valid.sum(), min=1.0)
+        if attrs.out_grad:
+            grad = grad * g
+        return None, grad.to(out.dtype), torch.zeros_like(label)
+
+
+def _softmax_output(attrs, data, label):
+    """Softmax over the class axis; under autograd, the loss head whose
+    backward is MXNet's (``_SoftmaxOutputFn``)."""
+    if torch.is_grad_enabled() and data.requires_grad:
+        return _SoftmaxOutputFn.apply(attrs, data, label)
+    return torch.softmax(data, dim=_so_axis(attrs, data))
 
 
 def _so_infer(attrs, in_shapes, aux_shapes):
@@ -337,7 +391,7 @@ def _register():
                 "out_grad": Bool(default=False),
                 "smooth_alpha": Float(default=0.0)},
         num_inputs=2, input_names=["data", "label"], infer_shape=_so_infer,
-        doc="Softmax head (forward)")
+        doc="Softmax head with MXNet's injected loss gradient")
     alias_op("SoftmaxOutput", "Softmax")
 
 

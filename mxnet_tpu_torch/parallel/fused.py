@@ -1,16 +1,25 @@
-"""Fused matmul + epilogue: the fusion-region kernel.
+"""Fused matmul + epilogue: the fusion-region kernels.
 
-Counterpart of ``mxnet_tpu/parallel/fused.py`` ``fused_matmul``. The fuse
-graph pass carves Convolution/FullyConnected + epilogue chains into
-``_FusedRegion`` nodes (ops/fused.py); the kernel-form regions run here, on
-the hand-written CUDA kernel ``csrc/fused_matmul.cu``: fp32 accumulation
-and the whole epilogue applied in registers before one store.
+Counterpart of ``mxnet_tpu/parallel/fused.py`` ``fused_matmul`` and
+``fused_batch_matmul``. The fuse graph pass carves Convolution /
+FullyConnected / dot / batch_dot + epilogue chains into ``_FusedRegion``
+nodes (ops/fused.py); the kernel-form regions run here, on the
+hand-written CUDA kernel ``csrc/fused_matmul.cu``: fp32 accumulation and
+the whole epilogue applied in registers before one store.
 
 * :func:`fused_matmul` — ``epilogue(x @ w.T)`` when ``wt`` (w is (N, K)),
   else ``epilogue(x @ w)`` (w is (K, N)). A CUDA tensor launches the
   kernel or raises; a CPU tensor takes :func:`fused_matmul_reference`.
-* :func:`fused_matmul_reference` — the plain PyTorch version, used by the
-  CPU tests and by the on-card comparison, never on the CUDA path.
+* :func:`fused_batch_matmul` — ``epilogue(x[b] @ w[b])`` for x (B, M, K)
+  and w (B, K, N), the batch_dot region, with scalar / act / residual /
+  cast steps only (the JAX kernel rejects vector steps there too). The
+  same kernel, its grid's z axis over the batch. A w that is the
+  ``(0, 2, 1)`` transpose view of a contiguous (B, N, K) tensor is read in
+  place (the kernel's ``wt`` form), so ``batch_dot(q, transpose(k))``
+  copies nothing.
+* :func:`fused_matmul_reference` / :func:`fused_batch_matmul_reference` —
+  the plain PyTorch versions, used by the CPU tests and by the on-card
+  comparison, never on the CUDA path.
 
 Unlike the TPU kernel, this one masks ragged M/N/K edges itself, so every
 shape has a kernel form: the JAX package's tiling decline (``pick_blocks``
@@ -37,10 +46,13 @@ from .. import cuda_build
 from ..base import MXNetError, torch_dtype
 from ..ops.elemwise import softrelu, softsign
 
-__all__ = ["fused_matmul", "fused_matmul_reference", "supported_act",
-           "MAX_STEPS"]
+__all__ = ["fused_matmul", "fused_matmul_reference", "fused_batch_matmul",
+           "fused_batch_matmul_reference", "supported_act", "MAX_STEPS"]
 
-KERNEL = "fused_matmul"
+KERNEL = "fused_matmul"          # the source and the 2-d launch counter
+BMM_KERNEL = "fused_batch_matmul"  # the batched launch counter
+
+_BMM_STEPS = ("res", "act", "scalar", "cast")
 
 # activations the kernel applies on the fp32 accumulator
 _ACTS = ("relu", "sigmoid", "tanh", "softrelu", "softsign")
@@ -116,7 +128,12 @@ def fused_matmul_reference(x, w, extras=(), epilogue=(), wt=True,
     out_dtype = torch_dtype(out_dtype) or x.dtype
     wf = w.float()
     y = x.float() @ (wf.t() if wt else wf)
-    M, N = y.shape
+    return _reference_epilogue(y, extras, epilogue).to(out_dtype)
+
+
+def _reference_epilogue(y, extras, epilogue):
+    """The epilogue steps on the fp32 product ``y`` (..., M, N)."""
+    N = y.shape[-1]
     ei = 0
     for step in epilogue:
         kind = step[0]
@@ -127,7 +144,7 @@ def fused_matmul_reference(x, w, extras=(), epilogue=(), wt=True,
             y = y * extras[ei].float().reshape(N)
             ei += 1
         elif kind == "res":
-            r = extras[ei].float().reshape(M, N)
+            r = extras[ei].float().reshape(y.shape)
             y = y * r if step[1] == "elemwise_mul" else y + r
             ei += 1
         elif kind == "act":
@@ -135,10 +152,29 @@ def fused_matmul_reference(x, w, extras=(), epilogue=(), wt=True,
         elif kind == "scalar":
             y = _apply_scalar(y, step[1], step[2])
         elif kind == "cast":
-            pass  # the final cast below is the only one
+            pass  # the caller's final cast is the only one
         else:
             raise ValueError("unknown fused epilogue step %r" % (step,))
-    return y.to(out_dtype)
+    return y
+
+
+def _check_bmm_epilogue(epilogue, extras):
+    for step in epilogue:
+        if step[0] not in _BMM_STEPS:
+            raise MXNetError("fused_batch_matmul: epilogue step %r has no "
+                             "batched form (scalar, act, res and cast only)"
+                             % (step,))
+    _check_extras(epilogue, extras)
+
+
+def fused_batch_matmul_reference(x, w, extras=(), epilogue=(),
+                                 out_dtype=None):
+    """The plain PyTorch version of :func:`fused_batch_matmul`: a batched
+    fp32 product and the epilogue as separate ops, cast once at the end."""
+    _check_bmm_epilogue(epilogue, extras)
+    out_dtype = torch_dtype(out_dtype) or x.dtype
+    y = torch.matmul(x.float(), w.float())
+    return _reference_epilogue(y, extras, epilogue).to(out_dtype)
 
 
 def _dtype_code(t, what):
@@ -159,6 +195,13 @@ def _library():
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(_Epilogue), ctypes.c_void_p]
     lib.fused_matmul_launch.restype = ctypes.c_int
+    lib.fused_batch_matmul_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(_Epilogue), ctypes.c_void_p]
+    lib.fused_batch_matmul_launch.restype = ctypes.c_int
     lib.fused_matmul_error_string.argtypes = [ctypes.c_int]
     lib.fused_matmul_error_string.restype = ctypes.c_char_p
     for probe in (lib.fused_matmul_epilogue_size, lib.fused_matmul_max_steps):
@@ -171,7 +214,7 @@ def _library():
     return lib
 
 
-def _encode_epilogue(epilogue, extras, M, N, device):
+def _encode_epilogue(epilogue, extras, M, N, device, res_shape=None):
     ep = _Epilogue()
     n = 0
     ei = 0
@@ -192,9 +235,10 @@ def _encode_epilogue(epilogue, extras, M, N, device):
                 raise MXNetError("fused_matmul: extra input %d is not "
                                  "contiguous" % (ei - 1))
             if kind == "res":
-                if tuple(e.shape) != (M, N):
+                want = res_shape or (M, N)
+                if tuple(e.shape) != tuple(want):
                     raise MXNetError("fused_matmul: residual of shape %s, "
-                                     "want %s" % (tuple(e.shape), (M, N)))
+                                     "want %s" % (tuple(e.shape), want))
                 ep.code[n] = 3 if step[1] == "elemwise_mul" else 2
             else:
                 if e.numel() != N:
@@ -264,4 +308,68 @@ def fused_matmul(x, w, extras=(), epilogue=(), wt=True, out_dtype=None):
         raise MXNetError("fused_matmul launch failed: CUDA error %d (%s)"
                          % (rc, lib.fused_matmul_error_string(rc).decode()))
     cuda_build.count_launch(KERNEL)
+    return out
+
+
+def fused_batch_matmul(x, w, extras=(), epilogue=(), out_dtype=None):
+    """``epilogue(x[b] @ w[b])`` for x (B, M, K) and w (B, K, N) in one
+    kernel; ``extras`` holds one (B, M, N) tensor per ``res`` step. On a
+    CUDA tensor this launches csrc/fused_matmul.cu's batched entry or
+    raises; on a CPU tensor it is :func:`fused_batch_matmul_reference`.
+
+    x must have unit stride along K and M-major rows (each x[b]
+    contiguous; the batch stride is free). w is either contiguous or the
+    ``(0, 2, 1)`` transpose view of a tensor whose w[b] are contiguous
+    (N, K) matrices, which the kernel reads in place."""
+    _check_bmm_epilogue(epilogue, extras)
+    if x.device.type == "cpu":
+        return fused_batch_matmul_reference(x, w, extras, epilogue,
+                                            out_dtype)
+    if x.device.type != "cuda":
+        raise MXNetError("fused_batch_matmul: unsupported device %s"
+                         % x.device)
+    out_dtype = torch_dtype(out_dtype) or x.dtype
+    if x.dim() != 3 or w.dim() != 3:
+        raise MXNetError("fused_batch_matmul: x and w must be 3-d, got %s "
+                         "and %s" % (tuple(x.shape), tuple(w.shape)))
+    B, M, K = x.shape
+    N = w.shape[2]
+    if w.shape[0] != B or w.shape[1] != K:
+        raise MXNetError("fused_batch_matmul: x %s does not contract with w "
+                         "%s" % (tuple(x.shape), tuple(w.shape)))
+    if w.device != x.device:
+        raise MXNetError("fused_batch_matmul: w on %s, x on %s"
+                         % (w.device, x.device))
+    if x.stride(2) != 1 or x.stride(1) != K:
+        raise MXNetError("fused_batch_matmul: each x[b] must be a contiguous"
+                         " (M, K) matrix")
+    if w.stride(2) == 1 and w.stride(1) == N:
+        wt = 0
+    elif w.stride(1) == 1 and w.stride(2) == K:
+        wt = 1   # the transpose view of a (B, N, K) tensor
+    else:
+        raise MXNetError("fused_batch_matmul: w must be contiguous or the "
+                         "(0, 2, 1) transpose of a contiguous tensor")
+    x_dt = _dtype_code(x.dtype, "x")
+    w_dt = _dtype_code(w.dtype, "w")
+    o_dt = _dtype_code(out_dtype, "output")
+    if max(M, N, K) >= 2 ** 31 or B > 65535:
+        raise MXNetError("fused_batch_matmul: dimension above 2^31 or batch "
+                         "above 65535")
+    ep = _encode_epilogue(epilogue, extras, M, N, x.device,
+                          res_shape=(B, M, N))
+    out = torch.empty((B, M, N), dtype=out_dtype, device=x.device)
+    if B == 0 or M == 0 or N == 0:
+        return out
+    lib = _library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.fused_batch_matmul_launch(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), B, M, N, K,
+        x.stride(0), w.stride(0), x_dt, w_dt, o_dt, wt, ctypes.byref(ep),
+        stream)
+    if rc != 0:
+        raise MXNetError("fused_batch_matmul launch failed: CUDA error %d "
+                         "(%s)" % (rc,
+                                   lib.fused_matmul_error_string(rc).decode()))
+    cuda_build.count_launch(BMM_KERNEL)
     return out

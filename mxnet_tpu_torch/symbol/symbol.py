@@ -3,8 +3,8 @@
 Counterpart of ``mxnet_tpu/symbol/symbol.py``. A Symbol is a DAG of
 :class:`_Node`s with string attrs, serialized in the nnvm JSON format, so a
 graph written by ``mxnet_tpu`` (``tojson``) loads here unchanged.
-Binding waits for the training slice; the serving path evaluates graphs
-through ``executor._GraphProgram``.
+``bind`` / ``simple_bind`` make an ``executor.Executor``; the serving path
+evaluates graphs through ``executor._GraphProgram`` directly.
 """
 from __future__ import annotations
 
@@ -184,6 +184,24 @@ class Symbol:
 
     def list_inputs(self):
         return [n.name for n in self.topo_nodes() if n.is_variable]
+
+    def attr(self, key):
+        """This symbol's attribute ``key`` (its node's), or None."""
+        nodes = {id(n): n for n, _ in self._outputs}
+        if len(nodes) == 1:
+            node = next(iter(nodes.values()))
+            return node.user_attrs.get(key, node.attrs.get(key))
+        return None
+
+    def attr_dict(self):
+        """{node name: {attr: value}} over the whole graph."""
+        out = {}
+        for node in self.topo_nodes():
+            d = dict(node.attrs)
+            d.update(node.user_attrs)
+            if d:
+                out[node.name] = d
+        return out
 
     # --- shape/type inference ----------------------------------------------
     def infer_shape(self, *args, **kwargs):
@@ -385,6 +403,50 @@ class Symbol:
         with open(fname, "w") as f:
             f.write(self.tojson())
 
+    # --- binding ------------------------------------------------------------
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    shared_exec=None, frozen_params=None, **kwargs):
+        """Allocate zero arrays on ``ctx`` by shape and dtype inference and
+        bind them. ``frozen_params`` names arguments whose values stay
+        fixed for the executor's lifetime (the fold pass may fold them)."""
+        from ..executor import Executor
+        from .. import ndarray as nd
+
+        arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
+        arg_types, _, aux_types = self.infer_type(**dict(type_dict or {}))
+        arg_names = self.list_arguments()
+        reqs = _normalize_grad_req(grad_req, arg_names)
+        args, grads = {}, {}
+        for name, shape, t in zip(arg_names, arg_shapes, arg_types):
+            args[name] = nd.zeros(shape, ctx=ctx, dtype=t)
+            if reqs[name] != "null":
+                grads[name] = nd.zeros(shape, ctx=ctx, dtype=t)
+        aux = {name: nd.zeros(shape, ctx=ctx, dtype=t) for name, shape, t
+               in zip(self.list_auxiliary_states(), aux_shapes, aux_types)}
+        return Executor(self, ctx, args, grads, reqs, aux,
+                        shared_exec=shared_exec, frozen_params=frozen_params)
+
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None,
+             frozen_params=None):
+        """Bind existing arrays (dicts by name, or lists in argument
+        order); an argument without a gradient array gets grad_req
+        null."""
+        from ..executor import Executor
+
+        arg_names = self.list_arguments()
+        args = _name_arrays(args, arg_names, "args")
+        args_grad = {} if args_grad is None else _name_arrays(
+            args_grad, arg_names, "args_grad", allow_missing=True)
+        aux_states = _name_arrays(aux_states or {},
+                                  self.list_auxiliary_states(), "aux_states")
+        reqs = _normalize_grad_req(grad_req, arg_names)
+        reqs = {n: (r if n in args_grad else "null")
+                for n, r in reqs.items()}
+        return Executor(self, ctx, args, args_grad, reqs, aux_states,
+                        shared_exec=shared_exec, group2ctx=group2ctx,
+                        frozen_params=frozen_params)
+
     # --- operators -----------------------------------------------------------
     def _binop(self, other, op_name, scalar_op, reverse=False):
         from .register import make_symbol
@@ -421,6 +483,26 @@ class Symbol:
         return self.__mul__(-1.0)
 
     __hash__ = object.__hash__
+
+
+def _normalize_grad_req(grad_req, arg_names):
+    if isinstance(grad_req, str):
+        return {n: grad_req for n in arg_names}
+    if isinstance(grad_req, (list, tuple)):
+        return dict(zip(arg_names, grad_req))
+    out = {n: "null" for n in arg_names}
+    out.update(grad_req)
+    return out
+
+
+def _name_arrays(arrays, names, what, allow_missing=False):
+    if isinstance(arrays, dict):
+        return dict(arrays)
+    arrays = list(arrays)
+    if len(arrays) != len(names) and not allow_missing:
+        raise MXNetError("%s length %d != expected %d (%s)"
+                         % (what, len(arrays), len(names), names))
+    return {n: a for n, a in zip(names, arrays) if a is not None}
 
 
 def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,

@@ -1,7 +1,10 @@
 """Card-only tests of the port: the CUDA kernels against their plain
 versions, the wrappers' checks and launch counters, the served small ResNet
-on the card against the same server on the CPU, and the flash-attention
-kernels at small ragged shapes. Every test skips where there is no card.
+on the card against the same server on the CPU, the flash-attention
+kernels at small ragged shapes, the batched fused matmul on a ragged grid
+and through a transposed operand, and a Module training step through the
+kernels against the same step on the plain composition. Every test skips
+where there is no card.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 that has only PyTorch with CUDA:
@@ -235,3 +238,169 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(card):
         FA.flash_backward_dq(q, q, q, q, lse.cpu(), lse)
     with pytest.raises(MXNetError, match="lse and delta"):
         FA.flash_backward_dkv(q, q, q, q, lse, lse.double())
+
+
+# ------------------------------------------------ fused_batch_matmul
+
+_BMM_EPILOGUES = [
+    (("scalar", "_div_scalar", 8.0),),
+    (("res", "elemwise_add"),),
+    (("scalar", "_mul_scalar", 0.5), ("res", "elemwise_add"),
+     ("act", "relu")),
+    (("res", "elemwise_mul"), ("act", "tanh")),
+    (("act", "sigmoid"), ("scalar", "_rminus_scalar", 1.0)),
+    (("act", "softrelu"), ("scalar", "_minus_scalar", 0.5)),
+    (("act", "softsign"), ("scalar", "_plus_scalar", 0.25)),
+]
+
+
+def _bmm_case(B, M, N, K, epilogue, dtype, gen, transposed=False):
+    x = torch.randn(B, M, K, device="cuda", generator=gen).to(dtype)
+    if transposed:
+        w = torch.randn(B, N, K, device="cuda", generator=gen).to(dtype)
+        w = w.permute(0, 2, 1)
+    else:
+        w = torch.randn(B, K, N, device="cuda", generator=gen).to(dtype)
+    extras = [torch.randn(B, M, N, device="cuda", generator=gen).to(dtype)
+              for s in epilogue if s[0] == "res"]
+    return x, w, extras
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batch_kernel_matches_plain(card, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for B in (1, 3):
+        for M in (1, 17, 129):
+            for N in (1, 17, 129):
+                for K in (8, 100):
+                    for ep in _BMM_EPILOGUES:
+                        x, w, ex = _bmm_case(B, M, N, K, ep,
+                                             getattr(torch, dtype), gen,
+                                             transposed=(M + N) % 2 == 0)
+                        out = F.fused_batch_matmul(x, w, ex, ep)
+                        ref = F.fused_batch_matmul_reference(x, w, ex, ep)
+                        _near(out, ref, _TOL[dtype], (B, M, N, K, ep))
+
+
+def test_batch_kernel_reads_the_transposed_operand_in_place(card):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(8, 64, 128, device="cuda", generator=gen)
+    k = torch.randn(8, 64, 128, device="cuda", generator=gen)
+    kt = k.permute(0, 2, 1)
+    assert not kt.is_contiguous()
+    ep = (("scalar", "_div_scalar", 128 ** 0.5),)
+    cuda_build.reset_launch_counts()
+    out = F.fused_batch_matmul(q, kt, epilogue=ep)
+    assert cuda_build.launch_counts() == {F.BMM_KERNEL: 1}
+    _near(out, F.fused_batch_matmul_reference(q, kt, epilogue=ep), 1e-4,
+          "view")
+    _near(out, F.fused_batch_matmul(q, kt.contiguous(), epilogue=ep), 1e-4,
+          "copy")
+
+
+def test_batch_wrapper_rejects_what_the_kernel_does_not_take(card):
+    x = torch.randn(2, 4, 8, device="cuda")
+    w = torch.randn(2, 8, 5, device="cuda")
+    cuda_build.reset_launch_counts()
+    with pytest.raises(MXNetError, match="dtype"):
+        F.fused_batch_matmul(x.double(), w.double())
+    with pytest.raises(MXNetError, match="dtype"):
+        F.fused_batch_matmul(x.half(), w.half(), out_dtype="float64")
+    with pytest.raises(MXNetError, match="batched form"):
+        F.fused_batch_matmul(x, w, [torch.randn(5, device="cuda")],
+                             (("bias",),))
+    with pytest.raises(MXNetError, match="contract"):
+        F.fused_batch_matmul(x, w[:, :4])
+    with pytest.raises(MXNetError, match="contiguous"):
+        F.fused_batch_matmul(x, w[:, :, ::2])
+    with pytest.raises(MXNetError, match="w on"):
+        F.fused_batch_matmul(x, w.cpu())
+    with pytest.raises(MXNetError, match="residual"):
+        F.fused_batch_matmul(x, w, [torch.randn(2, 4, 4, device="cuda")],
+                             (("res", "elemwise_add"),))
+    assert cuda_build.launch_counts().get(F.BMM_KERNEL, 0) == 0
+
+
+def _attention_block(T, D, classes):
+    data = mx.sym.var("data")
+    q = mx.sym.FullyConnected(data, num_hidden=D, flatten=False, name="q")
+    k = mx.sym.FullyConnected(data, num_hidden=D, flatten=False, name="k")
+    v = mx.sym.FullyConnected(data, num_hidden=D, flatten=False, name="v")
+    scores = mx.sym.batch_dot(q, mx.sym.transpose(k, axes=(0, 2, 1)))
+    attn = mx.sym.softmax(scores / float(np.sqrt(D)), axis=-1)
+    ctx = mx.sym.batch_dot(attn, v)
+    out = mx.sym.FullyConnected(ctx + data, num_hidden=D, flatten=False,
+                                name="proj")
+    return mx.sym.SoftmaxOutput(
+        mx.sym.FullyConnected(mx.sym.Flatten(out), num_hidden=classes,
+                              name="head"), name="softmax")
+
+
+def test_module_step_through_the_kernels_matches_plain(card):
+    """The first forward_backward's outputs and gradients with the kernels
+    (MXNET_FUSION_KERNEL=1) against the plain composition (=0)."""
+    B, T, D = 4, 33, 40
+    sym = _attention_block(T, D, 5)
+    rng = np.random.RandomState(0)
+    x = rng.rand(B, T, D).astype(np.float32)
+    y = (np.arange(B) % 5).astype(np.float32)
+    batch = mx.io.DataBatch(data=[mx.nd.array(x, ctx=mx.cpu())],
+                            label=[mx.nd.array(y, ctx=mx.cpu())])
+    results = []
+    for flag in (1, 0):
+        mx.config.set_flag("MXNET_FUSION_KERNEL", flag)
+        try:
+            mod = mx.mod.Module(sym, context=mx.gpu())
+            mod.bind(data_shapes=[("data", x.shape)],
+                     label_shapes=[("softmax_label", y.shape)])
+            np.random.seed(1)
+            mod.init_params(mx.init.Uniform(0.05))
+            cuda_build.reset_launch_counts()
+            mod.forward_backward(batch)
+            torch.cuda.synchronize()
+            launches = cuda_build.launch_counts().get(F.BMM_KERNEL, 0)
+            assert launches == (2 if flag else 0)
+            grp = mod._exec_group
+            results.append(dict([("output", mod.get_outputs()[0].asnumpy())]
+                                + [(n, g[0].asnumpy()) for n, g in
+                                   zip(grp.param_names, grp.grad_arrays)]))
+        finally:
+            mx.config.set_flag("MXNET_FUSION_KERNEL", None)
+    kern, plain = results
+    for name in plain:
+        # k_bias's gradient is 0 up to rounding (the softmax cancels a
+        # shift of a row's scores): it is judged at its layer's scale
+        scale = np.abs(plain["k_weight" if name == "k_bias" else name]).max()
+        assert name == "k_bias" or np.abs(kern[name]).max() > 0, name
+        assert np.abs(kern[name] - plain[name]).max() <= 1e-5 * scale, name
+
+
+def test_fit_with_a_kvstore_updates_on_the_card(card):
+    """With a store (a KVStore object makes one even on one device), the
+    stored weights, the reduce and the optimizer's state live on the card,
+    and the parameters match a fit without a store."""
+    B, T, D = 4, 8, 16
+    sym = _attention_block(T, D, 5)
+    rng = np.random.RandomState(0)
+    x = rng.rand(3 * B, T, D).astype(np.float32)
+    y = (np.arange(3 * B) % 5).astype(np.float32)
+    params = []
+    for kv in (mx.kv.create("local"), None):
+        mod = mx.mod.Module(sym, context=mx.gpu())
+        np.random.seed(1)
+        mod.fit(mx.io.NDArrayIter(x, y, batch_size=B), num_epoch=2,
+                optimizer="sgd", kvstore=kv,
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+                initializer=mx.init.Uniform(0.05))
+        params.append({k: v.asnumpy() for k, v in mod.get_params()[0].items()})
+        if kv is not None:
+            assert mod._update_on_kvstore and mod._kvstore is kv
+            assert sorted(kv._data) == sorted(mod._param_names)
+            for name, stored in kv._data.items():
+                assert stored.context.type == "cuda", name
+            states = kv._updater.states
+            assert states and all(s.context.type == "cuda"
+                                  for s in states.values())
+    for k in params[1]:
+        np.testing.assert_allclose(params[0][k], params[1][k], rtol=1e-5,
+                                   atol=1e-6, err_msg=k)

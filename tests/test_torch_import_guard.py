@@ -14,6 +14,8 @@ import mxnet_tpu_torch as mx
 import mxnet_tpu_torch.serving, mxnet_tpu_torch.graph_pass
 import mxnet_tpu_torch.parallel.transformer
 import mxnet_tpu_torch.parallel.flash_attention
+import mxnet_tpu_torch.module, mxnet_tpu_torch.ndarray
+import mxnet_tpu_torch.optimizer
 bad = sorted(m for m in sys.modules
              if m in ("jax", "mxnet_tpu") or m.startswith("jax.")
              or m.startswith("mxnet_tpu."))
