@@ -66,7 +66,31 @@ Phases, each fatal on failure (exit code != 0, no result line):
    before: exactly 2 ``fused_batch_matmul`` launches per step, finite
    losses, accuracy, ms/step and samples/s; and 3 warm + 10 timed steps
    at both sizes with peak memory.
-8. Print the ``kernels`` JSON line, then the result line
+8. rtc phase: ``mx.rtc.CudaModule`` (NVRTC, sm_90a) on the card. (a) The
+   eight behaviours of ``tests/test_rtc.py`` as CUDA C against their plain
+   versions (axpy, per-block rows, two outputs, an exported template, the
+   int scalar cast, an accumulate launched twice, 96 KiB of dynamic shared
+   memory, one NVRTC compile per module). (b) The custom softmax head's two
+   kernels (forward ``exp(x - max) / sum``, one block per row staged in
+   shared memory; backward ``y - onehot``) at (100, 10) and at the LM
+   head's logits (16384, 32768) against their plain versions, timed as
+   CUDA-graph replays beside ``torch.softmax`` with the bound at the
+   memory rate, and the host cost of one launch call. (c) The slice's main
+   path: ``examples/numpy_ops/custom_softmax.py`` on the card, its
+   ``CustomOp`` head launching the kernels through mx.rtc: the first
+   ``forward_backward`` against the built-in ``SoftmaxOutput`` (1e-5 of
+   each tensor's max) and, through ``fused_matmul`` (``fc1 + relu``),
+   against ``MXNET_FUSION_KERNEL=0`` (1e-5 of each tensor's max), then
+   ``Module.fit`` for 2 epochs of 1500 synthetic MNIST samples with launch
+   counts reset just before: one forward and one backward launch per step
+   (the forward and ``fused_matmul`` also once per validation batch),
+   held-out accuracy above 0.8 and within 0.1 of the built-in head's.
+   (d) LeNet: the training bind's three fuse regions, the first step
+   through ``fused_matmul`` (``fc1 + tanh``) against
+   ``MXNET_FUSION_KERNEL=0`` as in (c), then ``Module.fit`` on 2000
+   samples for 3 epochs with one ``fused_matmul`` launch per training
+   step and validation batch.
+9. Print the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -116,6 +140,16 @@ MODULE_TOL = 1e-5
 # a parameter whose gradient is 0 up to rounding -> the one whose max
 # |gradient| scales its error
 ZERO_GRAD_SCALE = {"k_bias": "k_weight"}
+# the custom-softmax fit of examples/numpy_ops/custom_softmax.py --smoke
+# and the LeNet drive of the verify notes, on synthetic MNIST
+RTC_BATCH, RTC_TRAIN, RTC_VAL, RTC_EPOCHS = 100, 1500, 500, 2
+LENET_TRAIN, LENET_VAL, LENET_EPOCHS = 2000, 500, 3
+# the fuse pass's regions of LeNet's training bind, as the JAX package's:
+# each of these layers with the activation after it
+LENET_REGION_BASES = ["conv1", "conv2", "fc1"]
+# rtc head vs SoftmaxOutput on the first step, relative to each tensor's max
+# |value|: the same softmax and p - onehot, in another summation order
+RTC_STEP_TOL = 1e-5
 BMM_GRID_B, BMM_GRID_MN, BMM_GRID_K = (1, 3), (1, 17, 129), (8, 100)
 BMM_GRID_EPILOGUES = [
     (("scalar", "_div_scalar", 8.0),), (("res", "elemwise_add"),),
@@ -1292,6 +1326,770 @@ def module_phase(mx, card, results):
     return fit_launches
 
 
+# ------------------------------------------------------------ rtc phase
+# User programs of mx.rtc: CUDA C handed to the port at run time, compiled
+# by NVRTC and launched on NDArrays. tests/test_torch_rtc.py runs the same
+# sources on the card.
+
+# the eight behaviours of tests/test_rtc.py, as CUDA C
+RTC_SPEC_SRC = r"""
+extern "C" __global__ void axpy(const float *x, const float *y, float *out,
+                                float alpha, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) out[i] = y[i] + alpha * x[i];
+}
+
+extern "C" __global__ void fill_rows(float *out, int cols) {
+    for (int c = threadIdx.x; c < cols; c += blockDim.x)
+        out[blockIdx.x * cols + c] = (float)blockIdx.x;
+}
+
+extern "C" __global__ void split_stats(const float *x, float *mean,
+                                       float *sq, int cols) {
+    const float *row = x + blockIdx.x * cols;
+    if (threadIdx.x == 0) {
+        float s = 0.f;
+        for (int c = 0; c < cols; ++c) s += row[c];
+        mean[blockIdx.x] = s / cols;
+    }
+    for (int c = threadIdx.x; c < cols; c += blockDim.x)
+        sq[blockIdx.x * cols + c] = row[c] * row[c];
+}
+
+template <typename T>
+__global__ void axpy_t(const T *x, T *y, T alpha, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] += alpha * x[i];
+}
+
+extern "C" __global__ void scale(const float *x, float *out, int k, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) out[i] = x[i] * k;
+}
+
+extern "C" __global__ void accum(const float *x, float *y, float alpha,
+                                 int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] = y[i] + alpha * x[i];
+}
+
+// the whole array staged in dynamic shared memory, then written reversed
+extern "C" __global__ void reverse_staged(const float *x, float *out, int n) {
+    extern __shared__ float buf[];
+    for (int i = threadIdx.x; i < n; i += blockDim.x) buf[i] = x[i];
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = buf[n - 1 - i];
+}
+"""
+RTC_SPEC_EXPORTS = ("axpy_t<float>", "axpy_t<double>")
+RTC_BIG_SHARED = 96 * 1024          # above the 48 KiB default
+
+
+def rtc_spec_module(mx):
+    return mx.rtc.CudaModule(RTC_SPEC_SRC, exports=RTC_SPEC_EXPORTS)
+
+
+def _nd(mx, a):
+    return mx.nd.array(a, ctx=mx.gpu())
+
+
+def _spec_close(what, got, want, tol=1e-6):
+    err = float(np.abs(np.asarray(got, np.float64)
+                       - np.asarray(want, np.float64)).max())
+    if not err <= tol * max(1.0, float(np.abs(want).max())):
+        raise AssertionError("rtc %s: max abs err %.3g against the plain "
+                             "version" % (what, err))
+    return err
+
+
+def spec_axpy(mx, module):
+    f = module.get_kernel("axpy", "const float *x, const float *y, "
+                                  "float *out, float alpha, int n")
+    x, y, out = (_nd(mx, np.full(10, v, np.float32)) for v in (1, 2, 0))
+    ret = f.launch([x, y, out, 3.0, 10], mx.gpu(), (1, 1, 1), (32, 1, 1))
+    if ret[0] is not out:
+        raise AssertionError("rtc axpy: launch must return its outputs")
+    return _spec_close("axpy", out.asnumpy(), np.full(10, 5.0))
+
+
+def spec_block_rows(mx, module):
+    f = module.get_kernel("fill_rows", "float *out, int cols")
+    out = _nd(mx, np.zeros((3, 4), np.float32))
+    f.launch([out, 4], mx.gpu(), (3, 1, 1), (4, 1, 1))
+    return _spec_close("per-block rows", out.asnumpy(),
+                       np.arange(3)[:, None] * np.ones((1, 4)))
+
+
+def spec_two_outputs(mx, module):
+    f = module.get_kernel("split_stats", "const float *x, float *mean, "
+                                         "float *sq, int cols")
+    xv = np.random.RandomState(0).rand(4, 6).astype(np.float32)
+    mean = _nd(mx, np.zeros(4, np.float32))
+    sq = _nd(mx, np.zeros((4, 6), np.float32))
+    f.launch([_nd(mx, xv), mean, sq, 6], mx.gpu(), (4, 1, 1), (32, 1, 1))
+    return max(_spec_close("two outputs (mean)", mean.asnumpy(),
+                           xv.mean(axis=1), 1e-5),
+               _spec_close("two outputs (sq)", sq.asnumpy(), xv * xv))
+
+
+def spec_template(mx, module):
+    err = 0.0
+    for ctype, dtype in (("float", np.float32), ("double", np.float64)):
+        f = module.get_kernel("axpy_t<%s>" % ctype,
+                              "const %s *x, %s *y, %s alpha, int n"
+                              % (ctype, ctype, ctype))
+        xv = np.arange(50, dtype=dtype)
+        y = _nd(mx, np.ones(50, dtype))
+        f.launch([_nd(mx, xv), y, 0.5, 50], mx.gpu(), (2, 1, 1),
+                 (32, 1, 1))
+        err = max(err, _spec_close("exported axpy_t<%s>" % ctype,
+                                   y.asnumpy(), 1 + 0.5 * xv))
+    return err
+
+
+def spec_int_scalar(mx, module):
+    f = module.get_kernel("scale", "const float *x, float *out, int k, "
+                                   "int n")
+    xv = np.arange(6, dtype=np.float32).reshape(2, 3)
+    out = _nd(mx, np.zeros((2, 3), np.float32))
+    f.launch([_nd(mx, xv), out, 4.9, 6], mx.gpu(), (1,), (32,))
+    return _spec_close("int scalar cast", out.asnumpy(), xv * 4)
+
+
+def spec_accumulate(mx, module):
+    f = module.get_kernel("accum", "const float *x, float *y, float alpha, "
+                                   "int n")
+    x = _nd(mx, np.ones(8, np.float32))
+    y = _nd(mx, np.full(8, 10.0, np.float32))
+    f.launch([x, y, 3.0, 8], mx.gpu(), (1, 1, 1), (32, 1, 1))
+    err = _spec_close("accumulate (1st)", y.asnumpy(), np.full(8, 13.0))
+    f.launch([x, y, 3.0, 8], mx.gpu(), (1, 1, 1), (32, 1, 1))
+    return max(err, _spec_close("accumulate (2nd)", y.asnumpy(),
+                                np.full(8, 16.0)))
+
+
+def spec_big_shared(mx, module):
+    n = RTC_BIG_SHARED // 4
+    f = module.get_kernel("reverse_staged", "const float *x, float *out, "
+                                            "int n")
+    xv = np.random.RandomState(1).rand(n).astype(np.float32)
+    out = _nd(mx, np.zeros(n, np.float32))
+    f.launch([_nd(mx, xv), out, n], mx.gpu(), (1, 1, 1), (1024, 1, 1),
+             shared_mem=RTC_BIG_SHARED)
+    return _spec_close("%d KiB of shared memory" % (RTC_BIG_SHARED // 1024),
+                       out.asnumpy(), xv[::-1])
+
+
+def spec_one_compile(mx, module):
+    from mxnet_tpu_torch import nvrtc
+
+    before = nvrtc.compile_count()
+    fresh = rtc_spec_module(mx)
+    if nvrtc.compile_count() != before + 1:
+        raise AssertionError("rtc: a CudaModule compiled %d times, want 1"
+                             % (nvrtc.compile_count() - before))
+    f = fresh.get_kernel("scale", "const float *x, float *out, int k, int n")
+    err = 0.0
+    for n in (16, 16, 32, 1000):
+        x = _nd(mx, np.ones(n, np.float32))
+        out = _nd(mx, np.zeros(n, np.float32))
+        f.launch([x, out, 2, n], mx.gpu(), ((n + 127) // 128,), (128,))
+        err = max(err, _spec_close("scale n=%d" % n, out.asnumpy(),
+                                   np.full(n, 2.0)))
+    if nvrtc.compile_count() != before + 1:
+        raise AssertionError("rtc: launches recompiled the module (%d "
+                             "compiles)" % (nvrtc.compile_count() - before))
+    return err
+
+
+RTC_SPECS = (("axpy", spec_axpy), ("block_rows", spec_block_rows),
+             ("two_outputs", spec_two_outputs), ("template", spec_template),
+             ("int_scalar", spec_int_scalar),
+             ("accumulate", spec_accumulate), ("big_shared", spec_big_shared),
+             ("one_compile", spec_one_compile))
+
+# the custom softmax head's kernels: one block per row
+SOFTMAX_SRC = r"""
+#define NEG_INF __int_as_float(0xff800000)
+
+__device__ __forceinline__ float warp_max(float v) {
+    for (int o = 16; o > 0; o >>= 1)
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+
+// blockDim.x is a multiple of 32; every thread gets the block's result
+__device__ float block_max(float v, float *red) {
+    int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    v = warp_max(v);
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    v = warp_max(lane < (blockDim.x >> 5) ? red[lane] : NEG_INF);
+    __syncthreads();
+    return v;
+}
+
+__device__ float block_sum(float v, float *red) {
+    int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    v = warp_sum(v);
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    v = warp_sum(lane < (blockDim.x >> 5) ? red[lane] : 0.f);
+    __syncthreads();
+    return v;
+}
+
+// y = exp(x - rowmax) / rowsum, one block per row. Bounded by bytes: x
+// read once and y written once. A staged row is read once into dynamic
+// shared memory (cols floats) and the three passes run from there; an
+// unstaged one is re-read by each pass. 16-byte accesses where the row
+// allows.
+extern "C" __global__ void softmax_fwd(const float *__restrict__ x,
+                                       float *__restrict__ y, int cols,
+                                       int staged) {
+    extern __shared__ float4 row4[];
+    __shared__ float red[32];
+    float *row = reinterpret_cast<float *>(row4);
+    const float *xr = x + (size_t)blockIdx.x * cols;
+    float *yr = y + (size_t)blockIdx.x * cols;
+    const bool vec = (cols & 3) == 0 &&
+        ((reinterpret_cast<size_t>(xr) | reinterpret_cast<size_t>(yr)) & 15)
+            == 0;
+    const int c4 = cols >> 2;
+    const float4 *x4 = reinterpret_cast<const float4 *>(xr);
+    float4 *y4 = reinterpret_cast<float4 *>(yr);
+    float m = NEG_INF;
+    if (vec) {
+        for (int i = threadIdx.x; i < c4; i += blockDim.x) {
+            float4 v = x4[i];
+            if (staged) row4[i] = v;
+            m = fmaxf(m, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
+        }
+    } else {
+        for (int i = threadIdx.x; i < cols; i += blockDim.x) {
+            float v = xr[i];
+            if (staged) row[i] = v;
+            m = fmaxf(m, v);
+        }
+    }
+    m = block_max(m, red);
+    float s = 0.f;
+    if (vec) {
+        for (int i = threadIdx.x; i < c4; i += blockDim.x) {
+            float4 v = staged ? row4[i] : x4[i];
+            v.x = expf(v.x - m); v.y = expf(v.y - m);
+            v.z = expf(v.z - m); v.w = expf(v.w - m);
+            if (staged) row4[i] = v;
+            s += (v.x + v.y) + (v.z + v.w);
+        }
+    } else {
+        for (int i = threadIdx.x; i < cols; i += blockDim.x) {
+            float e = expf((staged ? row[i] : xr[i]) - m);
+            if (staged) row[i] = e;
+            s += e;
+        }
+    }
+    s = block_sum(s, red);
+    if (vec) {
+        for (int i = threadIdx.x; i < c4; i += blockDim.x) {
+            float4 v;
+            if (staged) {
+                v = row4[i];
+            } else {
+                v = x4[i];
+                v.x = expf(v.x - m); v.y = expf(v.y - m);
+                v.z = expf(v.z - m); v.w = expf(v.w - m);
+            }
+            v.x = v.x / s; v.y = v.y / s; v.z = v.z / s; v.w = v.w / s;
+            y4[i] = v;
+        }
+    } else {
+        for (int i = threadIdx.x; i < cols; i += blockDim.x)
+            yr[i] = (staged ? row[i] : expf(xr[i] - m)) / s;
+    }
+}
+
+// dx = y; dx[r, label[r]] -= 1: the numpy op's semantics (no
+// normalisation; the head gradient is ignored). The label arrives as fp32,
+// as NDArrayIter gives it. Bounded by bytes: y read once, dx written once.
+extern "C" __global__ void softmax_bwd(const float *__restrict__ label,
+                                       const float *__restrict__ y,
+                                       float *__restrict__ dx, int cols) {
+    const int lab = (int)label[blockIdx.x];
+    const float *yr = y + (size_t)blockIdx.x * cols;
+    float *dr = dx + (size_t)blockIdx.x * cols;
+    const bool vec = (cols & 3) == 0 &&
+        ((reinterpret_cast<size_t>(yr) | reinterpret_cast<size_t>(dr)) & 15)
+            == 0;
+    if (vec) {
+        const float4 *y4 = reinterpret_cast<const float4 *>(yr);
+        float4 *d4 = reinterpret_cast<float4 *>(dr);
+        for (int i = threadIdx.x; i < (cols >> 2); i += blockDim.x) {
+            float4 v = y4[i];
+            int k = lab - 4 * i;
+            if (k == 0) v.x -= 1.f;
+            if (k == 1) v.y -= 1.f;
+            if (k == 2) v.z -= 1.f;
+            if (k == 3) v.w -= 1.f;
+            d4[i] = v;
+        }
+    } else {
+        for (int i = threadIdx.x; i < cols; i += blockDim.x)
+            dr[i] = i == lab ? yr[i] - 1.f : yr[i];
+    }
+}
+"""
+SOFTMAX_FWD_SIG = "const float *x, float *y, int cols, int staged"
+SOFTMAX_BWD_SIG = "const float *label, const float *y, float *dx, int cols"
+# a row is staged in shared memory up to this size (an H100 block may have
+# 227 KiB of dynamic shared memory; the reductions' own 128 bytes stay free)
+SOFTMAX_STAGE_BYTES = 224 * 1024
+SOFTMAX_WIDE = (16384, 32768)    # the causal LM head's logits: B 8 x T 2048
+SOFTMAX_SMALL = (100, 10)        # the MNIST head: batch 100, 10 classes
+# kernel forward vs its plain version, over max |y|: both fp32, in another
+# summation order
+SOFTMAX_FWD_TOL = 1e-6
+
+
+def softmax_threads(cols):
+    """Threads per row: a float4 each, in whole warps, at most 1024."""
+    return int(min(1024, 32 * max(1, -(-cols // 128))))
+
+
+class RtcSoftmax:
+    """The two softmax kernels, compiled once, launched on NDArrays."""
+
+    def __init__(self, mx):
+        module = mx.rtc.CudaModule(SOFTMAX_SRC)
+        self.fwd = module.get_kernel("softmax_fwd", SOFTMAX_FWD_SIG)
+        self.bwd = module.get_kernel("softmax_bwd", SOFTMAX_BWD_SIG)
+
+    def forward(self, x, y):
+        rows, cols = x.shape
+        staged = cols * 4 <= SOFTMAX_STAGE_BYTES
+        self.fwd.launch([x, y, cols, int(staged)], x.context, (rows, 1, 1),
+                        (softmax_threads(cols), 1, 1),
+                        shared_mem=cols * 4 if staged else 0)
+
+    def backward(self, label, y, dx):
+        rows, cols = y.shape
+        self.bwd.launch([label, y, dx, cols], y.context, (rows, 1, 1),
+                        (softmax_threads(cols), 1, 1))
+
+
+def softmax_fwd_plain(x):
+    import torch
+
+    e = torch.exp(x - x.amax(dim=1, keepdim=True))
+    return e / e.sum(dim=1, keepdim=True)
+
+
+def softmax_bwd_plain(label, y):
+    import torch
+
+    dx = y.clone()
+    dx[torch.arange(y.shape[0], device=y.device), label.long()] -= 1.0
+    return dx
+
+
+def register_softmax_ops(mx):
+    """Register the custom softmax head of examples/numpy_ops/
+    custom_softmax.py twice: ``numpy_softmax``, the example's numpy op (it
+    runs wherever its input lies), and ``rtc_softmax``, the same op as the
+    two CUDA kernels above launched through mx.rtc (card only). The kernels
+    compile once, at the first rtc_softmax operator."""
+    kernels = []
+
+    class NumpySoftmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            e = np.exp(x - x.max(axis=1, keepdims=True))
+            self.assign(out_data[0], req[0],
+                        mx.nd.array(e / e.sum(axis=1, keepdims=True),
+                                    ctx=in_data[0].context))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            prob = out_data[0].asnumpy()
+            label = in_data[1].asnumpy().astype(int)
+            grad = prob.copy()
+            grad[np.arange(len(label)), label] -= 1.0
+            self.assign(in_grad[0], req[0],
+                        mx.nd.array(grad, ctx=in_data[0].context))
+
+    class RtcSoftmaxOp(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            if req[0] not in ("write", "inplace"):
+                raise mx.MXNetError("rtc_softmax writes its output; req %r"
+                                    % req[0])
+            kernels[0].forward(in_data[0], out_data[0])
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            if req[0] not in ("write", "inplace"):
+                raise mx.MXNetError("rtc_softmax writes its gradient; req "
+                                    "%r" % req[0])
+            kernels[0].backward(in_data[1], out_data[0], in_grad[0])
+
+    class SoftmaxProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def list_outputs(self):
+            return ["output"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+    @mx.operator.register("numpy_softmax")
+    class NumpySoftmaxProp(SoftmaxProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return NumpySoftmax()
+
+    @mx.operator.register("rtc_softmax")
+    class RtcSoftmaxProp(SoftmaxProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            if not kernels:
+                kernels.append(RtcSoftmax(mx))
+            return RtcSoftmaxOp()
+
+
+def custom_softmax_net(mx, head):
+    """examples/numpy_ops/custom_softmax.py ``build``: ``head`` is a
+    registered op_type, or None for the built-in SoftmaxOutput."""
+    data = mx.sym.Variable("data")
+    label = mx.sym.Variable("softmax_label")
+    net = mx.sym.Flatten(data)
+    net = mx.sym.FullyConnected(net, num_hidden=64, name="fc1")
+    net = mx.sym.Activation(net, act_type="relu")
+    net = mx.sym.FullyConnected(net, num_hidden=10, name="fc2")
+    if head:
+        return mx.sym.Custom(net, label, op_type=head, name="softmax")
+    return mx.sym.SoftmaxOutput(net, label, name="softmax")
+
+
+def softmax_bound_ms(rows, cols, kind, bytes_per_s):
+    """Bytes each input read once and each output written once at the
+    memory rate: forward x in, y out; backward label and y in, dx out. The
+    few operations per element (max, exp, sum, divide) take far less at
+    the fp32 peak."""
+    n = rows * cols * 4
+    nbytes = 2 * n if kind == "fwd" else 2 * n + rows * 4
+    return nbytes / bytes_per_s * 1e3, nbytes
+
+
+def softmax_phase(mx, card, peaks, gen):
+    """(b): both kernels against their plain versions at the MNIST head's
+    and the LM head's shapes, timed as CUDA-graph replays beside
+    torch.softmax, and the host cost of one launch."""
+    import torch
+
+    kern = RtcSoftmax(mx)
+    out = {}
+    for shape in (SOFTMAX_SMALL, SOFTMAX_WIDE):
+        rows, cols = shape
+        x = mx.nd.array(torch.randn(rows, cols, device="cuda",
+                                    generator=gen) * 4.0)
+        label = mx.nd.array(torch.randint(0, cols, (rows,), device="cuda",
+                                          generator=gen).float())
+        y = mx.nd.zeros(shape, ctx=mx.gpu())
+        dx = mx.nd.zeros(shape, ctx=mx.gpu())
+        kern.forward(x, y)
+        kern.backward(label, y, dx)
+        ref_y = softmax_fwd_plain(x._data)
+        ref_dx = softmax_bwd_plain(label._data, y._data)
+        torch.cuda.synchronize()
+        fwd_err = (y._data - ref_y).abs().max().item()
+        scale = ref_y.abs().max().item()
+        lib_err = (torch.softmax(x._data, 1) - ref_y).abs().max().item()
+        if not (torch.isfinite(y._data).all() and
+                fwd_err <= SOFTMAX_FWD_TOL * scale):
+            raise AssertionError("softmax_fwd at %s: max abs err %.3g > "
+                                 "%.1g * %.3g" % (shape, fwd_err,
+                                                  SOFTMAX_FWD_TOL, scale))
+        if not torch.equal(dx._data, ref_dx):
+            raise AssertionError("softmax_bwd at %s differs from its plain "
+                                 "version (max abs err %.3g)"
+                                 % (shape, (dx._data - ref_dx).abs().max()
+                                    .item()))
+        del ref_y, ref_dx
+        row = {"shape": shape, "fwd_err": fwd_err, "fwd_err_rel": fwd_err /
+               scale, "library_err": lib_err}
+        xt, yt, lt = x._data, y._data, label._data
+        row["fwd_ms"] = time_ms(lambda: kern.forward(x, y))
+        row["fwd_plain_ms"] = time_ms(lambda: softmax_fwd_plain(xt))
+        row["fwd_library_ms"] = time_ms(lambda: torch.softmax(xt, 1))
+        row["bwd_ms"] = time_ms(lambda: kern.backward(label, y, dx))
+        row["bwd_plain_ms"] = time_ms(lambda: softmax_bwd_plain(lt, yt))
+        for kind in ("fwd", "bwd"):
+            bnd, nbytes = softmax_bound_ms(rows, cols, kind, peaks[1])
+            row[kind + "_bound_ms"] = bnd
+            row[kind + "_bytes"] = nbytes
+            row[kind + "_gb_per_s"] = nbytes / row[kind + "_ms"] / 1e6
+        log("rtc softmax %s: fwd err %.3g (%.3g of max |y|; torch.softmax "
+            "%.3g), bwd exact; fwd %.4f ms (plain %.4f, torch.softmax %.4f, "
+            "bound %.4f, %.1f GB/s), bwd %.4f ms (plain %.4f, bound %.4f, "
+            "%.1f GB/s), on %s"
+            % (shape, fwd_err, fwd_err / scale, lib_err, row["fwd_ms"],
+               row["fwd_plain_ms"], row["fwd_library_ms"],
+               row["fwd_bound_ms"], row["fwd_gb_per_s"], row["bwd_ms"],
+               row["bwd_plain_ms"], row["bwd_bound_ms"], row["bwd_gb_per_s"],
+               card))
+        out["x".join(map(str, shape))] = row
+        del x, y, dx, label, xt, yt, lt
+
+    # the host cost of one launch call, beside one torch.add
+    rows, cols = SOFTMAX_SMALL
+    x = mx.nd.array(torch.randn(rows, cols, device="cuda", generator=gen))
+    y = mx.nd.zeros((rows, cols), ctx=mx.gpu())
+    args = [x, y, cols, 1]
+    threads = (softmax_threads(cols), 1, 1)
+    a, b = x._data, y._data
+
+    def host_us(fn, n=1000):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return float(np.median(walls) * 1e6)
+
+    out["launch_host_us"] = host_us(lambda: kern.fwd.launch(
+        args, mx.gpu(), (rows, 1, 1), threads, shared_mem=cols * 4))
+    out["torch_add_host_us"] = host_us(lambda: torch.add(a, b))
+    log("rtc launch host cost: %.2f us per CudaKernel.launch (median of "
+        "1000, %s), %.2f us per torch.add, on %s"
+        % (out["launch_host_us"], SOFTMAX_SMALL, out["torch_add_host_us"],
+           card))
+    return out
+
+
+def mnist_iters(mx, mnist, n_train, n_val, batch=100):
+    """examples/numpy_ops/custom_softmax.py's split: the first n_train
+    samples shuffled, the next n_val held out."""
+    x, y = mnist["train_data"], mnist["train_label"]
+    return (mx.io.NDArrayIter(x[:n_train], y[:n_train], batch_size=batch,
+                              shuffle=True),
+            mx.io.NDArrayIter(x[n_train:n_train + n_val],
+                              y[n_train:n_train + n_val], batch_size=batch))
+
+
+def timed_fit(mx, sym, train, val, epochs, seed=0):
+    """``Module.fit`` on the card as the example runs it (SGD 0.1 /
+    momentum 0.9, Xavier, accuracy, validation each epoch) with launch
+    counts reset just before and read just after. Returns (module,
+    launch counts, ms per step, held-out accuracy)."""
+    import torch
+    from mxnet_tpu_torch import cuda_build
+
+    mod = mx.mod.Module(sym, context=mx.gpu())
+    stamps = []
+    np.random.seed(seed)
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    mod.fit(train, eval_data=val, num_epoch=epochs, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+            initializer=mx.init.Xavier(), eval_metric=mx.metric.Accuracy(),
+            batch_end_callback=lambda p: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    counts = cuda_build.launch_counts()
+    val.reset()
+    metric = mx.metric.Accuracy()
+    mod.score(val, metric)
+    return mod, counts, float(np.median(np.diff(stamps)) * 1e3), \
+        metric.get()[1]
+
+
+def rtc_first_step(mx, batch):
+    """One forward_backward with the rtc head and with the built-in
+    SoftmaxOutput from the same Xavier parameters: outputs and the four
+    parameter gradients within RTC_STEP_TOL of each tensor's max |value|.
+    Returns the worst."""
+    import torch
+    from mxnet_tpu_torch import cuda_build
+
+    mods = {}
+    for head in ("rtc_softmax", None):
+        m = mx.mod.Module(custom_softmax_net(mx, head), context=mx.gpu())
+        m.bind(data_shapes=[("data", batch.data[0].shape)],
+               label_shapes=[("softmax_label", batch.label[0].shape)],
+               for_training=True)
+        mods[head] = m
+    np.random.seed(0)
+    mods["rtc_softmax"].init_params(mx.init.Xavier())
+    mods[None].init_params(arg_params=mods["rtc_softmax"].get_params()[0],
+                           aux_params={})
+    sides = []
+    cuda_build.reset_launch_counts()
+    for head, m in mods.items():
+        m.forward_backward(batch)
+        grp = m._exec_group
+        sides.append(dict([("output", m.get_outputs()[0]._data.clone())] + [
+            (n, g[0]._data.clone())
+            for n, g in zip(grp.param_names, grp.grad_arrays)]))
+    torch.cuda.synchronize()
+    got = cuda_build.launch_counts()
+    if got.get("rtc:softmax_fwd") != 1 or got.get("rtc:softmax_bwd") != 1:
+        raise AssertionError("first step launched %s, want one rtc forward "
+                             "and one backward" % got)
+    rtc, builtin = sides
+    if sorted(rtc) != ["fc1_bias", "fc1_weight", "fc2_bias", "fc2_weight",
+                       "output"]:
+        raise AssertionError("first step: tensors %s" % sorted(rtc))
+    worst, worst_name = 0.0, "output"
+    for name in builtin:
+        scale = builtin[name].abs().max().item()
+        rel = (rtc[name] - builtin[name]).abs().max().item() / max(scale,
+                                                                   1e-30)
+        if not scale or not torch.isfinite(rtc[name]).all():
+            raise AssertionError("first step: %s is zero or not finite"
+                                 % name)
+        if rel > worst:
+            worst, worst_name = rel, name
+    if worst > RTC_STEP_TOL:
+        raise AssertionError("first step: the rtc head's %s differs from "
+                             "SoftmaxOutput's by %.3g of its max |value| > "
+                             "%.1g" % (worst_name, worst, RTC_STEP_TOL))
+    return worst, worst_name, mods["rtc_softmax"]
+
+
+def rtc_phase(mx, card, peaks, results):
+    """Phase 8: mx.rtc on the card, (a) to (d)."""
+    import torch
+
+    out = {}
+    register_softmax_ops(mx)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    # (a) the eight spec behaviours
+    from mxnet_tpu_torch import nvrtc
+
+    t0 = time.perf_counter()
+    module = rtc_spec_module(mx)
+    out["spec_compile_s"] = time.perf_counter() - t0
+    out["spec"] = {}
+    for name, spec in RTC_SPECS:
+        out["spec"][name] = spec(mx, module)
+        log("rtc spec %s: max abs err %.3g" % (name, out["spec"][name]))
+    log("rtc: spec module compiled in %.3f s; %d NVRTC compiles so far"
+        % (out["spec_compile_s"], nvrtc.compile_count()))
+
+    # (b) the softmax kernels
+    out["softmax"] = softmax_phase(mx, card, peaks, gen)
+
+    # (c) the custom-softmax Module.fit, the slice's main path
+    mnist = mx.test_utils.get_mnist()
+    x, y = mnist["train_data"], mnist["train_label"]
+    batch = mx.io.DataBatch(data=[mx.nd.array(x[:RTC_BATCH], ctx=mx.gpu())],
+                            label=[mx.nd.array(y[:RTC_BATCH],
+                                               ctx=mx.gpu())])
+    worst, worst_name, fmod = rtc_first_step(mx, batch)
+    regions = fmod._exec_group.execs[0].fused_regions()
+    if [r["members"][0] for r in regions] != ["fc1"]:
+        raise AssertionError("custom softmax training bind regions %s, want "
+                             "fc1 + relu only" % regions)
+    log("rtc first step vs SoftmaxOutput: outputs and 4 gradients agree, "
+        "worst %s at %.3g of its max |value|; fuse regions %s"
+        % (worst_name, worst, [r["members"] for r in regions]))
+    # fc1 + relu at (100, 784) x (784, 64) on fused_matmul, held to the
+    # plain composition with the rtc head on both sides
+    mm_worst, mm_per_fwd = first_step_vs_plain(
+        mx, fmod, batch, "fused_matmul", "rtc custom-softmax MLP")
+    if mm_per_fwd != 1:
+        raise AssertionError("custom softmax step launched fused_matmul %d "
+                             "times, want 1 (fc1 + relu)" % mm_per_fwd)
+    out["first_step"] = {"worst": worst, "worst_name": worst_name,
+                         "fused_matmul_worst": mm_worst}
+    fits = {}
+    for head in ("rtc_softmax", None):
+        train, val = mnist_iters(mx, mnist, RTC_TRAIN, RTC_VAL)
+        _mod, counts, ms, acc = timed_fit(
+            mx, custom_softmax_net(mx, head), train, val, RTC_EPOCHS)
+        fits[head or "SoftmaxOutput"] = dict(counts=counts, ms_per_step=ms,
+                                             samples_per_s=RTC_BATCH / ms
+                                             * 1e3, val_acc=acc)
+    steps = RTC_EPOCHS * (RTC_TRAIN // RTC_BATCH)
+    forwards = steps + RTC_EPOCHS * (RTC_VAL // RTC_BATCH)
+    got = fits["rtc_softmax"]["counts"]
+    want = {"rtc:softmax_fwd": forwards, "rtc:softmax_bwd": steps,
+            "fused_matmul": forwards * mm_per_fwd}
+    if any(got.get(k, 0) != v for k, v in want.items()):
+        raise AssertionError("custom softmax fit launched %s, want %s (one "
+                             "per training step, the forward and "
+                             "fused_matmul also once per validation batch)"
+                             % (got, want))
+    acc, acc_b = fits["rtc_softmax"]["val_acc"], fits["SoftmaxOutput"][
+        "val_acc"]
+    if not (acc > 0.8 and abs(acc - acc_b) < 0.1):
+        raise AssertionError("custom softmax held-out accuracy %.4f (built-in"
+                             " %.4f): want > 0.8 and within 0.1" % (acc,
+                                                                     acc_b))
+    log("rtc fit: %d epochs x %d steps of %d (+%d validation batches each "
+        "epoch): launches %s; held-out accuracy %.4f (built-in head "
+        "%.4f); %.3f ms/step, %.1f samples/s (built-in %.3f ms/step), on %s"
+        % (RTC_EPOCHS, steps // RTC_EPOCHS, RTC_BATCH, RTC_VAL // RTC_BATCH,
+           got, acc, acc_b, fits["rtc_softmax"]["ms_per_step"],
+           fits["rtc_softmax"]["samples_per_s"],
+           fits["SoftmaxOutput"]["ms_per_step"], card))
+    out["fit"] = fits
+    out["launches"] = got["rtc:softmax_fwd"] + got["rtc:softmax_bwd"]
+
+    # (d) the canonical LeNet drive: its first step through fc1 + tanh at
+    # (100, 800) x (800, 500) on fused_matmul against the plain
+    # composition, then the fit with its launches counted
+    lmod = mx.mod.Module(mx.models.get_lenet(10), context=mx.gpu())
+    lmod.bind(data_shapes=[("data", batch.data[0].shape)],
+              label_shapes=[("softmax_label", batch.label[0].shape)],
+              for_training=True)
+    np.random.seed(0)
+    lmod.init_params(mx.init.Xavier())
+    regions = [r["members"] for r in lmod._exec_group.execs[0]
+               .fused_regions()]
+    if [m[0] for m in regions] != LENET_REGION_BASES or not all(
+            len(m) == 2 and m[1].startswith("activation") for m in regions):
+        raise AssertionError("LeNet training bind regions %s, want %s each "
+                             "with its activation"
+                             % (regions, LENET_REGION_BASES))
+    lenet_worst, lenet_per_fwd = first_step_vs_plain(
+        mx, lmod, batch, "fused_matmul", "lenet")
+    # the NCHW convolutions' regions run the plain composition
+    if lenet_per_fwd != 1:
+        raise AssertionError("LeNet step launched fused_matmul %d times, "
+                             "want 1 (fc1 + tanh)" % lenet_per_fwd)
+    del lmod
+    train, val = mnist_iters(mx, mnist, LENET_TRAIN, LENET_VAL)
+    _mod, counts, ms, acc = timed_fit(mx, mx.models.get_lenet(10), train,
+                                      val, LENET_EPOCHS)
+    lenet_fwds = LENET_EPOCHS * (LENET_TRAIN + LENET_VAL) // RTC_BATCH
+    if counts.get("fused_matmul", 0) != lenet_fwds * lenet_per_fwd:
+        raise AssertionError("LeNet fit launched fused_matmul %d times, want"
+                             " %d (once per training step and validation "
+                             "batch)" % (counts.get("fused_matmul", 0),
+                                         lenet_fwds * lenet_per_fwd))
+    if not acc > 0.8:
+        raise AssertionError("LeNet validation accuracy %.4f <= 0.8" % acc)
+    out["lenet"] = {"ms_per_step": ms, "samples_per_s": RTC_BATCH / ms * 1e3,
+                    "val_acc": acc, "regions": regions,
+                    "fused_matmul_worst": lenet_worst,
+                    "fused_matmul_launches": counts["fused_matmul"]}
+    log("lenet fit: %d samples, batch %d, %d epochs: %.3f ms/step, %.1f "
+        "samples/s, validation accuracy %.4f, fused_matmul launches %d, on "
+        "%s" % (LENET_TRAIN, RTC_BATCH, LENET_EPOCHS, ms,
+                RTC_BATCH / ms * 1e3, acc, counts["fused_matmul"], card))
+    results["rtc"] = out
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the detailed results here")
@@ -1341,6 +2139,7 @@ def main():
     flash_launches = train_phase(mx, card, results, timing)
     bmm_err, bmm_totals = bmm_phase(peaks, results)
     bmm_launches = module_phase(mx, card, results)
+    rtc = rtc_phase(mx, card, peaks, results)
 
     t8 = totals[8]
     kernels = {"kernels": [{
@@ -1372,6 +2171,18 @@ def main():
         "ms": wide["ms"], "plain_ms": wide["plain_ms"],
         "bound_ms": wide["bound_ms"], "bound_by": wide["bound_by"],
         "library_ms": wide["library_ms"]})
+    wide_sm = rtc["softmax"]["x".join(map(str, SOFTMAX_WIDE))]
+    kernels["kernels"].append({
+        "name": "rtc", "route": "cuda-nvrtc",
+        "source": "mxnet_tpu_torch/rtc.py",
+        "replaces": "mxnet_tpu/rtc.py:163",
+        "launches": rtc["launches"],
+        "max_abs_err": max(r["fwd_err"] for k, r in rtc["softmax"].items()
+                           if isinstance(r, dict)),
+        "ms": wide_sm["fwd_ms"], "plain_ms": wide_sm["fwd_plain_ms"],
+        "bound_ms": wide_sm["fwd_bound_ms"], "bound_by": "bytes",
+        "library_ms": wide_sm["fwd_library_ms"],
+        "launch_host_us": rtc["softmax"]["launch_host_us"]})
     if opts.out:
         if os.path.dirname(opts.out):
             os.makedirs(os.path.dirname(opts.out), exist_ok=True)

@@ -6,7 +6,9 @@ model builders (``mx.models``), the graph-pass layer (``mx.graph_pass``),
 inference serving (``mx.serving``), the kernels and transformer
 training step (``mx.parallel``), and symbolic training: ``mx.nd``,
 ``mx.mod.Module``, ``mx.init``, ``mx.optimizer``, ``mx.metric``,
-``mx.io``, ``mx.kv``, ``mx.callback``. Entry points run on the CUDA card
+``mx.io``, ``mx.kv``, ``mx.callback``; imperative autograd
+(``mx.autograd``), custom operators (``mx.operator``) and runtime CUDA
+kernels compiled by NVRTC (``mx.rtc``). Entry points run on the CUDA card
 unless the caller passes ``mx.cpu()``. The package imports torch and
 numpy, never jax and nothing of ``mxnet_tpu``.
 """
@@ -14,6 +16,7 @@ from . import base
 from .base import MXNetError, NameManager, AttrScope
 from . import config
 from .context import cpu, gpu
+from . import autograd
 from . import ops
 from . import symbol
 from . import symbol as sym
@@ -36,6 +39,13 @@ from . import module as mod
 from . import models
 from . import serving
 from . import parallel
+from . import rtc
+from . import test_utils
+from . import operator
+from .operator import _install_frontends as _iff
 from .convert import params_from_jax
+
+_iff()
+del _iff
 
 __version__ = "0.1.0"

@@ -8,14 +8,19 @@ creation functions put it on the CUDA card unless the caller passes
 writes into that tensor in place under ``torch.no_grad()``; the JAX
 package, whose arrays are immutable, rebinds the NDArray to a new buffer
 instead. Launches are asynchronous on the current CUDA stream:
-``asnumpy`` and ``wait_to_read`` are the sync points. The imperative autograd tape (``attach_grad``,
-``backward``) waits for the Gluon slice.
+``asnumpy`` and ``wait_to_read`` are the sync points.
+
+Autograd (``attach_grad``, ``.grad``, ``backward``, ``detach``) rides on
+torch's: see :mod:`..autograd`. Outside ``autograd.record()`` an array
+never carries a ``grad_fn``: a result computed from a tensor that requires
+grad is detached when it is wrapped.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..autograd import is_recording
 from ..base import MXNetError, np_dtype, torch_dtype
 from ..context import as_device
 
@@ -23,11 +28,22 @@ __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty",
            "concatenate", "waitall"]
 
 
-def _from_data(data):
-    """Wrap a tensor into an NDArray without a copy."""
+def _wrap(data):
+    """Wrap a tensor into an NDArray without a copy, keeping its
+    ``grad_fn``."""
     arr = NDArray.__new__(NDArray)
     arr._data = data
+    arr._grad = None
+    arr._grad_req = None
     return arr
+
+
+def _from_data(data):
+    """Wrap a tensor into an NDArray without a copy; outside
+    ``autograd.record()`` a tensor that requires grad is detached first."""
+    if data.requires_grad and not is_recording():
+        data = data.detach()
+    return _wrap(data)
 
 
 def _dtype_of(t):
@@ -43,11 +59,13 @@ def _dtype_of(t):
 class NDArray:
     """Multi-dimensional array on one device."""
 
-    __slots__ = ("_data", "__weakref__")
+    __slots__ = ("_data", "_grad", "_grad_req", "__weakref__")
 
     def __init__(self, source_array, ctx=None, dtype=None):
         npa = np.array(source_array, dtype=np_dtype(dtype))
         self._data = torch.from_numpy(npa).to(as_device(ctx))
+        self._grad = None
+        self._grad_req = None
 
     # --- core properties --------------------------------------------------
     @property
@@ -79,6 +97,35 @@ class NDArray:
     @property
     def stype(self):
         return "default"
+
+    @property
+    def grad(self):
+        """Gradient buffer attached by :meth:`attach_grad`."""
+        return self._grad
+
+    # --- autograd -----------------------------------------------------------
+    def attach_grad(self, grad_req="write", stype=None):
+        """Attach a zero gradient buffer; this array's tensor becomes a
+        leaf that requires grad (reference: ndarray.py attach_grad)."""
+        from .. import autograd
+
+        if stype not in (None, "default"):
+            raise MXNetError("sparse gradient buffers are not ported")
+        autograd.mark_variables([self], [_wrap(torch.zeros_like(
+            self._data.detach()))], grad_req)
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        """Gradients of this array into the marked variables it was
+        recorded from (reference: ndarray.py backward)."""
+        from .. import autograd
+
+        autograd.backward([self], [out_grad] if out_grad is not None
+                          else None, retain_graph=retain_graph,
+                          train_mode=train_mode)
+
+    def detach(self):
+        """The same values, cut from the recorded graph."""
+        return _wrap(self._data.detach())
 
     # --- data movement / sync --------------------------------------------
     def asnumpy(self):

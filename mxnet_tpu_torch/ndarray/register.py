@@ -3,14 +3,17 @@
 Counterpart of ``mxnet_tpu/ndarray/register.py``: one function per
 registered op, generated from the op registry at import. :func:`invoke`
 parses the attrs, splits tensor from parameter kwargs, runs the op's
-forward on the arrays' tensors under ``torch.no_grad()``, writes updated
-aux states (optimizer momentum, master weights) into their arrays in
-place, and writes the result into ``out=`` in place where one is given.
+forward on the arrays' tensors (under ``torch.no_grad()``, or with grad
+enabled inside ``autograd.record()``, in train mode as
+``autograd.is_training()`` says), writes updated aux states (optimizer
+momentum, master weights) into their arrays in place, and writes the
+result into ``out=`` in place where one is given.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import autograd
 from ..base import MXNetError
 from ..ops.registry import OP_REGISTRY
 from .ndarray import NDArray, _from_data
@@ -52,9 +55,11 @@ def invoke(opdef, args, kwargs):
                          "beyond the %d main inputs"
                          % (opdef.name, len(aux_names), aux_names, len(aux),
                             n_in))
-    with torch.no_grad():
+    with torch.set_grad_enabled(autograd.is_recording()):
         outs, new_aux = opdef.apply(attrs, [a._data for a in main],
-                                    [a._data for a in aux])
+                                    [a._data for a in aux],
+                                    is_train=autograd.is_training())
+    with torch.no_grad():
         for a, nv in zip(aux, new_aux):
             a._set_data(nv)
         if out is not None:

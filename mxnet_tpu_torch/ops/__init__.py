@@ -11,3 +11,4 @@ from . import matrix
 from . import nn
 from . import fused
 from . import optimizer_ops
+from .. import operator as _operator  # noqa: F401  (registers Custom)

@@ -42,6 +42,7 @@ def softsign(x):
 
 
 _UNARY = {
+    "exp": torch.exp,
     "rsqrt": torch.rsqrt,
     "relu": torch.relu,
     "sigmoid": torch.sigmoid,

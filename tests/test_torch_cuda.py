@@ -1,7 +1,8 @@
 """Card-only tests of the port: the CUDA kernels against their plain
 versions, the wrappers' checks and launch counters, the served small ResNet
 on the card against the same server on the CPU, the flash-attention
-kernels at small ragged shapes, the batched fused matmul on a ragged grid
+kernels at small ragged shapes (and where their bf16 gradients part from
+plain attention's), the batched fused matmul on a ragged grid
 and through a transposed operand, and a Module training step through the
 kernels against the same step on the plain composition. Every test skips
 where there is no card.
@@ -18,6 +19,8 @@ same fp32 and bf16 bars, relative to max |plain|: both sides compute in
 fp32 from the same inputs and differ in summation order, then round once.
 """
 import importlib
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -29,6 +32,10 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.parallel import fused as F
 
 FA = importlib.import_module("mxnet_tpu_torch.parallel.flash_attention")
+
+sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__),
+                                                "..")))
+from tools.port_bf16_study import flash_delta_study  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -215,6 +222,24 @@ def test_flash_attention_grads_and_launch_counts(card):
     _near(lse, rlse, 1e-4, "lse")
     for name, a, b in zip("qkv", leaves, refs):
         _near(a.grad, b.grad, 1e-4, "d" + name)
+
+
+def test_flash_bf16_gradient_gap_is_delta_from_the_rounded_o(card):
+    """The open bf16 gradient gap (ROADMAP Queue C), measured by
+    ``flash_delta_study`` of tools/port_bf16_study.py: from the same bf16
+    q, k, v, do, the backward kernels given delta = rowsum(do * o) from
+    the fp32 o land where plain attention's bf16 gradients land against
+    fp32, while the training path's delta, from the forward kernel's bf16
+    o, moves dq and dk further from fp32 (dv does not use delta). When
+    delta stops being rounded through o, the last assertion flips and goes
+    with the fix."""
+    study = flash_delta_study()
+    plain, path = study["plain_bf16"], study["kernels"]
+    exact = study["kernels_fp32_delta"]
+    for g in ("dq", "dk", "dv"):
+        assert exact[g] == pytest.approx(plain[g], rel=1e-3), g
+    assert path["dv"] == pytest.approx(plain["dv"], rel=1e-3)
+    assert path["dq"] > 1.1 * plain["dq"] and path["dk"] > 1.2 * plain["dk"]
 
 
 def test_flash_wrappers_reject_what_the_kernels_do_not_take(card):

@@ -1,6 +1,6 @@
 """The port stands alone: importing mxnet_tpu_torch loads neither jax nor
-the JAX package, and no source of the port (or chip_smoke.py) names
-them."""
+the JAX package (nor the CUDA driver or NVRTC), and no source of the port
+(or chip_smoke.py) names them."""
 import os
 import re
 import subprocess
@@ -16,9 +16,16 @@ import mxnet_tpu_torch.parallel.transformer
 import mxnet_tpu_torch.parallel.flash_attention
 import mxnet_tpu_torch.module, mxnet_tpu_torch.ndarray
 import mxnet_tpu_torch.optimizer
+import mxnet_tpu_torch.rtc, mxnet_tpu_torch.nvrtc, mxnet_tpu_torch.operator
+import mxnet_tpu_torch.autograd, mxnet_tpu_torch.test_utils
+import mxnet_tpu_torch.models.lenet, mxnet_tpu_torch.models.mlp
 bad = sorted(m for m in sys.modules
              if m in ("jax", "mxnet_tpu") or m.startswith("jax.")
              or m.startswith("mxnet_tpu."))
+# nor the CUDA driver or NVRTC: mx.rtc loads them at its first use
+with open("/proc/self/maps") as f:
+    bad += sorted({line.split()[-1].rsplit("/", 1)[-1] for line in f
+                   if "libcuda.so" in line or "libnvrtc" in line})
 print(",".join(bad))
 """
 

@@ -448,3 +448,41 @@ def test_not_ported_paths_raise():
     if not torch.cuda.is_available():
         with pytest.raises(tmx.MXNetError, match="CUDA"):
             tmx.mod.Module(sym)
+
+
+# ------------------------------------------------------ mx.models on MNIST
+
+def test_get_mnist_is_bit_identical():
+    j, t = jmx.test_utils.get_mnist(), tmx.test_utils.get_mnist()
+    assert sorted(t) == sorted(j)
+    for k in j:
+        assert t[k].dtype == j[k].dtype and t[k].shape == j[k].shape
+        np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+
+
+@pytest.mark.parametrize("model", ["lenet", "mlp"])
+def test_model_fit_on_mnist_matches_jax(model):
+    """mx.models' LeNet and MLP, one epoch of 200 synthetic MNIST samples
+    in batches of 100 (SGD 0.1, momentum 0.9, Xavier): every parameter
+    within 1e-4 of its max |value| of the JAX package's (the convolutions
+    sum in another order than XLA's)."""
+    out = []
+    for mx in (jmx, tmx):
+        mnist = mx.test_utils.get_mnist()
+        np.random.seed(0)
+        it = mx.io.NDArrayIter(mnist["train_data"][:200],
+                               mnist["train_label"][:200], batch_size=100,
+                               shuffle=True)
+        mod = mx.mod.Module(getattr(mx.models, "get_" + model)(10),
+                            context=mx.cpu())
+        np.random.seed(1)
+        mod.fit(it, num_epoch=1, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+                initializer=mx.init.Xavier(), eval_metric="acc")
+        out.append(_params(mod))
+    jp, tp = out
+    assert sorted(tp) == sorted(jp)
+    for k in jp:
+        scale = np.abs(jp[k]).max()
+        err = np.abs(tp[k] - jp[k]).max()
+        assert scale > 0 and err <= 1e-4 * scale, (k, err, scale)
