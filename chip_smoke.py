@@ -30,9 +30,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
    they make against dense autograd of ``flash_attention_reference``, at
    the training path's shape (8, 8, 2048, 64) causal in bf16 and fp32 and
    on a ragged grid (T 1/17/129/1000, causal or not, D 32/64/128, with and
-   without an lse cotangent). Times each kernel and PyTorch's
-   ``scaled_dot_product_attention`` (forward, and forward + backward;
-   timed as a yardstick only) as CUDA-graph replays and each plain
+   without an lse cotangent, fp32, bf16 and fp16). The bf16/fp16 backward
+   kernels (tensor cores) are also held to the plain version that rounds
+   p and ds to the input type where they do (``FLASH_ROUNDED_TOL``), and
+   two launches on the same inputs must give the same bits. Times each
+   kernel and PyTorch's ``scaled_dot_product_attention`` (forward, and
+   forward + backward; timed as a yardstick only, its backward the dq +
+   dk/dv pair's ``library_ms``) as CUDA-graph replays and each plain
    version with CUDA events, and computes each kernel's bound at
    the card's bf16 tensor-core peak and memory rate, causal half counted.
 5. Train phase: the causal-LM ``TransformerParallel`` at the full
@@ -116,7 +120,16 @@ FLASH_SHAPE = (8, 8, 2048, 64)   # (B, H, T, D) of the train path
 # flash kernels vs their plain versions, relative to max |plain|: both
 # compute in fp32 from the same inputs, in another summation order (fp32);
 # each output is then rounded once to bf16 (one bf16 ulp is 2^-8)
-FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 4e-3}
+# the bf16/fp16 backward kernels vs the plain version that rounds p and ds
+# to the input type where they do (``round_to``), in fp32 before the output
+# is rounded: the two differ by summation order alone, in the fp32
+# products, exp and the tensor cores' accumulation (~1e-6 relative), which
+# can move a p or ds across a rounding boundary of the input type: each
+# such flip moves one term of a sum by one ulp of it (2^-8 in bf16), and
+# they are rare (about 1e-6 / 2^-8 of the terms). The bar is on what stays
+# after half an ulp of the output's own rounding, over max(1, max |plain|).
+FLASH_ROUNDED_TOL = 2e-3
 FLASH_GRID_T = (1, 17, 129, 1000)
 FLASH_GRID_D = (32, 64, 128)
 TRAIN_CFG = dict(vocab=32768, d_model=512, n_heads=8, n_layers=8,
@@ -668,10 +681,58 @@ def rel_err(out, ref, what):
     return err, err / max(1.0, ref.float().abs().max().item())
 
 
+def rounded_excess(out, ref32):
+    """max over elements of |out - ref32| beyond half an ulp of out's type
+    at ref32 (the output's one rounding), over max(1, max |ref32|)."""
+    import torch
+
+    bits = {torch.bfloat16: 8, torch.float16: 11}[out.dtype]
+    _m, e = torch.frexp(ref32)
+    half_ulp = torch.where(ref32 == 0, torch.zeros_like(ref32),
+                           torch.ldexp(torch.ones_like(ref32), e - bits - 1))
+    excess = ((out.float() - ref32).abs() - half_ulp).clamp_min(0)
+    return (excess.max() / ref32.abs().max().clamp_min(1.0)).item()
+
+
+def check_flash_rounding(FA, q, k, v, do, lse, delta, causal, dq, dk, dv,
+                         what):
+    """The tensor-core backward kernels' outputs (dq, dk, dv) against the
+    plain version that rounds p and ds to the input type where they do, at
+    FLASH_ROUNDED_TOL; and a second launch of each kernel on the same inputs
+    gives the same bits. Returns the excess of each output."""
+    import torch
+
+    scale = q.shape[-1] ** -0.5
+    f32 = [t.float() for t in (q, k, v, do)]
+    refs = {"dq": FA.flash_backward_dq_reference(*f32, lse, delta, causal,
+                                                 scale, round_to=q.dtype)}
+    refs["dk"], refs["dv"] = FA.flash_backward_dkv_reference(
+        *f32, lse, delta, causal, scale, round_to=q.dtype)
+    excess = {}
+    for name, out in (("dq", dq), ("dk", dk), ("dv", dv)):
+        excess[name] = rounded_excess(out, refs[name])
+        if excess[name] > FLASH_ROUNDED_TOL:
+            raise AssertionError(
+                "%s at %s: %.3g of max |plain| beyond half an ulp against the"
+                " plain version rounding p and ds to %s > %.1g"
+                % (name, what, excess[name], q.dtype, FLASH_ROUNDED_TOL))
+    del refs, f32
+    again = [FA.flash_backward_dq(q, k, v, do, lse, delta, causal)]
+    again += FA.flash_backward_dkv(q, k, v, do, lse, delta, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+        if not torch.equal(a, b):
+            raise AssertionError("%s at %s: two launches on the same inputs "
+                                 "differ" % (name, what))
+    return excess
+
+
 def check_flash(FA, q, k, v, do, dlse, causal, tol, what):
-    """Each kernel against its plain version on the same inputs, then the
-    autograd function against dense autograd of the reference. Returns
-    the max abs error of each kernel."""
+    """Each kernel against its plain version on the same inputs (the
+    bf16/fp16 backward kernels also against the rounding plain version and
+    a second launch), then the autograd function against dense autograd of
+    the reference. Returns the max abs error of each kernel, and the
+    backward outputs' excess over the rounding plain version (None in
+    fp32)."""
     import torch
 
     D = q.shape[-1]
@@ -703,6 +764,10 @@ def check_flash(FA, q, k, v, do, dlse, causal, tol, what):
                                                causal, scale)
     hold(FA.DKV, dk, rdk, "dk")
     hold(FA.DKV, dv, rdv, "dv")
+    excess = None
+    if q.dtype != torch.float32:
+        excess = check_flash_rounding(FA, q, k, v, do, lse, delta, causal,
+                                      dq, dk, dv, what)
     del o, lse, ro, rlse, dq, dk, dv, rdk, rdv
 
     # the whole function: forward kernel + both backward kernels vs dense
@@ -728,7 +793,7 @@ def check_flash(FA, q, k, v, do, dlse, causal, tol, what):
             raise AssertionError("flash_attention autograd disagrees with the"
                                  " reference at %s (%s): %.3g of max |plain|"
                                  " > %.1g" % (what, name, rel, bar))
-    return errs
+    return errs, excess
 
 
 def flash_phase(card, peaks, results):
@@ -739,30 +804,38 @@ def flash_phase(card, peaks, results):
     path_err = {}
     for dtype in ("bfloat16", "float32"):
         ins = flash_inputs(FLASH_SHAPE, getattr(torch, dtype), gen)
-        errs = check_flash(FA, *ins, causal=True, tol=FLASH_TOL[dtype],
-                           what="%s %s causal" % (FLASH_SHAPE, dtype))
-        log("flash path %s %s causal: max abs err %s"
-            % (FLASH_SHAPE, dtype, errs))
+        errs, excess = check_flash(FA, *ins, causal=True,
+                                   tol=FLASH_TOL[dtype],
+                                   what="%s %s causal" % (FLASH_SHAPE, dtype))
+        log("flash path %s %s causal: max abs err %s; beyond half an ulp of "
+            "the plain version rounding p and ds: %s (bar %.1g), two "
+            "launches bit-identical" % (FLASH_SHAPE, dtype, errs, excess,
+                                        FLASH_ROUNDED_TOL))
         if dtype == "bfloat16":
-            path_err = errs
+            path_err, path_excess = errs, excess
         del ins
-    n_grid = 0
-    for dtype in ("float32", "bfloat16"):
+    n_grid, grid_excess = 0, {}
+    for dtype in ("float32", "bfloat16", "float16"):
         for T in FLASH_GRID_T:
             for D in FLASH_GRID_D:
                 for causal in (False, True):
                     for with_dlse in (False, True):
                         q, k, v, do, dlse = flash_inputs(
                             (1, 2, T, D), getattr(torch, dtype), gen)
-                        check_flash(FA, q, k, v, do,
-                                    dlse if with_dlse else None, causal,
-                                    FLASH_TOL[dtype],
-                                    "grid T=%d D=%d %s causal=%s dlse=%s"
-                                    % (T, D, dtype, causal, with_dlse))
+                        _, excess = check_flash(
+                            FA, q, k, v, do, dlse if with_dlse else None,
+                            causal, FLASH_TOL[dtype],
+                            "grid T=%d D=%d %s causal=%s dlse=%s"
+                            % (T, D, dtype, causal, with_dlse))
+                        for name, x in (excess or {}).items():
+                            key = "%s %s" % (dtype, name)
+                            grid_excess[key] = max(grid_excess.get(key, 0.0),
+                                                   x)
                         n_grid += 1
     log("flash grid: %d cases agree (T %s, D %s, causal and not, with and "
-        "without dlse, fp32 and bf16)" % (n_grid, FLASH_GRID_T,
-                                           FLASH_GRID_D))
+        "without dlse, fp32, bf16 and fp16); worst excess over the rounding "
+        "plain version %s" % (n_grid, FLASH_GRID_T, FLASH_GRID_D,
+                              grid_excess))
 
     # times at the path shape, bf16 causal
     q, k, v, do, dlse = flash_inputs(FLASH_SHAPE, torch.bfloat16, gen)
@@ -788,6 +861,9 @@ def flash_phase(card, peaks, results):
     lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(
         sdpa(*leaves, is_causal=True), leaves, do))
     del leaves
+    # SDPA's backward computes dq, dk and dv in one call: the yardstick of
+    # the dq + dk/dv pair, recorded on both rows
+    lib_bwd = lib_fwd_bwd - lib_fwd
     timing = {}
     for name, (kind, kernel, plain) in runs.items():
         ms = time_ms(kernel)
@@ -797,8 +873,13 @@ def flash_phase(card, peaks, results):
                                               peaks["bytes_per_s"])
         timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                             bound_by=by, ops=ops, bytes=nbytes,
-                            library_ms=lib_fwd if kind == "fwd" else None,
+                            library_ms=lib_fwd if kind == "fwd" else lib_bwd,
                             max_abs_err=path_err[name])
+        if kind == "dq":
+            timing[name]["rounded_excess"] = {"dq": path_excess["dq"]}
+        elif kind == "dkv":
+            timing[name]["rounded_excess"] = {
+                g: path_excess[g] for g in ("dk", "dv")}
         log("flash %s %s bf16 causal: ms=%.4f plain_ms=%.4f bound_ms=%.4f "
             "(%s; %.4g GFLOP, %.4g MB) achieved %.2f TFLOP/s"
             % (name, FLASH_SHAPE, ms, plain_ms, bnd, by, ops / 1e9,
@@ -810,8 +891,9 @@ def flash_phase(card, peaks, results):
         % (lib_fwd, lib_fwd_bwd, lib_fwd_bwd - lib_fwd,
            timing[FA.FWD]["ms"], kern_sum, card))
     results["flash"] = dict(shape=FLASH_SHAPE, kernels=timing,
-                            sdpa_fwd_ms=lib_fwd,
-                            sdpa_fwd_bwd_ms=lib_fwd_bwd, grid_cases=n_grid)
+                            sdpa_fwd_ms=lib_fwd, sdpa_fwd_bwd_ms=lib_fwd_bwd,
+                            sdpa_bwd_ms=lib_bwd, grid_cases=n_grid,
+                            grid_rounded_excess=grid_excess)
     return timing
 
 
@@ -2154,14 +2236,18 @@ def main():
                 "flash_attention_bwd_dkv": 236}
     for name, line in replaces.items():
         t = timing[name]
-        kernels["kernels"].append({
+        row = {
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
             "replaces": "mxnet_tpu/parallel/flash_attention.py:%d" % line,
             "launches": flash_launches[name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if "rounded_excess" in t:
+            row["rounded_excess"] = t["rounded_excess"]
+            row["library"] = "SDPA backward (dq, dk and dv in one call)"
+        kernels["kernels"].append(row)
     wide = bmm_totals["wide"]
     kernels["kernels"].append({
         "name": "fused_batch_matmul", "route": "cuda",

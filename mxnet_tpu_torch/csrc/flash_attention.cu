@@ -3,60 +3,106 @@
 // (mxnet_tpu_torch/parallel/flash_attention.py).
 //
 // Replaces, in mxnet_tpu/parallel/flash_attention.py:
-//   flash_fwd_kernel     <- _kernel          (the forward, online softmax)
-//   flash_bwd_dq_kernel  <- _bwd_dq_kernel   (dq pass, with _bwd_block)
-//   flash_bwd_dkv_kernel <- _bwd_dkv_kernel  (dk/dv pass, with _bwd_block)
+//   flash_fwd_kernel        <- _kernel          (the forward, online softmax)
+//   flash_bwd_dq_tc_kernel  <- _bwd_dq_kernel   (dq pass, with _bwd_block),
+//                              bf16 and fp16, on the tensor cores
+//   flash_bwd_dkv_tc_kernel <- _bwd_dkv_kernel  (dk/dv pass, with
+//                              _bwd_block), bf16 and fp16, tensor cores
+//   flash_bwd_dq_kernel, flash_bwd_dkv_kernel: the same two passes in fp32
+//                              on the CUDA cores
 //
 // Layout: q, k, v, o, do, dq, dk, dv are (BH, T, D) contiguous and 16-byte
 // aligned, one element type for all of them (fp32, bf16 or fp16; each
 // kernel is instantiated per type); lse and delta are (BH, T) fp32.
 // Supported head dims: every D <= 128 that is a multiple of 8 (the wrapper
 // raises on the rest). A tile's feature width DP is 64 for D <= 64 and 128
-// above, zero-filled past D.
-//
-// Arithmetic is fp32 throughout, as in the TPU kernels: q, k, v and do are
-// converted to fp32 as they are staged in shared memory, the scores, p and
-// ds stay fp32, and each output is rounded once at its store. Every dot
-// product is summed in ascending order of its index by fp32 FMA. Ragged T
-// is masked on both the q and the k side, so every T >= 1 has a kernel
-// form (the TPU kernels need a block that divides T and fall back to the
-// dense formula otherwise).
+// above, zero-filled past D (so a D that is not a multiple of 16 pads the
+// k-depth of the tensor-core products with zeros). Ragged T is masked on
+// both the q and the k side, so every T >= 1 has a kernel form (the TPU
+// kernels need a block that divides T and fall back to the dense formula
+// otherwise): rows >= T read as zeros and are never stored.
 //
 // Bound: per (q, k) pair that is live (all T^2 pairs, or T(T+1)/2 with
 // causal), the forward does 4*D operations (QK^T and PV), the dq pass 6*D
 // (S, dP, dS.K) and the dk/dv pass 8*D (S, dP, P^T.dO, dS^T.Q), against
 // bytes of O(BH*T*D). At D = 64 and T = 2048 that is ~500 operations per
-// byte, so all three are operations-bound, on tensor cores in the limit.
-// These kernels run on the CUDA cores in fp32 FMA: no tensor cores yet,
-// because bf16 mma operands would move where p is rounded; wgmma tiles,
-// TMA and a deeper pipeline are later work. What bounds them now is the
-// issue rate of FMAs and shared-memory loads and the latency of the tile
-// loads, so the design feeds each thread's 4x4 register tile with 16-byte
-// shared loads, and loads the next tile from global memory (16-byte
-// vectors, held in registers) while the current one is in use.
+// byte, so all three are bound by operations, at the bf16 tensor-core peak
+// (989 TFLOP/s on an H100 SXM).
 //
-// Design: one 256-thread block per (batch*head, 64-row tile); the TPU's
+// The forward and the fp32 backward run on the CUDA cores in fp32 FMA
+// (tensor cores in TF32 could not hold fp32 parity): q, k, v and do are
+// converted to fp32 as they are staged in shared memory, the scores, p and
+// ds stay fp32, and each output is rounded once at its store. Every dot
+// product is summed in ascending order of its index by fp32 FMA. What
+// bounds them is the issue rate of FMAs and shared-memory loads and the
+// latency of the tile loads, so the design feeds each thread's 4x4
+// register tile with 16-byte shared loads, and loads the next tile from
+// global memory (16-byte vectors, held in registers) while the current one
+// is in use. One 256-thread block per (batch*head, 64-row tile); the TPU's
 // sequential grid axis becomes a loop inside the block over the other
 // side's 64-row tiles, staged through shared memory as fp32 rows of stride
-// DP + 4 (converted once, as they are stored). A thread owns rows ty + 16i (i < 4) of the block's tile and
-// columns tx + 16j (j < 4) of each 64x64 score tile, so the online-softmax
-// state of a row (m, l) lives in the registers of the 16 threads of that
-// row and row reductions are 16-lane shuffles. The score products read
-// both operands as float4 along the feature axis (row strides of an odd
-// number of float4, so the 16 rows a warp reads spread over all banks);
-// the second products (P.V, dS.K, P^T.dO, dS^T.Q) read the score tile as
-// float4 along its columns and the other operand as float4 along features,
-// each thread accumulating output columns 64g + 4tx + (0..3). With causal
-// the loops stop at (forward, dq) or start from (dk/dv) the diagonal tile.
-// A fully masked score is -inf; every exp is guarded as in the TPU kernel
-// (p = 0 where s = -inf or lse = -inf, corr = 0 where m_prev = -inf), so a
-// fully masked tile or row gives zeros, never NaN.
+// DP + 4 (converted once, as they are stored). A thread owns rows ty + 16i
+// (i < 4) of the block's tile and columns tx + 16j (j < 4) of each 64x64
+// score tile, so the online-softmax state of a row (m, l) lives in the
+// registers of the 16 threads of that row and row reductions are 16-lane
+// shuffles. The score products read both operands as float4 along the
+// feature axis (row strides of an odd number of float4, so the 16 rows a
+// warp reads spread over all banks); the second products (P.V, dS.K,
+// P^T.dO, dS^T.Q) read the score tile as float4 along its columns and the
+// other operand as float4 along features, each thread accumulating output
+// columns 64g + 4tx + (0..3).
+//
+// The bf16/fp16 backward runs on the tensor cores (warpgroup wgmma,
+// m64nNk16, fp32 accumulators). The dq pass mirrors the TPU's grid over q
+// tiles with k sequential, the dk/dv pass its grid over k tiles with q
+// sequential: both recompute S and dP, which is the price of a dq without
+// atomics, so two launches on the same inputs give the same bits. A block
+// is two warpgroups; each owns 64 rows (wgmma's M): q rows in the dq pass
+// (a 128-row q tile per block, k tiles of 64), k rows in the dk/dv pass (a
+// 128-row k tile, q tiles of 32, so that a warpgroup's four accumulators
+// fit in registers). Per tile the dq pass computes S = Q.K^T and
+// dP = dO.V^T with both operands in shared memory, forms dS in registers
+// from the accumulators and adds dS.K to dQ with dS as the register A
+// operand (the accumulator's fragment is the A fragment of the next
+// product: no trip through shared memory) and the K tile read MN-major
+// (wgmma's transpose bit). The dk/dv pass computes S^T = K.Q^T and
+// dP^T = V.dO^T, then dV += P^T.dO and dK += dS^T.Q the same way. Tiles are
+// loaded with 16-byte cp.async straight into the 128-byte-swizzled layout
+// the wgmma descriptors read (at DP = 64 in bf16 a row is exactly one
+// swizzle atom), in a ring of two stages: the next tile's loads run under
+// the current tile's products.
+//
+// What bounds them on the card, short of the tensor-core peak: while a
+// warpgroup forms p and ds on the CUDA cores its products wait. So the
+// exponentials overlap the dP product (S and dP are two commit groups),
+// only the diagonal and ragged tiles test liveness, the exponent is one FMA
+// and one exp2 (log2(e) folded into the scale and the lse), and each pass
+// fits 128 registers at DP <= 64 so that two blocks share an SM and one
+// block's products run under the other's p and ds.
+//
+// Numerics: scale multiplies the fp32 S accumulator (not q: 1/sqrt(D) would
+// round in bf16); p = exp(S*scale - lse) and ds = p * (dP - delta) are
+// computed in fp32 and rounded once to the input type as register operands
+// (the single rounding these kernels add, at the points where bf16
+// attention itself rounds p and ds); dq and dk take the scale once at
+// their store; every output is rounded once at its store. A masked score
+// takes an exponent of -inf and a row whose lse is -inf one of +inf, so
+// either gives p = 0, never NaN.
+//
+// Both designs skip causal tiles that are wholly masked (the loops stop at
+// (forward, dq) or start from (dk/dv) the diagonal) and mask only the
+// diagonal and ragged tiles, and schedule the heaviest causal tiles first.
+// In the fp32 kernels a fully masked score is -inf and every exp is guarded
+// as in the TPU kernel (p = 0 where s = -inf or lse = -inf, corr = 0 where
+// m_prev = -inf), so a fully masked tile or row gives zeros, never NaN.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 enum { DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2 };
 
@@ -583,6 +629,579 @@ flash_bwd_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k,
   store_rows<E, DP>(dv, k0, T, D, dv_acc, one, ty, tx);
 }
 
+// ------------------------------------- bf16/fp16 backward: tensor cores
+
+// wgmma products with fp32 accumulators, one set per input type E.
+// ss: A and B from shared memory (descriptors), both K-major.
+// rs: A from registers (4 x 32-bit, the m16n8k16 A fragment of each warp),
+// B from shared memory, MN-major (transpose bit set).
+// scale_d = 0 overwrites the accumulator, 1 adds to it.
+#define FLASH_WGMMA_OPS(TY, E)                                                 \
+  __device__ __forceinline__ void wgmma_ss_n32(                                \
+      float (&d)[16], uint64_t da, uint64_t db, int scale_d, E) {              \
+    asm volatile(                                                              \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                           \
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"           \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+        "%15"                                                                  \
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"                                     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+        "+f"(d[15])                                                            \
+      : "l"(da), "l"(db), "r"(scale_d));                                       \
+  }                                                                            \
+  __device__ __forceinline__ void wgmma_ss_n64(                                \
+      float (&d)[32], uint64_t da, uint64_t db, int scale_d, E) {              \
+    asm volatile(                                                              \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                           \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"           \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+        "%28, %29, %30, %31"                                                   \
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
+        "+f"(d[30]), "+f"(d[31])                                               \
+      : "l"(da), "l"(db), "r"(scale_d));                                       \
+  }                                                                            \
+  __device__ __forceinline__ void wgmma_rs_n64(                                \
+      float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d, E) {   \
+    asm volatile(                                                              \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                           \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"           \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+        "%28, %29, %30, %31"                                                   \
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
+        "+f"(d[30]), "+f"(d[31])                                               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));    \
+  }
+
+FLASH_WGMMA_OPS("bf16", __nv_bfloat16)
+FLASH_WGMMA_OPS("f16", __half)
+#undef FLASH_WGMMA_OPS
+
+constexpr int WG = 128;        // threads of a warpgroup
+constexpr int NTC = 2 * WG;    // threads of a tensor-core block
+constexpr int ROWS = 64;       // rows a warpgroup owns (wgmma's M)
+// depth of the ring of streamed tiles: the next tile loads under the
+// current one's products
+constexpr int STAGES = 2;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A tile of R rows x DP columns of a 16-bit type lives in shared memory as
+// DP / 64 panels of R rows x 128 bytes (panel p at p * R * 128), each
+// 1024-byte group of 8 rows one 128-byte swizzle atom: the 16-byte chunk c
+// of row r sits at r * 128 + ((c ^ (r & 7)) << 4). wgmma reads it K-major
+// (features along K: the score products) or MN-major (features along N, rows
+// along K: the second products), through these descriptors.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);  // 128-byte swizzle
+}
+
+// K-major, features 16kk..16kk+15: 32 bytes into the atom row; 8-row groups
+// 1024 bytes apart (SBO); LBO is unused with a swizzle this wide.
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return wgmma_desc(tile + (kk >> 2) * R * 128 + (kk & 3) * 32, 16, 1024);
+}
+
+// MN-major, rows 16kk..16kk+15 of panel p as K, its 64 columns as N:
+// K's 8-row groups 1024 bytes apart (SBO), panels R * 128 apart (LBO).
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int p, int kk) {
+  return wgmma_desc(tile + p * R * 128 + kk * 2048, R * 128, 1024);
+}
+
+// rows r0.. of a (T, D) matrix into a tile, by 16-byte cp.async into the
+// swizzled layout; chunks past T or D are filled with zeros
+template <typename E, int R, int DP>
+__device__ __forceinline__ void load_tile(uint32_t tile, const E* src,
+                                          int r0, int T, int D) {
+  constexpr int CPR = DP / 8;  // 16-byte chunks per row
+  static_assert(R * CPR % NTC == 0, "tile chunks must split evenly");
+#pragma unroll
+  for (int n = 0; n < R * CPR / NTC; ++n) {
+    const int idx = threadIdx.x + n * NTC;
+    const int r = idx / CPR;
+    const int c = idx % CPR;
+    const bool ok = r0 + r < T && c * 8 < D;
+    const E* g = ok ? src + static_cast<int64_t>(r0 + r) * D + c * 8 : src;
+    const uint32_t dst =
+        tile + (c >> 3) * R * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(g), "r"(ok ? 16 : 0)
+                 : "memory");
+  }
+}
+
+// n fp32 entries r0.. of a row vector of length T (zeros past T)
+__device__ __forceinline__ void load_vec(uint32_t dst, const float* src,
+                                         int r0, int T, int n) {
+  if (static_cast<int>(threadIdx.x) < n) {
+    const int r = r0 + threadIdx.x;
+    const bool ok = r < T;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     dst + 4 * threadIdx.x),
+                 "l"(ok ? src + r : src), "r"(ok ? 4 : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the landed tiles, written through the generic proxy, made visible to
+// wgmma's reads (the async proxy); then a block barrier
+__device__ __forceinline__ void tiles_ready() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most N committed product groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// exp(s * scale - lse) = exp2(s * scale * log2(e) - lse * log2(e)); a row
+// (or column) whose lse is -inf gets +inf here, so its p is exp2(-inf) = 0
+__device__ __forceinline__ float lse_log2(float lse) {
+  return lse == NEG_INF ? INFINITY : lse * LOG2E;
+}
+
+// keeps the compiler from moving accumulator accesses across the asynchronous
+// products (before a fence, after a wait)
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi,
+                                          __nv_bfloat16) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi, __half) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The accumulator of an m64nN product: thread t of the warpgroup holds, for
+// each 8-column block j, rows 16 (t / 32) + (t % 32) / 4 (registers 4j,
+// 4j + 1) and 8 below it (4j + 2, 4j + 3), columns 8j + 2 (t % 4) + (0, 1).
+// Store one 64-column panel of it, times mul, to rows row0.. and columns
+// col0.. of a (T, D) output, inside its bounds.
+template <typename E>
+__device__ __forceinline__ void store_acc(E* dst, const float (&acc)[32],
+                                          int row0, int col0, int T, int D,
+                                          float mul, int t) {
+  const int ra = row0 + 16 * (t >> 5) + ((t & 31) >> 2);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = col0 + 8 * j + 2 * (t & 3);
+    if (c >= D) continue;  // D is a multiple of 8: both columns or neither
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = ra + 8 * h;
+      if (r < T)
+        *reinterpret_cast<uint32_t*>(dst + static_cast<int64_t>(r) * D + c) =
+            pack2(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul, E());
+    }
+  }
+}
+
+// blocks per SM the dq pass's registers are cut for: two at DP = 64 (128
+// registers a thread), one at DP = 128
+template <int DP>
+constexpr int dq_tc_min_blocks() {
+  return DP == 64 ? 2 : 1;
+}
+
+template <int DP>
+constexpr uint32_t dq_tc_smem() {
+  // Q and dO tiles of 128 rows, a ring of K and V tiles of 64 rows, and
+  // 1024 bytes to align the swizzle atoms
+  return 2 * (2 * ROWS) * DP * 2 + 2 * STAGES * 64 * DP * 2 + 1024;
+}
+
+template <typename E, int DP>
+__global__ void __launch_bounds__(NTC, dq_tc_min_blocks<DP>())
+flash_bwd_dq_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                       const E* __restrict__ v, const E* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, E* __restrict__ dq,
+                       int T, int D, float scale, int causal) {
+  constexpr int BQ2 = 2 * ROWS;  // q rows per block, 64 per warpgroup
+  constexpr int BK2 = 64;        // k rows per tile
+  constexpr uint32_t QT = BQ2 * DP * 2;  // bytes of a q-side tile
+  constexpr uint32_t KT = BK2 * DP * 2;  // bytes of a k-side tile
+  constexpr int NP = DP / 64;            // 64-column panels of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t Qs = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t dOs = Qs + QT;
+  const uint32_t Ks = dOs + QT;             // STAGES tiles
+  const uint32_t Vs = Ks + STAGES * KT;     // STAGES tiles
+
+  const int wg = threadIdx.x / WG;
+  const int t = threadIdx.x % WG;
+  const int nq = (T + BQ2 - 1) / BQ2;
+  const int64_t bh = blockIdx.x / nq;
+  // heaviest causal tiles (the last q rows) are scheduled first
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x % nq)) * BQ2;
+  const int64_t base = bh * static_cast<int64_t>(T) * D;
+  q += base;
+  k += base;
+  v += base;
+  dout += base;
+  dq += base;
+  lse += bh * T;
+  delta += bh * T;
+
+  const int k_end = causal ? min(T, q0 + BQ2) : T;
+  const int n_tiles = (k_end + BK2 - 1) / BK2;
+  load_tile<E, BQ2, DP>(Qs, q, q0, T, D);
+  load_tile<E, BQ2, DP>(dOs, dout, q0, T, D);
+  // the ring: tile i in stage i % STAGES, STAGES - 1 tiles in flight ahead
+  // of the one in use, one commit group per tile (empty past the last)
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_tiles) {
+      load_tile<E, BK2, DP>(Ks + i * KT, k, i * BK2, T, D);
+      load_tile<E, BK2, DP>(Vs + i * KT, v, i * BK2, T, D);
+    }
+    cp_commit();
+  }
+
+  // this warpgroup's q rows, and the two rows of them this thread holds
+  const int wq0 = q0 + ROWS * wg;
+  const int ra = wq0 + 16 * (t >> 5) + ((t & 31) >> 2);
+  const float scale_log2 = scale * LOG2E;
+  float row_l2[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = ra + 8 * h;
+    row_l2[h] = lse_log2(r < T ? lse[r] : NEG_INF);
+    row_delta[h] = r < T ? delta[r] : 0.f;
+  }
+  // the k rows this warpgroup sees: none when all its rows are past T
+  const int wk_end = wq0 >= T ? 0 : causal ? min(T, wq0 + ROWS) : T;
+
+  float acc[NP][32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) acc[p][i] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK2;
+    const uint32_t kt = Ks + (it % STAGES) * KT;
+    const uint32_t vt = Vs + (it % STAGES) * KT;
+    {  // later tiles load under this one's products
+      const int nt = it + STAGES - 1;
+      if (nt < n_tiles) {
+        load_tile<E, BK2, DP>(Ks + (nt % STAGES) * KT, k, nt * BK2, T, D);
+        load_tile<E, BK2, DP>(Vs + (nt % STAGES) * KT, v, nt * BK2, T, D);
+      }
+      cp_commit();
+      cp_wait<STAGES - 1>();  // tile it has landed
+    }
+    tiles_ready();
+
+    if (k0 < wk_end) {  // uniform over the warpgroup
+      const uint32_t qa = Qs + wg * ROWS * 128;
+      const uint32_t da = dOs + wg * ROWS * 128;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_n64(s, desc_k<BQ2>(qa, kk), desc_k<BK2>(kt, kk), kk, E());
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_n64(dp, desc_k<BQ2>(da, kk), desc_k<BK2>(vt, kk), kk, E());
+      wg_commit();
+      wg_wait<1>();  // S is in; the exponentials overlap the dP product
+      reg_fence(s);
+
+      // only the diagonal and the ragged tiles are masked (s = -inf)
+      const bool edge = k0 + BK2 > T || (causal && k0 + BK2 - 1 > wq0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        const int col = k0 + 8 * (i >> 2) + 2 * (t & 3) + (i & 1);
+        const bool live = !edge || (col < T && (!causal || col <= ra + 8 * h));
+        // p = exp(s - lse) is the exact softmax: lse is the forward's row
+        // logsumexp, so no renormalization
+        s[i] = exp2f(live ? fmaf(s[i], scale_log2, -row_l2[h]) : NEG_INF);
+      }
+      wg_wait<0>();
+      reg_fence(dp);
+      uint32_t a[BK2 / 16][4];
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int h = (i >> 1) & 1;
+        // the accumulator's (row, column) pairs are the A fragment's
+        a[i >> 3][(i >> 1) & 3] =
+            pack2(s[i] * (dp[i] - row_delta[h]),
+                  s[i + 1] * (dp[i + 1] - row_delta[h]), E());
+      }
+
+#pragma unroll
+      for (int p = 0; p < NP; ++p) reg_fence(acc[p]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK2 / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          wgmma_rs_n64(acc[p], a[kk], desc_mn<BK2>(kt, p, kk), 1, E());
+      wg_commit();
+      wg_wait<0>();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) reg_fence(acc[p]);
+    }
+    __syncthreads();  // every read of this stage is done before its refill
+  }
+
+  // dq_i = scale * sum_j ds_ij k_j
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+    store_acc<E>(dq, acc[p], wq0, 64 * p, T, D, scale, t);
+}
+
+// q rows per tile of the dk/dv pass: 32, so that S^T and dP^T (16
+// registers each) fit beside dK and dV in 128 registers at DP = 64, for two
+// blocks per SM, and beside dK and dV of 64 registers each at DP = 128 (one
+// block per SM)
+constexpr int DKV_BQ = 32;
+
+template <int DP>
+constexpr int dkv_tc_min_blocks() {
+  return DP == 64 ? 2 : 1;
+}
+
+template <int DP>
+constexpr uint32_t dkv_tc_smem() {
+  // K and V tiles of 128 rows, a ring of Q, dO, lse and delta tiles, and
+  // 1024 bytes to align the swizzle atoms
+  return 2 * (2 * ROWS) * DP * 2 + 2 * STAGES * DKV_BQ * DP * 2 +
+         2 * STAGES * DKV_BQ * 4 + 1024;
+}
+
+template <typename E, int DP>
+__global__ void __launch_bounds__(NTC, dkv_tc_min_blocks<DP>())
+flash_bwd_dkv_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                        const E* __restrict__ v, const E* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, E* __restrict__ dk,
+                        E* __restrict__ dv, int T, int D, float scale,
+                        int causal) {
+  constexpr int BK2 = 2 * ROWS;      // k rows per block, 64 per warpgroup
+  constexpr int BQ2 = DKV_BQ;        // q rows per tile
+  constexpr int NS = BQ2 / 2;        // registers of an m64 x BQ2 accumulator
+  constexpr uint32_t KT = BK2 * DP * 2;
+  constexpr uint32_t QT = BQ2 * DP * 2;
+  constexpr int NP = DP / 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t Ks = (raw + 1023) & ~1023u;
+  const uint32_t Vs = Ks + KT;
+  const uint32_t Qs = Vs + KT;                // STAGES tiles
+  const uint32_t dOs = Qs + STAGES * QT;      // STAGES tiles
+  const uint32_t Ls = dOs + STAGES * QT;      // STAGES rows of BQ2 lse
+  const uint32_t Dl = Ls + STAGES * BQ2 * 4;  // STAGES rows of BQ2 delta
+  const unsigned char* generic = smem_raw + (Ks - raw);
+
+  const int wg = threadIdx.x / WG;
+  const int t = threadIdx.x % WG;
+  const int nk = (T + BK2 - 1) / BK2;
+  const int64_t bh = blockIdx.x / nk;
+  // heaviest causal tiles (the first k rows) are scheduled first
+  const int k0 = static_cast<int>(blockIdx.x % nk) * BK2;
+  const int64_t base = bh * static_cast<int64_t>(T) * D;
+  q += base;
+  k += base;
+  v += base;
+  dout += base;
+  dk += base;
+  dv += base;
+  lse += bh * T;
+  delta += bh * T;
+
+  // causal: q rows before k0 see none of these keys (k0 is a multiple of BQ2)
+  const int q_begin = causal ? k0 : 0;
+  const int n_tiles = (T - q_begin + BQ2 - 1) / BQ2;
+  load_tile<E, BK2, DP>(Ks, k, k0, T, D);
+  load_tile<E, BK2, DP>(Vs, v, k0, T, D);
+  // the ring: tile i in stage i % STAGES, STAGES - 1 tiles in flight ahead
+  // of the one in use, one commit group per tile (empty past the last)
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_tiles) {
+      const int r0 = q_begin + i * BQ2;
+      load_tile<E, BQ2, DP>(Qs + i * QT, q, r0, T, D);
+      load_tile<E, BQ2, DP>(dOs + i * QT, dout, r0, T, D);
+      load_vec(Ls + i * BQ2 * 4, lse, r0, T, BQ2);
+      load_vec(Dl + i * BQ2 * 4, delta, r0, T, BQ2);
+    }
+    cp_commit();
+  }
+
+  const int wk0 = k0 + ROWS * wg;  // this warpgroup's first k row
+  const int ka = wk0 + 16 * (t >> 5) + ((t & 31) >> 2);
+  const float scale_log2 = scale * LOG2E;
+
+  float dk_acc[NP][32], dv_acc[NP][32], st[NS], dpt[NS];
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+#pragma unroll
+    for (int p = 0; p < NP; ++p) dk_acc[p][i] = dv_acc[p][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) st[i] = dpt[i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = q_begin + it * BQ2;
+    const int stage = it % STAGES;
+    const uint32_t qt = Qs + stage * QT;
+    const uint32_t dot = dOs + stage * QT;
+    {  // later tiles load under this one's products
+      const int nt = it + STAGES - 1;
+      if (nt < n_tiles) {
+        const int ns = nt % STAGES;
+        const int r0 = q_begin + nt * BQ2;
+        load_tile<E, BQ2, DP>(Qs + ns * QT, q, r0, T, D);
+        load_tile<E, BQ2, DP>(dOs + ns * QT, dout, r0, T, D);
+        load_vec(Ls + ns * BQ2 * 4, lse, r0, T, BQ2);
+        load_vec(Dl + ns * BQ2 * 4, delta, r0, T, BQ2);
+      }
+      cp_commit();
+      cp_wait<STAGES - 1>();  // tile it has landed
+    }
+    tiles_ready();
+
+    // live for this warpgroup unless all its k rows are past T or (causal)
+    // after every q row of the tile; uniform over the warpgroup
+    if (wk0 < T && !(causal && q0 + BQ2 - 1 < wk0)) {
+      const uint32_t ka_tile = Ks + wg * ROWS * 128;
+      const uint32_t va_tile = Vs + wg * ROWS * 128;
+      wg_fence();
+      // transposed scores: st = K . Q^T, dpt = V . dO^T (k rows by q columns)
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_n32(st, desc_k<BK2>(ka_tile, kk), desc_k<BQ2>(qt, kk), kk,
+                     E());
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_n32(dpt, desc_k<BK2>(va_tile, kk), desc_k<BQ2>(dot, kk), kk,
+                     E());
+      wg_commit();
+      wg_wait<1>();  // S^T is in; the exponentials overlap the dP^T product
+      reg_fence(st);
+
+      const bool edge = q0 + BQ2 > T || wk0 + ROWS > T ||
+                        (causal && q0 < wk0 + ROWS - 1);
+      const float* lrow = reinterpret_cast<const float*>(
+          generic + (Ls - Ks) + stage * BQ2 * 4);
+      const float* drow = reinterpret_cast<const float*>(
+          generic + (Dl - Ks) + stage * BQ2 * 4);
+      uint32_t pa[BQ2 / 16][4], sa[BQ2 / 16][4];
+#pragma unroll
+      for (int i = 0; i < NS; i += 2) {
+        const int kr = ka + 8 * ((i >> 1) & 1);
+        const int qc = 8 * (i >> 2) + 2 * (t & 3);  // column in the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(lrow + qc);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qr = q0 + qc + e;
+          const bool live =
+              !edge || (qr < T && kr < T && (!causal || kr <= qr));
+          st[i + e] = exp2f(live ? fmaf(st[i + e], scale_log2,
+                                        -lse_log2(e ? l2.y : l2.x))
+                                 : NEG_INF);
+        }
+        pa[i >> 3][(i >> 1) & 3] = pack2(st[i], st[i + 1], E());
+      }
+      wg_wait<0>();
+      reg_fence(dpt);
+#pragma unroll
+      for (int i = 0; i < NS; i += 2) {
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(drow + 8 * (i >> 2) + 2 * (t & 3));
+        sa[i >> 3][(i >> 1) & 3] = pack2(st[i] * (dpt[i] - d2.x),
+                                         st[i + 1] * (dpt[i + 1] - d2.y), E());
+      }
+
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        reg_fence(dv_acc[p]);
+        reg_fence(dk_acc[p]);
+      }
+      wg_fence();
+      // dv_j += sum_i p_ij do_i ; dk_j += sum_i ds_ij q_i
+#pragma unroll
+      for (int kk = 0; kk < BQ2 / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          wgmma_rs_n64(dv_acc[p], pa[kk], desc_mn<BQ2>(dot, p, kk), 1, E());
+          wgmma_rs_n64(dk_acc[p], sa[kk], desc_mn<BQ2>(qt, p, kk), 1, E());
+        }
+      wg_commit();
+      wg_wait<0>();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        reg_fence(dv_acc[p]);
+        reg_fence(dk_acc[p]);
+      }
+    }
+    __syncthreads();  // every read of this stage is done before its refill
+  }
+
+  // dk_j = scale * sum_i ds_ij q_i (the scale once, at the store)
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    store_acc<E>(dk, dk_acc[p], wk0, 64 * p, T, D, scale, t);
+    store_acc<E>(dv, dv_acc[p], wk0, 64 * p, T, D, 1.f, t);
+  }
+}
+
 // ----------------------------------------------------------- launching
 
 template <int DP>
@@ -638,29 +1257,56 @@ cudaError_t launch_fwd(const Args& a) {
 template <typename E, int DP>
 cudaError_t launch_dq(const Args& a) {
   static bool ready = false;
-  auto kernel = flash_bwd_dq_kernel<E, DP>;
-  cudaError_t err = allow_smem(kernel, dq_smem<DP>(), &ready);
-  if (err != cudaSuccess) return err;
-  const int64_t blocks = static_cast<int64_t>(a.BH) * ((a.T + BQ - 1) / BQ);
-  kernel<<<static_cast<unsigned>(blocks), NT, dq_smem<DP>(), a.stream>>>(
-      static_cast<const E*>(a.q), static_cast<const E*>(a.k),
-      static_cast<const E*>(a.v), static_cast<const E*>(a.dout), a.lse,
-      a.delta, static_cast<E*>(a.o), a.T, a.D, a.scale, a.causal);
+  if constexpr (std::is_same<E, float>::value) {
+    auto kernel = flash_bwd_dq_kernel<E, DP>;
+    cudaError_t err = allow_smem(kernel, dq_smem<DP>(), &ready);
+    if (err != cudaSuccess) return err;
+    const int64_t blocks = static_cast<int64_t>(a.BH) * ((a.T + BQ - 1) / BQ);
+    kernel<<<static_cast<unsigned>(blocks), NT, dq_smem<DP>(), a.stream>>>(
+        static_cast<const E*>(a.q), static_cast<const E*>(a.k),
+        static_cast<const E*>(a.v), static_cast<const E*>(a.dout), a.lse,
+        a.delta, static_cast<E*>(a.o), a.T, a.D, a.scale, a.causal);
+  } else {
+    auto kernel = flash_bwd_dq_tc_kernel<E, DP>;
+    cudaError_t err = allow_smem(kernel, dq_tc_smem<DP>(), &ready);
+    if (err != cudaSuccess) return err;
+    const int64_t blocks =
+        static_cast<int64_t>(a.BH) * ((a.T + 2 * ROWS - 1) / (2 * ROWS));
+    kernel<<<static_cast<unsigned>(blocks), NTC, dq_tc_smem<DP>(),
+             a.stream>>>(
+        static_cast<const E*>(a.q), static_cast<const E*>(a.k),
+        static_cast<const E*>(a.v), static_cast<const E*>(a.dout), a.lse,
+        a.delta, static_cast<E*>(a.o), a.T, a.D, a.scale, a.causal);
+  }
   return cudaGetLastError();
 }
 
 template <typename E, int DP>
 cudaError_t launch_dkv(const Args& a) {
   static bool ready = false;
-  auto kernel = flash_bwd_dkv_kernel<E, DP>;
-  cudaError_t err = allow_smem(kernel, dkv_smem<DP>(), &ready);
-  if (err != cudaSuccess) return err;
-  const int64_t blocks = static_cast<int64_t>(a.BH) * ((a.T + BK - 1) / BK);
-  kernel<<<static_cast<unsigned>(blocks), NT, dkv_smem<DP>(), a.stream>>>(
-      static_cast<const E*>(a.q), static_cast<const E*>(a.k),
-      static_cast<const E*>(a.v), static_cast<const E*>(a.dout), a.lse,
-      a.delta, static_cast<E*>(a.o), static_cast<E*>(a.o2), a.T, a.D,
-      a.scale, a.causal);
+  if constexpr (std::is_same<E, float>::value) {
+    auto kernel = flash_bwd_dkv_kernel<E, DP>;
+    cudaError_t err = allow_smem(kernel, dkv_smem<DP>(), &ready);
+    if (err != cudaSuccess) return err;
+    const int64_t blocks = static_cast<int64_t>(a.BH) * ((a.T + BK - 1) / BK);
+    kernel<<<static_cast<unsigned>(blocks), NT, dkv_smem<DP>(), a.stream>>>(
+        static_cast<const E*>(a.q), static_cast<const E*>(a.k),
+        static_cast<const E*>(a.v), static_cast<const E*>(a.dout), a.lse,
+        a.delta, static_cast<E*>(a.o), static_cast<E*>(a.o2), a.T, a.D,
+        a.scale, a.causal);
+  } else {
+    auto kernel = flash_bwd_dkv_tc_kernel<E, DP>;
+    cudaError_t err = allow_smem(kernel, dkv_tc_smem<DP>(), &ready);
+    if (err != cudaSuccess) return err;
+    const int64_t blocks =
+        static_cast<int64_t>(a.BH) * ((a.T + 2 * ROWS - 1) / (2 * ROWS));
+    kernel<<<static_cast<unsigned>(blocks), NTC, dkv_tc_smem<DP>(),
+             a.stream>>>(
+        static_cast<const E*>(a.q), static_cast<const E*>(a.k),
+        static_cast<const E*>(a.v), static_cast<const E*>(a.dout), a.lse,
+        a.delta, static_cast<E*>(a.o), static_cast<E*>(a.o2), a.T, a.D,
+        a.scale, a.causal);
+  }
   return cudaGetLastError();
 }
 

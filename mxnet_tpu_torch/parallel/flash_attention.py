@@ -23,7 +23,12 @@ memory in training either.
 The CUDA kernels mask ragged T themselves, so every T has a kernel form on
 the card: the JAX package's prime-T dense fallback and its block lookup
 through the tuning cache have no counterpart here. The block arguments are
-accepted for API parity and unused (the kernels tile at 64 x 64).
+accepted for API parity and unused: the kernels choose their own tiles.
+The forward and the fp32 backward run on the CUDA cores in fp32 (64 x 64
+tiles); the bf16 and fp16 backward run on the tensor cores (wgmma, 128-row
+blocks of two 64-row warpgroups), rounding p and ds once to the input type
+as the A operands of their second products, where plain bf16 attention
+rounds them too (``round_to`` of the plain versions repeats that).
 ``paged_decode_attention`` and ``paged_verify_attention`` wait for the
 generation slice.
 """
@@ -86,9 +91,12 @@ def flash_forward_reference(q, k, v, causal, scale):
         return flash_attention_reference(q, k, v, causal, scale)
 
 
-def _bwd_tiles(q, k, v, do, lse, delta, causal, scale):
+def _bwd_tiles(q, k, v, do, lse, delta, causal, scale, round_to=None):
     """Dense counterpart of the kernels' shared tile recompute: the scaled
-    q, p = exp(s - lse) and ds = p * (do.v^T - delta), in fp32."""
+    q, p = exp(s - lse) and ds = p * (do.v^T - delta), in fp32. With
+    ``round_to`` (a torch dtype), p and ds are then rounded once to it, as
+    the bf16/fp16 tensor-core kernels round them into the A operands of
+    their second products (ds from the unrounded p)."""
     qs = q.float() * scale
     s = torch.einsum("bhqd,bhkd->bhqk", qs, k.float())
     dead = torch.isneginf(lse)[..., None].expand_as(s)
@@ -98,21 +106,29 @@ def _bwd_tiles(q, k, v, do, lse, delta, causal, scale):
     p = torch.exp(s - lse_safe[..., None]).masked_fill(dead, 0.0)
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
     ds = p * (dp - delta[..., None])
+    if round_to is not None:
+        p, ds = p.to(round_to).float(), ds.to(round_to).float()
     return qs, p, ds
 
 
-def flash_backward_dq_reference(q, k, v, do, lse, delta, causal, scale):
-    """Plain version of the dq kernel: dq = scale * ds . k."""
+def flash_backward_dq_reference(q, k, v, do, lse, delta, causal, scale,
+                                round_to=None):
+    """Plain version of the dq kernel: dq = scale * ds . k (``round_to``:
+    see :func:`_bwd_tiles`)."""
     with torch.no_grad():
-        _, _, ds = _bwd_tiles(q, k, v, do, lse, delta, causal, scale)
+        _, _, ds = _bwd_tiles(q, k, v, do, lse, delta, causal, scale,
+                              round_to)
         dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
         return dq.to(q.dtype)
 
 
-def flash_backward_dkv_reference(q, k, v, do, lse, delta, causal, scale):
-    """Plain version of the dk/dv kernel: dv = p^T . do, dk = ds^T . qs."""
+def flash_backward_dkv_reference(q, k, v, do, lse, delta, causal, scale,
+                                 round_to=None):
+    """Plain version of the dk/dv kernel: dv = p^T . do, dk = ds^T . qs
+    (``round_to``: see :func:`_bwd_tiles`)."""
     with torch.no_grad():
-        qs, p, ds = _bwd_tiles(q, k, v, do, lse, delta, causal, scale)
+        qs, p, ds = _bwd_tiles(q, k, v, do, lse, delta, causal, scale,
+                               round_to)
         dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
         dk = torch.einsum("bhqk,bhqd->bhkd", ds, qs)
         return dk.to(k.dtype), dv.to(v.dtype)

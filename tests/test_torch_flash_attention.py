@@ -12,7 +12,9 @@ chip_smoke.py).
 Tolerances: fp32 rtol = atol = 1e-5, the reference's own bar for its
 backward kernels (both sides compute in fp32, in another summation order);
 bf16 2e-2 of max |reference|, one bf16 rounding of each output, with the
-JAX side computing its prime-T fallback with bf16-rounded scores.
+JAX side computing its prime-T fallback with bf16-rounded scores. The
+plain version that rounds p and ds to bf16 as the port's tensor-core
+backward kernels do (``round_to``) is held to the same bf16 bar.
 """
 import functools
 import importlib
@@ -104,6 +106,32 @@ def test_flash_prime_T_lse_cotangent():
     ref = _jax_side(*ins, True, jnp.float32)
     ours = _torch_side(*ins, True, torch.float32)
     _assert_close(ours, ref, "float32", "T=37")
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("T", [17, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_rounding_plain_backward_matches_pallas_interpret(causal, T, D):
+    # the plain version that rounds p and ds to bf16 where the port's
+    # tensor-core backward kernels do (``round_to``) against the Pallas
+    # backward in bf16, interpreted (T = 17 has no block divisor: the JAX
+    # package's dense fallback), within the bf16 bar
+    ins = _inputs(1, 2, T, D, seed=T + D, with_dlse=causal)
+    ref = _jax_side(*ins, causal, jnp.bfloat16)
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in ins[:4])
+    scale = D ** -0.5
+    o, lse = tfa.flash_forward(q, k, v, causal, scale)
+    delta = ((do.float() * o.float()).sum(-1)
+             - torch.from_numpy(ins[4])).contiguous()
+    dq = tfa.flash_backward_dq_reference(q, k, v, do, lse, delta, causal,
+                                         scale, round_to=torch.bfloat16)
+    dk, dv = tfa.flash_backward_dkv_reference(q, k, v, do, lse, delta,
+                                              causal, scale,
+                                              round_to=torch.bfloat16)
+    ours = [o, lse, dq, dk, dv]
+    assert all(t.dtype == torch.bfloat16 for t in (o, dq, dk, dv))
+    _assert_close([t.float().numpy() for t in ours], ref, "bfloat16",
+                  "rounding plain T=%d D=%d causal=%s" % (T, D, causal))
 
 
 def test_flash_bwd_escape_hatch(monkeypatch):
