@@ -30,10 +30,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
    they make against dense autograd of ``flash_attention_reference``, at
    the training path's shape (8, 8, 2048, 64) causal in bf16 and fp32 and
    on a ragged grid (T 1/17/129/1000, causal or not, D 32/64/128, with and
-   without an lse cotangent, fp32, bf16 and fp16). The bf16/fp16 backward
-   kernels (tensor cores) are also held to the plain version that rounds
-   p and ds to the input type where they do (``FLASH_ROUNDED_TOL``), and
-   two launches on the same inputs must give the same bits. Times each
+   without an lse cotangent, fp32, bf16 and fp16). The bf16/fp16 kernels
+   (tensor cores) are also held to the plain version that rounds p (and
+   ds) to the input type where they do (``FLASH_ROUNDED_TOL``; the
+   forward's walks the key axis in its 64-key tiles, and its lse is held
+   at the fp32 bar), and two launches on the same inputs must give the
+   same bits. Times each
    kernel and PyTorch's ``scaled_dot_product_attention`` (forward, and
    forward + backward; timed as a yardstick only, its backward the dq +
    dk/dv pair's ``library_ms``) as CUDA-graph replays and each plain
@@ -53,7 +55,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    transposed view of k; the context with its residual add) at the
    fusion bench's size (B 8, T 64, D 128) and at the wide size (B 8,
    T 2048, D 512), and on a ragged grid (B 1/3, M and N 1/17/129, K
-   8/100, every epilogue kind, fp32 and bf16). Times the kernel, the plain
+   8/100, every epilogue kind, fp32 and bf16) and a grid whose shapes
+   take the kernel's 128 x 128 tile (``BMM_LARGE_GRID``, ragged M, N and
+   K; the small grid takes the 64 x 64 tile). Times the kernel, the plain
    version and ``torch.bmm`` / ``torch.baddbmm`` with the same epilogue (a
    yardstick, never used by the port), all as CUDA-graph replays, and
    computes the bound (fp32 CUDA-core peak against bytes at the memory
@@ -164,6 +168,10 @@ LENET_REGION_BASES = ["conv1", "conv2", "fc1"]
 # |value|: the same softmax and p - onehot, in another summation order
 RTC_STEP_TOL = 1e-5
 BMM_GRID_B, BMM_GRID_MN, BMM_GRID_K = (1, 3), (1, 17, 129), (8, 100)
+# (B, M, N, K) whose grid takes the kernel's 128 x 128 tile on an H100 (at
+# least one block per SM), ragged in M, N and K
+BMM_LARGE_GRID = ((3, 1000, 700, 37), (3, 1000, 700, 130),
+                  (1, 2000, 1100, 64), (2, 1031, 1030, 100))
 BMM_GRID_EPILOGUES = [
     (("scalar", "_div_scalar", 8.0),), (("res", "elemwise_add"),),
     (("scalar", "_mul_scalar", 0.5), ("res", "elemwise_add"),
@@ -465,15 +473,17 @@ def kernel_phase(mx, sym, peaks, results):
             lib = time_ms(lambda: library_fn(x, w, extras, ep, wt))
             bnd, by = bound_ms(case, 4, peaks)
             kind = "+".join(s[0] if s[0] != "act" else s[1] for s in ep)
+            tile = F.tile_size(1, case["M"], case["N"])
             row = dict(bucket=bucket, region=i, M=case["M"], N=case["N"],
-                       K=case["K"], epilogue=kind, max_abs_err=err, ms=ms,
-                       plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                       bound_by=by)
+                       K=case["K"], epilogue=kind, tile=tile,
+                       max_abs_err=err, ms=ms, plain_ms=plain,
+                       library_ms=lib, bound_ms=bnd, bound_by=by)
             results["kernel_cases"].append(row)
-            log("kernel bucket=%d region=%02d M=%d N=%d K=%d %s err=%.3g "
-                "ms=%.4f plain_ms=%.4f library_ms=%.4f bound_ms=%.4f (%s)"
-                % (bucket, i, case["M"], case["N"], case["K"], kind, err,
-                   ms, plain, lib, bnd, by))
+            log("kernel bucket=%d region=%02d M=%d N=%d K=%d %s tile=%d "
+                "err=%.3g ms=%.4f plain_ms=%.4f library_ms=%.4f "
+                "bound_ms=%.4f (%s)"
+                % (bucket, i, case["M"], case["N"], case["K"], kind, tile,
+                   err, ms, plain, lib, bnd, by))
             tot["ms"] += ms
             tot["plain_ms"] += plain
             tot["library_ms"] += lib
@@ -726,6 +736,36 @@ def check_flash_rounding(FA, q, k, v, do, lse, delta, causal, dq, dk, dv,
     return excess
 
 
+def check_flash_forward_rounding(FA, q, k, v, causal, o, lse, what):
+    """The tensor-core forward's o against the plain version that rounds p
+    to the input type where it does (its 64-key tiles and running max), at
+    FLASH_ROUNDED_TOL beyond half an ulp of o's own rounding; lse within
+    FLASH_TOL's fp32 bar of it; and a second launch on the same inputs
+    gives the same bits. Returns o's excess."""
+    import torch
+
+    scale = q.shape[-1] ** -0.5
+    ro, rlse = FA.flash_forward_reference(q.float(), k.float(), v.float(),
+                                          causal, scale, round_to=q.dtype)
+    excess = rounded_excess(o, ro)
+    if excess > FLASH_ROUNDED_TOL:
+        raise AssertionError(
+            "o at %s: %.3g of max |plain| beyond half an ulp against the "
+            "plain version rounding p to %s > %.1g"
+            % (what, excess, q.dtype, FLASH_ROUNDED_TOL))
+    _err, rel = rel_err(lse, rlse, "%s lse (rounding plain)" % (what,))
+    if rel > FLASH_TOL["float32"]:
+        raise AssertionError("lse at %s: %.3g of max |plain| against the "
+                             "rounding plain version > %.1g"
+                             % (what, rel, FLASH_TOL["float32"]))
+    del ro, rlse
+    o2, lse2 = FA.flash_forward(q, k, v, causal)
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError("forward at %s: two launches on the same "
+                             "inputs differ" % what)
+    return excess
+
+
 def check_flash(FA, q, k, v, do, dlse, causal, tol, what):
     """Each kernel against its plain version on the same inputs (the
     bf16/fp16 backward kernels also against the rounding plain version and
@@ -768,6 +808,8 @@ def check_flash(FA, q, k, v, do, dlse, causal, tol, what):
     if q.dtype != torch.float32:
         excess = check_flash_rounding(FA, q, k, v, do, lse, delta, causal,
                                       dq, dk, dv, what)
+        excess["o"] = check_flash_forward_rounding(FA, q, k, v, causal, o,
+                                                   lse, what)
     del o, lse, ro, rlse, dq, dk, dv, rdk, rdv
 
     # the whole function: forward kernel + both backward kernels vs dense
@@ -875,7 +917,9 @@ def flash_phase(card, peaks, results):
                             bound_by=by, ops=ops, bytes=nbytes,
                             library_ms=lib_fwd if kind == "fwd" else lib_bwd,
                             max_abs_err=path_err[name])
-        if kind == "dq":
+        if kind == "fwd":
+            timing[name]["rounded_excess"] = {"o": path_excess["o"]}
+        elif kind == "dq":
             timing[name]["rounded_excess"] = {"dq": path_excess["dq"]}
         elif kind == "dkv":
             timing[name]["rounded_excess"] = {
@@ -1089,17 +1133,19 @@ def bmm_phase(peaks, results):
                                                                    ep))
             lib = time_ms(lambda: bmm_library_fn(case))
             bnd, by = bmm_bound_ms(case, peaks)
+            tile = F.tile_size(x.shape[0], x.shape[1], w.shape[2])
             row = dict(size=size, region=case["region"],
                        x=tuple(x.shape), w=tuple(w.shape),
-                       w_transposed=not w.is_contiguous(), max_abs_err=err,
-                       ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                       bound_by=by)
+                       w_transposed=not w.is_contiguous(), tile=tile,
+                       max_abs_err=err, ms=ms, plain_ms=plain,
+                       library_ms=lib, bound_ms=bnd, bound_by=by)
             results["bmm_cases"].append(row)
-            log("bmm %s %s x%s w%s%s err=%.3g ms=%.4f plain_ms=%.4f "
-                "library_ms=%.4f bound_ms=%.4f (%s)"
+            log("bmm %s %s x%s w%s%s tile=%d err=%.3g ms=%.4f plain_ms=%.4f "
+                "library_ms=%.4f bound_ms=%.4f (%s) %.2f TFLOP/s"
                 % (size, case["region"], tuple(x.shape), tuple(w.shape),
-                   " (transposed view)" if row["w_transposed"] else "", err,
-                   ms, plain, lib, bnd, by))
+                   " (transposed view)" if row["w_transposed"] else "", tile,
+                   err, ms, plain, lib, bnd, by,
+                   2.0 * x.numel() * w.shape[2] / ms / 1e9))
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 tot[key] += row[key]
             tot["t_ops" if by == "operations" else "t_bytes"] += bnd
@@ -1135,6 +1181,34 @@ def bmm_phase(peaks, results):
     log("bmm grid: %d cases agree (B %s, M and N %s, K %s, %d epilogues, "
         "transposed and contiguous w, fp32 and bf16)"
         % (n, BMM_GRID_B, BMM_GRID_MN, BMM_GRID_K, len(BMM_GRID_EPILOGUES)))
+    # shapes whose grid takes the 128 x 128 tile, ragged M, N and K
+    n_large = 0
+    for dtype in ("float32", "bfloat16"):
+        td = getattr(torch, dtype)
+        for B, M, N, K in BMM_LARGE_GRID:
+            if F.tile_size(B, M, N) != 128:
+                raise AssertionError("bmm large grid (%d, %d, %d) takes the "
+                                     "%d tile" % (B, M, N,
+                                                  F.tile_size(B, M, N)))
+            for ep in BMM_GRID_EPILOGUES:
+                for transposed in (False, True):
+                    x = torch.randn(B, M, K, device="cuda",
+                                    generator=gen).to(td)
+                    w = torch.randn(B, N, K, device="cuda",
+                                    generator=gen).to(td)
+                    w = w.permute(0, 2, 1) if transposed else \
+                        w.transpose(1, 2).contiguous()
+                    ex = [torch.randn(B, M, N, device="cuda",
+                                      generator=gen).to(td)
+                          for s in ep if s[0] == "res"]
+                    bmm_check(F, x, w, ex, ep, GRID_TOL[dtype],
+                              "large grid B=%d M=%d N=%d K=%d %s %s %s"
+                              % (B, M, N, K, ep, dtype, transposed))
+                    n_large += 1
+    log("bmm large-tile grid: %d cases agree (B, M, N, K in %s, %d "
+        "epilogues, transposed and contiguous w, fp32 and bf16)"
+        % (n_large, BMM_LARGE_GRID, len(BMM_GRID_EPILOGUES)))
+    n += n_large
     results["bmm_totals"] = totals
     results["bmm_grid_cases"] = n
     return path_err, totals
@@ -2226,6 +2300,7 @@ def main():
     t8 = totals[8]
     kernels = {"kernels": [{
         "name": "fused_matmul", "route": "cuda",
+        "cores": "CUDA cores, fp32 FMA (register-tiled, 128 or 64 tiles)",
         "source": "mxnet_tpu_torch/csrc/fused_matmul.cu",
         "replaces": "mxnet_tpu/parallel/fused.py:168",
         "launches": launches, "max_abs_err": path_err,
@@ -2238,6 +2313,8 @@ def main():
         t = timing[name]
         row = {
             "name": name, "route": "cuda",
+            "cores": "tensor cores (wgmma) for bf16/fp16, the path's dtype; "
+                     "CUDA cores for fp32",
             "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
             "replaces": "mxnet_tpu/parallel/flash_attention.py:%d" % line,
             "launches": flash_launches[name],
@@ -2246,11 +2323,13 @@ def main():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
         if "rounded_excess" in t:
             row["rounded_excess"] = t["rounded_excess"]
-            row["library"] = "SDPA backward (dq, dk and dv in one call)"
+        row["library"] = ("SDPA forward" if name == "flash_attention_fwd"
+                          else "SDPA backward (dq, dk and dv in one call)")
         kernels["kernels"].append(row)
     wide = bmm_totals["wide"]
     kernels["kernels"].append({
         "name": "fused_batch_matmul", "route": "cuda",
+        "cores": "CUDA cores, fp32 FMA (register-tiled, 128 or 64 tiles)",
         "source": "mxnet_tpu_torch/csrc/fused_matmul.cu",
         "replaces": "mxnet_tpu/parallel/fused.py:292",
         "launches": bmm_launches, "max_abs_err": bmm_err,

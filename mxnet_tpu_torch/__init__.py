@@ -9,25 +9,29 @@ training step (``mx.parallel``), and symbolic training: ``mx.nd``,
 ``mx.io``, ``mx.kv``, ``mx.callback``; imperative autograd
 (``mx.autograd``), custom operators (``mx.operator``) and runtime CUDA
 kernels compiled by NVRTC (``mx.rtc``). Entry points run on the CUDA card
-unless the caller passes ``mx.cpu()``. The package imports torch and
-numpy, never jax and nothing of ``mxnet_tpu``.
+unless the caller passes ``mx.cpu()`` or opens ``with mx.cpu():``. The
+package imports torch and numpy, never jax and nothing of ``mxnet_tpu``.
 """
 from . import base
-from .base import MXNetError, NameManager, AttrScope
+from .base import MXNetError, NameManager, AttrScope, Prefix
 from . import config
-from .context import cpu, gpu
+from .context import (Context, cpu, gpu, tpu, cpu_pinned, current_context,
+                      num_gpus)
 from . import autograd
 from . import ops
 from . import symbol
 from . import symbol as sym
+from .symbol import Symbol
 from . import graph_pass
 from . import executor
+from .executor import Executor
 from . import ndarray
 from . import ndarray as nd
 from . import initializer
 from . import initializer as init
 from . import lr_scheduler
 from . import optimizer
+from . import optimizer as opt
 from . import metric
 from . import io
 from . import kvstore

@@ -11,7 +11,7 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "NameManager", "AttrScope", "np_dtype",
+__all__ = ["MXNetError", "NameManager", "Prefix", "AttrScope", "np_dtype",
            "torch_dtype", "dtype_name", "string_types"]
 
 string_types = (str,)
@@ -52,6 +52,17 @@ class NameManager:
 
     def __exit__(self, *exc):
         _thread_state.name_stack.pop()
+
+
+class Prefix(NameManager):
+    """A NameManager that prepends ``prefix`` to every name it gives."""
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        return self._prefix + super().get(name, hint)
 
 
 class AttrScope:

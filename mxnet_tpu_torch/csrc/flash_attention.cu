@@ -3,7 +3,9 @@
 // (mxnet_tpu_torch/parallel/flash_attention.py).
 //
 // Replaces, in mxnet_tpu/parallel/flash_attention.py:
-//   flash_fwd_kernel        <- _kernel          (the forward, online softmax)
+//   flash_fwd_tc_kernel     <- _kernel          (the forward, online softmax),
+//                              bf16 and fp16, on the tensor cores
+//   flash_fwd_kernel        <- _kernel          in fp32 on the CUDA cores
 //   flash_bwd_dq_tc_kernel  <- _bwd_dq_kernel   (dq pass, with _bwd_block),
 //                              bf16 and fp16, on the tensor cores
 //   flash_bwd_dkv_tc_kernel <- _bwd_dkv_kernel  (dk/dv pass, with
@@ -29,8 +31,8 @@
 // byte, so all three are bound by operations, at the bf16 tensor-core peak
 // (989 TFLOP/s on an H100 SXM).
 //
-// The forward and the fp32 backward run on the CUDA cores in fp32 FMA
-// (tensor cores in TF32 could not hold fp32 parity): q, k, v and do are
+// The fp32 kernels run on the CUDA cores in fp32 FMA (tensor cores in
+// TF32 could not hold fp32 parity): q, k, v and do are
 // converted to fp32 as they are staged in shared memory, the scores, p and
 // ds stay fp32, and each output is rounded once at its store. Every dot
 // product is summed in ascending order of its index by fp32 FMA. What
@@ -52,11 +54,28 @@
 // other operand as float4 along features, each thread accumulating output
 // columns 64g + 4tx + (0..3).
 //
-// The bf16/fp16 backward runs on the tensor cores (warpgroup wgmma,
-// m64nNk16, fp32 accumulators). The dq pass mirrors the TPU's grid over q
-// tiles with k sequential, the dk/dv pass its grid over k tiles with q
-// sequential: both recompute S and dP, which is the price of a dq without
-// atomics, so two launches on the same inputs give the same bits. A block
+// The bf16/fp16 kernels run on the tensor cores (warpgroup wgmma,
+// m64nNk16, fp32 accumulators). In the forward a block is one warpgroup
+// and its 64 q rows (Q loaded once), and 64-row K and V tiles stream
+// through a ring of four stages (three at DP = 128); per tile S = Q.K^T
+// with both operands in shared memory, the online softmax in registers (a
+// row's max and sum over its four lanes by two shuffles, in log2 units: one
+// multiply and one exp2 per score), the O accumulator rescaled by corr, and
+// O += P.V with P packed in place as the register A operand and V read
+// MN-major. What bounds it is the softmax: one exp2 per score on the
+// special-function unit (16 a clock per SM against the tensor cores' 4D
+// operations per score) and the instructions around it, so the products
+// are software-pipelined against it (two S accumulators in turn): S of the
+// next tile and P.V of the previous one run on the tensor cores while this
+// tile's softmax runs, and three blocks share an SM (168 registers at
+// DP = 64). On the H100 this beat the dq pass's geometry (two warpgroups,
+// a 128-row q tile, each tile's products waited for before its softmax)
+// at (8, 8, 2048, 64) causal; a two-warpgroup block pipelined the same way
+// needs 157 registers, so one block per SM, and was slower. The dq pass
+// mirrors the TPU's grid over q tiles with k sequential, the dk/dv pass its
+// grid over k tiles with q sequential: both recompute S and dP, which is
+// the price of a dq without atomics, so two launches on the same inputs
+// give the same bits (no kernel here uses atomics). A block
 // is two warpgroups; each owns 64 rows (wgmma's M): q rows in the dq pass
 // (a 128-row q tile per block, k tiles of 64), k rows in the dk/dv pass (a
 // 128-row k tile, q tiles of 32, so that a warpgroup's four accumulators
@@ -72,7 +91,7 @@
 // swizzle atom), in a ring of two stages: the next tile's loads run under
 // the current tile's products.
 //
-// What bounds them on the card, short of the tensor-core peak: while a
+// What bounds the backward passes, short of the tensor-core peak: while a
 // warpgroup forms p and ds on the CUDA cores its products wait. So the
 // exponentials overlap the dP product (S and dP are two commit groups),
 // only the diagonal and ragged tiles test liveness, the exponent is one FMA
@@ -81,7 +100,11 @@
 // block's products run under the other's p and ds.
 //
 // Numerics: scale multiplies the fp32 S accumulator (not q: 1/sqrt(D) would
-// round in bf16); p = exp(S*scale - lse) and ds = p * (dP - delta) are
+// round in bf16). The forward rounds p = exp(S*scale - m_running) once to
+// the input type as the A operand of P.V, a rounding the TPU kernel (p in
+// fp32) does not make and SDPA's flash forward does; l sums the fp32 p, and
+// o = O / max(l, 1e-30) and lse = m + log(max(l, 1e-30)) are formed in fp32.
+// In the backward, p = exp(S*scale - lse) and ds = p * (dP - delta) are
 // computed in fp32 and rounded once to the input type as register operands
 // (the single rounding these kernels add, at the points where bf16
 // attention itself rounds p and ds); dq and dk take the scale once at
@@ -92,9 +115,10 @@
 // Both designs skip causal tiles that are wholly masked (the loops stop at
 // (forward, dq) or start from (dk/dv) the diagonal) and mask only the
 // diagonal and ragged tiles, and schedule the heaviest causal tiles first.
-// In the fp32 kernels a fully masked score is -inf and every exp is guarded
-// as in the TPU kernel (p = 0 where s = -inf or lse = -inf, corr = 0 where
-// m_prev = -inf), so a fully masked tile or row gives zeros, never NaN.
+// In the fp32 kernels and the tensor-core forward a fully masked score is
+// -inf and every exp is guarded as in the TPU kernel (p = 0 where s = -inf
+// or lse = -inf, corr = 0 where m_prev = -inf), so a fully masked tile or
+// row gives zeros, never NaN.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -123,7 +147,8 @@ constexpr int min_blocks() {
   return DP == 64 ? 2 : 1;
 }
 
-// 16 bytes of elements (4 fp32 or 8 bf16/fp16) to fp32, exactly.
+// The CUDA-core kernels run only in fp32 (bf16 and fp16 take the
+// tensor-core kernels): 16 bytes of 4 elements, and a store of 4.
 __device__ __forceinline__ void unpack(const uint4& u, float* f, float) {
   f[0] = __uint_as_float(u.x);
   f[1] = __uint_as_float(u.y);
@@ -131,45 +156,8 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f, float) {
   f[3] = __uint_as_float(u.w);
 }
 
-__device__ __forceinline__ void unpack(const uint4& u, float* f,
-                                       __nv_bfloat16) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    f[2 * e] = __uint_as_float(w[e] << 16);
-    f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ void unpack(const uint4& u, float* f, __half) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    f[2 * e] = __half2float(__ushort_as_half(
-        static_cast<unsigned short>(w[e] & 0xffffu)));
-    f[2 * e + 1] = __half2float(__ushort_as_half(
-        static_cast<unsigned short>(w[e] >> 16)));
-  }
-}
-
-// Store 4 consecutive outputs, rounded once to E (8 or 16 bytes).
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p,
-                                       const float (&v)[4]) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = make_uint2(
-      *reinterpret_cast<uint32_t*>(&a), *reinterpret_cast<uint32_t*>(&b));
-}
-
-__device__ __forceinline__ void store4(__half* p, const float (&v)[4]) {
-  __half2 a = __floats2half2_rn(v[0], v[1]);
-  __half2 b = __floats2half2_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = make_uint2(
-      *reinterpret_cast<uint32_t*>(&a), *reinterpret_cast<uint32_t*>(&b));
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -732,15 +720,16 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int p, int kk) {
 }
 
 // rows r0.. of a (T, D) matrix into a tile, by 16-byte cp.async into the
-// swizzled layout; chunks past T or D are filled with zeros
-template <typename E, int R, int DP>
+// swizzled layout, by the NTHR threads of the block; chunks past T or D are
+// filled with zeros
+template <typename E, int R, int DP, int NTHR = NTC>
 __device__ __forceinline__ void load_tile(uint32_t tile, const E* src,
                                           int r0, int T, int D) {
   constexpr int CPR = DP / 8;  // 16-byte chunks per row
-  static_assert(R * CPR % NTC == 0, "tile chunks must split evenly");
+  static_assert(R * CPR % NTHR == 0, "tile chunks must split evenly");
 #pragma unroll
-  for (int n = 0; n < R * CPR / NTC; ++n) {
-    const int idx = threadIdx.x + n * NTC;
+  for (int n = 0; n < R * CPR / NTHR; ++n) {
+    const int idx = threadIdx.x + n * NTHR;
     const int r = idx / CPR;
     const int c = idx % CPR;
     const bool ok = r0 + r < T && c * 8 < D;
@@ -1202,6 +1191,221 @@ flash_bwd_dkv_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
   }
 }
 
+// The forward's ring of K and V tiles: deep enough that the tile after
+// the current one has landed while the current one's softmax runs (tile
+// it + STAGES - 1 loads once tile it - 1's P.V is done). Its blocks per SM:
+// three at DP = 64 (170 registers a thread), two at DP = 128.
+template <int DP>
+__host__ __device__ constexpr int fwd_stages() {
+  return DP == 64 ? 4 : 3;
+}
+
+template <int DP>
+constexpr int fwd_tc_min_blocks() {
+  return DP == 64 ? 3 : 2;
+}
+
+template <int DP>
+constexpr uint32_t fwd_tc_smem() {
+  // a Q tile of 64 rows, the ring of K and V tiles of 64 rows, and 1024
+  // bytes to align the swizzle atoms
+  return ROWS * DP * 2 + 2 * fwd_stages<DP>() * 64 * DP * 2 + 1024;
+}
+
+constexpr float LN2 = 0.6931471805599453f;
+
+// 2^x by one MUFU.EX2, a result below 2^-126 flushed to zero (exp2f adds
+// three instructions to keep it denormal). A p that small is below any
+// contribution to a row whose largest p is 1.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// o, lse <- attention(q, k, v) on the tensor cores. A block is one
+// warpgroup and its 64 q rows. Per k tile, S = Q.K^T by wgmma from shared
+// memory; the online softmax in registers, in log2 units (m is the running
+// max of S * scale * log2(e), p = exp2(that - m)); P packed in place to the
+// register A operand of O += P.V, V read MN-major. The products are
+// software-pipelined against the softmax: S of the next tile and P.V of
+// the previous one run on the tensor cores while this tile's softmax runs
+// on the CUDA cores (two S accumulators, used in turn).
+template <typename E, int DP>
+__global__ void __launch_bounds__(WG, fwd_tc_min_blocks<DP>())
+flash_fwd_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                    const E* __restrict__ v, E* __restrict__ o,
+                    float* __restrict__ lse, int T, int D, float scale,
+                    int causal) {
+  constexpr int BK2 = 64;                // k rows per tile
+  constexpr int NS = fwd_stages<DP>();   // stages of the ring
+  constexpr uint32_t QT = ROWS * DP * 2;  // bytes of the q tile
+  constexpr uint32_t KT = BK2 * DP * 2;   // bytes of a k-side tile
+  constexpr int NP = DP / 64;             // 64-column panels of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t Qs = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t Ks = Qs + QT;          // NS tiles
+  const uint32_t Vs = Ks + NS * KT;     // NS tiles
+
+  const int t = threadIdx.x;
+  const int nq = (T + ROWS - 1) / ROWS;
+  const int64_t bh = blockIdx.x / nq;
+  // heaviest causal tiles (the last q rows) are scheduled first
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x % nq)) * ROWS;
+  const int64_t base = bh * static_cast<int64_t>(T) * D;
+  q += base;
+  k += base;
+  v += base;
+  o += base;
+  lse += bh * T;
+
+  const int k_end = causal ? min(T, q0 + ROWS) : T;
+  const int n_tiles = (k_end + BK2 - 1) / BK2;
+  auto load_kv = [&](int i) {  // tile i into stage i % NS, one commit group
+    if (i < n_tiles) {
+      load_tile<E, BK2, DP, WG>(Ks + (i % NS) * KT, k, i * BK2, T, D);
+      load_tile<E, BK2, DP, WG>(Vs + (i % NS) * KT, v, i * BK2, T, D);
+    }
+    cp_commit();
+  };
+  load_tile<E, ROWS, DP, WG>(Qs, q, q0, T, D);
+  // NS - 1 tiles in flight before the first product (Q in tile 0's group)
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) load_kv(i);
+
+  // the two rows of the block's q rows this thread holds
+  const int ra = q0 + 16 * (t >> 5) + ((t & 31) >> 2);
+  const float scale_log2 = scale * LOG2E;
+
+  // m: the running row max in log2 units; l: this thread's share of the
+  // row sum (its 16 columns of each tile), summed over the row's four
+  // lanes at the end
+  float acc[NP][32], s0[32], s1[32], m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) acc[p][i] = 0.f;
+  }
+
+  // S of tile i into s (scale_d 0: no need to clear s)
+  auto issue_s = [&](float (&s)[32], int i) {
+    const uint32_t kt = Ks + (i % NS) * KT;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss_n64(s, desc_k<ROWS>(Qs, kk), desc_k<BK2>(kt, kk), kk, E());
+    wg_commit();
+  };
+
+  cp_wait<NS - 2>();  // tile 0 (and Q) has landed
+  tiles_ready();
+  if (n_tiles > 0) {
+    issue_s(s0, 0);
+    wg_wait<0>();
+    reg_fence(s0);
+  }
+
+  // One tile: sc holds its S; S of the next tile goes into sn.
+  auto step = [&](float (&sc)[32], float (&sn)[32], int it) {
+    const int k0 = it * BK2;
+    const bool more = it + 1 < n_tiles;
+    if (more) {  // the next tile's S runs under this tile's softmax
+      cp_wait<NS - 3>();  // tile it + 1 has landed
+      tiles_ready();
+      issue_s(sn, it + 1);
+    }
+    // only the diagonal and the ragged tiles are masked (s = -inf)
+    const bool edge = k0 + BK2 > T || (causal && k0 + BK2 - 1 > q0);
+    float mt[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const int col = k0 + 8 * (i >> 2) + 2 * (t & 3) + (i & 1);
+      const bool live = !edge || (col < T && (!causal || col <= ra + 8 * h));
+      sc[i] = live ? sc[i] * scale_log2 : NEG_INF;
+      mt[h] = fmaxf(mt[h], sc[i]);
+    }
+    float corr[2], m_safe[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // a row's 64 columns are spread over the four lanes t % 4
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
+      const float m_new = fmaxf(m[h], mt[h]);
+      // the TPU kernel's guards: a row with no live key yet keeps
+      // m = -inf, its p are exp2(-inf) = 0 and its corr is 0
+      m_safe[h] = m_new == NEG_INF ? 0.f : m_new;
+      corr[h] = m[h] == NEG_INF ? 0.f : exp2_ftz(m[h] - m_safe[h]);
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      sc[i] = exp2_ftz(sc[i] - m_safe[h]);
+      l[h] += sc[i];  // the unrounded p
+    }
+    // the previous tile's P.V is done (S of the next may still run) ...
+    if (more) {
+      wg_wait<1>();
+    } else {
+      wg_wait<0>();
+    }
+#pragma unroll
+    for (int p = 0; p < NP; ++p) reg_fence(acc[p]);
+    // ... so its stage refills, and O takes this tile's correction
+    load_kv(it + NS - 1);
+    uint32_t a[BK2 / 16][4];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2)
+      // the accumulator's (row, column) pairs are the A fragment's
+      a[i >> 3][(i >> 1) & 3] = pack2(sc[i], sc[i + 1], E());
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p][i] *= corr[(i >> 1) & 1];
+    }
+    const uint32_t vt = Vs + (it % NS) * KT;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK2 / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        wgmma_rs_n64(acc[p], a[kk], desc_mn<BK2>(vt, p, kk), 1, E());
+    wg_commit();
+    if (more) {  // the next tile's S is in (P.V may still run)
+      wg_wait<1>();
+      reg_fence(sn);
+    }
+  };
+  for (int it = 0; it < n_tiles; it += 2) {
+    step(s0, s1, it);
+    if (it + 1 < n_tiles) step(s1, s0, it + 1);
+  }
+  wg_wait<0>();
+#pragma unroll
+  for (int p = 0; p < NP; ++p) reg_fence(acc[p]);
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const float lc = fmaxf(l[h], 1e-30f);
+    inv[h] = 1.f / lc;
+    const int r = ra + 8 * h;
+    // natural-log lse; a fully masked row keeps -inf (m = -inf)
+    if ((t & 3) == 0 && r < T) lse[r] = m[h] * LN2 + logf(lc);
+  }
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] *= inv[(i >> 1) & 1];
+    store_acc<E>(o, acc[p], q0, 64 * p, T, D, 1.f, t);
+  }
+}
+
 // ----------------------------------------------------------- launching
 
 template <int DP>
@@ -1243,14 +1447,27 @@ struct Args {
 template <typename E, int DP>
 cudaError_t launch_fwd(const Args& a) {
   static bool ready = false;
-  auto kernel = flash_fwd_kernel<E, DP>;
-  cudaError_t err = allow_smem(kernel, fwd_smem<DP>(), &ready);
-  if (err != cudaSuccess) return err;
-  const int64_t blocks = static_cast<int64_t>(a.BH) * ((a.T + BQ - 1) / BQ);
-  kernel<<<static_cast<unsigned>(blocks), NT, fwd_smem<DP>(), a.stream>>>(
-      static_cast<const E*>(a.q), static_cast<const E*>(a.k),
-      static_cast<const E*>(a.v), static_cast<E*>(a.o), a.lse_out, a.T, a.D,
-      a.scale, a.causal);
+  if constexpr (std::is_same<E, float>::value) {
+    auto kernel = flash_fwd_kernel<E, DP>;
+    cudaError_t err = allow_smem(kernel, fwd_smem<DP>(), &ready);
+    if (err != cudaSuccess) return err;
+    const int64_t blocks = static_cast<int64_t>(a.BH) * ((a.T + BQ - 1) / BQ);
+    kernel<<<static_cast<unsigned>(blocks), NT, fwd_smem<DP>(), a.stream>>>(
+        static_cast<const E*>(a.q), static_cast<const E*>(a.k),
+        static_cast<const E*>(a.v), static_cast<E*>(a.o), a.lse_out, a.T,
+        a.D, a.scale, a.causal);
+  } else {
+    auto kernel = flash_fwd_tc_kernel<E, DP>;
+    cudaError_t err = allow_smem(kernel, fwd_tc_smem<DP>(), &ready);
+    if (err != cudaSuccess) return err;
+    const int64_t blocks =
+        static_cast<int64_t>(a.BH) * ((a.T + ROWS - 1) / ROWS);
+    kernel<<<static_cast<unsigned>(blocks), WG, fwd_tc_smem<DP>(),
+             a.stream>>>(
+        static_cast<const E*>(a.q), static_cast<const E*>(a.k),
+        static_cast<const E*>(a.v), static_cast<E*>(a.o), a.lse_out, a.T,
+        a.D, a.scale, a.causal);
+  }
   return cudaGetLastError();
 }
 

@@ -17,12 +17,13 @@ the health/perf hooks (``ROADMAP.md`` Queue A13); asking for them raises.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
 
 from .base import MXNetError, dtype_name
-from .context import as_device
+from .context import Context, as_device
 
 __all__ = ["Executor", "resolve_output_indices"]
 
@@ -84,7 +85,17 @@ class _GraphProgram:
         return cached
 
     def _eval(self, arg_d, aux_d, is_train=False, sel=None):
-        """Walk the graph once; returns (outputs, {aux name: new value})."""
+        """Walk the graph once; returns (outputs, {aux name: new value}).
+        The walk runs in the scope of the bound arrays' device, so an op
+        without inputs (``_zeros``) creates its tensor beside them."""
+        first = next(iter(arg_d.values()), None)
+        scope = contextlib.nullcontext()
+        if first is not None and first.device.type in ("cpu", "cuda"):
+            scope = Context.from_device(first.device)
+        with scope:
+            return self._walk(arg_d, aux_d, is_train, sel)
+
+    def _walk(self, arg_d, aux_d, is_train, sel):
         env = {}
         aux_updates = {}
         topo, out_entries = self.topo_for(sel)

@@ -283,8 +283,8 @@ def _sink_once(ctx):
 
 # ----------------------------------------------------------------- fold ----
 
-# init-style ops stay lazy (none is ported yet; the names match the JAX
-# package so a graph carrying them folds the same way)
+# init-style ops stay lazy (the names match the JAX package, so a graph
+# carrying them folds the same way)
 _NOFOLD = frozenset({"_zeros", "_ones", "_full", "_arange"})
 
 

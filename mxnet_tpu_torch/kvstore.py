@@ -77,7 +77,7 @@ class KVStore:
         for k, vlist in zip(keys, vals):
             if k not in self._data:
                 raise MXNetError("key %r has not been initialized" % (k,))
-            merged = self._reduce(vlist, self._data[k].context)
+            merged = self._reduce(vlist, self._data[k]._data.device)
             if self._updater is not None:
                 self._updater(_updater_key(k), merged, self._data[k])
             else:

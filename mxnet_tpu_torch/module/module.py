@@ -22,7 +22,7 @@ import torch
 from .. import ndarray as nd
 from .. import optimizer as opt
 from ..base import MXNetError
-from ..context import as_device, cpu
+from ..context import Context, as_device, cpu
 from ..initializer import Uniform, InitDesc
 from ..model import (
     _create_kvstore,
@@ -35,7 +35,7 @@ from .executor_group import DataParallelExecutorGroup
 
 def _normalize_contexts(context):
     """The module's device, as a one-element list: the card for None."""
-    if context is None or isinstance(context, (torch.device, str)):
+    if context is None or isinstance(context, (Context, torch.device, str)):
         return [as_device(context)]
     contexts = [as_device(c) for c in context]
     if len(contexts) != 1:

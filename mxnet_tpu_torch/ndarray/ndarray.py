@@ -1,13 +1,14 @@
 """NDArray — the imperative value type, a wrapper over one ``torch.Tensor``.
 
 Counterpart of ``mxnet_tpu/ndarray/ndarray.py``. An NDArray holds one
-tensor on one explicit device (``context``: a ``torch.device``). The
-creation functions put it on the CUDA card unless the caller passes
-``ctx=mx.cpu()``, and raise where there is no card. MXNet's mutation
-(``a[:] = x``, ``+=``, ``copyto``, optimizer and aux-state updates)
-writes into that tensor in place under ``torch.no_grad()``; the JAX
-package, whose arrays are immutable, rebinds the NDArray to a new buffer
-instead. Launches are asynchronous on the current CUDA stream:
+tensor on one explicit device (``context``: a ``Context``, whose
+``device`` is the tensor's). The creation functions put it where ``ctx``
+says, else in the innermost ``with mx.cpu():`` / ``with mx.gpu(i):``
+scope, else on the CUDA card, and raise where there is no card. MXNet's
+mutation (``a[:] = x``, ``+=``, ``copyto``, optimizer and aux-state
+updates) writes into that tensor in place under ``torch.no_grad()``; the
+JAX package, whose arrays are immutable, rebinds the NDArray to a new
+buffer instead. Launches are asynchronous on the current CUDA stream:
 ``asnumpy`` and ``wait_to_read`` are the sync points.
 
 Autograd (``attach_grad``, ``.grad``, ``backward``, ``detach``) rides on
@@ -22,7 +23,7 @@ import torch
 
 from ..autograd import is_recording
 from ..base import MXNetError, np_dtype, torch_dtype
-from ..context import as_device
+from ..context import Context, as_device
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty",
            "concatenate", "waitall"]
@@ -86,7 +87,7 @@ class NDArray:
 
     @property
     def context(self):
-        return self._data.device
+        return Context.from_device(self._data.device)
 
     ctx = context
 
@@ -155,7 +156,7 @@ class NDArray:
             if other is not self:
                 other._set_data(self._data)
             return other
-        if isinstance(other, (torch.device, str)):
+        if isinstance(other, (Context, torch.device, str)):
             return _from_data(self._data.to(as_device(other), copy=True))
         raise TypeError("copyto does not support type " + str(type(other)))
 
@@ -163,7 +164,7 @@ class NDArray:
         return _from_data(self._data.clone())
 
     def as_in_context(self, context):
-        if self.context == as_device(context):
+        if self._data.device == as_device(context):
             return self
         return self.copyto(context)
 
@@ -344,7 +345,8 @@ def _unwrap_index(key):
 
 def array(source_array, ctx=None, dtype=None):
     """An NDArray from any array-like (a copy). ``ctx`` defaults to the
-    card, or to the source's own device for an NDArray or tensor."""
+    source's own device for an NDArray or tensor, else to the innermost
+    ``with`` scope, else the card."""
     if isinstance(source_array, (NDArray, torch.Tensor)):
         t = source_array._data if isinstance(source_array, NDArray) \
             else source_array

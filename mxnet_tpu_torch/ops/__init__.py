@@ -11,4 +11,5 @@ from . import matrix
 from . import nn
 from . import fused
 from . import optimizer_ops
+from . import init_ops
 from .. import operator as _operator  # noqa: F401  (registers Custom)

@@ -24,11 +24,13 @@ The CUDA kernels mask ragged T themselves, so every T has a kernel form on
 the card: the JAX package's prime-T dense fallback and its block lookup
 through the tuning cache have no counterpart here. The block arguments are
 accepted for API parity and unused: the kernels choose their own tiles.
-The forward and the fp32 backward run on the CUDA cores in fp32 (64 x 64
-tiles); the bf16 and fp16 backward run on the tensor cores (wgmma, 128-row
-blocks of two 64-row warpgroups), rounding p and ds once to the input type
-as the A operands of their second products, where plain bf16 attention
-rounds them too (``round_to`` of the plain versions repeats that).
+The fp32 kernels run on the CUDA cores in fp32 (64 x 64 tiles); the bf16
+and fp16 kernels run on the tensor cores (wgmma; the forward in 64-row
+blocks of one warpgroup, the backward in 128-row blocks of two), rounding
+p (and in the backward ds) once to the input type as the A operands of
+their second products, where SDPA's flash kernels round them too (``round_to`` of the plain versions repeats that: the
+forward's walks the key axis in the kernel's 64-key tiles with its running
+max, since its p is relative to that max).
 ``paged_decode_attention`` and ``paged_verify_attention`` wait for the
 generation slice.
 """
@@ -85,10 +87,46 @@ def flash_attention_reference(q, k, v, causal=False, scale=None):
     return out.to(q.dtype), lse
 
 
-def flash_forward_reference(q, k, v, causal, scale):
-    """Plain version of the forward kernel (no autograd)."""
+def flash_forward_reference(q, k, v, causal, scale, round_to=None,
+                            block_k=64):
+    """Plain version of the forward kernel (no autograd). With ``round_to``
+    (a torch dtype) it walks the key axis in the tensor-core kernel's
+    ``block_k``-key tiles with its running max, and rounds each p =
+    exp(s - m_running) once to ``round_to`` where that kernel does (the A
+    operand of its P.V product), l summed from the unrounded p; without,
+    it is the dense fp32 formula of :func:`flash_attention_reference`."""
     with torch.no_grad():
-        return flash_attention_reference(q, k, v, causal, scale)
+        if round_to is None:
+            return flash_attention_reference(q, k, v, causal, scale)
+        return _fwd_tiles(q, k, v, causal, scale, round_to, block_k)
+
+
+def _fwd_tiles(q, k, v, causal, scale, round_to, block_k):
+    """The online softmax over key tiles, in fp32 but for p's rounding:
+    ``(out, lse)``, out in the input dtype. The guards are the TPU
+    kernel's: p = 0 for a masked score, corr = 0 while a row has seen no
+    live key, so a fully masked row gives lse = -inf and a zero output."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        s = s.masked_fill(~_causal_mask(q.shape[2], q.device), _NEG_INF)
+    m = torch.full(s.shape[:3], _NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, device=q.device)
+    for k0 in range(0, s.shape[-1], block_k):
+        st = s[..., k0:k0 + block_k]
+        m_new = torch.maximum(m, st.amax(-1))
+        m_safe = torch.where(torch.isneginf(m_new), torch.zeros_like(m_new),
+                             m_new)
+        p = torch.exp(st - m_safe[..., None])
+        corr = torch.where(torch.isneginf(m), torch.zeros_like(m),
+                           torch.exp(m - m_safe))
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(round_to).float(),
+            v[..., k0:k0 + block_k, :].float())
+        m = m_new
+    lc = l.clamp_min(1e-30)
+    return (acc / lc[..., None]).to(q.dtype), m + torch.log(lc)
 
 
 def _bwd_tiles(q, k, v, do, lse, delta, causal, scale, round_to=None):

@@ -4,8 +4,10 @@ Counterpart of ``mxnet_tpu/parallel/fused.py`` ``fused_matmul`` and
 ``fused_batch_matmul``. The fuse graph pass carves Convolution /
 FullyConnected / dot / batch_dot + epilogue chains into ``_FusedRegion``
 nodes (ops/fused.py); the kernel-form regions run here, on the
-hand-written CUDA kernel ``csrc/fused_matmul.cu``: fp32 accumulation and
-the whole epilogue applied in registers before one store.
+hand-written CUDA kernel ``csrc/fused_matmul.cu``: a register-tiled fp32
+SGEMM (128 x 128 or 64 x 64 output tiles, chosen per launch by
+:func:`tile_size`) with the whole epilogue applied in registers before one
+store.
 
 * :func:`fused_matmul` — ``epilogue(x @ w.T)`` when ``wt`` (w is (N, K)),
   else ``epilogue(x @ w)`` (w is (K, N)). A CUDA tensor launches the
@@ -47,7 +49,8 @@ from ..base import MXNetError, torch_dtype
 from ..ops.elemwise import softrelu, softsign
 
 __all__ = ["fused_matmul", "fused_matmul_reference", "fused_batch_matmul",
-           "fused_batch_matmul_reference", "supported_act", "MAX_STEPS"]
+           "fused_batch_matmul_reference", "supported_act", "tile_size",
+           "MAX_STEPS"]
 
 KERNEL = "fused_matmul"          # the source and the 2-d launch counter
 BMM_KERNEL = "fused_batch_matmul"  # the batched launch counter
@@ -202,6 +205,8 @@ def _library():
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(_Epilogue), ctypes.c_void_p]
     lib.fused_batch_matmul_launch.restype = ctypes.c_int
+    lib.fused_matmul_tile.argtypes = [ctypes.c_int] * 3
+    lib.fused_matmul_tile.restype = ctypes.c_int
     lib.fused_matmul_error_string.argtypes = [ctypes.c_int]
     lib.fused_matmul_error_string.restype = ctypes.c_char_p
     for probe in (lib.fused_matmul_epilogue_size, lib.fused_matmul_max_steps):
@@ -212,6 +217,13 @@ def _library():
         raise MXNetError("fused_matmul: the epilogue struct of the built "
                          "library does not match _Epilogue")
     return lib
+
+
+def tile_size(B, M, N):
+    """The output tile edge (128 or 64) that the kernel takes for a launch
+    of B (M, N) outputs on the current card: 128 where that grid fills
+    every SM, else 64."""
+    return _library().fused_matmul_tile(int(B), int(M), int(N))
 
 
 def _encode_epilogue(epilogue, extras, M, N, device, res_shape=None):

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..base import MXNetError
-from ..context import as_device, default_device
+from ..context import Context, as_device, default_device
 
 __all__ = ["Mesh", "make_mesh"]
 
@@ -35,7 +35,7 @@ def make_mesh(axes=None, devices=None):
     devices". More than one device raises: distribution is not ported."""
     if devices is None:
         devices = [default_device()]
-    elif isinstance(devices, (torch.device, str)):
+    elif isinstance(devices, (Context, torch.device, str)):
         devices = [devices]
     devices = [as_device(d) for d in devices]
     if axes is None:

@@ -43,6 +43,7 @@ import numpy as np
 
 from . import cuda_build, nvrtc
 from .base import MXNetError, torch_dtype
+from .context import as_device
 from .ndarray import NDArray
 
 __all__ = ["CudaModule", "CudaKernel", "PallasModule"]
@@ -127,7 +128,7 @@ def _dims(dims, what):
 def _launch_device(ctx):
     import torch
 
-    dev = torch.device(ctx) if ctx is not None else None
+    dev = as_device(ctx) if ctx is not None else None
     if dev is None or dev.type != "cuda":
         raise MXNetError("rtc kernels launch on a GPU context (mx.gpu(i)); "
                          "got %s" % (ctx,))

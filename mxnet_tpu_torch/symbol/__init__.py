@@ -11,3 +11,12 @@ _populate(op, _internal)
 
 globals().update(
     {k: v for k, v in op.__dict__.items() if not k.startswith("__")})
+
+
+# creation sugar matching mx.sym.zeros/ones (map onto init ops)
+def zeros(shape, dtype=None, **kwargs):
+    return _internal._zeros(shape=shape, dtype=dtype or "float32", **kwargs)
+
+
+def ones(shape, dtype=None, **kwargs):
+    return _internal._ones(shape=shape, dtype=dtype or "float32", **kwargs)

@@ -40,7 +40,8 @@ FA = importlib.import_module("mxnet_tpu_torch.parallel.flash_attention")
 
 sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__),
                                                 "..")))
-from chip_smoke import FLASH_ROUNDED_TOL, check_flash_rounding  # noqa: E402
+from chip_smoke import (FLASH_ROUNDED_TOL, check_flash_forward_rounding,  # noqa: E402
+                        check_flash_rounding)
 from tools.port_bf16_study import flash_delta_study  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -256,6 +257,56 @@ def test_flash_backward_launches_are_bit_identical(card, dtype):
                 assert torch.equal(a, b), (B, H, T, D, causal, name)
 
 
+_FLASH_FWD_SHAPES = _FLASH_SHAPES + [(1, 2, 300, 64), (2, 2, 257, 32),
+                                     (1, 1, 300, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_forward_tc_matches_the_plain_versions(card, dtype):
+    """The tensor-core forward against the fp32 plain version (FLASH_TOL,
+    here _TOL) and against the plain version that rounds p to the input
+    type in the kernel's 64-key tiles (FLASH_ROUNDED_TOL beyond half an
+    ulp of o), lse within 1e-4 of both, and two launches bit-identical:
+    ragged T, D of 8 to 128, causal and not."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for B, H, T, D in _FLASH_FWD_SHAPES:
+        for causal in (False, True):
+            what = (B, H, T, D, causal)
+            q, k, v, _, _ = _flash_inputs(B, H, T, D, getattr(torch, dtype),
+                                          gen)
+            o, lse = FA.flash_forward(q, k, v, causal)
+            ro, rlse = FA.flash_forward_reference(q, k, v, causal, D ** -0.5)
+            _near(o, ro, _TOL[dtype], what + ("o",))
+            _near(lse, rlse, 1e-4, what + ("lse",))
+            excess = check_flash_forward_rounding(FA, q, k, v, causal, o,
+                                                  lse, what)
+            assert excess <= FLASH_ROUNDED_TOL, what
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_forward_fully_masked_rows(card, dtype):
+    """q > 0 and the first 64 keys -inf in every feature: their scores are
+    -inf, so the first key tile is wholly masked for every row and, with
+    causal, rows 0..63 see no live key: those keep lse = -inf and a zero
+    output (the TPU kernel's guards), the rest match the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for D in (32, 64, 128):
+        for causal in (False, True):
+            q, k, v, _, _ = _flash_inputs(1, 2, 129, D, getattr(torch, dtype),
+                                          gen)
+            q = q.abs() + 0.1
+            k[:, :, :64] = float("-inf")
+            o, lse = FA.flash_forward(q, k, v, causal)
+            ro, rlse = FA.flash_forward_reference(q, k, v, causal, D ** -0.5)
+            dead = torch.isneginf(rlse)
+            assert bool(dead.any()) == causal
+            assert torch.equal(torch.isneginf(lse), dead), (D, causal)
+            assert (o[dead] == 0).all() and torch.isfinite(o.float()).all()
+            live = ~dead
+            _near(o[live], ro[live], _TOL[dtype], (D, causal, "o"))
+            _near(lse[live], rlse[live], 1e-4, (D, causal, "lse"))
+
+
 def test_flash_attention_grads_and_launch_counts(card):
     gen = torch.Generator(device="cuda").manual_seed(3)
     q, k, v, do, dlse = _flash_inputs(2, 2, 100, 64, torch.float32, gen)
@@ -284,8 +335,10 @@ def test_flash_bf16_gradient_gap_is_delta_from_the_rounded_o(card):
     within 10% of SDPA's bf16 flash backward, which rounds at the same
     points. Taking delta = rowsum(do * o) from the fp32 o instead of the
     forward kernel's bf16 o still brings dq closer to fp32 and no longer
-    moves dk: when delta stops being rounded through o, the dq assertion
-    flips and goes with the fix."""
+    moves dk. The port keeps delta from the bf16 o, as the JAX package
+    does: an fp32 o residual would cost 4 bytes per element of o (32 MiB a
+    layer at the LM's (8, 8, 2048, 64)) for that part of dq's error alone;
+    if delta ever stops being rounded through o, the dq assertion flips."""
     study = flash_delta_study()
     plain, path = study["plain_bf16"], study["kernels"]
     exact, sdpa = study["kernels_fp32_delta"], study["sdpa_bf16"]
@@ -361,6 +414,35 @@ def test_batch_kernel_matches_plain(card, dtype):
                         out = F.fused_batch_matmul(x, w, ex, ep)
                         ref = F.fused_batch_matmul_reference(x, w, ex, ep)
                         _near(out, ref, _TOL[dtype], (B, M, N, K, ep))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_kernel_tile_sizes_match_plain(card, dtype):
+    """Shapes whose grid takes the 128 x 128 tile (at least one block per
+    SM) and the 64 x 64 tile, with ragged M, N and K at the large tile, both
+    wt forms, in fused_matmul and fused_batch_matmul (a contiguous w and the
+    transposed view)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dt = getattr(torch, dtype)
+    ep = (("bias",), ("act", "relu"))
+    for M, N, K, tile in ((2000, 1100, 37, 128), (2048, 2048, 64, 128),
+                          (392, 2048, 512, 64), (130, 257, 100, 64)):
+        assert F.tile_size(1, M, N) == tile, (M, N)
+        assert (tile == 128) == (-(-M // 128) * -(-N // 128) >= sms)
+        for wt in (True, False):
+            x, w, extras = _case(M, N, K, wt, ep, dt, gen)
+            _near(F.fused_matmul(x, w, extras, ep, wt),
+                  F.fused_matmul_reference(x, w, extras, ep, wt),
+                  _TOL[dtype], (M, N, K, wt, tile))
+    bep = (("scalar", "_mul_scalar", 0.5), ("res", "elemwise_add"))
+    for B, M, N, K, tile in ((3, 1000, 700, 130, 128), (2, 300, 129, 33, 64)):
+        assert F.tile_size(B, M, N) == tile, (B, M, N)
+        for transposed in (False, True):
+            x, w, extras = _bmm_case(B, M, N, K, bep, dt, gen, transposed)
+            _near(F.fused_batch_matmul(x, w, extras, bep),
+                  F.fused_batch_matmul_reference(x, w, extras, bep),
+                  _TOL[dtype], (B, M, N, K, transposed, tile))
 
 
 def test_batch_kernel_reads_the_transposed_operand_in_place(card):
@@ -478,9 +560,9 @@ def test_fit_with_a_kvstore_updates_on_the_card(card):
             assert mod._update_on_kvstore and mod._kvstore is kv
             assert sorted(kv._data) == sorted(mod._param_names)
             for name, stored in kv._data.items():
-                assert stored.context.type == "cuda", name
+                assert stored.context.device_type == "gpu", name
             states = kv._updater.states
-            assert states and all(s.context.type == "cuda"
+            assert states and all(s.context.device_type == "gpu"
                                   for s in states.values())
     for k in params[1]:
         np.testing.assert_allclose(params[0][k], params[1][k], rtol=1e-5,

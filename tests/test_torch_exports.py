@@ -1,0 +1,143 @@
+"""Port parity: the public names of ``mx``, ``mx.sym``, ``mx.nd`` and
+``mx.base`` against mxnet_tpu's. Every name of the JAX package's modules
+exists in the port, or is on the explicit list of what is still unported
+(ROADMAP.md Queue A) below. The lists may only shrink: a name that the
+port gains must leave its list, or the test fails.
+
+The names are listed by a fresh process per package: in a test process,
+other tests' imports add submodules to a package's namespace.
+"""
+import functools
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+import mxnet_tpu as jmx
+import mxnet_tpu_torch as tmx
+
+# modules and classes of ``mx`` not ported yet
+MX_UNPORTED = frozenset({
+    "Monitor", "NotImplementedForSymbol", "attribute", "autotune",
+    "contrib", "engine", "executor_manager", "fluent", "gluon", "image",
+    "img", "kvstore_server", "libinfo", "log", "mon", "monitor", "name",
+    "observability", "profiler", "random", "recordio", "registry",
+    "resilience", "rnd", "rnn", "runtime", "storage", "visualization",
+    "viz"
+})
+
+# ops of the registry not ported yet (both ``mx.sym`` and ``mx.nd``)
+OPS_UNPORTED = frozenset({
+    "BatchNorm_v1", "BilinearSampler", "BlockGrad", "Concat",
+    "Convolution_v1", "Correlation", "Correlation1D", "Crop",
+    "Deconvolution", "Dropout", "ElementWiseSum", "Embedding",
+    "GridGenerator", "IdentityAttachKLSparseReg", "InstanceNorm",
+    "L2Normalization", "LRN", "LSoftmax", "LeakyReLU",
+    "LinearRegressionOutput", "LogisticRegressionOutput",
+    "MAERegressionOutput", "MakeLoss", "MultiLogistic", "Pad",
+    "Pooling_v1", "RNN", "ROIPooling", "SCN", "SPN", "SVMOutput",
+    "SequenceLast", "SequenceMask", "SequenceReverse", "SliceChannel",
+    "SoftmaxActivation", "SpatialTransformer", "SwapAxis", "UpSampling",
+    "WeightedL1", "abs", "adam_update", "add_n", "arange", "arccos",
+    "arccosh", "arcsin", "arcsinh", "arctan", "arctanh", "argmax",
+    "argmax_channel", "argmin", "argsort", "batch_take",
+    "broadcast_axes", "broadcast_axis", "broadcast_equal",
+    "broadcast_greater", "broadcast_greater_equal", "broadcast_hypot",
+    "broadcast_lesser", "broadcast_lesser_equal", "broadcast_like",
+    "broadcast_maximum", "broadcast_minimum", "broadcast_mod",
+    "broadcast_not_equal", "broadcast_power", "broadcast_to",
+    "cast_storage", "cbrt", "ceil", "choose_element_0index", "clip",
+    "concat", "contrib", "contrib_ctc_loss", "cos", "cosh", "crop",
+    "ctc_loss", "degrees", "elemwise_div", "erf", "expand_dims",
+    "expm1", "fix", "flip", "floor", "ftrl_update", "gamma", "gammaln",
+    "gather_nd", "identity", "linalg_gelqf", "linalg_gemm",
+    "linalg_gemm2", "linalg_potrf", "linalg_potri", "linalg_sumlogdiag",
+    "linalg_syevd", "linalg_syrk", "linalg_trmm", "linalg_trsm", "log",
+    "log10", "log1p", "log2", "log_softmax", "logical_not", "make_loss",
+    "max", "max_axis", "mean", "min", "min_axis", "nAvg", "nanprod",
+    "nansum", "negative", "norm", "normal", "one_hot", "ones_like",
+    "pad", "pick", "prod", "radians", "random_exponential",
+    "random_gamma", "random_generalized_negative_binomial",
+    "random_negative_binomial", "random_normal", "random_poisson",
+    "random_uniform", "rcbrt", "reciprocal", "repeat", "reshape_like",
+    "reverse", "rint", "rmsprop_update", "rmspropalex_update", "round",
+    "sample_multinomial", "scatter_nd", "sign", "sin", "sinh", "slice",
+    "slice_axis", "smooth_l1", "softmax_cross_entropy", "sort", "split",
+    "sqrt", "square", "stack", "stop_gradient", "sum", "sum_axis",
+    "swapaxes", "take", "tan", "tile", "topk", "trunc", "uniform",
+    "where", "zeros_like"
+})
+
+# beyond the ops: ``mx.sym`` only, ``mx.nd`` only
+SYM_UNPORTED = frozenset({
+
+})
+ND_UNPORTED = frozenset({
+    "BaseSparseNDArray", "CSRNDArray", "RowSparseNDArray", "load",
+    "moveaxis", "save", "sparse", "sparse_retain", "square_sum",
+    "utils"
+})
+
+UNPORTED = {"": MX_UNPORTED, "sym": OPS_UNPORTED | SYM_UNPORTED,
+            "nd": OPS_UNPORTED | ND_UNPORTED, "base": frozenset()}
+
+# the names this slice added, each of which the JAX package has
+ADDED = {"": ("Context", "current_context", "num_gpus", "tpu", "cpu_pinned",
+              "Symbol", "Executor", "opt", "Prefix", "cpu", "gpu"),
+         "sym": ("zeros", "ones"), "nd": (), "base": ("Prefix",)}
+
+
+_LIST = """
+import importlib, json, sys
+mx = importlib.import_module(sys.argv[1])
+print(json.dumps({name: sorted(n for n in dir(getattr(mx, name) if name
+                                               else mx)
+                               if not n.startswith("_"))
+                  for name in ("", "sym", "nd", "base")}))
+"""
+
+
+@functools.lru_cache(maxsize=None)
+def _public(package):
+    """{module name: its public names}, as a fresh import sees them."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _LIST, package], cwd=root,
+                         capture_output=True, text=True, check=True).stdout
+    return {k: set(v) for k, v in json.loads(out.splitlines()[-1]).items()}
+
+
+def _module(mx, name):
+    return getattr(mx, name) if name else mx
+
+
+@pytest.mark.parametrize("name", ["", "sym", "nd", "base"])
+def test_public_names_match_the_reference_but_the_unported(name):
+    ref, port = _module(jmx, name), _module(tmx, name)
+    missing = _public("mxnet_tpu")[name] - _public("mxnet_tpu_torch")[name]
+    assert missing == UNPORTED[name], (
+        "gained (take off the list): %s; lost: %s"
+        % (sorted(UNPORTED[name] - missing),
+           sorted(missing - UNPORTED[name])))
+    for n in ADDED[name]:
+        assert hasattr(ref, n) and hasattr(port, n), n
+
+
+def test_exported_names_are_the_modules_own():
+    assert tmx.Symbol is tmx.sym.Symbol
+    assert tmx.Executor is tmx.executor.Executor
+    assert tmx.opt is tmx.optimizer
+    assert tmx.Prefix is tmx.base.Prefix
+    assert tmx.Context is tmx.context.Context
+    assert isinstance(tmx.sym.zeros((2,)), tmx.Symbol)
+
+
+def test_prefix_names_symbols_as_the_reference():
+    names = []
+    for mx in (jmx, tmx):
+        with mx.Prefix("enc_"):
+            fc = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=4)
+        names.append(fc.list_arguments())
+    assert names[0] == names[1]
+    assert names[1][1].startswith("enc_")

@@ -173,3 +173,66 @@ def test_attention_reference_matches_jax(causal):
     out = attention_reference(*(torch.from_numpy(a) for a in (q, k, v)),
                               causal=causal).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+
+
+def _jax_forward(q, k, v, causal, dtype):
+    """(o, lse) of the Pallas forward in ``dtype``, interpreted."""
+    fn = jax.jit(functools.partial(jflash, causal=causal, interpret=True,
+                                   return_lse=True, **_BLOCKS))
+    with jax.default_matmul_precision("highest"):
+        outs = fn(*(jnp.asarray(a).astype(dtype) for a in (q, k, v)))
+    return [np.asarray(a, np.float32) for a in outs]
+
+
+def _masked_first_keys(q, k, n):
+    """q > 0 and the first n keys -inf in every feature: those scores are
+    -inf, so the first key tile is wholly masked for every row, and with
+    causal the rows before n see no live key at all."""
+    q = np.abs(q) + 0.1
+    k = k.copy()
+    k[:, :, :n] = -np.inf
+    return q, k
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("T", [17, 129])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tiled_forward_plain_matches_dense(causal, T, masked):
+    # the tensor-core forward's tiled walk (online softmax over 64-key
+    # tiles), rounding p to fp32 (no rounding), against the dense plain
+    # version, within 1e-6 fp32; with the first keys masked, the guards:
+    # rows that see no live key give lse = -inf and a zero output
+    q, k, v, _, _ = _inputs(1, 2, T, 32, seed=T, with_dlse=False)
+    if masked:
+        q, k = _masked_first_keys(q, k, min(T, 64))
+    q, k, v = (torch.from_numpy(a) for a in (q, k, v))
+    scale = 32 ** -0.5
+    o, lse = tfa.flash_forward_reference(q, k, v, causal, scale,
+                                         round_to=torch.float32)
+    ro, rlse = tfa.flash_forward_reference(q, k, v, causal, scale)
+    torch.testing.assert_close(o, ro, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(lse, rlse, rtol=1e-6, atol=1e-6)
+    if masked:
+        dead = torch.isneginf(rlse)
+        assert bool(dead.any()) == (causal or T <= 64)
+        assert torch.isneginf(lse[dead]).all()
+        assert (o[dead] == 0).all() and torch.isfinite(o).all()
+
+
+@pytest.mark.parametrize("T", [17, 129])
+@pytest.mark.parametrize("causal", [False, True])
+def test_rounding_plain_forward_matches_pallas_interpret(causal, T):
+    # the plain version that rounds p to bf16 where the port's tensor-core
+    # forward does (``round_to``) against the Pallas forward in bf16,
+    # interpreted, within the bf16 bar
+    q, k, v, _, _ = _inputs(1, 2, T, 32, seed=T + 1, with_dlse=False)
+    ref = _jax_forward(q, k, v, causal, jnp.bfloat16)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    o, lse = tfa.flash_forward_reference(tq, tk, tv, causal, 32 ** -0.5,
+                                         round_to=torch.bfloat16)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    for name, a, b in (("o", o, ref[0]), ("lse", lse, ref[1])):
+        a = a.float().numpy()
+        err = float(np.abs(a - b).max())
+        assert err <= 2e-2 * max(1.0, float(np.abs(b).max())), \
+            (T, causal, name, err)
