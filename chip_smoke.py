@@ -98,7 +98,33 @@ Phases, each fatal on failure (exit code != 0, no result line):
    ``MXNET_FUSION_KERNEL=0`` as in (c), then ``Module.fit`` on 2000
    samples for 3 epochs with one ``fused_matmul`` launch per training
    step and validation batch.
-9. Print the ``kernels`` JSON line, then the result line
+9. ResNet-50 train phase: ResNet-50 v2 NHWC fp32 (``get_resnet(1000,
+   50, layout="NHWC")``, Xavier gaussian / in / magnitude 2 from seed 0)
+   trained with ``Module.fit`` on the card at batch 32 on a synthetic
+   batch (bench.py's: uniform pixels, random labels; SGD lr 0.1, momentum
+   0.9, wd 1e-4), TF32 off. (a) The training bind carves 16 regions (each
+   bottleneck's conv3 with its residual add); the first ``fit`` step with
+   ``fused_matmul`` (16 launches) and with ``MXNET_FUSION_KERNEL=0``, both
+   with cuDNN's deterministic algorithms, from the same parameters: every
+   parameter and aux state within 1e-5 of its own max |value|, every
+   parameter moved; the plain step once more with cuDNN's default
+   algorithms reports their spread. (b) Launch counts reset just before 10 fenced steps
+   and read just after: exactly 16 per step. (c) The cross entropy on the
+   fixed batch falls over the N = 17 steps. (d) ms/step (median of the 10
+   fenced steps), img/s, peak memory, and under ``torch.profiler`` over 3
+   steps the device ms per step by family (cuDNN conv, BatchNorm,
+   elementwise, ``fused_matmul``, the optimizer update, copies) and the
+   busy share. (e) ``fused_matmul`` at the four shapes of a training
+   step's regions (recorded from the training graph on meta tensors)
+   against its plain version, timed beside it and beside ``torch.addmm``
+   + the residual add as CUDA-graph replays, with its bound. (f) 30
+   training-mode forwards settle the moving statistics; ``save_checkpoint``
+   into a temporary directory, ``load_checkpoint``: the ``.params`` equal
+   what was saved, bit for bit; an ``InferenceServer`` on the loaded
+   parameters answers 8 single-image requests from the batch: logits
+   within 1e-3 of max |logit| of ``Module.predict``, probabilities within
+   1e-3 of the trained module's, top-1 equal, more than one class.
+10. Print the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -167,6 +193,18 @@ LENET_REGION_BASES = ["conv1", "conv2", "fc1"]
 # rtc head vs SoftmaxOutput on the first step, relative to each tensor's max
 # |value|: the same softmax and p - onehot, in another summation order
 RTC_STEP_TOL = 1e-5
+# the ResNet-50 training phase: bench.py:46-54's optimizer at batch 32;
+# the fuse pass's 16 conv3 + residual regions of one training forward
+RN_BATCH, RN_LR, RN_MOMENTUM, RN_WD = 32, 0.1, 0.9, 1e-4
+RN_REGIONS = 16
+# steps on one fixed batch: 1 first fit step, RN_WARM warm, RN_TIMED timed
+# and fenced one by one, RN_PROFILED under torch.profiler (N = 17 <= 20)
+RN_WARM, RN_TIMED, RN_PROFILED = 3, 10, 3
+RN_REQUESTS = 8          # served requests of the hand-off
+# training-mode forwards of the batch (no update) before the checkpoint:
+# the moving statistics of the last weights, not of 17 fast-moving steps
+RN_RECALIBRATE = 30
+RN_SCOPES = ("mx::BatchNorm", "mx::update")   # the profiled steps' marks
 BMM_GRID_B, BMM_GRID_MN, BMM_GRID_K = (1, 3), (1, 17, 129), (8, 100)
 # (B, M, N, K) whose grid takes the kernel's 128 x 128 tile on an H100 (at
 # least one block per SM), ragged in M, N and K
@@ -316,17 +354,20 @@ def center_fc_bias(mx, sym, np_args, np_aux, rng, n=16):
         "%s, mean |f| %.4g)" % (n, names[idx], np.abs(f_mean).mean()))
 
 
-def record_region_calls(mx, sym, bucket):
+def record_region_calls(mx, sym, bucket, for_training=False):
     """The fused_matmul calls of one forward at ``bucket``, recorded from
-    the optimized graph run on meta tensors (shapes only)."""
+    the optimized graph run on meta tensors (shapes only): the served graph
+    (parameters frozen, BatchNorm folded), or with ``for_training`` the
+    graph a training bind runs."""
     import torch
     from mxnet_tpu_torch.executor import _GraphProgram
     from mxnet_tpu_torch.parallel import fused as F
 
-    frozen = [a for a in sym.list_arguments()
-              if a not in ("data", "softmax_label")] + \
-        sym.list_auxiliary_states()
-    opt = mx.graph_pass.optimize(sym, frozen=frozen,
+    frozen = [] if for_training else [
+        a for a in sym.list_arguments()
+        if a not in ("data", "softmax_label")] + sym.list_auxiliary_states()
+    opt = mx.graph_pass.optimize(sym, for_training=for_training,
+                                 frozen=frozen,
                                  arg_shapes={"data": (1, 224, 224, 3)})
     osym = opt.symbol
     arg_shapes, _, aux_shapes = osym.infer_shape(data=(bucket, 224, 224, 3))
@@ -447,6 +488,25 @@ def check_case(F, case, dtype, gen, tol):
     return err, (x, w, extras)
 
 
+def time_case(F, case, gen, peaks):
+    """One fp32 kernel-form call: held to its plain version (PATH_TOL) and
+    timed beside it and beside the cuBLAS yardstick as CUDA-graph replays,
+    with its bound."""
+    import torch
+
+    err, (x, w, extras) = check_case(F, case, torch.float32, gen, PATH_TOL)
+    ep, wt = case["epilogue"], case["wt"]
+    bnd, by = bound_ms(case, 4, peaks)
+    return dict(
+        M=case["M"], N=case["N"], K=case["K"],
+        tile=F.tile_size(1, case["M"], case["N"]), max_abs_err=err,
+        ms=time_ms(lambda: F.fused_matmul(x, w, extras, ep, wt)),
+        plain_ms=time_ms(lambda: F.fused_matmul_reference(x, w, extras, ep,
+                                                          wt)),
+        library_ms=time_ms(lambda: library_fn(x, w, extras, ep, wt)),
+        bound_ms=bnd, bound_by=by)
+
+
 def kernel_phase(mx, sym, peaks, results):
     import torch
     from mxnet_tpu_torch.parallel import fused as F
@@ -463,32 +523,23 @@ def kernel_phase(mx, sym, peaks, results):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "bound_ms": 0.0, "t_ops": 0.0, "t_bytes": 0.0}
         for i, case in enumerate(calls):
-            err, (x, w, extras) = check_case(F, case, torch.float32, gen,
-                                             PATH_TOL)
-            path_err = max(path_err, err)
-            ep, wt = case["epilogue"], case["wt"]
-            ms = time_ms(lambda: F.fused_matmul(x, w, extras, ep, wt))
-            plain = time_ms(lambda: F.fused_matmul_reference(x, w, extras,
-                                                             ep, wt))
-            lib = time_ms(lambda: library_fn(x, w, extras, ep, wt))
-            bnd, by = bound_ms(case, 4, peaks)
-            kind = "+".join(s[0] if s[0] != "act" else s[1] for s in ep)
-            tile = F.tile_size(1, case["M"], case["N"])
-            row = dict(bucket=bucket, region=i, M=case["M"], N=case["N"],
-                       K=case["K"], epilogue=kind, tile=tile,
-                       max_abs_err=err, ms=ms, plain_ms=plain,
-                       library_ms=lib, bound_ms=bnd, bound_by=by)
+            row = time_case(F, case, gen, peaks)
+            path_err = max(path_err, row["max_abs_err"])
+            kind = "+".join(s[0] if s[0] != "act" else s[1]
+                            for s in case["epilogue"])
+            row.update(bucket=bucket, region=i, epilogue=kind)
             results["kernel_cases"].append(row)
             log("kernel bucket=%d region=%02d M=%d N=%d K=%d %s tile=%d "
                 "err=%.3g ms=%.4f plain_ms=%.4f library_ms=%.4f "
                 "bound_ms=%.4f (%s)"
-                % (bucket, i, case["M"], case["N"], case["K"], kind, tile,
-                   err, ms, plain, lib, bnd, by))
-            tot["ms"] += ms
-            tot["plain_ms"] += plain
-            tot["library_ms"] += lib
-            tot["bound_ms"] += bnd
-            tot["t_ops" if by == "operations" else "t_bytes"] += bnd
+                % (bucket, i, row["M"], row["N"], row["K"], kind,
+                   row["tile"], row["max_abs_err"], row["ms"],
+                   row["plain_ms"], row["library_ms"], row["bound_ms"],
+                   row["bound_by"]))
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                tot[k] += row[k]
+            tot["t_ops" if row["bound_by"] == "operations"
+                else "t_bytes"] += row["bound_ms"]
         tot["bound_by"] = ("operations" if tot["t_ops"] >= tot["t_bytes"]
                            else "bytes")
         totals[bucket] = tot
@@ -2246,6 +2297,436 @@ def rtc_phase(mx, card, peaks, results):
     return out
 
 
+# ------------------------------------------------- ResNet-50 train phase
+
+def resnet_train_data(seed=0):
+    """bench.py's synthetic batch: uniform pixels, random labels."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(0, 1, (RN_BATCH,) + ROW).astype(np.float32)
+    y = rng.randint(0, 1000, RN_BATCH).astype(np.float32)
+    return x, y
+
+
+def resnet_fit_step(mx, sym, arg0, aux0, it, losses):
+    """A Module on the card, ``fit`` for one step from ``arg0`` / ``aux0``
+    (host numpy) with bench.py's optimizer; ``losses`` gets the step's
+    cross entropy."""
+    import torch
+
+    mod = mx.mod.Module(sym, context=mx.gpu())
+
+    def on_batch(param):
+        losses.append(batch_loss(param.locals["self"],
+                                 param.locals["data_batch"]))
+
+    it.reset()
+    mod.fit(it, num_epoch=1, optimizer="sgd",
+            optimizer_params={"learning_rate": RN_LR,
+                              "momentum": RN_MOMENTUM, "wd": RN_WD},
+            kvstore="local", batch_end_callback=on_batch,
+            arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                        for k, v in arg0.items()},
+            aux_params={k: mx.nd.array(v, ctx=mx.cpu())
+                        for k, v in aux0.items()},
+            force_init=True)
+    torch.cuda.synchronize()
+    return mod
+
+
+def batch_loss(mod, batch):
+    """Mean cross entropy of the module's last outputs on ``batch``."""
+    import torch
+
+    p = mod.get_outputs()[0]._data
+    lab = batch.label[0]._data.long()
+    return -torch.log(p.gather(1, lab[:, None]).clamp_min(1e-12)).mean() \
+        .item()
+
+
+def host_params(arg, aux):
+    """{"arg:name" / "aux:name": numpy}, the keys of a .params file."""
+    out = {"arg:" + k: v.asnumpy() for k, v in arg.items()}
+    out.update({"aux:" + k: v.asnumpy() for k, v in aux.items()})
+    return out
+
+
+def max_rel_err(got, want):
+    """(worst error over its tensor's max |value|, that tensor's name, the
+    number of tensors equal to the bit) of two {name: numpy} dicts."""
+    worst, worst_name, identical = 0.0, None, 0
+    for k, w in want.items():
+        err = float(np.abs(got[k] - w).max())
+        identical += int(err == 0.0)
+        rel = err / max(float(np.abs(w).max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, k
+    return worst, worst_name, identical
+
+
+def kernel_family(name):
+    n = name.lower()
+    if "fused_matmul" in n:
+        return "fused_matmul"
+    if "memcpy" in n or "memset" in n or "copy" in n:
+        return "copies"
+    if any(k in n for k in ("gemm", "xmma", "nvjet", "cutlass")):
+        return "cuBLAS GEMM"
+    return "elementwise / reduce"
+
+
+def device_families(prof, n_steps):
+    """(device ms per step by family, device ms per step, the ten longest
+    kernels, the GPU-side spans of the marked scopes), each per step. A
+    kernel goes to the innermost scope of the op that launched it that
+    names a family (BatchNorm forward and backward, the optimizer update,
+    a convolution and its backward); a kernel with no such scope, or none
+    the profiler could link (the ctypes launches), to its name's family.
+    A marked scope's span (first to last kernel on the card, gaps
+    included) is not device time."""
+    import torch
+
+    def scope(ev):
+        while ev is not None:
+            if "BatchNorm" in ev.name:
+                return "BN"
+            if ev.name == RN_SCOPES[1]:
+                return "optimizer update"
+            if "convolution" in ev.name.lower():
+                return "cuDNN conv"
+            ev = ev.cpu_parent
+        return None
+
+    fams, linked, by_name, spans = {}, {}, {}, {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for k in ev.kernels:
+            fam = scope(ev) or kernel_family(k.name)
+            fams[fam] = fams.get(fam, 0.0) + k.duration
+            linked[k.name] = linked.get(k.name, 0.0) + k.duration
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if getattr(ev, "is_user_annotation", False) or \
+                ev.key in RN_SCOPES:
+            spans[ev.key] = us
+            continue
+        by_name[ev.key] = by_name.get(ev.key, 0.0) + us
+        rest = us - linked.get(ev.key, 0.0)
+        if rest > 0:
+            fam = kernel_family(ev.key)
+            fams[fam] = fams.get(fam, 0.0) + rest
+    total = sum(by_name.values())
+    if not total:
+        raise AssertionError("torch.profiler recorded no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    per = lambda d: {k: v / 1e3 / n_steps for k, v in d.items()}  # noqa: E731
+    return (per(fams), total / 1e3 / n_steps,
+            [(k, v / 1e3 / n_steps) for k, v in top], per(spans))
+
+
+def profiled_steps(mx, mod, batch, losses):
+    """RN_PROFILED steps under torch.profiler, the BatchNorm op and the
+    update marked as scopes. Returns (families, device ms, top kernels,
+    scope spans, wall ms) per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    bn = get_op("BatchNorm")
+    real = bn.fn
+
+    def marked(*args, **kwargs):
+        with record_function(RN_SCOPES[0]):
+            return real(*args, **kwargs)
+
+    bn.fn = marked
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(RN_PROFILED):
+                mod.forward_backward(batch)
+                with record_function(RN_SCOPES[1]):
+                    mod.update()
+                losses.append(batch_loss(mod, batch))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / RN_PROFILED
+    finally:
+        bn.fn = real
+    return device_families(prof, RN_PROFILED) + (wall,)
+
+
+def train_shape_phase(F, calls, peaks):
+    """fused_matmul at each distinct shape of a training step's regions:
+    held to its plain version, timed beside it and beside torch.addmm plus
+    the residual add, with its bound. Returns (rows, per-step totals)."""
+    import torch
+
+    shapes = {}
+    for c in calls:
+        key = (c["M"], c["K"], c["N"], c["wt"], c["epilogue"])
+        shapes[key] = shapes.get(key, 0) + 1
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows, tot = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                     "bound_ms": 0.0, "max_abs_err": 0.0}
+    for (M, K, N, wt, ep), count in sorted(shapes.items(),
+                                           key=lambda kv: -kv[0][0]):
+        row = time_case(F, {"M": M, "K": K, "N": N, "wt": wt,
+                            "epilogue": ep}, gen, peaks)
+        row.update(launches_per_step=count,
+                   tflops=2.0 * M * N * K / row["ms"] / 1e9)
+        rows.append(row)
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            tot[k] += count * row[k]
+        tot["max_abs_err"] = max(tot["max_abs_err"], row["max_abs_err"])
+        log("resnet train kernel (%d, %d) x (%d, %d) + residual, %d per "
+            "step, tile %d: err %.3g, ms %.4f (%.1f TFLOP/s), plain_ms %.4f,"
+            " library_ms %.4f (torch.addmm + add), bound_ms %.4f (%s)"
+            % (M, K, K, N, count, row["tile"], row["max_abs_err"],
+               row["ms"], row["tflops"], row["plain_ms"], row["library_ms"],
+               row["bound_ms"], row["bound_by"]))
+    log("resnet train kernel per step: %d launches, ms %.4f, plain_ms %.4f, "
+        "library_ms %.4f, bound_ms %.4f"
+        % (len(calls), tot["ms"], tot["plain_ms"], tot["library_ms"],
+           tot["bound_ms"]))
+    return rows, tot
+
+
+def handoff(mx, mod, sym, x, y, n_steps, card):
+    """Checkpoint the trained module, load it back, serve it: the reloaded
+    parameters equal the saved ones bit for bit, and the served
+    probabilities and fc1 logits of RN_REQUESTS single-image requests
+    agree with Module.predict on the trained parameters."""
+    import tempfile
+
+    saved = host_params(*mod.get_params())
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        prefix = os.path.join(tmp, "resnet50")
+        mod.save_checkpoint(prefix, n_steps)
+        lsym, larg, laux = mx.model.load_checkpoint(prefix, n_steps)
+    loaded = host_params(larg, laux)
+    if sorted(loaded) != sorted(saved) or any(
+            loaded[k].dtype != v.dtype or loaded[k].shape != v.shape
+            or loaded[k].tobytes() != v.tobytes()
+            for k, v in saved.items()):
+        raise AssertionError("the reloaded checkpoint differs from the "
+                             "saved parameters")
+    if lsym.tojson() != sym.tojson():
+        raise AssertionError("the reloaded symbol differs")
+    n = RN_REQUESTS
+    it = mx.io.NDArrayIter(x, y, batch_size=RN_BATCH)
+    probs_mod = mod.predict(it).asnumpy()[:n]
+    served = mx.sym.Group([lsym, lsym.get_internals()["fc1_output"]])
+    pmod = mx.mod.Module(served, context=mx.gpu())
+    pmod.bind(data_shapes=[("data", (n,) + ROW)],
+              label_shapes=[("softmax_label", (n,))], for_training=False)
+    pmod.set_params(larg, laux)
+    _probs, logits_pred = (o.asnumpy() for o in pmod.predict(
+        mx.io.NDArrayIter(x[:n], y[:n], batch_size=n)))
+    srv = mx.serving.InferenceServer(
+        served, larg, laux, data_shapes=[("data", (1,) + ROW)],
+        devices=[mx.gpu()], config=mx.serving.ServingConfig(buckets=BUCKETS))
+    try:
+        futs = [srv.submit(x[i]) for i in range(n)]
+        answers = [f.result(timeout=600) for f in futs]
+    finally:
+        srv.stop()
+    probs_srv = np.stack([p for p, _lg in answers])
+    logits_srv = np.stack([lg for _p, lg in answers])
+    if probs_srv.shape != (n, 1000) or logits_srv.shape != (n, 1000):
+        raise AssertionError("served shapes %s %s" % (probs_srv.shape,
+                                                      logits_srv.shape))
+    logit_err = float(np.abs(logits_srv - logits_pred).max()
+                      / np.abs(logits_pred).max())
+    prob_err = float(np.abs(probs_srv - probs_mod).max())
+    top1 = float((logits_srv.argmax(1) == probs_mod.argmax(1)).mean())
+    distinct = len(set(logits_srv.argmax(1)))
+    log("resnet hand-off: checkpoint of step %d reloaded bit for bit; %d "
+        "served requests: logits within %.3g of max |logit| (%.4g) of "
+        "Module.predict, probabilities within %.3g of the trained module's, "
+        "top-1 agreement %.4f, %d distinct classes, on %s"
+        % (n_steps, n, logit_err, np.abs(logits_pred).max(), prob_err, top1,
+           distinct, card))
+    log("resnet hand-off: served top-1 %s, labels %s"
+        % (logits_srv.argmax(1).tolist(), y[:n].astype(int).tolist()))
+    if not (np.isfinite(logits_srv).all() and np.isfinite(probs_srv).all()):
+        raise AssertionError("non-finite served outputs")
+    if logit_err > SERVE_TOL or prob_err > SERVE_TOL or top1 != 1.0 \
+            or distinct < 2:
+        raise AssertionError("served outputs of the reloaded checkpoint "
+                             "disagree with Module.predict (or name one "
+                             "class): logits %.3g, probabilities %.3g, top-1 "
+                             "%.4f, %d classes"
+                             % (logit_err, prob_err, top1, distinct))
+    return dict(logit_err=logit_err, prob_err=prob_err, top1=top1,
+                requests=n, distinct_classes=distinct,
+                max_logit=float(np.abs(logits_pred).max()))
+
+
+def resnet_train_phase(mx, sym, card, peaks, results):
+    """ResNet-50 v2 NHWC fp32 trained with Module.fit on the card: the
+    first step against MXNET_FUSION_KERNEL=0, launches per step, learning
+    on one fixed batch, the step's time and profile, fused_matmul at the
+    training shapes, and the checkpoint handed to InferenceServer. TF32
+    is off (main), which the first step's parity needs."""
+    import torch
+    from mxnet_tpu_torch import cuda_build
+    from mxnet_tpu_torch.parallel import fused as F
+
+    out = {}
+    x, y = resnet_train_data()
+    it = mx.io.NDArrayIter(mx.nd.array(x, ctx=mx.gpu()),
+                           mx.nd.array(y, ctx=mx.gpu()),
+                           batch_size=RN_BATCH, label_name="softmax_label")
+    # the initial parameters, as fit's initializer draws them
+    init = mx.mod.Module(sym, context=mx.gpu())
+    init.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    np.random.seed(0)
+    init.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                    magnitude=2))
+    arg0, aux0 = ({k: v.asnumpy() for k, v in d.items()}
+                  for d in init.get_params())
+    regions = init._exec_group.execs[0].fused_regions()
+    del init
+    if len(regions) != RN_REGIONS or any(
+            r["base_op"] != "Convolution" or len(r["members"]) != 2
+            for r in regions):
+        raise AssertionError("training bind regions %s" % regions)
+    log("resnet train: %d parameters (%d values), %d aux states; training "
+        "bind carves %d regions, each a conv3 with its residual add"
+        % (len(arg0), sum(v.size for v in arg0.values()), len(aux0),
+           len(regions)))
+
+    # (a) the first fit step with the kernel and with MXNET_FUSION_KERNEL=0,
+    # both with cuDNN's deterministic algorithms; then the plain step once
+    # more with cuDNN's default ones, whose backward is not deterministic:
+    # the spread the comparison leaves out
+    losses, plain_losses = [], []
+    torch.backends.cudnn.deterministic = True
+    try:
+        cuda_build.reset_launch_counts()
+        mod = resnet_fit_step(mx, sym, arg0, aux0, it, losses)
+        first_launches = cuda_build.launch_counts().get("fused_matmul", 0)
+        kern = host_params(*mod.get_params())
+        mx.config.set_flag("MXNET_FUSION_KERNEL", 0)
+        cuda_build.reset_launch_counts()
+        plain = host_params(*resnet_fit_step(mx, sym, arg0, aux0, it,
+                                             plain_losses).get_params())
+        torch.backends.cudnn.deterministic = False
+        default = host_params(*resnet_fit_step(mx, sym, arg0, aux0, it,
+                                               []).get_params())
+    finally:
+        mx.config.set_flag("MXNET_FUSION_KERNEL", None)
+        torch.backends.cudnn.deterministic = False
+    if cuda_build.launch_counts().get("fused_matmul", 0):
+        raise AssertionError("MXNET_FUSION_KERNEL=0 still launched the "
+                             "kernel")
+    if first_launches != RN_REGIONS:
+        raise AssertionError("the first fit step launched fused_matmul %d "
+                             "times, want %d" % (first_launches, RN_REGIONS))
+    unmoved = [k for k in kern if k.startswith("arg:")
+               and np.array_equal(kern[k], arg0[k[4:]])]
+    if unmoved:
+        raise AssertionError("%s did not move in the first step" % unmoved)
+    worst, worst_name, identical = max_rel_err(kern, plain)
+    spread = max_rel_err(default, plain)
+    log("resnet train (a): first fit step with fused_matmul (%d launches) vs "
+        "MXNET_FUSION_KERNEL=0, cuDNN deterministic: %d parameters and aux "
+        "states, %d of them bit-identical, worst %s at %.3g of its max "
+        "|value|; losses %.6f / %.6f. The plain step with cuDNN's default "
+        "algorithms: %d bit-identical, worst %s at %.3g"
+        % (first_launches, len(plain), identical, worst_name, worst,
+           losses[0], plain_losses[0], spread[2], spread[1], spread[0]))
+    if worst > MODULE_TOL:
+        raise AssertionError("first ResNet-50 step with the kernel disagrees "
+                             "with MXNET_FUSION_KERNEL=0: %s at %.3g > %.1g"
+                             % (worst_name, worst, MODULE_TOL))
+    out["first_step"] = dict(worst=worst, worst_name=worst_name,
+                             identical=identical, tensors=len(plain),
+                             loss=losses[0], plain_loss=plain_losses[0],
+                             default_algorithms=dict(
+                                 worst=spread[0], worst_name=spread[1],
+                                 identical=spread[2]))
+
+    # (b)-(d) the main path: the kernel module's next steps on the batch
+    batch = mx.io.DataBatch(data=[mx.nd.array(x, ctx=mx.gpu())],
+                            label=[mx.nd.array(y, ctx=mx.gpu())])
+    for _ in range(RN_WARM):
+        mod.forward_backward(batch)
+        mod.update()
+        losses.append(batch_loss(mod, batch))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    step_ms = []
+    for _ in range(RN_TIMED):
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(batch_loss(mod, batch))
+    launches = cuda_build.launch_counts().get("fused_matmul", 0)
+    peak = torch.cuda.max_memory_allocated()
+    if launches != RN_REGIONS * RN_TIMED:
+        raise AssertionError("fused_matmul launched %d times over %d steps, "
+                             "want %d per step" % (launches, RN_TIMED,
+                                                   RN_REGIONS))
+    fams, device_ms, top, spans, prof_wall = profiled_steps(mx, mod, batch,
+                                                            losses)
+    n_steps = len(losses)
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("the loss on the fixed batch did not fall over "
+                             "%d steps: %s" % (n_steps, losses))
+    ms = float(np.median(step_ms))
+    log("resnet train (b): %d fused_matmul launches over %d timed steps (%d "
+        "per step)" % (launches, RN_TIMED, launches // RN_TIMED))
+    log("resnet train (c): cross entropy on the fixed batch over N = %d "
+        "steps: %s" % (n_steps, " ".join("%.4f" % v for v in losses)))
+    log("resnet train (d): %.3f ms/step (median of %d fenced steps, "
+        "min %.3f, max %.3f), %.1f img/s, peak memory %.3f GB; device %.3f "
+        "ms/step (torch.profiler, %d steps), busy %.3f of the fenced step "
+        "(%.3f of the profiled step's %.3f ms wall); GPU spans of %s; on %s"
+        % (ms, RN_TIMED, min(step_ms), max(step_ms), RN_BATCH / ms * 1e3,
+           peak / 1e9, device_ms, RN_PROFILED, device_ms / ms,
+           device_ms / prof_wall, prof_wall,
+           ", ".join("%s %.3f ms" % kv for kv in sorted(spans.items())),
+           card))
+    for fam, v in sorted(fams.items(), key=lambda kv: -kv[1]):
+        log("    %9.3f ms  %.3f  %s" % (v, v / device_ms, fam))
+    for name, v in top:
+        log("    %9.3f ms  %s" % (v, name[:110]))
+    out.update(launches=launches, launches_per_step=launches // RN_TIMED,
+               losses=losses, n_steps=n_steps, ms_per_step=ms,
+               step_ms=step_ms, img_per_s=RN_BATCH / ms * 1e3,
+               peak_bytes=peak, profiled_wall_ms=prof_wall,
+               device_ms=device_ms, busy=device_ms / ms,
+               busy_profiled=device_ms / prof_wall, families_ms=fams,
+               top_kernels_ms=top, scope_spans_ms=spans)
+
+    # (e) fused_matmul at the training shapes
+    calls = record_region_calls(mx, sym, RN_BATCH, for_training=True)
+    if len(calls) != RN_REGIONS:
+        raise AssertionError("a training forward records %d kernel calls"
+                             % len(calls))
+    out["kernel_shapes"], out["kernel_per_step"] = train_shape_phase(
+        F, calls, peaks)
+
+    # (f) the moving statistics brought to the last weights (0.9^30 of
+    # the stale ones left), then checkpoint, reload, serve
+    for _ in range(RN_RECALIBRATE):
+        mod.forward(batch, is_train=True)
+    out["handoff"] = handoff(mx, mod, sym, x, y, n_steps, card)
+    results["resnet_train"] = out
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the detailed results here")
@@ -2296,6 +2777,7 @@ def main():
     bmm_err, bmm_totals = bmm_phase(peaks, results)
     bmm_launches = module_phase(mx, card, results)
     rtc = rtc_phase(mx, card, peaks, results)
+    rn = resnet_train_phase(mx, sym, card, peaks, results)
 
     t8 = totals[8]
     kernels = {"kernels": [{
@@ -2306,7 +2788,9 @@ def main():
         "launches": launches, "max_abs_err": path_err,
         "ms": t8["ms"], "plain_ms": t8["plain_ms"],
         "bound_ms": t8["bound_ms"], "bound_by": t8["bound_by"],
-        "library_ms": t8["library_ms"]}]}
+        "library_ms": t8["library_ms"],
+        "train": dict(rn["kernel_per_step"], launches=rn["launches"],
+                      launches_per_step=rn["launches_per_step"])}]}
     replaces = {"flash_attention_fwd": 106, "flash_attention_bwd_dq": 202,
                 "flash_attention_bwd_dkv": 236}
     for name, line in replaces.items():

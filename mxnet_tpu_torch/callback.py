@@ -1,23 +1,55 @@
 """Epoch / batch callbacks for the fit loops.
 
-Counterpart of ``mxnet_tpu/callback.py``: ``log_train_metric`` and
+Counterpart of ``mxnet_tpu/callback.py``: the checkpoint callbacks
+(``module_checkpoint``, ``do_checkpoint``), ``log_train_metric`` and
 ``Speedometer`` (``ProgressBar`` and ``LogValidationMetricsCallback`` are
-not ported yet). Batch callbacks receive a ``BatchEndParam`` with ``epoch``, ``nbatch`` and
-``eval_metric``. The checkpoint callbacks (``module_checkpoint``,
-``do_checkpoint``) wait for ``nd.save``.
+not ported yet). Batch callbacks receive a ``BatchEndParam`` with
+``epoch``, ``nbatch`` and ``eval_metric``; epoch callbacks receive
+``(epoch, symbol, arg_params, aux_params)``.
 """
 from __future__ import annotations
 
 import logging
 import time
 
-__all__ = ["log_train_metric", "Speedometer"]
+__all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
+           "Speedometer"]
 
 
 def _metric_pairs(param):
     """name/value pairs from a batch param, or () when no metric attached."""
     metric = getattr(param, "eval_metric", None)
     return metric.get_name_value() if metric is not None else ()
+
+
+def _periodic_saver(period, save_fn):
+    """Wrap ``save_fn(epoch_1based)`` to fire once per ``period`` epochs."""
+    period = max(1, int(period))
+
+    def maybe_save(epoch, *state):
+        tick = epoch + 1
+        if tick % period == 0:
+            save_fn(tick, *state)
+
+    return maybe_save
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """Epoch callback that saves ``mod`` every ``period`` epochs."""
+    return _periodic_saver(
+        period,
+        lambda tick, *_s: mod.save_checkpoint(prefix, tick,
+                                              save_optimizer_states))
+
+
+def do_checkpoint(prefix, period=1):
+    """Epoch callback that writes ``prefix-symbol.json`` and
+    ``prefix-NNNN.params`` every ``period`` epochs."""
+    from .model import save_checkpoint
+    return _periodic_saver(
+        period,
+        lambda tick, sym, arg, aux: save_checkpoint(prefix, tick, sym,
+                                                    arg, aux))
 
 
 def log_train_metric(period, auto_reset=False):

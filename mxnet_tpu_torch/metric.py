@@ -6,9 +6,10 @@ class names, the ``update(labels, preds)`` / ``get_name_value()`` protocol
 and the ``sum_metric`` / ``num_inst`` accumulators. Metric math is numpy
 on the host, outside the train step, as in the JAX package: each update
 copies its outputs off the card (``NDArray.asnumpy``). The metrics are
-those ``Module.fit`` and ``score`` need; the rest of the JAX package's
-(top-k, F1, perplexity, the regression errors, NLL, Pearson, Loss and
-custom metrics) wait for a later slice (``ROADMAP.md`` Queue A4).
+those ``Module.fit`` and ``score`` need, and ImageNet's top-k accuracy;
+the rest of the JAX package's (F1, perplexity, the regression errors,
+NLL, Pearson, Loss and custom metrics) wait for a later slice
+(``ROADMAP.md`` Queue A4).
 """
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ import numpy
 from .base import MXNetError
 from .ndarray import NDArray
 
-__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "CrossEntropy",
-           "create"]
+__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
+           "CrossEntropy", "create"]
 
 _REGISTRY = {}
 
@@ -212,6 +213,36 @@ class Accuracy(_PairwiseMetric):
 
 
 register(Accuracy, "accuracy", "acc")
+
+
+class TopKAccuracy(_PairwiseMetric):
+    """Fraction of samples whose label is among the k highest scores."""
+
+    def __init__(self, top_k=1, name="top_k_accuracy", output_names=None,
+                 label_names=None):
+        super().__init__(name, **_fwd(locals(), "top_k"))
+        if top_k <= 1:
+            raise AssertionError(
+                "Please use Accuracy if top_k is no more than 1")
+        self.top_k = top_k
+        self.name = "%s_%d" % (self.name, top_k)
+
+    def _accumulate(self, label, pred):
+        if pred.ndim > 2:
+            raise AssertionError("Predictions should be no more than 2 dims")
+        ranked = numpy.argsort(pred.astype("float32"), axis=1)
+        label = label.astype("int32")
+        check_label_shapes(label, ranked)
+        if ranked.ndim == 1:
+            return (ranked.ravel() == label.ravel()).sum(), ranked.shape[0]
+        classes = ranked.shape[1]
+        depth = min(classes, self.top_k)
+        # the last `depth` columns of the ascending argsort are the top-k
+        hits = (ranked[:, classes - depth:] == label.reshape(-1, 1)).sum()
+        return hits, ranked.shape[0]
+
+
+register(TopKAccuracy, "top_k_accuracy", "top_k_acc")
 
 
 class CrossEntropy(_PairwiseMetric):

@@ -1,18 +1,22 @@
 """Module helpers: the kvstore glue of ``Module``.
 
 Counterpart of ``mxnet_tpu/model.py``: ``BatchEndParam``,
-``_create_kvstore`` (decides update_on_kvstore), ``_initialize_kvstore``
-and ``_update_params(_on_kvstore)``. The checkpoint pair
-(``save_checkpoint`` / ``load_checkpoint``) waits for ``nd.save`` /
-``nd.load``, and ``FeedForward`` for a later slice.
+``_create_kvstore`` (decides update_on_kvstore), ``_initialize_kvstore``,
+``_update_params(_on_kvstore)`` and the checkpoint pair
+(``save_checkpoint`` / ``load_checkpoint``: ``prefix-symbol.json`` and
+``prefix-%04d.params`` with ``arg:`` / ``aux:`` keys, the files MXNet and
+the JAX package write). ``FeedForward`` waits for a later slice.
 """
 from __future__ import annotations
 
+import logging
 from collections import namedtuple
 
 from . import kvstore as kvs
+from . import ndarray as nd
+from . import symbol as sym
 
-__all__ = ["BatchEndParam"]
+__all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint"]
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -91,3 +95,31 @@ def _update_params(param_arrays, grad_arrays, updater, num_device,
         for k, p in enumerate(zip(arg_list, grad_list)):
             w, g = p
             updater(index * num_device + k, g, w)
+
+
+def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
+    """Write ``prefix-symbol.json`` (when ``symbol`` is given) and
+    ``prefix-%04d.params``."""
+    if symbol is not None:
+        symbol.save("%s-symbol.json" % prefix)
+    save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
+    save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
+    param_name = "%s-%04d.params" % (prefix, epoch)
+    nd.save(param_name, save_dict)
+    logging.info("Saved checkpoint to \"%s\"", param_name)
+
+
+def load_checkpoint(prefix, epoch):
+    """(symbol, arg_params, aux_params) from what :func:`save_checkpoint`
+    wrote; the parameters load into host memory."""
+    symbol = sym.load("%s-symbol.json" % prefix)
+    save_dict = nd.load("%s-%04d.params" % (prefix, epoch))
+    arg_params = {}
+    aux_params = {}
+    for k, v in save_dict.items():
+        tp, name = k.split(":", 1)
+        if tp == "arg":
+            arg_params[name] = v
+        if tp == "aux":
+            aux_params[name] = v
+    return (symbol, arg_params, aux_params)

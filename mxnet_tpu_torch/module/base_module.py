@@ -18,8 +18,10 @@ from .. import metric as metric_mod
 from ..base import MXNetError
 from ..model import BatchEndParam
 from .. import ndarray as nd
+from ..context import cpu
 from ..initializer import Uniform
 
+_PARAM_KINDS = ("arg", "aux")
 _WEIGHT_SUFFIXES = ("_weight", "_bias", "_gamma", "_beta")
 
 
@@ -298,6 +300,24 @@ class BaseModule:
         self.init_params(initializer=None, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init, allow_extra=allow_extra)
+
+    def save_params(self, fname):
+        """Write arg/aux params as a flat dict with arg:/aux: key prefixes."""
+        blobs = {}
+        for kind, params in zip(_PARAM_KINDS, self.get_params()):
+            for name, value in params.items():
+                blobs[f"{kind}:{name}"] = value.as_in_context(cpu())
+        nd.save(fname, blobs)
+
+    def load_params(self, fname):
+        """Inverse of save_params."""
+        split = {kind: {} for kind in _PARAM_KINDS}
+        for key, value in nd.load(fname).items():
+            kind, _, name = key.partition(":")
+            if kind not in split or not name:
+                raise ValueError("Invalid param file " + fname)
+            split[kind][name] = value
+        self.set_params(split["arg"], split["aux"])
 
     def get_states(self, merge_multi_context=True):
         assert self.binded and self.params_initialized

@@ -6,9 +6,9 @@ host-side parameter copies (on the CPU, as MXNet keeps them) and the bound
 executor, the gradients and the update on the module's device.
 ``Module(context=None)`` binds on the CUDA card (and raises where there is
 none); the CPU is used only when the caller passes ``mx.cpu()``. Not
-ported yet: more than one device (``ROADMAP.md`` Queue A10), the
-checkpoint files (``save_checkpoint``, ``Module.load``, which need
-``nd.save``), resumable checkpoints and the monitor (Queue A13).
+ported yet: more than one device (``ROADMAP.md`` Queue A10), resumable
+checkpoints and the monitor (Queue A13). ``save_checkpoint`` and
+``Module.load`` write and read MXNet's checkpoint files.
 """
 from __future__ import annotations
 
@@ -28,7 +28,8 @@ from ..model import (
     _create_kvstore,
     _initialize_kvstore,
     _update_params,
-    _update_params_on_kvstore)
+    _update_params_on_kvstore,
+    load_checkpoint)
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
 
@@ -101,11 +102,34 @@ class Module(BaseModule):
         self._output_names = symbol.list_outputs()
 
         for attr in ("_arg_params", "_aux_params", "_optimizer", "_kvstore",
-                     "_update_on_kvstore", "_updater",
+                     "_update_on_kvstore", "_updater", "_preload_opt_states",
                      "_grad_req", "_exec_group", "_data_shapes",
                      "_label_shapes"):
             setattr(self, attr, None)
         self._params_dirty = False
+
+    # ------------------------------------------------------------ loading
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """Rebuild a Module from a prefix-NNNN checkpoint."""
+        sym, args, auxs = load_checkpoint(prefix, epoch)
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params, mod._aux_params = args, auxs
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = f"{prefix}-{epoch:04d}.states"
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """Write prefix-symbol.json + prefix-NNNN.params (+ .states)."""
+        self._symbol.save(prefix + "-symbol.json")
+        param_file = f"{prefix}-{epoch:04d}.params"
+        self.save_params(param_file)
+        logging.info('Saved checkpoint to "%s"', param_file)
+        if save_optimizer_states:
+            state_file = f"{prefix}-{epoch:04d}.states"
+            self.save_optimizer_states(state_file)
+            logging.info('Saved optimizer state to "%s"', state_file)
 
     # ------------------------------------------------------------- shapes
     data_names = property(lambda self: self._data_names)
@@ -362,6 +386,9 @@ class Module(BaseModule):
             self._updater = opt.get_updater(self._optimizer)
 
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     def borrow_optimizer(self, shared_module):
         """Share optimizer state with another Module (bucketing)."""

@@ -1,10 +1,11 @@
 """Neural-network layer ops: the ResNet op set.
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` for FullyConnected, Convolution,
-Pooling, Activation, softmax, BatchNorm (inference) and SoftmaxOutput (a
-loss head whose backward injects MXNet's gradient). Layouts follow the
-JAX package: a channels-last Convolution (``layout="NHWC"``) takes
-spatial-major HWIO weights, a channels-first one OIHW. The channels-last forms run as ``torch.nn.functional`` calls on a
+Pooling, Activation, softmax, BatchNorm (training and inference) and
+SoftmaxOutput (a loss head whose backward injects MXNet's gradient).
+Layouts follow the JAX package: a channels-last Convolution
+(``layout="NHWC"``) takes spatial-major HWIO weights, a channels-first one
+OIHW. The channels-last forms run as ``torch.nn.functional`` calls on a
 channels_last *view* of the same memory (a permute, no copy).
 """
 from __future__ import annotations
@@ -219,23 +220,83 @@ def _same_shape(attrs, i, a):
 
 # --- BatchNorm --------------------------------------------------------------
 
+class _BatchNormTrainFn(torch.autograd.Function):
+    """Training-mode BatchNorm over the batch statistics: forward
+    ``(out, mean, var)`` with fp32 statistics for any activation dtype,
+    backward the closed form ``dx = g.ivar.(go - (dbeta + xhat.dgamma)/n)``
+    with the mean and var cotangents dropped (the reference's BNBackward
+    differentiates through the output only) and ``dgamma`` zero under
+    ``fix_gamma``: the JAX package's ``jax.custom_vjp``
+    (``mxnet_tpu/ops/nn.py`` ``_bn_train_core``). Not
+    ``F.batch_norm(training=True)``: torch updates its running variance
+    with the unbiased variance and takes the complement of MXNet's
+    momentum."""
+
+    @staticmethod
+    def forward(ctx, ax, eps, fix_gamma, x, gamma, beta):
+        red = tuple(i for i in range(x.dim()) if i != ax)
+        bshape = tuple(-1 if i == ax else 1 for i in range(x.dim()))
+        n = x.numel() // x.shape[ax]
+        x32 = x.float()
+        # biased statistics from one sum and one sum of squares
+        mean = x32.sum(dim=red) / n
+        var = torch.clamp((x32 * x32).sum(dim=red) / n - mean * mean,
+                          min=0.0)
+        ivar = torch.rsqrt(var + eps)
+        g32 = torch.ones_like(gamma, dtype=torch.float32) if fix_gamma \
+            else gamma.float()
+        out = (x32 - mean.reshape(bshape)) * ivar.reshape(bshape) \
+            * g32.reshape(bshape) + beta.float().reshape(bshape)
+        ctx.save_for_backward(x, g32, mean, ivar)
+        ctx.bn = (red, bshape, n, fix_gamma, gamma.dtype)
+        ctx.mark_non_differentiable(mean, var)
+        return out.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, go, _dmean, _dvar):
+        x, g32, mean, ivar = ctx.saved_tensors
+        red, bshape, n, fix_gamma, gdtype = ctx.bn
+        go = go.float()
+        xhat = (x.float() - mean.reshape(bshape)) * ivar.reshape(bshape)
+        dbeta = go.sum(dim=red)
+        dgamma = (go * xhat).sum(dim=red)
+        dx = (g32.reshape(bshape) * ivar.reshape(bshape)
+              * (go - (dbeta.reshape(bshape)
+                       + xhat * dgamma.reshape(bshape)) / n)).to(x.dtype)
+        if fix_gamma:
+            dgamma = torch.zeros_like(dgamma)
+        return None, None, None, dx, dgamma.to(gdtype), dbeta.to(gdtype)
+
+
 def _batch_norm(attrs, data, gamma, beta, aux=(), is_train=False):
-    """Inference BatchNorm over the moving statistics, computed in fp32 and
-    cast back to the activation dtype. The training path (batch statistics
-    and the moving-stat update) belongs to the training slice."""
-    if is_train and not attrs.use_global_stats:
-        raise MXNetError("training-mode BatchNorm is not yet ported")
+    """BatchNorm with fp32 statistics and the output cast back to the
+    activation dtype. Training (``is_train`` without ``use_global_stats``)
+    normalises over the batch statistics and returns the moving stats
+    updated as ``m * moving + (1 - m) * batch``, in the moving stats' own
+    dtype; otherwise the moving statistics normalise and stay as they
+    are. Batch statistics returned by ``output_mean_var`` stay fp32."""
     moving_mean, moving_var = aux
     ax = attrs.axis if attrs.axis >= 0 else data.ndim + attrs.axis
     bshape = tuple(-1 if i == ax else 1 for i in range(data.ndim))
-    g = torch.ones_like(gamma) if attrs.fix_gamma else gamma
-    out = (data.float() - moving_mean.reshape(bshape)) * torch.rsqrt(
-        moving_var.reshape(bshape) + attrs.eps)
-    out = out * g.float().reshape(bshape) + beta.float().reshape(bshape)
-    out = out.to(data.dtype)
+    if is_train and not attrs.use_global_stats:
+        out, mean, var = _BatchNormTrainFn.apply(
+            ax, attrs.eps, bool(attrs.fix_gamma), data, gamma, beta)
+        m = attrs.momentum
+        new_aux = ((m * moving_mean + (1 - m) * mean.detach())
+                   .to(moving_mean.dtype),
+                   (m * moving_var + (1 - m) * var.detach())
+                   .to(moving_var.dtype))
+    else:
+        mean, var = moving_mean, moving_var
+        new_aux = (moving_mean, moving_var)
+        g = torch.ones_like(gamma) if attrs.fix_gamma else gamma
+        out = (data.float() - mean.reshape(bshape)) * torch.rsqrt(
+            var.reshape(bshape) + attrs.eps)
+        out = out * g.float().reshape(bshape) + beta.float().reshape(bshape)
+        out = out.to(data.dtype)
     if attrs.output_mean_var:
-        return (out, moving_mean, moving_var), (moving_mean, moving_var)
-    return (out,), (moving_mean, moving_var)
+        return (out, mean, var), new_aux
+    return (out,), new_aux
 
 
 def _bn_infer(attrs, in_shapes, aux_shapes):
@@ -378,7 +439,7 @@ def _register():
         aux_names=["moving_mean", "moving_var"],
         num_outputs=lambda attrs: 3 if attrs.output_mean_var else 1,
         infer_shape=_bn_infer, needs_is_train=True,
-        doc="Batch normalization (inference) with moving-stat aux states")
+        doc="Batch normalization with moving-stat aux states")
     register_op(
         "SoftmaxOutput", _softmax_output,
         params={"grad_scale": Float(default=1.0),

@@ -75,9 +75,8 @@ SYM_UNPORTED = frozenset({
 
 })
 ND_UNPORTED = frozenset({
-    "BaseSparseNDArray", "CSRNDArray", "RowSparseNDArray", "load",
-    "moveaxis", "save", "sparse", "sparse_retain", "square_sum",
-    "utils"
+    "BaseSparseNDArray", "CSRNDArray", "RowSparseNDArray", "moveaxis",
+    "sparse", "sparse_retain", "square_sum"
 })
 
 UNPORTED = {"": MX_UNPORTED, "sym": OPS_UNPORTED | SYM_UNPORTED,
