@@ -124,7 +124,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
    parameters answers 8 single-image requests from the batch: logits
    within 1e-3 of max |logit| of ``Module.predict``, probabilities within
    1e-3 of the trained module's, top-1 equal, more than one class.
-10. Print the ``kernels`` JSON line, then the result line
+10. ShardedTrainer phase (bench protocol): ``bench.py:38-75`` through the
+   port: ``make_mesh({"dp": 1})``, ResNet-50 NHWC, ``ShardedTrainer`` with
+   SGD 0.1 / 0.9 / 1e-4 in bf16, ``init`` (Xavier gaussian / in / 2, seed
+   0), ``shard_batch`` of bench.py's batch. The step is one CUDA graph,
+   captured once per batch signature and replayed. With cuDNN's
+   deterministic algorithms and a decaying learning rate (so each replay
+   must read its own): (a) one replay against one eager step from the same
+   state, every parameter, aux state and momentum bit-identical (and, with
+   the default algorithms, how many are); (b) ``multi_step(5)`` against
+   five ``step`` calls and five eager steps: the same losses and state to
+   the bit, and one capture for all of them; (c) the cross entropy on the
+   fixed batch falls over 12 steps; (e) 2 steps, ``save_checkpoint``,
+   ``load_checkpoint`` into a new trainer, 2 more: bit-identical to 4
+   uninterrupted steps. (d) With the default algorithms, the protocol
+   timed: batch 32 for 200 steps and 128 for 40, each ``multi_step`` once
+   to capture and warm and once timed, ended by a fetch of the losses:
+   img/s, replay ms/step, peak memory (above what earlier phases still
+   hold), ``mfu_bs32``; at batch 32 the eager
+   step's ms/step (fenced) and, under ``torch.profiler``, the device ms per
+   step by family (from eager steps, which launch the graph's kernels,
+   BatchNorm and the update marked as scopes), the replays' device ms and
+   the busy share.
+11. Print the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -205,6 +227,19 @@ RN_REQUESTS = 8          # served requests of the hand-off
 # the moving statistics of the last weights, not of 17 fast-moving steps
 RN_RECALIBRATE = 30
 RN_SCOPES = ("mx::BatchNorm", "mx::update")   # the profiled steps' marks
+# the ShardedTrainer phase: bench.py:38-75's protocol (ResNet-50 NHWC bf16,
+# SGD 0.1 / 0.9 / 1e-4, default Xavier from seed 0), batch 32 for 200
+# steps and batch 128 for 40, each multi_step run once to capture and warm
+# and once timed; FLOPs per image from bench.py:30
+BENCH_RUNS = ((32, 200), (128, 40))
+BENCH_FLOPS_PER_IMG = 3 * 4.089e9
+# the checks' learning-rate schedule, so that each replay must read its own
+TR_SCHEDULE_DECAY = 0.8
+TR_MULTI = 5             # (b): multi_step(5) against five steps
+TR_LEARN = 12            # (c): steps over which the loss must fall
+TR_RESUME = (2, 2)       # (e): k steps, checkpoint, m more
+TR_EAGER_TIMED = 10      # eager steps timed (fenced) at batch 32
+TR_PROFILED = 3          # steps under torch.profiler, eager and replayed
 BMM_GRID_B, BMM_GRID_MN, BMM_GRID_K = (1, 3), (1, 17, 129), (8, 100)
 # (B, M, N, K) whose grid takes the kernel's 128 x 128 tile on an H100 (at
 # least one block per SM), ragged in M, N and K
@@ -2726,6 +2761,347 @@ def resnet_train_phase(mx, sym, card, peaks, results):
     results["resnet_train"] = out
     return out
 
+# ------------------------------------------- ShardedTrainer phase (bench)
+
+def bench_data(batch):
+    """bench.py:57-59's synthetic batch."""
+    rng = np.random.RandomState(0)
+    x = rng.uniform(0, 1, (batch,) + ROW).astype(np.float32)
+    y = rng.randint(0, 1000, batch).astype(np.float32)
+    return {"data": x, "softmax_label": y}
+
+
+def bench_trainer(mx, sym, schedule=False):
+    """bench.py's ShardedTrainer on a one-card mesh; with ``schedule`` the
+    learning rate decays per step."""
+    from mxnet_tpu_torch.parallel import ShardedTrainer, make_mesh
+
+    lr = (lambda step: RN_LR * TR_SCHEDULE_DECAY ** step) if schedule \
+        else RN_LR
+    return ShardedTrainer(
+        sym, make_mesh({"dp": 1}), optimizer="sgd",
+        optimizer_params={"learning_rate": lr, "momentum": RN_MOMENTUM,
+                          "wd": RN_WD}, dtype="bfloat16")
+
+
+def state_tensors(state):
+    """{name: tensor} of a state's parameters, aux and optimizer state."""
+    out = {"arg:" + k: v for k, v in state["params"].items()}
+    out.update(("aux:" + k, v) for k, v in state["aux"].items())
+    out.update(("opt:%s/%d" % (k, i), t)
+               for k, v in state["opt"].items() for i, t in enumerate(v))
+    return out
+
+
+def clone_state(state):
+    return {"params": {k: v.clone() for k, v in state["params"].items()},
+            "aux": {k: v.clone() for k, v in state["aux"].items()},
+            "opt": {k: tuple(t.clone() for t in v)
+                    for k, v in state["opt"].items()},
+            "step": state["step"]}
+
+
+def identical_tensors(got, want):
+    """(tensors equal to the bit, tensors, worst error over its tensor's
+    max |value|, that tensor's name) of two states."""
+    got, want = state_tensors(got), state_tensors(want)
+    if sorted(got) != sorted(want):
+        raise AssertionError("the two states hold other tensors")
+    same, worst, worst_name = 0, 0.0, None
+    for k, w in want.items():
+        if torch_equal(got[k], w):
+            same += 1
+            continue
+        err = float((got[k].float() - w.float()).abs().max()
+                    / w.float().abs().max().clamp_min(1e-30))
+        if err > worst:
+            worst, worst_name = err, k
+    return same, len(want), worst, worst_name
+
+
+def torch_equal(a, b):
+    import torch
+
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def cross_entropy(outs, label):
+    import torch
+
+    p = outs[0].float()
+    return float(-torch.log(p.gather(1, label.long()[:, None])
+                            .clamp_min(1e-12)).mean())
+
+
+def graph_against_eager(trainer, state0, batch):
+    """One replay and one eager step from ``state0``: (identical, tensors,
+    worst, worst name) of the new states."""
+    eager, _ = trainer._step_eager(clone_state(state0), batch)
+    graph, _ = trainer.step(clone_state(state0), batch)
+    return identical_tensors(graph, eager)
+
+
+def profiled_trainer_steps(trainer, state, batch):
+    """TR_PROFILED eager steps under torch.profiler with BatchNorm and the
+    update marked, then TR_PROFILED replays: (families, device ms, top
+    kernels, scope spans, eager wall ms) per step, and the replays'
+    device ms and wall ms per step (device ms None where the profiler
+    saw no kernel of the graph)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    ops = {RN_SCOPES[0]: get_op("BatchNorm"), RN_SCOPES[1]: trainer._opt_opdef}
+    real = {name: op.fn for name, op in ops.items()}
+
+    def marked(name):
+        def fn(*args, **kwargs):
+            with record_function(name):
+                return real[name](*args, **kwargs)
+        return fn
+
+    for name, op in ops.items():
+        op.fn = marked(name)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(TR_PROFILED):
+                trainer._step_eager(state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / TR_PROFILED
+    finally:
+        for name, op in ops.items():
+            op.fn = real[name]
+    eager = device_families(prof, TR_PROFILED) + (wall,)
+    state, losses = trainer.multi_step(state, batch, 1)   # not profiled
+    losses.cpu()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, losses = trainer.multi_step(state, batch, TR_PROFILED)
+        losses.cpu()
+        replay_wall = (time.perf_counter() - t0) * 1e3 / TR_PROFILED
+    us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(ev, "is_user_annotation", False):
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        us += ev.self_cuda_time_total if t is None else t
+    replay_ms = us / 1e3 / TR_PROFILED if us else None
+    return eager, replay_ms, replay_wall
+
+
+def bench_protocol(mx, sym, batch_size, n_iters, card, peaks, out):
+    """bench.py's _bench_one through the port: a new trainer, init,
+    multi_step once to capture and warm and once timed, ended by a fetch
+    of the losses. Returns the img/s."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold is not the protocol's
+    base = torch.cuda.memory_allocated()
+    trainer = bench_trainer(mx, sym)
+    data = bench_data(batch_size)
+    state = trainer.init({k: v.shape for k, v in data.items()})
+    batch = trainer.shard_batch(data)
+    t0 = time.perf_counter()
+    state, losses = trainer.multi_step(state, batch, n_iters)
+    first = losses.cpu().numpy()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, losses = trainer.multi_step(state, batch, n_iters)
+    timed = losses.cpu().numpy()
+    dt = time.perf_counter() - t0
+    if not (np.isfinite(first).all() and np.isfinite(timed).all()):
+        raise AssertionError("non-finite losses in the bench protocol at "
+                             "batch %d" % batch_size)
+    if trainer._captures != 1:
+        raise AssertionError("%d captures for one batch signature"
+                             % trainer._captures)
+    img_s = batch_size * n_iters / dt
+    row = dict(batch=batch_size, n_iters=n_iters, img_per_s=img_s,
+               replay_ms_per_step=dt * 1e3 / n_iters, timed_s=dt,
+               capture_and_warm_s=first_s,
+               peak_bytes=torch.cuda.max_memory_allocated() - base,
+               held_before_bytes=base, losses_tail=timed[-3:].tolist())
+    log("trainer (d): batch %d, %d steps: %.1f img/s, %.3f ms/step "
+        "(replay, one fetch at the end), capture + warm run %.2f s, peak "
+        "memory %.3f GB above the %.3f GB earlier phases hold, "
+        "mean(outputs[0]) of the last steps %s, on %s"
+        % (batch_size, n_iters, img_s, row["replay_ms_per_step"], first_s,
+           row["peak_bytes"] / 1e9, base / 1e9, row["losses_tail"], card))
+    if batch_size == BENCH_RUNS[0][0]:
+        eager_ms = []
+        for _ in range(TR_EAGER_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer._step_eager(state, batch)
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+        eager, replay_dev, replay_wall = profiled_trainer_steps(
+            trainer, state, batch)
+        fams, device_ms, top, spans, eager_wall = eager
+        busy = device_ms / row["replay_ms_per_step"]
+        row.update(eager_ms_per_step=float(np.median(eager_ms)),
+                   eager_step_ms=eager_ms, families_ms=fams,
+                   device_ms=device_ms, top_kernels_ms=top,
+                   scope_spans_ms=spans, profiled_eager_wall_ms=eager_wall,
+                   replay_device_ms=replay_dev,
+                   profiled_replay_wall_ms=replay_wall, busy=busy,
+                   busy_replay_profiled=(replay_dev / replay_wall
+                                         if replay_dev else None),
+                   mfu=img_s * BENCH_FLOPS_PER_IMG / peaks["bf16_flops"])
+        log("trainer (d): batch %d eager step %.3f ms (median of %d fenced "
+            "steps, min %.3f, max %.3f) against the replay's %.3f ms; "
+            "device %.3f ms/step (torch.profiler over %d eager steps), busy "
+            "%.3f of the replayed step; replays under the profiler: device "
+            "%s ms/step, wall %.3f ms/step; mfu_bs32 %.4f (bf16 peak %.0f "
+            "TFLOP/s); GPU spans of %s"
+            % (batch_size, row["eager_ms_per_step"], TR_EAGER_TIMED,
+               min(eager_ms), max(eager_ms), row["replay_ms_per_step"],
+               device_ms, TR_PROFILED, busy,
+               "%.3f" % replay_dev if replay_dev else "not measured",
+               replay_wall, row["mfu"], peaks["bf16_flops"] / 1e12,
+               ", ".join("%s %.3f ms" % kv for kv in sorted(spans.items()))))
+        for fam, v in sorted(fams.items(), key=lambda kv: -kv[1]):
+            log("    %9.3f ms  %.3f  %s" % (v, v / device_ms, fam))
+        for name, v in top:
+            log("    %9.3f ms  %s" % (v, name[:110]))
+    out["bench_%d" % batch_size] = row
+    return img_s
+
+
+def trainer_phase(mx, sym, card, peaks, results):
+    """bench.py's protocol through the port's ShardedTrainer: the captured
+    step against the eager one, multi_step against step, learning, resume,
+    then the protocol timed."""
+    import tempfile
+
+    import torch
+
+    out = {}
+    data = bench_data(RN_BATCH)
+    shapes = {k: v.shape for k, v in data.items()}
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer = bench_trainer(mx, sym, schedule=True)
+        state0 = trainer.init(shapes)
+        batch = trainer.shard_batch(data)
+        label = batch["softmax_label"]
+        n_params = sum(v.numel() for v in state0["params"].values())
+        log("trainer: ResNet-50 NHWC bf16, %d parameters (%d values), %d "
+            "aux states, batch %d, lr %.3g x %.2g^step"
+            % (len(state0["params"]), n_params, len(state0["aux"]), RN_BATCH,
+               RN_LR, TR_SCHEDULE_DECAY))
+        # (a) one replay against one eager step
+        same, total, worst, worst_name = graph_against_eager(trainer, state0,
+                                                             batch)
+        log("trainer (a): one captured replay vs one eager step, cuDNN "
+            "deterministic: %d of %d tensors bit-identical (worst %s at "
+            "%.3g)" % (same, total, worst_name, worst))
+        if same != total:
+            raise AssertionError("the captured step differs from the eager "
+                                 "one: %d of %d identical, worst %s at %.3g"
+                                 % (same, total, worst_name, worst))
+        out["graph_vs_eager"] = dict(identical=same, tensors=total)
+
+        # (b) multi_step(5) against five steps and five eager steps
+        multi, losses = trainer.multi_step(clone_state(state0), batch,
+                                           TR_MULTI)
+        multi, losses = clone_state(multi), losses.cpu()
+        stepped, eager, step_losses, eager_losses, ce = \
+            clone_state(state0), clone_state(state0), [], [], []
+        for _ in range(TR_MULTI):
+            stepped, outs = trainer.step(stepped, batch)
+            step_losses.append(outs[0].float().mean())
+            ce.append(cross_entropy(outs, label))
+            eager, eouts = trainer._step_eager(eager, batch)
+            eager_losses.append(eouts[0].float().mean())
+        step_losses = torch.stack(step_losses).cpu()
+        eager_losses = torch.stack(eager_losses).cpu()
+        checks = {"multi_step vs step": identical_tensors(multi, stepped),
+                  "step vs eager": identical_tensors(stepped, eager)}
+        log("trainer (b): multi_step(%d) losses %s; %d step calls %s; eager "
+            "%s; states: %s; %d capture(s)"
+            % (TR_MULTI, losses.tolist(), TR_MULTI, step_losses.tolist(),
+               eager_losses.tolist(),
+               "; ".join("%s %d of %d identical" % (k, v[0], v[1])
+                         for k, v in checks.items()), trainer._captures))
+        if not (torch.equal(losses, step_losses)
+                and torch.equal(step_losses, eager_losses)):
+            raise AssertionError("multi_step's losses differ from the steps'")
+        for k, (same, total, worst, worst_name) in checks.items():
+            if same != total:
+                raise AssertionError("%s: %d of %d identical, worst %s at "
+                                     "%.3g" % (k, same, total, worst_name,
+                                               worst))
+        if trainer._captures != 1:
+            raise AssertionError("%d captures for one batch signature"
+                                 % trainer._captures)
+        out["multi_step"] = dict(losses=losses.tolist(),
+                                 captures=trainer._captures)
+
+        # (c) the loss falls on the fixed batch
+        for _ in range(TR_LEARN - TR_MULTI):
+            stepped, outs = trainer.step(stepped, batch)
+            ce.append(cross_entropy(outs, label))
+        log("trainer (c): cross entropy on the fixed batch over N = %d "
+            "steps: %s" % (len(ce), " ".join("%.4f" % v for v in ce)))
+        if not np.all(np.isfinite(ce)) or not ce[-1] < ce[0]:
+            raise AssertionError("the loss did not fall over %d steps: %s"
+                                 % (len(ce), ce))
+        out["losses"] = ce
+
+        # (e) resume: k steps, checkpoint, a new trainer, m more
+        k, m = TR_RESUME
+        whole, _ = trainer.multi_step(clone_state(state0), batch, k + m)
+        whole = clone_state(whole)
+        part, _ = trainer.multi_step(clone_state(state0), batch, k)
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(
+                os.path.abspath(__file__))) as tmp:
+            prefix = os.path.join(tmp, "resnet50_bf16")
+            trainer.save_checkpoint(part, prefix, k)
+            del trainer
+            resumed_trainer = bench_trainer(mx, sym, schedule=True)
+            resumed = resumed_trainer.load_checkpoint(prefix, k)
+        resumed, _ = resumed_trainer.multi_step(resumed, resumed_trainer
+                                                .shard_batch(data), m)
+        same, total, worst, worst_name = identical_tensors(resumed, whole)
+        log("trainer (e): %d steps, checkpoint, a new trainer, %d more vs "
+            "%d uninterrupted: %d of %d tensors bit-identical, step %d"
+            % (k, m, k + m, same, total, resumed["step"]))
+        if same != total or resumed["step"] != k + m:
+            raise AssertionError("the resumed run differs: %d of %d, worst "
+                                 "%s at %.3g" % (same, total, worst_name,
+                                                 worst))
+        out["resume"] = dict(identical=same, tensors=total)
+        del resumed_trainer, resumed, whole, part, multi, stepped, eager
+
+        # (a) once more under cuDNN's default algorithms: the spread
+        torch.backends.cudnn.deterministic = False
+        trainer = bench_trainer(mx, sym, schedule=True)
+        same, total, worst, worst_name = graph_against_eager(trainer, state0,
+                                                             batch)
+        log("trainer (a): with cuDNN's default algorithms, %d of %d "
+            "identical (worst %s at %.3g)" % (same, total, worst_name,
+                                              worst))
+        out["graph_vs_eager_default"] = dict(identical=same, tensors=total,
+                                             worst=worst,
+                                             worst_name=worst_name)
+        del trainer, state0, batch
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # (d) the protocol, timed, with the default algorithms
+    for batch_size, n_iters in BENCH_RUNS:
+        bench_protocol(mx, sym, batch_size, n_iters, card, peaks, out)
+    results["trainer"] = out
+    return out
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2778,6 +3154,9 @@ def main():
     bmm_launches = module_phase(mx, card, results)
     rtc = rtc_phase(mx, card, peaks, results)
     rn = resnet_train_phase(mx, sym, card, peaks, results)
+    trainer_phase(mx, mx.models.get_resnet(num_classes=1000, num_layers=50,
+                                           layout="NHWC"),
+                  card, results["peaks"], results)
 
     t8 = totals[8]
     kernels = {"kernels": [{

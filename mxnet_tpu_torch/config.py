@@ -28,6 +28,10 @@ the flags the ported slice reads:
     (parallel/flash_attention.py): the forward saves only (q, k, v, o,
     lse). 0 is the explicit escape hatch to dense autodiff of the plain
     formula, which materializes the T x T scores in the backward.
+``MXNET_BACKWARD_DO_MIRROR`` (default 0)
+    Rematerialize the training forward in the backward instead of storing
+    its activations (``executor._maybe_mirror``): the reference's memory
+    mirroring, as ``jax.checkpoint`` is in the JAX package.
 ``MXNET_FLASH_BLOCK_Q`` / ``MXNET_FLASH_BLOCK_K`` (1024),
 ``MXNET_FLASH_BWD_BLOCK_Q`` / ``MXNET_FLASH_BWD_BLOCK_K`` (512)
     Read for parity of the flag surface. They bound the TPU kernels' VMEM
@@ -43,6 +47,7 @@ _overrides = {}
 
 _DEFAULTS = {
     "MXNET_CONV_SPACE_TO_DEPTH": 1,
+    "MXNET_BACKWARD_DO_MIRROR": 0,
     "MXNET_SERVING_MAX_WAIT_MS": 5,
     "MXNET_SERVING_QUEUE": 1024,
     "MXNET_SERVING_PIPELINE": 2,

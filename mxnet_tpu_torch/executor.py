@@ -132,14 +132,36 @@ class _GraphProgram:
     def train_walk(self, arg_d, aux_d, grad_names):
         """The training forward under autograd: (outputs, aux updates,
         {name: leaf}) where each name in ``grad_names`` enters the walk
-        as a leaf that requires grad (sharing its argument's storage)."""
+        as a leaf that requires grad (sharing its argument's storage).
+        Under ``MXNET_BACKWARD_DO_MIRROR`` the backward recomputes the
+        walk (:func:`_maybe_mirror`)."""
         leaves = {n: arg_d[n].detach().requires_grad_(True)
                   for n in grad_names}
         merged = dict(arg_d)
         merged.update(leaves)
         with torch.enable_grad():
-            outs, aux_upd = self._eval(merged, aux_d, True)
+            outs, aux_upd = _maybe_mirror(self._eval)(merged, aux_d, True)
         return outs, aux_upd, leaves
+
+
+def _maybe_mirror(fn):
+    """``fn`` under ``torch.utils.checkpoint`` when
+    ``MXNET_BACKWARD_DO_MIRROR`` is set: the backward recomputes the
+    forward instead of reading stored activations, the reference's memory
+    mirroring as the JAX package's ``jax.checkpoint``. The aux updates are
+    those of the first forward; the recompute's are dropped."""
+    from .config import get_flag
+
+    if not get_flag("MXNET_BACKWARD_DO_MIRROR"):
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    def mirrored(*args):
+        # no random op is ported, so there is no RNG state to replay
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return mirrored
 
 
 def _grads_of(outs, leaves, seeds):

@@ -6,22 +6,24 @@ nothing of the JAX package). Dispatch on parameter-name patterns
 attribute overrides. The fills are numpy on the host with numpy's global
 RNG, exactly as in the JAX package, so one ``np.random.seed`` gives the
 same bits in both packages; the caller moves the buffer onto the device.
-The initializers are those a ``Module`` of this slice uses; ``Orthogonal``,
-``MSRAPrelu``, ``Bilinear``, ``LSTMBias``, ``Load``, ``Mixed`` and
-``FusedRNN`` wait for later slices (``ROADMAP.md`` Queue A4).
+Every initializer of the JAX package is here but ``FusedRNN``, which
+unpacks a fused RNN cell's parameters and raises until the RNN slice
+(``ROADMAP.md`` Queue A7).
 """
 from __future__ import annotations
 
 import json
 import logging
 import math
+import re
 
 import numpy as np
 
 from .base import MXNetError
 
 __all__ = ["InitDesc", "Initializer", "register", "create", "Zero", "One",
-           "Constant", "Uniform", "Normal", "Xavier"]
+           "Constant", "Uniform", "Normal", "Orthogonal", "Xavier",
+           "MSRAPrelu", "Bilinear", "LSTMBias", "Load", "Mixed"]
 
 _INIT_REGISTRY = {}
 
@@ -203,6 +205,27 @@ class Normal(Initializer):
 
 
 @register
+class Orthogonal(Initializer):
+    """Orthogonal matrix init (reference: initializer.py:Orthogonal)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(**_ctor_kwargs(locals()))
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:])) if arr.ndim > 1 else 1
+        if self.rand_type == "uniform":
+            tmp = np.random.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = np.random.normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        arr[:] = (self.scale * q).reshape(arr.shape)
+
+
+@register
 class Xavier(Initializer):
     """Xavier/Glorot (reference: initializer.py:Xavier)."""
 
@@ -232,3 +255,109 @@ class Xavier(Initializer):
             arr[:] = np.random.normal(0.0, scale, shape)
         else:
             raise ValueError("Unknown random type")
+
+
+@register
+class MSRAPrelu(Xavier):
+    """Kaiming/MSRA init (reference: initializer.py:MSRAPrelu)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """Bilinear upsampling kernel (reference: initializer.py:Bilinear)."""
+
+    def _init_weight(self, _, arr):
+        # separable triangular kernel, computed per axis
+        h, w = arr.shape[2], arr.shape[3]
+        f = np.ceil(w / 2.0)
+        center = (2 * f - 1 - f % 2) / (2.0 * f)
+        wx = 1 - np.abs(np.arange(w) / f - center)
+        wy = 1 - np.abs(np.arange(h) / f - center)
+        arr[:] = np.broadcast_to(np.outer(wy, wx), arr.shape)
+
+
+@register
+class LSTMBias(Initializer):
+    """Forget-gate bias init (reference: initializer.py:LSTMBias)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, _, arr):
+        arr[:] = 0.0
+        h = arr.shape[0] // 4
+        arr[h:2 * h] = self.forget_bias  # gates are stacked i, f, c, o
+
+
+@register
+class FusedRNN(Initializer):
+    """Init for a fused RNN cell's packed parameters (reference:
+    initializer.py:FusedRNN). It unpacks them with ``rnn_cell``, which
+    the port does not have yet."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        raise MXNetError("initializer.FusedRNN needs rnn_cell.FusedRNNCell, "
+                         "which is not yet ported (ROADMAP.md Queue A7)")
+
+
+class Load:
+    """Initialize from an existing param dict (reference:
+    initializer.py:Load); names missing from it go to ``default_init``."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        self.param = {}
+        for name, arr in param.items():
+            if name.startswith("arg:") or name.startswith("aux:"):
+                name = name[4:]
+            self.param[name] = arr
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            src = self.param[name]
+            src_np = src.asnumpy() if hasattr(src, "asnumpy") \
+                else np.asarray(src)
+            if tuple(src_np.shape) != tuple(arr.shape):
+                raise AssertionError(
+                    "Parameter %s cannot be initialized from loading. Shape "
+                    "mismatch, target %s vs loaded %s"
+                    % (name, arr.shape, src_np.shape))
+            arr[:] = src_np
+            if self.verbose:
+                logging.info("Initialized %s by loading", name)
+        else:
+            if self.default_init is None:
+                raise AssertionError(
+                    "Cannot Initialize parameter %s. Not found in loaded "
+                    "param and no default initializer is provided." % name)
+            self.default_init(name, arr)
+            if self.verbose:
+                logging.info("Initialized %s by default", name)
+
+
+class Mixed:
+    """Pattern to initializer dispatch (reference: initializer.py:Mixed):
+    the first pattern that matches the name picks the initializer."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise ValueError("Mixed: %d patterns for %d initializers"
+                             % (len(patterns), len(initializers)))
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise ValueError(
+            "Parameter name %s did not match any pattern. Consider adding a "
+            "\".*\" pattern at the and with default Initializer." % name)

@@ -1,10 +1,12 @@
 """Device mesh: the port's counterpart of ``mxnet_tpu/parallel/mesh.py``
-``make_mesh``.
+(``make_mesh``, ``data_parallel_sharding``, ``replicated_sharding``,
+``write_and_fence``).
 
 The JAX package builds a ``jax.sharding.Mesh`` and lets XLA insert the
 collectives. The port runs on one card for now: a mesh is a small record of
-its devices, its axis sizes and its axis names, and a mesh of more than one
-device raises until distribution is ported (ROADMAP Queue A10).
+its devices, its axis sizes and its axis names, a sharding is a record of
+where a tensor goes, and a mesh of more than one device raises until
+distribution is ported (ROADMAP Queue A10).
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ import torch
 from ..base import MXNetError
 from ..context import Context, as_device, default_device
 
-__all__ = ["Mesh", "make_mesh"]
+__all__ = ["Mesh", "make_mesh", "Sharding", "data_parallel_sharding",
+           "replicated_sharding", "write_and_fence"]
 
 
 class Mesh:
@@ -58,3 +61,55 @@ def make_mesh(axes=None, devices=None):
                          "not ported yet (ROADMAP Queue A10); use one "
                          "device" % total)
     return Mesh(devices[:total], sizes)
+
+
+def _one_device(mesh):
+    if len(mesh.devices) != 1:
+        raise MXNetError("a mesh of %d devices needs distribution, which is "
+                         "not ported yet (ROADMAP Queue A10)"
+                         % len(mesh.devices))
+    return mesh.devices[0]
+
+
+class Sharding:
+    """Where a tensor lives on a mesh: ``device`` and ``spec``, the axis
+    name that splits dim 0 (``None`` for replicated), as
+    ``jax.sharding.NamedSharding`` with a ``PartitionSpec`` says it. On one
+    device both kinds place the whole tensor there."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = spec
+        self.device = _one_device(mesh)
+
+    def __repr__(self):
+        return "Sharding(%s, spec=%r)" % (self.device, self.spec)
+
+
+def data_parallel_sharding(mesh, axis="dp"):
+    """The sharding that splits dim 0 over the data-parallel axis."""
+    if axis not in mesh.axis_names:
+        raise ValueError("axis %r not in mesh axes %s"
+                         % (axis, list(mesh.axis_names)))
+    return Sharding(mesh, axis)
+
+
+def replicated_sharding(mesh):
+    """The fully replicated sharding (the parameters' layout for pure
+    data parallelism)."""
+    return Sharding(mesh, None)
+
+
+def write_and_fence(write_fn, fence_key):
+    """Checkpoint discipline: process 0 writes, then every process fences
+    so no reader sees half a checkpoint. The port runs one process, so
+    this is the write; a process group of more raises (ROADMAP Queue
+    A10). ``fence_key`` names the fence, as in the JAX package."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise MXNetError("a checkpoint fence across %d processes (%r) needs "
+                         "distribution, which is not ported yet (ROADMAP "
+                         "Queue A10)" % (dist.get_world_size(), fence_key))
+    write_fn()

@@ -5,9 +5,10 @@ kernels at small ragged shapes (the bf16/fp16 backward also against the
 plain version that rounds p and ds as it does, and across two launches;
 and where their bf16 gradients part from plain attention's), the batched
 fused matmul on a ragged grid
-and through a transposed operand, and a Module training step through the
-kernels against the same step on the plain composition. Every test skips
-where there is no card.
+and through a transposed operand, a Module training step through the
+kernels against the same step on the plain composition, and a small
+ResNet's ShardedTrainer step captured as a CUDA graph against the same
+step run eagerly. Every test skips where there is no card.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 that has only PyTorch with CUDA:
@@ -567,3 +568,64 @@ def test_fit_with_a_kvstore_updates_on_the_card(card):
     for k in params[1]:
         np.testing.assert_allclose(params[0][k], params[1][k], rtol=1e-5,
                                    atol=1e-6, err_msg=k)
+
+
+def _card_trainer(schedule):
+    from mxnet_tpu_torch.parallel import ShardedTrainer, make_mesh
+
+    with mx.NameManager():
+        sym = mx.models.resnet.resnet(
+            units=[1, 1, 1], num_stages=3, filter_list=[16, 32, 64, 128],
+            num_classes=10, image_shape=(3, 32, 32), bottle_neck=True,
+            layout="NHWC")
+    lr = (lambda step: 0.1 * 0.5 ** step) if schedule else 0.1
+    return ShardedTrainer(sym, make_mesh({"dp": 1}), optimizer="sgd",
+                          optimizer_params={"learning_rate": lr,
+                                            "momentum": 0.9, "wd": 1e-4},
+                          dtype="bfloat16")
+
+
+def _trainer_tensors(state):
+    out = dict(state["params"])
+    out.update(state["aux"])
+    out.update(("%s/%d" % (k, i), t) for k, v in state["opt"].items()
+               for i, t in enumerate(v))
+    return {k: v.clone() for k, v in out.items()}
+
+
+def test_sharded_trainer_graph_matches_eager(card):
+    """The small bottleneck ResNet in bf16 through ShardedTrainer on the
+    card, cuDNN deterministic: one captured replay equals one eager step
+    to the bit; multi_step(3) equals three steps (losses and state) with
+    a decaying learning rate and one capture; a state that is not the
+    trainer's buffers is copied into them, so two steps from it agree."""
+    rng = np.random.RandomState(0)
+    data = {"data": rng.rand(8, 32, 32, 3).astype(np.float32),
+            "softmax_label": (np.arange(8) % 10).astype(np.float32)}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer = _card_trainer(schedule=True)
+        state0 = trainer.init({k: v.shape for k, v in data.items()})
+        batch = trainer.shard_batch(data)
+        assert batch["data"].is_cuda and batch["data"].dtype == torch.bfloat16
+        eager, _ = trainer._step_eager(state0, batch)
+        want = _trainer_tensors(eager)
+        for _ in range(2):
+            graph, outs = trainer.step(state0, batch)
+            got = _trainer_tensors(graph)
+            assert all(torch.equal(got[k], want[k]) for k in want)
+        assert graph["params"]["conv0_weight"] is not \
+            state0["params"]["conv0_weight"]
+        multi, losses = trainer.multi_step(state0, batch, 3)
+        multi = _trainer_tensors(multi)
+        stepped, step_losses = state0, []
+        for _ in range(3):
+            stepped, outs = trainer.step(stepped, batch)
+            step_losses.append(outs[0].float().mean())
+        assert torch.equal(losses, torch.stack(step_losses))
+        stepped = _trainer_tensors(stepped)
+        assert all(torch.equal(multi[k], stepped[k]) for k in multi)
+        assert trainer._captures == 1
+    finally:
+        torch.backends.cudnn.deterministic = det

@@ -40,7 +40,7 @@ OPS_UNPORTED = frozenset({
     "Pooling_v1", "RNN", "ROIPooling", "SCN", "SPN", "SVMOutput",
     "SequenceLast", "SequenceMask", "SequenceReverse", "SliceChannel",
     "SoftmaxActivation", "SpatialTransformer", "SwapAxis", "UpSampling",
-    "WeightedL1", "abs", "adam_update", "add_n", "arange", "arccos",
+    "WeightedL1", "abs", "add_n", "arange", "arccos",
     "arccosh", "arcsin", "arcsinh", "arctan", "arctanh", "argmax",
     "argmax_channel", "argmin", "argsort", "batch_take",
     "broadcast_axes", "broadcast_axis", "broadcast_equal",
@@ -51,7 +51,7 @@ OPS_UNPORTED = frozenset({
     "cast_storage", "cbrt", "ceil", "choose_element_0index", "clip",
     "concat", "contrib", "contrib_ctc_loss", "cos", "cosh", "crop",
     "ctc_loss", "degrees", "elemwise_div", "erf", "expand_dims",
-    "expm1", "fix", "flip", "floor", "ftrl_update", "gamma", "gammaln",
+    "expm1", "fix", "flip", "floor", "gamma", "gammaln",
     "gather_nd", "identity", "linalg_gelqf", "linalg_gemm",
     "linalg_gemm2", "linalg_potrf", "linalg_potri", "linalg_sumlogdiag",
     "linalg_syevd", "linalg_syrk", "linalg_trmm", "linalg_trsm", "log",
@@ -62,7 +62,7 @@ OPS_UNPORTED = frozenset({
     "random_gamma", "random_generalized_negative_binomial",
     "random_negative_binomial", "random_normal", "random_poisson",
     "random_uniform", "rcbrt", "reciprocal", "repeat", "reshape_like",
-    "reverse", "rint", "rmsprop_update", "rmspropalex_update", "round",
+    "reverse", "rint", "round",
     "sample_multinomial", "scatter_nd", "sign", "sin", "sinh", "slice",
     "slice_axis", "smooth_l1", "softmax_cross_entropy", "sort", "split",
     "sqrt", "square", "stack", "stop_gradient", "sum", "sum_axis",
