@@ -82,8 +82,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    kernels (forward ``exp(x - max) / sum``, one block per row staged in
    shared memory; backward ``y - onehot``) at (100, 10) and at the LM
    head's logits (16384, 32768) against their plain versions, timed as
-   CUDA-graph replays beside ``torch.softmax`` with the bound at the
-   memory rate, and the host cost of one launch call. (c) The slice's main
+   CUDA-graph replays beside ``torch.softmax`` (the backward beside
+   ``torch._softmax_backward_data``) with the bound at the memory rate,
+   and the host cost of one launch call. (c) The slice's main
    path: ``examples/numpy_ops/custom_softmax.py`` on the card, its
    ``CustomOp`` head launching the kernels through mx.rtc: the first
    ``forward_backward`` against the built-in ``SoftmaxOutput`` (1e-5 of
@@ -146,7 +147,42 @@ Phases, each fatal on failure (exit code != 0, no result line):
    step by family (from eager steps, which launch the graph's kernels,
    BatchNorm and the update marked as scopes), the replays' device ms and
    the busy share.
-11. Print the ``kernels`` JSON line, then the result line
+11. Generation phase: the causal LM at the train phase's width served by
+   ``mx.serving.generation.Generator`` (max_seq 2048, 8 slots, page 16,
+   decode blocks of 128 tokens, the default prefill ladder 16 ... 1024,
+   2048); the decode step (and the verify and draft steps with
+   speculation) one CUDA graph, prefill eager through the flash forward.
+   (a) fp32, ``init(0)``: ``prefill_forward``'s logits with the kernel
+   within 1e-5 of max |logit| of the plain dense path's at T 16, 333 and
+   2048 (one kernel launch per layer), and the greedy output of 8 prompts
+   of 2-999 tokens, 32 new tokens each, token-exact against the
+   full-recompute oracle (``prefill_forward`` over the whole sequence for
+   every token). (b) bf16 from the train phase's trained parameters,
+   saved with ``save_checkpoint`` into a temporary directory and served by
+   ``Generator.from_checkpoint``: prefill logits within 2e-2 of the plain
+   path's, and how many of the 8 prompts' greedy tokens agree with a
+   generator whose prefill attends with the plain path (reported, not
+   checked). (c) Every generator's ``warmup()`` returns buckets + 1
+   programs (+1 n-gram, +2 draft) with as many captures, and the captures
+   stay flat through its traffic. (d) ``bench_all.py:614-733``
+   ``bench_generation_lm`` at this width in bf16: 48 requests with prompts
+   of 2-1983 tokens from ``RandomState(0)``, 64 new tokens, Poisson
+   arrivals at 3x the sequential capacity a warmed generator's probe of 4
+   requests measures; continuous batching, then the sequential baseline:
+   tokens/s, TTFT, inter-token and per-token latency p50/p99, the flash
+   forward's launches (launch counts reset just before each run and read
+   just after: exactly 8 per request), peak memory; each bucket's eager
+   prefill timed (wall and device ms); the decode step at 8 slots and
+   1000 tokens of context replayed against its eager body (equal to the
+   bit), timed both ways, its device ms by family under
+   ``torch.profiler`` (paged attention and sampling marked as scopes) and
+   the busy share. (e) fp32: n-gram speculation (spec_k 4) and draft-model
+   speculation (a 2-layer d 128 draft) on 8 cyclic prompts, greedy and
+   seeded temperature, equal to spec_k 0's output, with the acceptance
+   rates and tokens/s. (f) Every generator ends drained with no page
+   leaked (``PagePool.assert_no_leaks``).
+12. Print the ``kernels`` JSON line (the flash forward's row also carries
+   phase 11's prefill launches), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -1140,7 +1176,8 @@ def train_phase(mx, card, results, timing):
                                             loss_plain=loss_p,
                                             worst_grad=worst,
                                             worst_grad_name=worst_name))
-    return launches
+    # the trained parameters, on the host, for the generation phase
+    return launches, {k: v.detach().cpu() for k, v in params.items()}
 
 
 # ------------------------------------------------ batched matmul phase
@@ -2069,6 +2106,10 @@ def softmax_phase(mx, card, peaks, gen):
         row["fwd_library_ms"] = time_ms(lambda: torch.softmax(xt, 1))
         row["bwd_ms"] = time_ms(lambda: kern.backward(label, y, dx))
         row["bwd_plain_ms"] = time_ms(lambda: softmax_bwd_plain(lt, yt))
+        # the one PyTorch call computing a softmax's backward, y * (g -
+        # sum(g * y)), on the same y with x as the gradient: a yardstick
+        row["bwd_library_ms"] = time_ms(lambda: torch._softmax_backward_data(
+            xt, yt, 1, torch.float32))
         for kind in ("fwd", "bwd"):
             bnd, nbytes = softmax_bound_ms(rows, cols, kind, peaks[1])
             row[kind + "_bound_ms"] = bnd
@@ -2076,13 +2117,14 @@ def softmax_phase(mx, card, peaks, gen):
             row[kind + "_gb_per_s"] = nbytes / row[kind + "_ms"] / 1e6
         log("rtc softmax %s: fwd err %.3g (%.3g of max |y|; torch.softmax "
             "%.3g), bwd exact; fwd %.4f ms (plain %.4f, torch.softmax %.4f, "
-            "bound %.4f, %.1f GB/s), bwd %.4f ms (plain %.4f, bound %.4f, "
-            "%.1f GB/s), on %s"
+            "bound %.4f, %.1f GB/s), bwd %.4f ms (plain %.4f, "
+            "torch._softmax_backward_data %.4f, bound %.4f, %.1f GB/s), on "
+            "%s"
             % (shape, fwd_err, fwd_err / scale, lib_err, row["fwd_ms"],
                row["fwd_plain_ms"], row["fwd_library_ms"],
                row["fwd_bound_ms"], row["fwd_gb_per_s"], row["bwd_ms"],
-               row["bwd_plain_ms"], row["bwd_bound_ms"], row["bwd_gb_per_s"],
-               card))
+               row["bwd_plain_ms"], row["bwd_library_ms"],
+               row["bwd_bound_ms"], row["bwd_gb_per_s"], card))
         out["x".join(map(str, shape))] = row
         del x, y, dx, label, xt, yt, lt
 
@@ -2409,25 +2451,34 @@ def kernel_family(name):
     return "elementwise / reduce"
 
 
-def device_families(prof, n_steps):
+def resnet_scope(name):
+    """The family a ResNet step's op scope names, or None."""
+    if "BatchNorm" in name:
+        return "BN"
+    if name == RN_SCOPES[1]:
+        return "optimizer update"
+    if "convolution" in name.lower():
+        return "cuDNN conv"
+    return None
+
+
+def device_families(prof, n_steps, scope_family=resnet_scope,
+                    marks=RN_SCOPES):
     """(device ms per step by family, device ms per step, the ten longest
     kernels, the GPU-side spans of the marked scopes), each per step. A
     kernel goes to the innermost scope of the op that launched it that
-    names a family (BatchNorm forward and backward, the optimizer update,
-    a convolution and its backward); a kernel with no such scope, or none
-    the profiler could link (the ctypes launches), to its name's family.
-    A marked scope's span (first to last kernel on the card, gaps
-    included) is not device time."""
+    names a family (``scope_family``; for a ResNet step BatchNorm forward
+    and backward, the optimizer update, a convolution and its backward); a
+    kernel with no such scope, or none the profiler could link (the ctypes
+    launches), to its name's family. A marked scope's span (``marks``:
+    first to last kernel on the card, gaps included) is not device time."""
     import torch
 
     def scope(ev):
         while ev is not None:
-            if "BatchNorm" in ev.name:
-                return "BN"
-            if ev.name == RN_SCOPES[1]:
-                return "optimizer update"
-            if "convolution" in ev.name.lower():
-                return "cuDNN conv"
+            fam = scope_family(ev.name)
+            if fam is not None:
+                return fam
             ev = ev.cpu_parent
         return None
 
@@ -2445,8 +2496,7 @@ def device_families(prof, n_steps):
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total
-        if getattr(ev, "is_user_annotation", False) or \
-                ev.key in RN_SCOPES:
+        if getattr(ev, "is_user_annotation", False) or ev.key in marks:
             spans[ev.key] = us
             continue
         by_name[ev.key] = by_name.get(ev.key, 0.0) + us
@@ -3103,6 +3153,607 @@ def trainer_phase(mx, sym, card, peaks, results):
     return out
 
 
+# ------------------------------------------------------- generation phase
+# the causal LM at the bench_transformer_lm width served by the port's
+# continuous-batching Generator; traffic as bench_all.py:614-733
+# bench_generation_lm's at this width
+GEN_MAX_SEQ = 2048          # the trained T
+GEN_MAX_BATCH = 8           # MXNET_GEN_MAX_BATCH's default
+GEN_PAGE = 16               # MXNET_GEN_PAGE_SIZE's default
+GEN_BLOCKS = 128            # MXNET_GEN_DECODE_BLOCKS's default
+GEN_PROMPTS = 8             # (a), (b): greedy prompts of 2 to 999 tokens
+GEN_PROMPT_MAX = 1000
+GEN_NEW = 32                # (a), (b): new tokens each
+GEN_PREFILL_T = (16, 333, 2048)   # prefill lengths held to the plain path
+GEN_LOGIT_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+GEN_REQUESTS = 48           # (d): bench_generation_lm's requests,
+GEN_MAX_NEW = 64            # max_new_tokens,
+GEN_OVERLOAD = 3.0          # arrivals at 3x the probed sequential capacity
+GEN_PROBE = 4
+GEN_STEP_CTX = 1000         # (d): context of the timed decode steps
+GEN_TIMED = 20
+GEN_PROFILED = 3
+GEN_SPEC_K = 4              # (e)
+GEN_SPEC_REQUESTS = 8
+GEN_SPEC_NEW = 32
+GEN_DRAFT_CFG = dict(vocab=32768, d_model=128, n_heads=2, n_layers=2,
+                     d_ff=512, n_experts=1)
+GEN_SCOPES = ("gen::paged_attention", "gen::sampling")
+
+
+def gen_engine():
+    import importlib
+
+    return importlib.import_module(
+        "mxnet_tpu_torch.serving.generation.engine")
+
+
+def gen_config(mx, **kw):
+    return mx.serving.generation.GenerationConfig(
+        max_batch=GEN_MAX_BATCH, max_seq=GEN_MAX_SEQ, page_size=GEN_PAGE,
+        decode_blocks=GEN_BLOCKS, **kw)
+
+
+def gen_prompts(n, lo, hi, vocab, seed):
+    rng = np.random.RandomState(seed)
+    return [[int(t) for t in rng.randint(1, vocab,
+                                         size=int(rng.randint(lo, hi)))]
+            for _ in range(n)]
+
+
+class plain_prefill:
+    """A scope in which ``prefill_forward`` attends with the plain dense
+    formula (``prefill_attention_reference``) instead of the kernel."""
+
+    def __enter__(self):
+        import importlib
+
+        self.TT = importlib.import_module(
+            "mxnet_tpu_torch.parallel.transformer")
+        self.real = self.TT._prefill_attention
+        self.TT._prefill_attention = self.TT.prefill_attention_reference
+
+    def __exit__(self, *exc):
+        self.TT._prefill_attention = self.real
+
+
+def serve_all(gen, requests):
+    """Submit every (prompt, SamplingParams) at once; (outputs, wall s)."""
+    t0 = time.perf_counter()
+    handles = [gen.submit(p, sp) for p, sp in requests]
+    out = [h.result(timeout=600) for h in handles]
+    return out, time.perf_counter() - t0
+
+
+def stopped(gen):
+    """Drain ``gen`` and check that no page leaked."""
+    gen.stop(drain=True)
+    gen.pool.assert_no_leaks()
+    return gen.get_stats()["captures"]
+
+
+def admit_slots(gen, prompts, params):
+    """Admit ``prompts`` into slots 0.. of a generator whose scheduler is
+    not running, through its prefill (admission without the queue)."""
+    E = gen_engine()
+    for slot, prompt in enumerate(prompts):
+        ent = E._Pending(prompt, params, E.GenerationHandle(),
+                         time.monotonic(), E.resolve_class(None), None)
+        with gen._cond:
+            gen._n_active += 1
+        gen._prefill(slot, ent, len(prompt) + params.max_new_tokens - 1)
+
+
+def release_slots(gen):
+    for slot, seq in enumerate(gen._slots):
+        if seq is not None:
+            gen._evict(slot)
+
+
+def decode_graph_vs_eager(gen):
+    """From one state, one eager run of the decode step's body and one
+    replay of its graph: True when the tokens, the keys and every page but
+    the trash page 0 (where inactive slots' writes collide) are equal to
+    the bit. The state is the same after both."""
+    import torch
+
+    with gen._device_scope(), gen._pages_lock:
+        pools = {k: v.clone() for k, v in gen._pools.items()}
+        keys = gen._keys.clone()
+        gen._upload()
+        eager = gen._steps["decode"].body().clone()
+        eager_pools = {k: v[:, 1:].clone() for k, v in gen._pools.items()}
+        eager_keys = gen._keys.clone()
+        for k, v in gen._pools.items():
+            v.copy_(pools[k])
+        gen._keys.copy_(keys)
+        replay = gen._run("decode").clone()
+        return (torch.equal(eager, replay)
+                and torch.equal(eager_keys, gen._keys)
+                and all(torch.equal(v[:, 1:], eager_pools[k])
+                        for k, v in gen._pools.items()))
+
+
+def prefill_vs_plain(model, params, dtype, what):
+    """prefill_forward with the kernel against the plain path at
+    GEN_PREFILL_T: rows of (T, error over max |logit|, kernel launches of
+    the forward)."""
+    import torch
+    from mxnet_tpu_torch import cuda_build
+
+    rng = np.random.RandomState(1)
+    rows = []
+    for T in GEN_PREFILL_T:
+        tok = torch.from_numpy(rng.randint(0, TRAIN_CFG["vocab"], (1, T))) \
+            .cuda()
+        with torch.no_grad():
+            cuda_build.reset_launch_counts()
+            got, _, _ = model.prefill_forward(params, tok)
+            torch.cuda.synchronize()
+            launches = cuda_build.launch_counts().get("flash_attention_fwd",
+                                                      0)
+            with plain_prefill():
+                want, _, _ = model.prefill_forward(params, tok)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        rows.append(dict(T=T, err=err, rel=err / scale, launches=launches))
+        log("generation %s: prefill T=%d, logits with the kernel within "
+            "%.3g of max |logit| (%.3f) of the plain path's, %d kernel "
+            "launches" % (what, T, err / scale, scale, launches))
+        if launches != TRAIN_CFG["n_layers"]:
+            raise AssertionError("prefill at T=%d launched the flash forward "
+                                 "%d times, want %d" % (T, launches,
+                                                        TRAIN_CFG["n_layers"]))
+        if not (torch.isfinite(got).all()
+                and err <= GEN_LOGIT_TOL[dtype] * scale):
+            raise AssertionError("%s prefill logits at T=%d: %.3g of max "
+                                 "|logit| > %g" % (what, T, err / scale,
+                                                   GEN_LOGIT_TOL[dtype]))
+    return rows
+
+
+def recompute_tokens(model, params, prompt, n):
+    """The greedy full-recompute oracle: ``prefill_forward`` (the kernel)
+    over the whole sequence for every token. Returns (tokens, each token's
+    top-1 over top-2 logit margin)."""
+    import torch
+
+    toks, margins = list(prompt), []
+    with torch.no_grad():
+        for _ in range(n):
+            logits, _, _ = model.prefill_forward(
+                params, torch.tensor([toks], device="cuda"))
+            top = torch.topk(logits[0, -1], 2)
+            toks.append(int(top.indices[0]))
+            margins.append(float(top.values[0] - top.values[1]))
+    return toks[len(prompt):], margins
+
+
+def gen_greedy_fp32(mx, card, out):
+    """(a): fp32 at full width: prefill logits against the plain path, and
+    8 prompts' greedy output against the full-recompute oracle, token for
+    token. Returns (model, params) for (e)."""
+    G = mx.serving.generation
+    model = mx.parallel.TransformerParallel(mx.parallel.make_mesh({"dp": 1}),
+                                            dtype="float32", **TRAIN_CFG)
+    params = model.init(0)
+    out["prefill_fp32"] = prefill_vs_plain(model, params, "float32", "fp32")
+    prompts = gen_prompts(GEN_PROMPTS, 2, GEN_PROMPT_MAX, TRAIN_CFG["vocab"],
+                          2)
+    sp = G.SamplingParams(max_new_tokens=GEN_NEW)
+    gen = G.Generator(model, params, gen_config(mx))
+    warmed = gen.warmup()
+    if warmed != len(G.default_prefill_ladder(GEN_MAX_SEQ)) + 1 or \
+            gen.get_stats()["captures"] != 1:
+        raise AssertionError("warmup() gave %d programs and %d captures"
+                             % (warmed, gen.get_stats()["captures"]))
+    got, wall = serve_all(gen, [(p, sp) for p in prompts])
+    stopped(gen)
+    oracle = [recompute_tokens(model, params, p, GEN_NEW) for p in prompts]
+    exact = sum(g == o[0] for g, o in zip(got, oracle))
+    margin = min(min(o[1]) for o in oracle)
+    log("generation (a): fp32, %d prompts of %s tokens, %d new each: %d of "
+        "%d token-exact against the full-recompute oracle (smallest top-2 "
+        "logit margin of the oracle %.3g), %d programs warmed, %.3f s, on %s"
+        % (len(prompts), [len(p) for p in prompts], GEN_NEW, exact,
+           len(prompts), margin, warmed, wall, card))
+    out["greedy_fp32"] = dict(exact=exact, prompts=len(prompts),
+                              min_margin=margin, warmed=warmed)
+    if exact != len(prompts):
+        bad = [(i, g, o[0]) for i, (g, o) in enumerate(zip(got, oracle))
+               if g != o[0]]
+        raise AssertionError("fp32 greedy output differs from the oracle: "
+                             "%s" % bad[:2])
+    return model, params
+
+
+def gen_speculative(mx, model, params, card, out):
+    """(e): n-gram (spec_k GEN_SPEC_K) and draft-model speculation against
+    spec_k 0, greedy and seeded temperature, fp32 at full width."""
+    G = mx.serving.generation
+    rng = np.random.RandomState(5)
+    reqs = []
+    for i in range(GEN_SPEC_REQUESTS):
+        pat = [int(t) for t in rng.randint(1, TRAIN_CFG["vocab"],
+                                           size=int(rng.randint(2, 6)))]
+        prompt = (pat * 200)[:int(rng.randint(40, 400))]
+        sp = (G.SamplingParams(max_new_tokens=GEN_SPEC_NEW) if i % 2 else
+              G.SamplingParams(max_new_tokens=GEN_SPEC_NEW, temperature=0.8,
+                               top_k=50, seed=100 + i))
+        reqs.append((prompt, sp))
+    draft = mx.parallel.TransformerParallel(mx.parallel.make_mesh({"dp": 1}),
+                                            dtype="float32", **GEN_DRAFT_CFG)
+    runs = {}
+    for mode, kw, programs in (
+            ("off", dict(spec_k=0), 1),
+            ("ngram", dict(spec_k=GEN_SPEC_K), 2),
+            ("draft", dict(spec_k=GEN_SPEC_K), 3)):
+        extra = (dict(draft_model=draft, draft_params=draft.init(7))
+                 if mode == "draft" else {})
+        gen = G.Generator(model, params, gen_config(mx, **kw), **extra)
+        warmed = gen.warmup()
+        if warmed != 8 + programs or gen.get_stats()["captures"] != programs:
+            raise AssertionError("%s: warmup() gave %d programs, %d "
+                                 "captures" % (mode, warmed,
+                                               gen.get_stats()["captures"]))
+        got, wall = serve_all(gen, reqs)
+        spec = gen.get_stats()["speculative"]
+        captures = stopped(gen)
+        if captures != programs:
+            raise AssertionError("%s: %d captures after the traffic"
+                                 % (mode, captures))
+        tokens = sum(len(g) for g in got)
+        runs[mode] = dict(tokens_per_s=tokens / wall, wall_s=wall,
+                          accept_rate=spec["accept_rate"],
+                          proposed=spec["proposed"],
+                          accepted=spec["accepted"], warmed=warmed,
+                          captures=captures, out=got)
+        log("generation (e): spec %s, %d requests x %d new tokens: %.1f "
+            "tokens/s (%.3f s), acceptance %s (%d of %d proposed), %d "
+            "programs warmed, %d captures, on %s"
+            % (mode, len(reqs), GEN_SPEC_NEW, tokens / wall, wall,
+               spec["accept_rate"], spec["accepted"], spec["proposed"],
+               warmed, captures, card))
+        del gen
+    for mode in ("ngram", "draft"):
+        same = sum(a == b for a, b in zip(runs[mode]["out"],
+                                          runs["off"]["out"]))
+        runs[mode]["lossless"] = same
+        if same != len(reqs):
+            raise AssertionError("spec %s differs from spec_k 0 in %d of %d "
+                                 "requests" % (mode, len(reqs) - same,
+                                               len(reqs)))
+    for r in runs.values():
+        del r["out"]
+    out["speculative"] = runs
+
+
+def gen_prefill_timing(gen, card, out):
+    """(d): the prefill of each bucket as the scheduler runs it (eager,
+    onto the trash page, the first token fetched): wall ms (median of 5)
+    and device ms (torch.profiler over one more)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = []
+    with gen._device_scope(), gen._pages_lock:
+        for bucket in gen._cfg.prefill_buckets:
+            def prefill():
+                tok, _ = gen._prefill_step(
+                    np.zeros((1, bucket), np.int64), bucket,
+                    np.zeros(gen._max_pages, np.int64), [0, 0], 0.0, 0)
+                return tok.cpu()
+
+            prefill()
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                prefill()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                prefill()
+            us = sum(getattr(ev, "self_device_time_total", 0.0)
+                     for ev in prof.key_averages()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA)
+            rows.append(dict(bucket=bucket, wall_ms=float(np.median(walls)),
+                             device_ms=us / 1e3))
+    log("generation (d): eager prefill per bucket, wall ms (device ms): %s; "
+        "on %s" % (", ".join("%d: %.3f (%.3f)" % (r["bucket"], r["wall_ms"],
+                                                 r["device_ms"])
+                             for r in rows), card))
+    out["prefill_ms"] = rows
+
+
+def gen_step_timing(mx, gen, card, out):
+    """(d): THE decode step of ``gen`` (warmed, its scheduler not started)
+    at full batch and GEN_STEP_CTX context:
+    replayed (with its input copy and token fetch, as the scheduler runs
+    it) against eager, device time per replay from CUDA events, and the
+    device ms per step by family over GEN_PROFILED eager steps (which
+    launch the graph's kernels) under torch.profiler, paged attention and
+    sampling marked as scopes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    E = gen_engine()
+    G = mx.serving.generation
+    prompts = gen_prompts(GEN_MAX_BATCH, GEN_STEP_CTX, GEN_STEP_CTX + 1,
+                          TRAIN_CFG["vocab"], 7)
+    with gen._device_scope():
+        admit_slots(gen, prompts, G.SamplingParams(max_new_tokens=16))
+        same = decode_graph_vs_eager(gen)
+        step = gen._steps["decode"]
+
+        def replay():
+            with gen._pages_lock:
+                return gen._run("decode").cpu()
+
+        def eager():
+            gen._upload()
+            step.body()
+            torch.cuda.synchronize()
+
+        walls = {}
+        for name, fn in (("replay", replay), ("eager", eager)):
+            fn()
+            ts = []
+            for _ in range(GEN_TIMED):
+                t0 = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            walls[name] = float(np.median(ts))
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(GEN_TIMED):
+            step.graph.replay()
+        end.record()
+        end.synchronize()
+        replay_dev = start.elapsed_time(end) / GEN_TIMED
+        real = {"paged_decode_attention": E.paged_decode_attention,
+                "sample_tokens": E.sample_tokens}
+
+        def marked(scope, fn):
+            def call(*args, **kwargs):
+                with record_function(scope):
+                    return fn(*args, **kwargs)
+            return call
+
+        E.paged_decode_attention = marked(GEN_SCOPES[0],
+                                          real["paged_decode_attention"])
+        E.sample_tokens = marked(GEN_SCOPES[1], real["sample_tokens"])
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(GEN_PROFILED):
+                    eager()
+        finally:
+            E.paged_decode_attention = real["paged_decode_attention"]
+            E.sample_tokens = real["sample_tokens"]
+        release_slots(gen)
+    fams, device_ms, top, _ = device_families(
+        prof, GEN_PROFILED,
+        scope_family=lambda n: ({GEN_SCOPES[0]: "paged attention",
+                                 GEN_SCOPES[1]: "sampling"}.get(n)),
+        marks=GEN_SCOPES)
+    row = dict(graph_equals_eager=same, replay_ms=walls["replay"],
+               eager_ms=walls["eager"], replay_device_ms=replay_dev,
+               device_ms=device_ms, families_ms=fams,
+               busy=device_ms / walls["replay"], top_kernels_ms=top,
+               ctx=GEN_STEP_CTX, batch=GEN_MAX_BATCH)
+    log("generation (d): decode step, %d slots at %d tokens of context: "
+        "replayed %.3f ms (median of %d, input copy and token fetch "
+        "included; graph alone %.3f ms between CUDA events), eager %.3f ms; "
+        "device %.3f ms/step (torch.profiler over %d eager steps), busy "
+        "%.3f of the replayed step; replay equals eager to the bit: %s; on "
+        "%s" % (GEN_MAX_BATCH, GEN_STEP_CTX, walls["replay"], GEN_TIMED,
+                replay_dev, walls["eager"], device_ms, GEN_PROFILED,
+                row["busy"], same, card))
+    for fam, v in sorted(fams.items(), key=lambda kv: -kv[1]):
+        log("    %9.3f ms  %.3f  %s" % (v, v / device_ms, fam))
+    for name, v in top[:6]:
+        log("    %9.3f ms  %s" % (v, name[:110]))
+    if not same:
+        raise AssertionError("the replayed decode step differs from the "
+                             "eager one")
+    out["decode_step"] = row
+
+
+def gen_traffic(mx, model, path, card, out):
+    """(c), (d): bench_generation_lm's protocol at full width in bf16 from
+    the checkpoint: a warmed generator probes the sequential capacity, then
+    Poisson arrivals at GEN_OVERLOAD x it through a continuous generator
+    and through a sequential one (each request served to completion before
+    the next is submitted). Returns the flash forward's launches in the
+    continuous run."""
+    import threading
+
+    import torch
+    from mxnet_tpu_torch import cuda_build
+
+    G = mx.serving.generation
+    rng = np.random.RandomState(0)
+    requests = []
+    for _ in range(GEN_REQUESTS):
+        plen = int(rng.randint(2, GEN_MAX_SEQ - GEN_MAX_NEW))
+        prompt = [int(t) for t in rng.randint(1, TRAIN_CFG["vocab"],
+                                              size=plen)]
+        requests.append((prompt, G.SamplingParams(
+            max_new_tokens=GEN_MAX_NEW)))
+    n_buckets = len(G.default_prefill_ladder(GEN_MAX_SEQ))
+
+    def new_generator(start=True):
+        gen = G.Generator.from_checkpoint(path, model, config=gen_config(mx),
+                                          start=start)
+        warmed = gen.warmup()
+        captures = gen.get_stats()["captures"]
+        if warmed != n_buckets + 1 or captures != 1:
+            raise AssertionError("warmup() gave %d programs and %d captures, "
+                                 "want %d and 1" % (warmed, captures,
+                                                    n_buckets + 1))
+        return gen
+
+    gen = new_generator()
+    t0 = time.perf_counter()
+    for p, sp in requests[:GEN_PROBE]:
+        gen.generate(p, sp, timeout=600)
+    t_req = (time.perf_counter() - t0) / GEN_PROBE
+    stopped(gen)
+    gen = new_generator(start=False)
+    gen_prefill_timing(gen, card, out)
+    gen_step_timing(mx, gen, card, out)
+    stopped(gen)
+    del gen
+    arrivals = np.cumsum(rng.exponential(t_req / GEN_OVERLOAD,
+                                         GEN_REQUESTS))
+
+    def consume(handle, arrival, start, res, idx):
+        stream = handle.stream(timeout=600)
+        first = next(stream, None)
+        t_first = time.perf_counter() - start
+        n = 1 if first is not None else 0
+        for _ in stream:
+            n += 1
+        t_done = time.perf_counter() - start
+        res[idx] = (t_first - arrival, (t_done - arrival) / max(1, n),
+                    (t_done - t_first) / max(1, n - 1), n)
+
+    def run(sequential):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gen = new_generator()
+        cuda_build.reset_launch_counts()
+        res, threads = [None] * GEN_REQUESTS, []
+        start = time.perf_counter()
+        for i, (a, (p, sp)) in enumerate(zip(arrivals, requests)):
+            now = time.perf_counter() - start
+            if now < a:
+                time.sleep(a - now)
+            h = gen.submit(p, sp)
+            if sequential:
+                consume(h, a, start, res, i)
+            else:
+                t = threading.Thread(target=consume,
+                                     args=(h, a, start, res, i))
+                t.start()
+                threads.append(t)
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - start - arrivals[0]
+        launches = cuda_build.launch_counts().get("flash_attention_fwd", 0)
+        stats = gen.get_stats()
+        captures = stopped(gen)
+        peak = torch.cuda.max_memory_allocated() - base
+        del gen
+        if any(r is None for r in res) or captures != 1:
+            raise AssertionError("traffic: %d requests unanswered, %d "
+                                 "captures" % (sum(r is None for r in res),
+                                               captures))
+        tokens = sum(r[3] for r in res)
+        pct = lambda xs, q: float(np.percentile(xs, q))  # noqa: E731
+        ttft = [r[0] * 1e3 for r in res]
+        per_tok = [r[1] * 1e3 for r in res]
+        itl = [r[2] * 1e3 for r in res]
+        row = dict(tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+                   ttft_p50_ms=pct(ttft, 50), ttft_p99_ms=pct(ttft, 99),
+                   per_token_p50_ms=pct(per_tok, 50),
+                   per_token_p99_ms=pct(per_tok, 99),
+                   inter_token_p50_ms=pct(itl, 50),
+                   inter_token_p99_ms=pct(itl, 99),
+                   decode_steps=stats.get("decode_steps", 0),
+                   prefills=stats.get("prefills", 0), captures=captures,
+                   flash_fwd_launches=launches,
+                   launches_per_request=launches / GEN_REQUESTS,
+                   peak_bytes=peak, held_before_bytes=base)
+        log("generation (d): %s, %d requests (prompts 2-%d tokens, %d new), "
+            "Poisson arrivals at %gx the probed sequential capacity (%.3f s "
+            "a request): %.1f tokens/s over %.3f s; TTFT p50 %.2f p99 %.2f "
+            "ms; inter-token p50 %.2f p99 %.2f ms; per-token p50 %.2f p99 "
+            "%.2f ms; %d decode steps, %d prefills; flash forward launches "
+            "%d (%.2f per request); %d capture; peak memory %.3f GB above "
+            "the %.3f GB held before; on %s"
+            % ("sequential" if sequential else "continuous", GEN_REQUESTS,
+               GEN_MAX_SEQ - GEN_MAX_NEW - 1, GEN_MAX_NEW, GEN_OVERLOAD,
+               t_req, row["tokens_per_s"], wall, row["ttft_p50_ms"],
+               row["ttft_p99_ms"], row["inter_token_p50_ms"],
+               row["inter_token_p99_ms"], row["per_token_p50_ms"],
+               row["per_token_p99_ms"], row["decode_steps"],
+               row["prefills"], launches, row["launches_per_request"],
+               captures, peak / 1e9, base / 1e9, card))
+        if launches != TRAIN_CFG["n_layers"] * GEN_REQUESTS:
+            raise AssertionError("%d flash forward launches for %d "
+                                 "requests, want %d each"
+                                 % (launches, GEN_REQUESTS,
+                                    TRAIN_CFG["n_layers"]))
+        return row
+
+    out["continuous"] = run(sequential=False)
+    out["sequential"] = run(sequential=True)
+    out["probe_s_per_request"] = t_req
+    return out["continuous"]["flash_fwd_launches"]
+
+
+def generation_phase(mx, card, trained, results):
+    """Phase 11: the port's Generator at full width (see the module
+    docstring). Returns the flash forward's launches on the main path,
+    the continuous traffic of (d)."""
+    import tempfile
+
+    import torch
+
+    G = mx.serving.generation
+    out = {}
+    model, params = gen_greedy_fp32(mx, card, out)
+    gen_speculative(mx, model, params, card, out)
+    del model, params
+    torch.cuda.empty_cache()
+
+    model = mx.parallel.TransformerParallel(mx.parallel.make_mesh({"dp": 1}),
+                                            dtype="bfloat16", **TRAIN_CFG)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        path = os.path.join(tmp, "lm_bf16")
+        model.save_checkpoint(trained, path)
+        params = model.load_checkpoint(path)
+        out["prefill_bf16"] = prefill_vs_plain(model, params, "bfloat16",
+                                               "bf16")
+        # (b) greedy tokens of the kernel's prefill against the plain one's
+        prompts = gen_prompts(GEN_PROMPTS, 2, GEN_PROMPT_MAX,
+                              TRAIN_CFG["vocab"], 2)
+        sp = G.SamplingParams(max_new_tokens=GEN_NEW)
+        outs = []
+        for plain in (False, True):
+            gen = G.Generator.from_checkpoint(path, model,
+                                              config=gen_config(mx))
+            if plain:
+                with plain_prefill():
+                    got, _ = serve_all(gen, [(p, sp) for p in prompts])
+            else:
+                got, _ = serve_all(gen, [(p, sp) for p in prompts])
+            stopped(gen)
+            outs.append(got)
+        same_seq = sum(a == b for a, b in zip(*outs))
+        same_tok = sum(x == y for a, b in zip(*outs) for x, y in zip(a, b))
+        first = sum(a[0] == b[0] for a, b in zip(*outs))
+        out["bf16_agreement"] = dict(sequences=same_seq, tokens=same_tok,
+                                     first_tokens=first,
+                                     of_sequences=len(prompts),
+                                     of_tokens=len(prompts) * GEN_NEW)
+        log("generation (b): bf16 from phase 5's trained parameters "
+            "(save_checkpoint, Generator.from_checkpoint): greedy output "
+            "with the kernel's prefill against the plain prefill's: %d of "
+            "%d sequences equal, %d of %d tokens at equal positions, %d of "
+            "%d first tokens (reported, not checked)"
+            % (same_seq, len(prompts), same_tok, len(prompts) * GEN_NEW,
+               first, len(prompts)))
+        del params
+        launches = gen_traffic(mx, model, path, card, out)
+    results["generation"] = out
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the detailed results here")
@@ -3149,7 +3800,7 @@ def main():
     results["kernel_totals"] = totals
     launches = serve_phase(mx, sym, card, results)
     timing = flash_phase(card, results["peaks"], results)
-    flash_launches = train_phase(mx, card, results, timing)
+    flash_launches, trained = train_phase(mx, card, results, timing)
     bmm_err, bmm_totals = bmm_phase(peaks, results)
     bmm_launches = module_phase(mx, card, results)
     rtc = rtc_phase(mx, card, peaks, results)
@@ -3157,6 +3808,7 @@ def main():
     trainer_phase(mx, mx.models.get_resnet(num_classes=1000, num_layers=50,
                                            layout="NHWC"),
                   card, results["peaks"], results)
+    gen_launches = generation_phase(mx, card, trained, results)
 
     t8 = totals[8]
     kernels = {"kernels": [{
@@ -3186,6 +3838,11 @@ def main():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
         if "rounded_excess" in t:
             row["rounded_excess"] = t["rounded_excess"]
+        if name == "flash_attention_fwd":
+            # its second path: the generation prefill, phase 11 (d)
+            row["generation"] = dict(
+                launches=gen_launches, requests=GEN_REQUESTS,
+                per_request=gen_launches / GEN_REQUESTS)
         row["library"] = ("SDPA forward" if name == "flash_attention_fwd"
                           else "SDPA backward (dq, dk and dv in one call)")
         kernels["kernels"].append(row)
@@ -3210,6 +3867,8 @@ def main():
         "ms": wide_sm["fwd_ms"], "plain_ms": wide_sm["fwd_plain_ms"],
         "bound_ms": wide_sm["fwd_bound_ms"], "bound_by": "bytes",
         "library_ms": wide_sm["fwd_library_ms"],
+        "bwd_ms": wide_sm["bwd_ms"], "bwd_plain_ms": wide_sm["bwd_plain_ms"],
+        "bwd_library_ms": wide_sm["bwd_library_ms"],
         "launch_host_us": rtc["softmax"]["launch_host_us"]})
     if opts.out:
         if os.path.dirname(opts.out):

@@ -38,6 +38,18 @@ the flags the ported slice reads:
     blocks; the CUDA kernels pick their own tiles (64 x 64, sized for
     shared memory and registers) and mask ragged T, so they have no use
     for them.
+``MXNET_GEN_PAGE_SIZE`` (16), ``MXNET_GEN_DECODE_BLOCKS`` (128),
+``MXNET_GEN_MAX_BATCH`` (8), ``MXNET_GEN_MAX_SEQ`` (256),
+``MXNET_GEN_POOL_PAGES`` (0 = max_batch x pages of max_seq + the trash
+page), ``MXNET_GEN_QUEUE`` (64), ``MXNET_GEN_SUBMIT_TIMEOUT`` (0 ms = block
+forever), ``MXNET_GEN_DEADLINE_MS`` (0 = none), ``MXNET_GEN_PREFIX_CACHE``
+(0), ``MXNET_GEN_PREFIX_PAGES`` (0), ``MXNET_GEN_SLO_AGING_MS`` (500),
+``MXNET_GEN_SPEC_K`` (0 = no speculation), ``MXNET_GEN_SPEC_NGRAM`` (2)
+    The generation engine's knobs (serving/generation/engine.py), with the
+    JAX package's defaults. ``MXNET_GEN_PREFILL_BUCKETS``,
+    ``MXNET_GEN_BACKPRESSURE`` and ``MXNET_GEN_KV_DTYPE`` are strings read
+    by the engine itself. The prefix cache is not ported yet: enabling it
+    raises when a generator is built.
 """
 import os
 
@@ -59,6 +71,19 @@ _DEFAULTS = {
     "MXNET_FLASH_BLOCK_K": 1024,
     "MXNET_FLASH_BWD_BLOCK_Q": 512,
     "MXNET_FLASH_BWD_BLOCK_K": 512,
+    "MXNET_GEN_PAGE_SIZE": 16,
+    "MXNET_GEN_DECODE_BLOCKS": 128,
+    "MXNET_GEN_MAX_BATCH": 8,
+    "MXNET_GEN_MAX_SEQ": 256,
+    "MXNET_GEN_POOL_PAGES": 0,
+    "MXNET_GEN_QUEUE": 64,
+    "MXNET_GEN_SUBMIT_TIMEOUT": 0,
+    "MXNET_GEN_DEADLINE_MS": 0,
+    "MXNET_GEN_PREFIX_CACHE": 0,
+    "MXNET_GEN_PREFIX_PAGES": 0,
+    "MXNET_GEN_SLO_AGING_MS": 500,
+    "MXNET_GEN_SPEC_K": 0,
+    "MXNET_GEN_SPEC_NGRAM": 2,
 }
 
 

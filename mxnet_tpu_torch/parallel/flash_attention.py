@@ -31,8 +31,12 @@ p (and in the backward ds) once to the input type as the A operands of
 their second products, where SDPA's flash kernels round them too (``round_to`` of the plain versions repeats that: the
 forward's walks the key axis in the kernel's 64-key tiles with its running
 max, since its p is relative to that max).
-``paged_decode_attention`` and ``paged_verify_attention`` wait for the
-generation slice.
+
+:func:`paged_decode_attention` and :func:`paged_verify_attention`, the
+generation engine's attention against its paged KV cache, are PyTorch
+compositions, as the JAX package keeps them in XLA: at a query length of
+one to a few positions the step is a gather of pages, not a tile of
+products.
 """
 from __future__ import annotations
 
@@ -49,7 +53,8 @@ from ..config import get_flag
 __all__ = ["flash_attention", "flash_attention_reference", "flash_forward",
            "flash_forward_reference", "flash_backward_dq",
            "flash_backward_dq_reference", "flash_backward_dkv",
-           "flash_backward_dkv_reference", "KERNELS"]
+           "flash_backward_dkv_reference", "paged_decode_attention",
+           "paged_verify_attention", "KERNELS"]
 
 SOURCE = "flash_attention"
 FWD, DQ, DKV = ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -365,3 +370,91 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
     scale = _scale(q.shape[-1], scale)
     out, lse = _FlashAttention.apply(q, k, v, bool(causal), scale)
     return (out, lse) if return_lse else out
+
+
+# ------------------------------------------------ paged attention (decode)
+
+def _page_block(n_pages, page, block_tokens):
+    """Pages per streamed key block: the largest divisor of the table width
+    whose tokens stay within ``block_tokens`` (at least one page), as the
+    JAX package chooses it."""
+    want = max(1, int(block_tokens or n_pages * page) // page)
+    for cand in range(min(want, n_pages), 0, -1):
+        if n_pages % cand == 0:
+            return cand
+    return 1
+
+
+def _paged_attention(q, k_pages, v_pages, page_table, limits, scale,
+                     block_tokens, k_scale, v_scale):
+    """The online softmax of ``q`` (S, Q, H, d) over each slot's pages in
+    blocks of whole pages; query (s, i) attends positions below
+    ``limits[s, i]``. Scores, softmax and the P.V product are fp32 whatever
+    the page dtype; a query with no live key gives zeros. Only shapes
+    steer the Python here: no value is read back to the host, so the
+    function can run inside a captured CUDA graph."""
+    if k_scale is not None or v_scale is not None:
+        raise MXNetError("paged attention over int8 pages (k_scale / "
+                         "v_scale) is not yet ported (ROADMAP A11)")
+    S, Q, H, d = q.shape
+    page = k_pages.shape[1]
+    n_pages = page_table.shape[1]
+    bp = _page_block(n_pages, page, block_tokens)
+    blk = bp * page
+    page_table = page_table.long()
+    qf = q.float() * _scale(d, scale)
+    m = torch.full((S, Q, H), _NEG_INF, device=q.device)
+    l = torch.zeros((S, Q, H), device=q.device)
+    acc = torch.zeros((S, Q, H, d), device=q.device)
+    pos = torch.arange(n_pages * page, device=q.device)
+    dead = (pos[None, None, :] >= limits[:, :, None])[:, :, None, :]
+    for i in range(n_pages // bp):
+        tab = page_table[:, i * bp:(i + 1) * bp]
+        kb = k_pages[tab].reshape(S, blk, H, d).float()
+        vb = v_pages[tab].reshape(S, blk, H, d).float()
+        s = torch.einsum("sqhd,sthd->sqht", qf, kb)
+        s = s.masked_fill(dead[..., i * blk:(i + 1) * blk], _NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        # m_safe keeps exp's argument finite while a row has no live key;
+        # exp(-inf) = 0 then zeroes both a dead score's p and a first
+        # block's correction, as the reference's guards do
+        m_safe = torch.where(torch.isneginf(m_new), torch.zeros_like(m_new),
+                             m_new)
+        p = torch.exp(s - m_safe[..., None])
+        corr = torch.exp(m - m_safe)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("sqht,sthd->sqhd", p, vb)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
+                           scale=None, block_tokens=None, k_scale=None,
+                           v_scale=None):
+    """One query per slot against a paged KV cache: the decode step.
+
+    ``q``: (S, H, d); ``k_pages`` / ``v_pages``: (P, page, H, d), one
+    layer's pool; ``page_table``: (S, n_pages) page ids of each slot's
+    positions; ``lengths``: (S,) live keys per slot (a slot of length 0
+    gives zeros). Keys stream in blocks of whole pages, at most
+    ``block_tokens`` positions (a divisor of the table width), through the
+    online softmax, in fp32. ``k_scale`` / ``v_scale`` (int8 pages) raise:
+    not yet ported (ROADMAP A11)."""
+    limits = lengths.long()[:, None]
+    return _paged_attention(q[:, None], k_pages, v_pages, page_table, limits,
+                            scale, block_tokens, k_scale, v_scale)[:, 0]
+
+
+def paged_verify_attention(q, k_pages, v_pages, page_table, lengths,
+                           scale=None, block_tokens=None, k_scale=None,
+                           v_scale=None):
+    """Q = k+1 queries per slot against a paged KV cache: the batched
+    verify step of speculative decoding. ``q``: (S, Q, H, d); ``lengths``:
+    (S,) committed keys per slot before the step's candidates; query ``i``
+    attends positions below ``lengths + 1 + i``, so its output is a decode
+    step's at that length. Other arguments as in
+    :func:`paged_decode_attention`."""
+    Q = q.shape[1]
+    limits = lengths.long()[:, None] + 1 + torch.arange(Q, device=q.device)
+    return _paged_attention(q, k_pages, v_pages, page_table, limits, scale,
+                            block_tokens, k_scale, v_scale)

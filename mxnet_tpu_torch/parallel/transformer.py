@@ -21,10 +21,15 @@ What differs from the JAX step, and why:
   mask ragged T.
 * Sharded meshes (tp, sp, ep, dp > 1) and ring attention wait for
   distribution (ROADMAP Queue A8/A10); ``make_mesh`` refuses them.
-  ``prefill_forward``, ``decode_forward`` and ``verify_forward`` wait for
-  the generation slice.
+
+The generation engine (``serving/generation/``) runs the same layer math
+through ``prefill_forward``, ``decode_forward`` and ``verify_forward``. On
+the card the prefill attends with the flash forward kernel at every
+bucket length; on the CPU with the reference's dense fp32 softmax.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -129,6 +134,75 @@ class TransformerParallel:
             x = x + self._moe_ffn(params, p, x)
         return _rms_norm(x) @ params["out_w"]
 
+    # --- incremental decode (generation subsystem) ------------------------
+    def _token_tensor(self, tokens):
+        if isinstance(tokens, torch.Tensor):
+            return tokens.long()
+        return torch.as_tensor(np.asarray(tokens), dtype=torch.long,
+                               device=self.device)
+
+    def prefill_forward(self, params, tokens, attend=None):
+        """Causal forward over a (B, T) prompt that also returns the K/V it
+        computed: ``(logits, ks, vs)``, fp32 logits (B, T, V) and stacked
+        projections (L, B, T, H, hd) in the paged cache's layout. Rows at
+        or past the true prompt length are padding the caller never reads.
+        ``attend(li, q, k, v) -> (B, H, T, hd)`` (optional) replaces each
+        layer's attention; the projections, MoE FFN and norms stay the
+        shared ones."""
+        c = self.cfg
+        tokens = self._token_tensor(tokens)
+        B, T = tokens.shape
+        x = F.embedding(tokens, params["embed"])
+        ks, vs = [], []
+        for li in range(c["n_layers"]):
+            p = "l%d_" % li
+            q, k, v = self._qkv(params, p, _rms_norm(x))
+            ks.append(k)
+            vs.append(v)
+            q, k, v = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+            att = (_prefill_attention(q, k, v) if attend is None
+                   else attend(li, q, k, v))
+            att = att.transpose(1, 2).reshape(B, T, c["d_model"])
+            x = x + att @ params[p + "wo"]
+            x = x + self._moe_ffn(params, p, x)
+        logits = (_rms_norm(x) @ params["out_w"]).float()
+        return logits, torch.stack(ks), torch.stack(vs)
+
+    def decode_forward(self, params, tokens, attend):
+        """One decode step over a slot batch: ``tokens`` (S,) each slot's
+        previous token; ``attend(li, q, k_new, v_new) -> (S, H, hd)`` the
+        caller's attention against its paged cache. Returns fp32 logits
+        (S, V)."""
+        c = self.cfg
+        tokens = self._token_tensor(tokens)
+        S = tokens.shape[0]
+        x = F.embedding(tokens, params["embed"])  # (S, d)
+        for li in range(c["n_layers"]):
+            p = "l%d_" % li
+            q, k, v = self._qkv(params, p, _rms_norm(x)[:, None, :])
+            att = attend(li, q[:, 0], k[:, 0], v[:, 0])
+            x = x + att.reshape(S, c["d_model"]) @ params[p + "wo"]
+            x = x + self._moe_ffn(params, p, x[:, None, :])[:, 0]
+        return (_rms_norm(x) @ params["out_w"]).float()
+
+    def verify_forward(self, params, tokens, attend):
+        """The batched verify of speculative decoding: ``tokens`` (S, Q),
+        each slot's last committed token and its k draft candidates, in
+        one forward; ``attend(li, q, k_new, v_new) -> (S, Q, H, hd)``, all
+        in the cache's (S, Q, H, hd) layout. Returns fp32 logits
+        (S, Q, V)."""
+        c = self.cfg
+        tokens = self._token_tensor(tokens)
+        S, Q = tokens.shape
+        x = F.embedding(tokens, params["embed"])  # (S, Q, d)
+        for li in range(c["n_layers"]):
+            p = "l%d_" % li
+            q, k, v = self._qkv(params, p, _rms_norm(x))
+            att = attend(li, q, k, v)
+            x = x + att.reshape(S, Q, c["d_model"]) @ params[p + "wo"]
+            x = x + self._moe_ffn(params, p, x)
+        return (_rms_norm(x) @ params["out_w"]).float()
+
     def loss_fn(self, params, tokens, targets):
         logits = self._forward(params, tokens)
         logp = torch.log_softmax(logits.float(), dim=-1)
@@ -207,6 +281,27 @@ class TransformerParallel:
                 out[k] = t.to(self.device, self.dtype).detach() \
                     .requires_grad_(True)
         return out
+
+
+def _prefill_attention(q, k, v):
+    """Causal attention of the generation prefill: the flash forward kernel
+    on the card, at every T; on the CPU :func:`prefill_attention_reference`,
+    the JAX package's formula off the TPU."""
+    if q.device.type != "cpu":
+        return flash_attention(q, k, v, causal=True)
+    return prefill_attention_reference(q, k, v)
+
+
+def prefill_attention_reference(q, k, v):
+    """The reference's dense causal attention with scores, softmax and the
+    P.V product in fp32, the discipline of ``paged_decode_attention``, so
+    that prefill and decode agree token for token."""
+    T, d = q.shape[2], q.shape[3]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (
+        1.0 / math.sqrt(d))
+    causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    w = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
 
 
 def _local_attention(q, k, v, mesh=None):

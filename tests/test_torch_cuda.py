@@ -629,3 +629,47 @@ def test_sharded_trainer_graph_matches_eager(card):
         assert trainer._captures == 1
     finally:
         torch.backends.cudnn.deterministic = det
+
+
+def test_generation_decode_graph_matches_eager(card):
+    """The small causal LM's Generator on the card: warmup captures the
+    decode step once; from a state of three active slots (seeded
+    temperature) one replay equals one eager run of the step's body to the
+    bit (tokens, keys, every page but the trash page); a request's prefill
+    launches the flash forward once per layer, its greedy output equals
+    the full-recompute oracle, and the capture count stays 1."""
+    from chip_smoke import admit_slots, decode_graph_vs_eager, release_slots
+    from mxnet_tpu_torch.parallel import TransformerParallel, make_mesh
+
+    G = mx.serving.generation
+    model = TransformerParallel(make_mesh({"dp": 1}), vocab=64, d_model=32,
+                                n_heads=4, n_layers=2, d_ff=64, n_experts=2)
+    params = model.init(0)
+    gen = G.Generator(model, params, G.GenerationConfig(
+        page_size=8, max_batch=4, max_seq=64, prefill_buckets=(16, 32, 64)),
+        start=False)
+    assert gen.warmup() == 4 and gen.get_stats()["captures"] == 1
+    with gen._device_scope():
+        admit_slots(gen, [[1, 2, 3], [5] * 11, [7, 8] * 9],
+                    G.SamplingParams(max_new_tokens=8, temperature=0.8,
+                                     seed=3))
+        assert decode_graph_vs_eager(gen)
+        release_slots(gen)
+    gen.pool.assert_no_leaks()
+    gen.start()
+    prompt = [4, 8, 15, 16, 23]
+    try:
+        cuda_build.reset_launch_counts()
+        got = gen.generate(prompt, G.SamplingParams(max_new_tokens=6),
+                           timeout=120)
+        assert cuda_build.launch_counts().get(FA.FWD, 0) == 2
+    finally:
+        gen.stop()
+    gen.pool.assert_no_leaks()
+    assert gen.get_stats()["captures"] == 1
+    toks = list(prompt)
+    with torch.no_grad():
+        for _ in range(6):
+            logits, _, _ = model.prefill_forward(params, [toks])
+            toks.append(int(torch.argmax(logits[0, -1])))
+    assert got == toks[len(prompt):]

@@ -12,6 +12,7 @@ _PROBE = """
 import sys
 import mxnet_tpu_torch as mx
 import mxnet_tpu_torch.serving, mxnet_tpu_torch.graph_pass
+import mxnet_tpu_torch.serving.generation, mxnet_tpu_torch.serving.control
 import mxnet_tpu_torch.parallel.transformer
 import mxnet_tpu_torch.parallel.flash_attention
 import mxnet_tpu_torch.module, mxnet_tpu_torch.ndarray
