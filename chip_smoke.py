@@ -181,7 +181,43 @@ Phases, each fatal on failure (exit code != 0, no result line):
    seeded temperature, equal to spec_k 0's output, with the acceptance
    rates and tokens/s. (f) Every generator ends drained with no page
    leaked (``PagePool.assert_no_leaks``).
-12. Print the ``kernels`` JSON line (the flash forward's row also carries
+12. Gluon phase: ``bench_all.py:153-211`` ``bench_gluon_resnet`` at its
+   full size through the port's Gluon. (a) ``resnet18_v1()`` (1000
+   classes), NCHW fp32 224x224, batch 32, ``mx.random.seed(0)`` (and
+   ``np.random``'s) then ``initialize(ctx=mx.gpu())`` with the default
+   init; ``SoftmaxCrossEntropyLoss``; ``Trainer(..., "sgd",
+   {"learning_rate": 0.05}, kvstore="local")``; ``RandomState(0)`` images
+   and labels in [0, 1000). (b) The hybridized forward against the
+   imperative one, predict mode: logits within 1e-5 of max |logit|. With
+   cuDNN's deterministic algorithms: (c) one ``compile_step`` replay (the
+   step one CUDA graph) against its body run eagerly from the same state
+   with the same device scalars: every parameter, aux state and optimizer
+   state and the loss equal to the bit; (d) one eager-tape step
+   (``record`` / ``backward`` / ``trainer.step(32)``) against one
+   ``compile_step`` step from the same state: loss and every tensor within
+   1e-5 of its max |value|, and how many are bit-identical; (f) the loss
+   on the fixed batch falls over 12 steps; (e) after
+   ``set_learning_rate(0.025)`` the replay still equals its body to the
+   bit, with one capture. (g) With the default algorithms: a new
+   ``compile_step`` captured and warmed once, 30 timed steps ended by one
+   loss fetch (img/s), one capture after them and after a rate change;
+   replays' device ms per step under ``torch.profiler`` and the busy share
+   (that device time over the same replays' wall time);
+   3 eager-tape steps (img/s); peak memory above the earlier phases; the
+   eager step's device ms by family under ``torch.profiler`` (BatchNorm
+   and the update marked as scopes). (h) ``examples/gluon/mnist_gluon.py``'s
+   ``--smoke`` drive inline on the card (the 128-64-10 relu MLP, 2000
+   synthetic rows, ``DataLoader`` batch 100 shuffled, SGD 0.1 / 0.9, 2
+   epochs), imperative and hybridized: train accuracy > 0.8 each. (i) 122
+   cases of the slice's ops on the card against the same ops on the CPU,
+   forward and gradient (fp32 within 1e-6 of each tensor's max, 1e-5
+   for a tensor that sums many terms in another order: a reduction's or
+   a softmax's output, a broadcast or gathered operand's gradient;
+   integer outputs equal), and a captured step through ``Dropout(0.5)``: each of
+   4 replays draws a new mask, its keep rate within 5 standard errors of
+   0.5. No kernel of this package lies on the Gluon path (as in the JAX
+   package, a hybridized block runs no graph pass).
+13. Print the ``kernels`` JSON line (the flash forward's row also carries
    phase 11's prefill launches), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -189,6 +225,7 @@ Exits non-zero without a result when CUDA is unavailable or the package is
 not beside the script.
 """
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -2854,7 +2891,11 @@ def clone_state(state):
 def identical_tensors(got, want):
     """(tensors equal to the bit, tensors, worst error over its tensor's
     max |value|, that tensor's name) of two states."""
-    got, want = state_tensors(got), state_tensors(want)
+    return compare_tensors(state_tensors(got), state_tensors(want))
+
+
+def compare_tensors(got, want):
+    """:func:`identical_tensors` of two {name: tensor} dicts."""
     if sorted(got) != sorted(want):
         raise AssertionError("the two states hold other tensors")
     same, worst, worst_name = 0, 0.0, None
@@ -3754,6 +3795,655 @@ def generation_phase(mx, card, trained, results):
     return launches
 
 
+# ------------------------------------------------------------ gluon phase
+# bench_all.py:153-211 bench_gluon_resnet at its full (non-QUICK) size:
+# hybridized resnet18_v1, NCHW fp32 224x224, batch 32, SGD 0.05,
+# kvstore="local", Trainer.compile_step; 30 timed steps, 3 eager ones
+GL_BATCH, GL_SIZE, GL_CLASSES, GL_LR, GL_LR2 = 32, 224, 1000, 0.05, 0.025
+GL_TIMED, GL_EAGER_TIMED, GL_LEARN, GL_PROFILED = 30, 3, 12, 3
+GL_FWD_TOL = 1e-5        # (b): hybridized vs imperative, over max |logit|
+GL_STEP_TOL = 1e-5       # (d): eager tape vs compile_step, each tensor's max
+# (h): examples/gluon/mnist_gluon.py --smoke on synthetic MNIST
+GL_MNIST_ROWS, GL_MNIST_BATCH, GL_MNIST_EPOCHS, GL_MNIST_BAR = \
+    2000, 100, 2, 0.8
+GL_GRID_TOL = 1e-6       # (i): the card against the CPU, fp32
+# (i): a tensor that sums many terms is held at GL_SUM_TOL instead: the
+# card's tree sums and the CPU's take another order, ~sqrt(n) ulps of the
+# sum. GL_SUMS names them by op: "out" (its forward outputs) and the
+# positions of the inputs whose gradients are sums (a broadcast or
+# gathered operand's, or one taken through a reduction or a softmax).
+GL_SUM_TOL = 1e-5
+GL_SUMS = {
+    "sum": ("out",), "mean": ("out",), "nansum": ("out",),
+    "prod": ("out", 0), "norm": ("out", 0),
+    "log_softmax": ("out", 0), "SoftmaxActivation": ("out", 0),
+    "softmax_cross_entropy": ("out", 0), "Deconvolution": ("out", 0, 1, 2),
+    "broadcast_maximum": (1,), "broadcast_minimum": (1,),
+    "broadcast_hypot": (1,), "broadcast_mod": (1,), "broadcast_power": (1,),
+    "broadcast_to": (0,), "broadcast_axis": (0,), "take": (0,),
+    "Embedding": (1,), "gather_nd": (0,),
+    "LeakyReLU": (1,)}       # prelu's gamma
+GL_REFERENCE_RUNS = 4    # (i): CPU runs of a case before it is a fault
+GL_DROPOUT_UNITS = 65536  # (i): the captured Dropout's mask size
+# (i): the positions of each op's index (integer-valued) inputs
+GL_INDEX_INPUTS = {"one_hot": (0,), "Embedding": (0,), "where": (0,),
+                   "take": (1,), "pick": (1,), "batch_take": (1,),
+                   "gather_nd": (1,), "scatter_nd": (1,),
+                   "softmax_cross_entropy": (1,)}
+
+
+def gluon_resnet(mx):
+    """(a): resnet18_v1 on the card, default init after mx.random.seed(0)
+    (and np.random's: the initializers draw from it), hybridized later."""
+    mx.random.seed(0)
+    np.random.seed(0)
+    net = mx.gluon.model_zoo.vision.resnet18_v1(classes=GL_CLASSES)
+    net.initialize(ctx=mx.gpu())
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.rand(GL_BATCH, 3, GL_SIZE, GL_SIZE)
+                    .astype(np.float32), ctx=mx.gpu())
+    y = mx.nd.array(rng.randint(0, GL_CLASSES, GL_BATCH).astype(np.float32),
+                    ctx=mx.gpu())
+    return net, x, y
+
+
+def gl_snapshot(net, trainer):
+    """({name: a copy} of every parameter, aux state and optimizer state,
+    the optimizer's update counts: Adam's bias correction reads them)."""
+    from mxnet_tpu_torch.optimizer import flat_state
+
+    out = {"p:" + k: p.data()._data.detach().clone()
+           for k, p in net.collect_params().items()}
+    for i, st in trainer._updaters[0].states.items():
+        for j, a in enumerate(flat_state(st)):
+            out["s:%d:%d" % (i, j)] = a._data.detach().clone()
+    o = trainer._optimizer
+    return out, (dict(o._index_update_count), o.num_update)
+
+
+def gl_restore(net, trainer, snap):
+    import torch
+
+    from mxnet_tpu_torch.optimizer import flat_state
+
+    tensors, (counts, num_update) = snap
+    with torch.no_grad():
+        for k, p in net.collect_params().items():
+            p.data()._data.copy_(tensors["p:" + k])
+        for i, st in trainer._updaters[0].states.items():
+            for j, a in enumerate(flat_state(st)):
+                a._data.copy_(tensors["s:%d:%d" % (i, j)])
+    trainer._optimizer._index_update_count = dict(counts)
+    trainer._optimizer.num_update = num_update
+
+
+def gl_replay_vs_body(step, net, trainer, x, y):
+    """One compile_step call (a replay; the first captures) against the
+    step's body run eagerly from the same state with the same scalars:
+    (identical, tensors, worst, worst name, losses equal). Leaves the
+    state as the replay left it."""
+    import torch
+
+    trainer._materialize_states(trainer._live_params())
+    s0 = gl_snapshot(net, trainer)
+    loss_g = step(x, y)._data.clone()
+    graph = gl_snapshot(net, trainer)
+    gl_restore(net, trainer, s0)
+    loss_e, new_w, new_s, new_aux = step._step_eager(x, y, step._scalars)
+    step._write_back(step._tensors(x.context), new_w, new_s, new_aux)
+    # the counts as the replay's step advanced them
+    trainer._optimizer._index_update_count = dict(graph[1][0])
+    trainer._optimizer.num_update = graph[1][1]
+    eager = gl_snapshot(net, trainer)
+    torch.cuda.synchronize()
+    return compare_tensors(graph[0], eager[0]) + (torch_equal(loss_g,
+                                                              loss_e),)
+
+
+def gl_eager_step(mx, net, trainer, loss_fn, x, y):
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss
+
+
+def gl_profiled_eager(mx, net, trainer, loss_fn, x, y):
+    """GL_PROFILED eager-tape steps under torch.profiler with the
+    BatchNorm op and the optimizer update marked as scopes: (families,
+    device ms, top kernels, scope spans) per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    bn = get_op("BatchNorm")
+    real_bn, real_update = bn.fn, trainer._fused_local_step
+
+    def marked_bn(*args, **kwargs):
+        with record_function(RN_SCOPES[0]):
+            return real_bn(*args, **kwargs)
+
+    def marked_update():
+        with record_function(RN_SCOPES[1]):
+            return real_update()
+
+    bn.fn = marked_bn
+    trainer._fused_local_step = marked_update
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(GL_PROFILED):
+                gl_eager_step(mx, net, trainer, loss_fn, x, y)
+            torch.cuda.synchronize()
+    finally:
+        bn.fn = real_bn
+        del trainer._fused_local_step
+    return device_families(prof, GL_PROFILED)
+
+
+def gl_profiled_replays(step, x, y):
+    """Device ms per replayed step under torch.profiler (None where it
+    saw no kernel of the graph) and the wall ms per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(GL_PROFILED):
+            loss = step(x, y)
+        loss.asnumpy()
+        wall = (time.perf_counter() - t0) * 1e3 / GL_PROFILED
+    us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(ev, "is_user_annotation", False):
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        us += ev.self_cuda_time_total if t is None else t
+    return (us / 1e3 / GL_PROFILED if us else None), wall
+
+
+def gl_mnist(mx, hybridize):
+    """(h): examples/gluon/mnist_gluon.py's drive (--smoke) on the card:
+    the 128-64-10 relu MLP on synthetic MNIST rows, SGD 0.1 / 0.9, 2
+    epochs. Returns the final train accuracy."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon import nn
+
+    np.random.seed(42)
+    mx.random.seed(42)
+    mnist = mx.test_utils.get_mnist()
+    n = GL_MNIST_ROWS
+    x = mnist["train_data"][:n].reshape(n, -1)
+    y = mnist["train_label"][:n]
+    dataset = gluon.data.ArrayDataset(mx.nd.array(x), mx.nd.array(y))
+    loader = gluon.data.DataLoader(dataset, batch_size=GL_MNIST_BATCH,
+                                   shuffle=True)
+    net = nn.Sequential()
+    net.add(nn.Dense(128, activation="relu"),
+            nn.Dense(64, activation="relu"), nn.Dense(10))
+    net.initialize(mx.init.Xavier())
+    if hybridize:
+        net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1, "momentum": 0.9})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    metric = mx.metric.Accuracy()
+    for _ in range(GL_MNIST_EPOCHS):
+        metric.reset()
+        for data, label in loader:
+            if data.context != mx.gpu():
+                raise AssertionError("a batch landed on %s" % data.context)
+            with autograd.record():
+                out = net(data)
+                loss = loss_fn(out, label)
+            loss.backward()
+            trainer.step(data.shape[0])
+            metric.update([label], [out])
+    return metric.get()[1]
+
+
+def gl_grid_cases():
+    """(i): (op, inputs [(kind, shape)], attrs, differentiate) over the
+    op families this slice registers."""
+    S = (64, 48)
+    any_, pos = ("any", S), ("pos", S)
+    cases = [(o, [any_], {}, True) for o in (
+        "abs", "square", "cbrt", "exp", "expm1", "erf", "sin", "cos",
+        "arctan", "sinh", "cosh", "tanh", "arcsinh", "negative",
+        "degrees", "radians", "softsign", "sigmoid", "identity",
+        "make_loss")]
+    cases += [(o, [pos], {}, True) for o in (
+        "sqrt", "rsqrt", "rcbrt", "log", "log10", "log2", "log1p", "gamma",
+        "gammaln", "reciprocal")]
+    cases += [(o, [("unit", S)], {}, True)
+              for o in ("arcsin", "arccos", "arctanh", "tan")]
+    cases += [(o, [("half", S)], {}, False) for o in (
+        "sign", "round", "rint", "ceil", "floor", "trunc", "fix",
+        "logical_not", "BlockGrad")]
+    cases += [(o, [any_, pos], {}, True) for o in (
+        "elemwise_div", "_maximum", "_minimum", "_hypot", "_mod")]
+    cases += [("_power", [pos, any_], {}, True)]
+    cases += [("_" + c, [("half", S), ("half", S)], {}, False)
+              for c in ("equal", "greater", "lesser_equal")]
+    cases += [(o, [any_], {"scalar": 0.7}, True) for o in (
+        "_mod_scalar", "_rpower_scalar", "_maximum_scalar", "_hypot_scalar",
+        "smooth_l1")]
+    cases += [("_power_scalar", [pos], {"scalar": 2.5}, True),
+              ("_greater_scalar", [("half", S)], {"scalar": 0.5}, False),
+              ("add_n", [any_] * 3, {}, True)]
+    B = [("any", (8, 16, 24)), ("pos", (1, 16, 1))]
+    cases += [("broadcast_" + o, B, {}, True)
+              for o in ("maximum", "minimum", "hypot", "mod", "power")]
+    cases += [("broadcast_greater", [("half", (8, 16, 24)),
+                                     ("half", (1, 16, 1))], {}, False)]
+    R = [("any", (8, 16, 24))]
+    for o in ("sum", "mean", "prod", "max", "min", "nansum", "norm"):
+        for kw in ({}, {"axis": 1}, {"axis": (0, 2), "keepdims": True}):
+            cases.append((o, R, kw, o != "prod" or "axis" in kw))
+    cases += [("mean", R, {"axis": 1, "exclude": True}, True),
+              ("argmax", R, {"axis": 1}, False),
+              ("argmin", R, {}, False),
+              ("broadcast_to", [("any", (8, 1, 24))], {"shape": (8, 16, 24)},
+               True),
+              ("broadcast_axis", [("any", (8, 1, 24))],
+               {"axis": 1, "size": 16}, True),
+              ("expand_dims", R, {"axis": 1}, True),
+              ("swapaxes", R, {"dim1": 0, "dim2": 2}, True),
+              ("slice", R, {"begin": (1, None, 20), "end": (7, 12, 2),
+                            "step": (2, 1, -3)}, True),
+              ("slice_axis", R, {"axis": 2, "begin": 3, "end": -2}, True),
+              ("flip", R, {"axis": (0, 2)}, True),
+              ("repeat", R, {"repeats": 2, "axis": 1}, True),
+              ("tile", R, {"reps": (1, 2, 1)}, True),
+              ("clip", R, {"a_min": -0.5, "a_max": 0.7}, True),
+              ("concat", [("any", (8, 16, 24)), ("any", (8, 3, 24))],
+               {"dim": 1}, True),
+              ("split", R, {"num_outputs": 4, "axis": 1}, True),
+              ("stack", [any_] * 2, {"axis": 1}, True),
+              ("where", [("idx2", S), any_, any_], {}, True),
+              ("sort", R, {"axis": 1, "is_ascend": False}, True),
+              ("argsort", R, {}, False),
+              ("topk", R, {"k": 3, "ret_typ": "both"}, True),
+              ("_slice_assign", [("any", (16, 24)), ("any", (8, 12))],
+               {"begin": (0, 0), "end": (16, 24), "step": (2, 2)}, True),
+              ("take", [("any", (32, 24)), ("oob32", (8, 5))], {}, True),
+              ("Embedding", [("oob1000", (8, 5)), ("any", (1000, 24))],
+               {"input_dim": 1000, "output_dim": 24}, True),
+              ("one_hot", [("oob10", (8, 5))], {"depth": 10}, False),
+              ("pick", [("any", (8, 16, 24)), ("oob16", (8, 24))],
+               {"axis": 1}, True),
+              ("batch_take", [("any", (64, 48)), ("oob48", (64,))], {}, True),
+              ("gather_nd", [("any", (8, 16, 24)), ("idx8", (2, 30))], {},
+               True),
+              # unique positions: a duplicate keeps either of its values
+              ("scatter_nd", [("any", (30,)), ("nd8x16", (30,))],
+               {"shape": (8, 16)}, True),
+              ("LeakyReLU", [any_], {"act_type": "elu", "slope": 0.5}, True),
+              ("LeakyReLU", [("any", (8, 16, 24)), ("pos", (16,))],
+               {"act_type": "prelu"}, True),
+              ("Deconvolution", [("any", (8, 16, 12, 12)),
+                                 ("any", (16, 8, 3, 3)), ("any", (16,))],
+               {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+                "adj": (1, 1), "num_filter": 16, "num_group": 2,
+                "no_bias": False}, True),
+              ("log_softmax", [any_], {}, True),
+              ("SoftmaxActivation", [("any", (8, 16, 24))],
+               {"mode": "channel"}, True),
+              ("pad", [("any", (2, 3, 16, 24))],
+               {"mode": "reflect", "pad_width": (0, 0, 0, 0, 2, 1, 1, 3)},
+               True),
+              ("softmax_cross_entropy", [any_, ("idx48", (64,))], {}, True)]
+    return cases
+
+
+def gl_grid_input(kind, shape, rng):
+    if kind == "any":
+        return rng.randn(*shape).astype(np.float32)
+    if kind == "pos":
+        return rng.uniform(0.5, 2.0, shape).astype(np.float32)
+    if kind == "unit":
+        return rng.uniform(-0.9, 0.9, shape).astype(np.float32)
+    if kind == "half":
+        return (np.round(rng.randn(*shape) * 4) / 2).astype(np.float32)
+    if kind.startswith("nd"):       # distinct (row, col) index pairs
+        rows, cols = map(int, kind[2:].split("x"))
+        flat = rng.permutation(rows * cols)[:shape[0]]
+        return np.stack(np.unravel_index(flat, (rows, cols))) \
+            .astype(np.float32)
+    n = int(kind[3:])
+    lo = 0 if kind.startswith("idx") else -n
+    return rng.randint(lo, 2 * n if lo else n, shape).astype(np.float32)
+
+
+def gl_grid_run(mx, op, arrays, attrs, grad, ctx):
+    """(outputs, input gradients) of one op on ``ctx``, eager, under
+    autograd with a seeded head (op(x) + x for an op without a
+    gradient)."""
+    fn = getattr(mx.nd._internal if op.startswith("_") else mx.nd, op)
+    ins = [mx.nd.array(a, ctx=ctx) for a in arrays]
+    floats = [i for i in range(len(ins))
+              if i not in GL_INDEX_INPUTS.get(op, ())]
+    for i in floats:
+        ins[i].attach_grad()
+    with mx.autograd.record():
+        out = fn(*ins, **attrs)
+        outs = list(out) if isinstance(out, (list, tuple)) else [out]
+        if not grad and floats:
+            outs = [o + ins[floats[0]] if o.shape == ins[floats[0]].shape
+                    else o for o in outs]
+    values = [o.asnumpy() for o in outs]
+    diff = [o for o in outs if o._data.requires_grad]
+    if not diff:
+        return values, []
+    rng = np.random.RandomState(7)
+    heads = [mx.nd.array(np.asarray(rng.randn(*o.shape), np.float32),
+                         ctx=ctx) for o in diff]
+    mx.autograd.backward(diff, heads)
+    return values, [ins[i].grad.asnumpy() for i in floats]
+
+
+def gl_grid_tensors(op, arrays, got, want):
+    """(what, held as a sum, card tensor, CPU tensor) of one case."""
+    sums = GL_SUMS.get(op, ())
+    floats = [i for i in range(len(arrays))
+              if i not in GL_INDEX_INPUTS.get(op, ())]
+    named = [("output %d" % i, "out" in sums, g, w)
+             for i, (g, w) in enumerate(zip(got[0], want[0]))]
+    named += [("gradient of input %d" % i, i in sums, g, w)
+              for i, g, w in zip(floats, got[1], want[1])]
+    return named
+
+
+def gl_grid_reference(mx, op, arrays, attrs, grad):
+    """(i): the CPU's (outputs, gradients) of one case, run until two runs
+    agree to the bit, and the runs it took. On the H100 machine the CPU's
+    torch.exp (MKL's, 3,072 values on two threads) gave one thread's half
+    ~13 bits wrong in 4 of 38 runs of tests/test_torch_cuda.py, the card
+    right (PERF.md section 7): a reference is what the CPU reproduces."""
+    def same(a, b):
+        return all(np.array_equal(x, y, equal_nan=np.issubdtype(
+            x.dtype, np.floating)) for x, y in zip(a[0] + a[1], b[0] + b[1]))
+
+    runs = [gl_grid_run(mx, op, arrays, attrs, grad, mx.cpu())]
+    while len(runs) < GL_REFERENCE_RUNS:
+        run = gl_grid_run(mx, op, arrays, attrs, grad, mx.cpu())
+        if any(same(run, r) for r in runs):
+            return run, len(runs) + 1
+        runs.append(run)
+    raise AssertionError("%s %s: the CPU gave %d different results in %d "
+                         "runs" % (op, attrs, len(runs), len(runs)))
+
+
+def gl_op_grid(mx):
+    """(i): every case on the card against the same port op on the CPU:
+    (cases, {"exact" / "summing": (worst error over its tensor's max
+    |value|, where: the case, the tensor, its worst element's position
+    and values, and how many elements are over the bar)}, [the cases
+    whose CPU reference took more than two runs])."""
+    worst = {"exact": (0.0, None), "summing": (0.0, None)}
+    bars = {"exact": GL_GRID_TOL, "summing": GL_SUM_TOL}
+    cases = gl_grid_cases()
+    rerun = []
+    for n, (op, inputs, attrs, grad) in enumerate(cases):
+        rng = np.random.RandomState(n)
+        arrays = [gl_grid_input(k, s, rng) for k, s in inputs]
+        want, runs = gl_grid_reference(mx, op, arrays, attrs, grad)
+        if runs > 2:
+            rerun.append("%s %s" % (op, attrs))
+        got = gl_grid_run(mx, op, arrays, attrs, grad, mx.gpu())
+        for what, summing, g, w in gl_grid_tensors(op, arrays, got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError("%s %s %s: %s %s on the card, %s %s "
+                                     "on the CPU" % (op, attrs, what,
+                                                     g.shape, g.dtype,
+                                                     w.shape, w.dtype))
+            if not np.issubdtype(w.dtype, np.floating) or op in (
+                    "argmax", "argmin", "argsort", "one_hot"):
+                if not np.array_equal(g, w):
+                    raise AssertionError("%s %s %s: integer outputs differ"
+                                         % (op, attrs, what))
+                continue
+            nan = np.isnan(w)
+            if not np.array_equal(nan, np.isnan(g)):
+                raise AssertionError("%s %s %s: NaNs differ"
+                                     % (op, attrs, what))
+            kind = "summing" if summing else "exact"
+            diff = np.where(nan, 0.0, np.abs(g - w))
+            scale = max(float(np.abs(w[~nan]).max(initial=0.0)), 1e-30)
+            err = float(diff.max(initial=0.0)) / scale
+            if err > worst[kind][0]:
+                at = np.unravel_index(int(np.argmax(diff)), diff.shape)
+                worst[kind] = (err, "%s %s %s at %s: card %r, CPU %r, %d "
+                               "element(s) over the bar" % (
+                                   op, attrs, what, list(map(int, at)),
+                                   float(g[at]), float(w[at]),
+                                   int((diff > bars[kind] * scale).sum())))
+    for kind, bar in bars.items():
+        if worst[kind][0] > bar:
+            raise AssertionError("op grid: %s differs from the CPU by %.3g "
+                                 "of its max (bar %g)"
+                                 % (worst[kind][1], worst[kind][0], bar))
+    return len(cases), worst, rerun
+
+
+def gl_captured_dropout(mx):
+    """(i): a compile_step over Dropout(0.5) -> Dense(1) on ones: each
+    replay's changed weights are the kept units. (keep rates, masks all
+    different, captures)."""
+    import torch
+
+    nn = mx.gluon.nn
+    net = nn.HybridSequential(prefix="drop_")
+    with net.name_scope():
+        net.add(nn.Dropout(0.5),
+                nn.Dense(1, in_units=GL_DROPOUT_UNITS, use_bias=False))
+    net.initialize(mx.init.One(), ctx=mx.gpu())
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 1e-6}, kvstore="local")
+    step = trainer.compile_step(net, mx.gluon.loss.L2Loss())
+    x = mx.nd.ones((1, GL_DROPOUT_UNITS), ctx=mx.gpu())
+    y = mx.nd.zeros((1, 1), ctx=mx.gpu())
+    w = net.collect_params()["drop_dense0_weight"].data()._data
+    masks = []
+    for _ in range(4):
+        before = w.clone()
+        step(x, y)
+        masks.append((w != before).reshape(-1))
+    rates = [float(m.float().mean()) for m in masks]
+    distinct = all(not torch.equal(a, b) for i, a in enumerate(masks)
+                   for b in masks[i + 1:])
+    se = np.sqrt(0.25 / GL_DROPOUT_UNITS)
+    if not distinct or any(abs(r - 0.5) > 5 * se for r in rates) or \
+            step.compile_count != 1:
+        raise AssertionError("captured Dropout: keep rates %s (5 SE %.4f), "
+                             "masks distinct %s, captures %d"
+                             % (rates, 5 * se, distinct, step.compile_count))
+    return rates, step.compile_count
+
+
+def gluon_phase(mx, card, results):
+    """Phase 12: Gluon on the card (see the module docstring)."""
+    import torch
+
+    out = {}
+    gc.collect()      # what the earlier phases dropped is not theirs
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    net, x, y = gluon_resnet(mx)
+
+    # (b) hybridized against imperative, predict mode
+    imperative = net(x)._data.float()
+    net.hybridize()
+    hybrid = net(x)._data.float()
+    n_params = sum(int(np.prod(p.shape))
+                   for p in net.collect_params().values())
+    err = float((hybrid - imperative).abs().max()
+                / imperative.abs().max())
+    log("gluon (a): resnet18_v1 (%d parameters, 1000 classes) NCHW fp32 "
+        "%dx%d batch %d on %s" % (n_params, GL_SIZE, GL_SIZE, GL_BATCH,
+                                  card))
+    log("gluon (b): hybridized vs imperative logits (predict mode): %.3g of "
+        "max |logit| %.4f" % (err, float(imperative.abs().max())))
+    if not err <= GL_FWD_TOL:
+        raise AssertionError("hybridized forward differs by %.3g" % err)
+    out["forward_err"] = err
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": GL_LR}, kvstore="local")
+    try:
+        torch.backends.cudnn.deterministic = True
+        # (c) one replay against its own body, eagerly, from one state
+        step = trainer.compile_step(net, loss_fn)
+        same, total, worst, name, loss_same = gl_replay_vs_body(
+            step, net, trainer, x, y)
+        log("gluon (c): deterministic cuDNN, compile_step replay vs its "
+            "body run eagerly from the same state: %d of %d tensors "
+            "bit-identical, loss %s" % (same, total,
+                                        "equal" if loss_same else "differs"))
+        if same != total or not loss_same:
+            raise AssertionError("replay differs from its body: %s at %.3g"
+                                 % (name, worst))
+        out["replay_vs_body"] = dict(identical=same, tensors=total)
+        # (d) the eager tape against compile_step from one state
+        s0 = gl_snapshot(net, trainer)
+        loss_c = step(x, y)._data.clone()
+        compiled = gl_snapshot(net, trainer)
+        gl_restore(net, trainer, s0)
+        loss_t = gl_eager_step(mx, net, trainer, loss_fn, x,
+                               y)._data.detach()
+        tape = gl_snapshot(net, trainer)
+        same, total, worst, name = compare_tensors(tape[0], compiled[0])
+        loss_err = float((loss_t - loss_c).abs().max()
+                         / loss_c.abs().max())
+        log("gluon (d): eager tape (record / backward / step(%d)) vs "
+            "compile_step from the same state: loss %.3g, worst tensor %s "
+            "at %.3g of its max, %d of %d bit-identical"
+            % (GL_BATCH, loss_err, name, worst, same, total))
+        if not (loss_err <= GL_STEP_TOL and worst <= GL_STEP_TOL):
+            raise AssertionError("eager tape and compile_step differ")
+        out["tape_vs_compiled"] = dict(loss_err=loss_err, worst=worst,
+                                       worst_name=name, identical=same,
+                                       tensors=total)
+        # (f) the loss on the fixed batch falls
+        losses = [float(step(x, y).asnumpy().mean())
+                  for _ in range(GL_LEARN)]
+        log("gluon (f): cross entropy over %d compile_step steps: %s"
+            % (GL_LEARN, " ".join("%.4f" % v for v in losses)))
+        if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError("the loss did not fall: %s" % losses)
+        out["losses"] = losses
+        # (e) a new rate: no capture, the replay still its body's bits
+        trainer.set_learning_rate(GL_LR2)
+        same, total, worst, name, loss_same = gl_replay_vs_body(
+            step, net, trainer, x, y)
+        log("gluon (e): after set_learning_rate(%g): replay vs body %d of "
+            "%d bit-identical, captures %d" % (GL_LR2, same, total,
+                                               step.compile_count))
+        if same != total or not loss_same or step.compile_count != 1:
+            raise AssertionError("the rate change recaptured or changed "
+                                 "the replay")
+        out["lr_change"] = dict(identical=same, tensors=total,
+                                captures=step.compile_count)
+        del step
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # (g) timed with the default algorithms, as the bench
+    trainer.set_learning_rate(GL_LR)
+    step = trainer.compile_step(net, loss_fn)
+    step(x, y).asnumpy()                       # capture + warm
+    t0 = time.perf_counter()
+    for _ in range(GL_TIMED):
+        loss = step(x, y)
+    loss.asnumpy()
+    dt = time.perf_counter() - t0
+    compiled_ips = GL_BATCH * GL_TIMED / dt
+    if step.compile_count != 1:
+        raise AssertionError("compile_step captured %d times"
+                             % step.compile_count)
+    trainer.set_learning_rate(GL_LR2)
+    step(x, y).asnumpy()
+    if step.compile_count != 1:
+        raise AssertionError("set_learning_rate recaptured")
+    trainer.set_learning_rate(GL_LR)
+    replay_dev, replay_wall = gl_profiled_replays(step, x, y)
+    gl_eager_step(mx, net, trainer, loss_fn, x, y).asnumpy()   # warm
+    t0 = time.perf_counter()
+    for _ in range(GL_EAGER_TIMED):
+        loss_e = gl_eager_step(mx, net, trainer, loss_fn, x, y)
+    loss_e.asnumpy()
+    eager_dt = time.perf_counter() - t0
+    eager_ips = GL_BATCH * GL_EAGER_TIMED / eager_dt
+    fams, dev_ms, top, spans = gl_profiled_eager(mx, net, trainer, loss_fn,
+                                                 x, y)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ms = dt * 1e3 / GL_TIMED
+    busy = replay_dev / replay_wall if replay_dev else None
+    log("gluon (e): compile_count %d after the warm step, %d timed steps "
+        "and set_learning_rate(%g)" % (step.compile_count, GL_TIMED, GL_LR2))
+    log("gluon (g): compile_step %.1f img/s (%.3f ms/step over %d steps, "
+        "one fetch), eager tape %.1f img/s (%.3f ms/step over %d), peak "
+        "%.3f GB above the earlier phases, %s"
+        % (compiled_ips, ms, GL_TIMED, eager_ips,
+           eager_dt * 1e3 / GL_EAGER_TIMED, GL_EAGER_TIMED, peak, card))
+    log("gluon (g): replay device %s ms/step (torch.profiler over %d "
+        "replays, wall %.3f ms/step), busy %s of that wall; eager step "
+        "device %.3f ms/step: %s; "
+        "marked spans %s" % (
+            "%.3f" % replay_dev if replay_dev else "not measured",
+            GL_PROFILED, replay_wall,
+            "%.3f" % busy if busy else "not measured", dev_ms,
+            ", ".join("%s %.3f" % kv for kv in sorted(
+                fams.items(), key=lambda kv: -kv[1])),
+            ", ".join("%s %.3f" % kv for kv in spans.items())))
+    out["timed"] = dict(
+        compile_step_img_s=compiled_ips, compile_step_ms=ms,
+        eager_img_s=eager_ips, eager_ms=eager_dt * 1e3 / GL_EAGER_TIMED,
+        peak_gb=peak, replay_device_ms=replay_dev,
+        replay_profiled_wall_ms=replay_wall, busy=busy,
+        eager_device_ms=dev_ms, eager_families_ms=fams,
+        eager_top_kernels_ms=top, eager_scope_spans_ms=spans,
+        captures=step.compile_count, card=card)
+    del step, trainer, net, x, y
+    torch.cuda.empty_cache()
+
+    # (h) the MNIST example's drive, imperative and hybridized
+    accs = {}
+    for hybridize in (False, True):
+        accs["hybridized" if hybridize else "imperative"] = acc = \
+            gl_mnist(mx, hybridize)
+        if not acc > GL_MNIST_BAR:
+            raise AssertionError("mnist_gluon drive: accuracy %.4f" % acc)
+    log("gluon (h): mnist_gluon --smoke drive on the card: train accuracy "
+        "%.4f imperative, %.4f hybridized" % (accs["imperative"],
+                                              accs["hybridized"]))
+    out["mnist"] = accs
+
+    # (i) the op grid, card against CPU; Dropout in a captured step
+    n_cases, worst, rerun = gl_op_grid(mx)
+    rates, captures = gl_captured_dropout(mx)
+    log("gluon (i): %d op cases on the card vs the CPU, forward and "
+        "gradient: worst %.3g of its max (%s; bar %g), %.3g where a sum "
+        "runs in another order (%s; bar %g); CPU references that took a "
+        "third run: %s; captured Dropout keep rates %s over 4 replays, "
+        "masks distinct, %d capture"
+        % (n_cases, worst["exact"][0], worst["exact"][1], GL_GRID_TOL,
+           worst["summing"][0], worst["summing"][1], GL_SUM_TOL,
+           ", ".join(rerun) or "none",
+           " ".join("%.4f" % r for r in rates), captures))
+    out["op_grid"] = dict(cases=n_cases, worst=worst,
+                          reference_reruns=rerun)
+    out["dropout"] = dict(keep_rates=rates, captures=captures)
+    results["gluon"] = out
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the detailed results here")
@@ -3809,6 +4499,7 @@ def main():
                                            layout="NHWC"),
                   card, results["peaks"], results)
     gen_launches = generation_phase(mx, card, trained, results)
+    gluon_phase(mx, card, results)
 
     t8 = totals[8]
     kernels = {"kernels": [{

@@ -7,8 +7,9 @@ inference serving (``mx.serving``), the kernels and transformer
 training step (``mx.parallel``), and symbolic training: ``mx.nd``,
 ``mx.mod.Module``, ``mx.init``, ``mx.optimizer``, ``mx.metric``,
 ``mx.io``, ``mx.kv``, ``mx.callback``; imperative autograd
-(``mx.autograd``), custom operators (``mx.operator``) and runtime CUDA
-kernels compiled by NVRTC (``mx.rtc``). Entry points run on the CUDA card
+(``mx.autograd``), custom operators (``mx.operator``), runtime CUDA
+kernels compiled by NVRTC (``mx.rtc``), the random generators
+(``mx.random``) and Gluon (``mx.gluon``). Entry points run on the CUDA card
 unless the caller passes ``mx.cpu()`` or opens ``with mx.cpu():``. The
 package imports torch and numpy, never jax and nothing of ``mxnet_tpu``.
 """
@@ -18,6 +19,8 @@ from . import config
 from .context import (Context, cpu, gpu, tpu, cpu_pinned, current_context,
                       num_gpus)
 from . import autograd
+from . import random
+from . import random as rnd
 from . import ops
 from . import symbol
 from . import symbol as sym
@@ -45,9 +48,10 @@ from . import serving
 from . import parallel
 from . import rtc
 from . import test_utils
+from . import gluon
 from . import operator
 from .operator import _install_frontends as _iff
-from .convert import params_from_jax
+from .convert import gluon_params_from_jax, params_from_jax
 
 _iff()
 del _iff

@@ -4,8 +4,12 @@
 holds them (NDArrays with ``asnumpy()``, jax arrays, numpy arrays) into the
 port's tensors under the same MXNet names and layouts: a channels-last
 convolution keeps its HWIO weight, a channels-first one OIHW. Both packages
-then compute on the same numbers. Nothing of the JAX package is imported:
-only ``asnumpy()`` or numpy's array protocol is used.
+then compute on the same numbers. ``gluon_params_from_jax`` does the same
+for a Gluon network: it copies a JAX net's ``collect_params()`` into the
+port's net of the same architecture, matching names with each net's own
+prefix stripped (the two packages number their blocks apart). Nothing of
+the JAX package is imported: only ``asnumpy()`` or numpy's array protocol
+is used.
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ import torch
 
 from .context import as_device
 
-__all__ = ["params_from_jax", "tensor_from_array"]
+__all__ = ["params_from_jax", "gluon_params_from_jax", "tensor_from_array"]
 
 
 def tensor_from_array(value, device=None):
@@ -42,3 +46,28 @@ def params_from_jax(arg_params, aux_params=None, device=None):
     aux = {k: tensor_from_array(v, dev) for k, v in
            (aux_params or {}).items()}
     return args, aux
+
+
+def gluon_params_from_jax(jax_net, net):
+    """Copy every parameter of ``jax_net`` (a JAX Gluon block) into the
+    port's ``net`` by name, each net's own prefix stripped, through
+    ``asnumpy()``. A parameter of ``net`` still awaiting its shape is
+    initialised from the value; an initialised one is written in place.
+    Raises when the two nets' names differ."""
+    def stripped(block):
+        cut = len(block.prefix)
+        return {name[cut:] if name.startswith(block.prefix) else name: p
+                for name, p in block.collect_params().items()}
+
+    src, dst = stripped(jax_net), stripped(net)
+    if set(src) != set(dst):
+        raise ValueError("the nets' parameters differ: only in the JAX "
+                         "net %s, only in this one %s"
+                         % (sorted(set(src) - set(dst)),
+                            sorted(set(dst) - set(src))))
+    for name, p in dst.items():
+        value = src[name].data().asnumpy()
+        if p._data is None:
+            p._load_init(value, p.list_ctx() if p._deferred_init else None)
+        else:
+            p.set_data(value)

@@ -57,6 +57,8 @@ class _GraphProgram:
         args, aux = symbol._classify_vars()
         self.arg_names = [n.name for n in args]
         self.aux_names = [n.name for n in aux]
+        # a random op in the walk (mirroring must replay its draws)
+        self.random = any(n.opdef().needs_rng for n in self.topo)
         self._sel_topo = {}  # guarded-by: self._lock
         self._lock = threading.Lock()
 
@@ -140,26 +142,57 @@ class _GraphProgram:
         merged = dict(arg_d)
         merged.update(leaves)
         with torch.enable_grad():
-            outs, aux_upd = _maybe_mirror(self._eval)(merged, aux_d, True)
+            outs, aux_upd = _maybe_mirror(self._eval, self.random)(
+                merged, aux_d, True)
         return outs, aux_upd, leaves
 
 
-def _maybe_mirror(fn):
+def _maybe_mirror(fn, random=False):
     """``fn`` under ``torch.utils.checkpoint`` when
     ``MXNET_BACKWARD_DO_MIRROR`` is set: the backward recomputes the
     forward instead of reading stored activations, the reference's memory
     mirroring as the JAX package's ``jax.checkpoint``. The aux updates are
-    those of the first forward; the recompute's are dropped."""
+    those of the first forward; the recompute's are dropped.
+
+    A walk with a random op (``random``) must draw the same bits in its
+    recompute: torch replays the cards' default generators and the host
+    generator of mx.random is rewound here. Inside a CUDA graph capture a
+    card's generator can be neither read nor rewound (a recompute there
+    would draw other bits), so such a walk is not mirrored while
+    capturing: it keeps its activations."""
     from .config import get_flag
 
     if not get_flag("MXNET_BACKWARD_DO_MIRROR"):
         return fn
     from torch.utils.checkpoint import checkpoint
 
+    if not random:
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        preserve_rng_state=False)
+
+    from . import random as _random
+
     def mirrored(*args):
-        # no random op is ported, so there is no RNG state to replay
-        return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False)
+        if torch.cuda.is_available() and \
+                torch.cuda.is_current_stream_capturing():
+            return fn(*args)
+        host = _random.generator("cpu")
+        start = host.get_state()
+        calls = []
+
+        def replayable(*a):
+            if calls:
+                after = host.get_state()
+                host.set_state(start)
+                try:
+                    return fn(*a)
+                finally:
+                    host.set_state(after)
+            calls.append(1)
+            return fn(*a)
+
+        return checkpoint(replayable, *args, use_reentrant=False,
+                          preserve_rng_state=True)
 
     return mirrored
 

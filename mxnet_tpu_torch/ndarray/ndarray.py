@@ -305,8 +305,46 @@ class NDArray:
     def __neg__(self):
         return self._binop(-1.0, "broadcast_mul", "_mul_scalar")
 
+    def __mod__(self, other):
+        return self._binop(other, "broadcast_mod", "_mod_scalar")
+
+    def __rmod__(self, other):
+        return self._binop(other, "broadcast_mod", "_rmod_scalar",
+                           reverse=True)
+
+    def __pow__(self, other):
+        return self._binop(other, "broadcast_power", "_power_scalar")
+
+    def __rpow__(self, other):
+        return self._binop(other, "broadcast_power", "_rpower_scalar",
+                           reverse=True)
+
     def __abs__(self):
         return self.abs()
+
+    def __eq__(self, other):
+        if other is None:
+            return False
+        return self._binop(other, "broadcast_equal", "_equal_scalar")
+
+    def __ne__(self, other):
+        if other is None:
+            return True
+        return self._binop(other, "broadcast_not_equal", "_not_equal_scalar")
+
+    def __gt__(self, other):
+        return self._binop(other, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, other):
+        return self._binop(other, "broadcast_greater_equal",
+                           "_greater_equal_scalar")
+
+    def __lt__(self, other):
+        return self._binop(other, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, other):
+        return self._binop(other, "broadcast_lesser_equal",
+                           "_lesser_equal_scalar")
 
     __hash__ = object.__hash__
 
@@ -322,6 +360,9 @@ class NDArray:
 
     def __imul__(self, other):
         return self._inplace(self.__mul__(other))
+
+    def __imod__(self, other):
+        return self._inplace(self.__mod__(other))
 
     def __itruediv__(self, other):
         return self._inplace(self.__truediv__(other))

@@ -8,7 +8,9 @@ from .registry import OP_REGISTRY, get_op, list_ops, register_op
 from . import elemwise
 from . import broadcast_reduce
 from . import matrix
+from . import indexing
 from . import nn
+from . import random_ops
 from . import fused
 from . import optimizer_ops
 from . import init_ops

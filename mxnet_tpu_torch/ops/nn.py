@@ -1,8 +1,10 @@
-"""Neural-network layer ops: the ResNet op set.
+"""Neural-network layer ops.
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` for FullyConnected, Convolution,
-Pooling, Activation, softmax, BatchNorm (training and inference) and
-SoftmaxOutput (a loss head whose backward injects MXNet's gradient).
+Deconvolution, Pooling, Activation, LeakyReLU, softmax, log_softmax,
+SoftmaxActivation, BatchNorm (training and inference), Dropout, Pad,
+SoftmaxOutput (a loss head whose backward injects MXNet's gradient) and
+softmax_cross_entropy.
 Layouts follow the JAX package: a channels-last Convolution
 (``layout="NHWC"``) takes spatial-major HWIO weights, a channels-first one
 OIHW. The channels-last forms run as ``torch.nn.functional`` calls on a
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import random as _random
 from ..base import MXNetError
 from .elemwise import softrelu, softsign
 from .param import Bool, Enum, Float, Int, Shape, Str
@@ -122,6 +125,49 @@ def _conv_infer_backward(attrs, out_shapes, in_shapes):
     return [(o[0],) + tuple(d[1:])] + list(in_shapes[1:])
 
 
+# --- Deconvolution ----------------------------------------------------------
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _deconv_geometry(attrs):
+    nd = len(attrs.kernel)
+    return (attrs.stride or (1,) * nd, attrs.pad or (0,) * nd,
+            attrs.adj or (0,) * nd, attrs.dilate or (1,) * nd)
+
+
+def _deconv_out_size(n, k, s, p, a, d):
+    """MXNet's transposed-convolution size: s(n-1) + d(k-1) + 1 - 2p + a."""
+    return s * (n - 1) + d * (k - 1) + 1 - 2 * p + a
+
+
+def _deconvolution(attrs, data, weight, *rest):
+    """Transposed convolution, channels first, weight (C, num_filter /
+    num_group, *kernel); ``target_shape`` picks ``adj``."""
+    stride, pad, adj, dilate = _deconv_geometry(attrs)
+    if attrs.target_shape:
+        adj = tuple(t - _deconv_out_size(data.shape[2 + i], attrs.kernel[i],
+                                         stride[i], pad[i], 0, dilate[i])
+                    for i, t in enumerate(attrs.target_shape))
+    return _CONV_T[len(attrs.kernel)](
+        data, weight, None if attrs.no_bias else rest[0], stride, pad, adj,
+        attrs.num_group, dilate)
+
+
+def _deconv_infer(attrs, in_shapes, aux_shapes):
+    d = in_shapes[0]
+    if d is None:
+        return None
+    stride, pad, adj, dilate = _deconv_geometry(attrs)
+    w = (d[1], attrs.num_filter // attrs.num_group) + tuple(attrs.kernel)
+    spatial = tuple(attrs.target_shape) if attrs.target_shape else tuple(
+        _deconv_out_size(d[2 + i], k, stride[i], pad[i], adj[i], dilate[i])
+        for i, k in enumerate(attrs.kernel))
+    shapes = [d, w] + ([] if attrs.no_bias else [(attrs.num_filter,)])
+    return (shapes, [(d[0], attrs.num_filter) + spatial], aux_shapes)
+
+
 # --- Pooling ----------------------------------------------------------------
 
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
@@ -214,8 +260,86 @@ def _softmax(attrs, x):
     return torch.softmax(z, dim=attrs.axis)
 
 
+def _log_softmax(attrs, x):
+    z = x / attrs.temperature if attrs.temperature != 1.0 else x
+    return torch.log_softmax(z, dim=attrs.axis)
+
+
 def _same_shape(attrs, i, a):
     return None if i[0] is None else ([i[0]], [i[0]], a)
+
+
+def _leaky_relu(attrs, x, *rest):
+    t = attrs.act_type
+    if t == "leaky":
+        return torch.where(x > 0, x, attrs.slope * x)
+    if t == "elu":
+        return torch.where(x > 0, x, attrs.slope * torch.expm1(x))
+    if t == "prelu":
+        gamma = rest[0].reshape((1, -1) + (1,) * (x.dim() - 2))
+        return torch.where(x > 0, x, gamma * x)
+    raise MXNetError("act_type %r not supported" % t)
+
+
+def _lrelu_infer(attrs, in_shapes, aux_shapes):
+    d = in_shapes[0]
+    if d is None:
+        return None
+    if attrs.act_type == "prelu":
+        return ([d, (d[1],)], [d], aux_shapes)
+    return ([d], [d], aux_shapes)
+
+
+# --- Dropout and Pad ---------------------------------------------------------
+
+def _dropout(attrs, x, is_train=False, rng=None):
+    """Inverted dropout: in training (or under ``mode="always"``) each
+    element is kept with probability 1 - p and scaled by 1 / (1 - p). The
+    mask is size 1 on ``axes`` (whole slices dropped together). The bits
+    come from ``rng``, else from ``mx.random``'s generator of the device
+    (on a card its default generator: a captured step draws anew on each
+    replay)."""
+    if (not is_train and attrs.mode != "always") or attrs.p <= 0.0:
+        return x
+    keep = 1.0 - attrs.p
+    axes = tuple(a % x.dim() for a in (attrs.axes or ()))
+    mask_shape = tuple(1 if i in axes else s for i, s in enumerate(x.shape))
+    gen = rng if rng is not None else _random.generator(x.device)
+    mask = torch.rand(mask_shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def _pad(attrs, x):
+    pw = attrs.pad_width
+    if attrs.mode == "constant":
+        flat = [p for i in reversed(range(x.dim()))
+                for p in (pw[2 * i], pw[2 * i + 1])]
+        return F.pad(x, flat, value=attrs.constant_value)
+    # edge / reflect pad the trailing spatial axes (N and C unpadded)
+    nsp = x.dim() - 2
+    flat = [p for i in reversed(range(2, x.dim()))
+            for p in (pw[2 * i], pw[2 * i + 1])]
+    mode = "replicate" if attrs.mode == "edge" else "reflect"
+    if any(pw[:4]):
+        raise MXNetError("Pad: %s mode pads only the spatial axes" %
+                         attrs.mode)
+    return F.pad(x, flat[:2 * nsp], mode=mode)
+
+
+def _pad_infer(attrs, in_shapes, aux_shapes):
+    d = in_shapes[0]
+    if d is None:
+        return None
+    pw = attrs.pad_width
+    return ([d], [tuple(n + pw[2 * i] + pw[2 * i + 1]
+                        for i, n in enumerate(d))], aux_shapes)
+
+
+def _softmax_cross_entropy(attrs, data, label):
+    logp = torch.log_softmax(data, dim=-1)
+    nll = -torch.gather(logp, -1, label.to(torch.int64)[:, None])
+    return nll.sum().reshape((1,))
 
 
 # --- BatchNorm --------------------------------------------------------------
@@ -409,6 +533,22 @@ def _register():
         infer_shape=_conv_infer, infer_backward=_conv_infer_backward,
         doc="N-d convolution; channels-last layouts take HWIO weights")
     register_op(
+        "Deconvolution", _deconvolution,
+        params={"kernel": Shape(), "stride": Shape(default=()),
+                "dilate": Shape(default=()), "pad": Shape(default=()),
+                "adj": Shape(default=()), "target_shape": Shape(default=()),
+                "num_filter": Int(), "num_group": Int(default=1),
+                "workspace": Int(default=512),
+                "no_bias": Bool(default=True),
+                "cudnn_tune": Str(default=None),
+                "cudnn_off": Bool(default=False),
+                "layout": Str(default=None)},
+        num_inputs=lambda attrs: 2 if attrs.no_bias else 3,
+        input_names=lambda attrs: ["data", "weight"]
+        + ([] if attrs.no_bias else ["bias"]),
+        infer_shape=_deconv_infer,
+        doc="Transposed convolution (channels first)")
+    register_op(
         "Pooling", _pooling,
         params={"kernel": Shape(default=()),
                 "pool_type": Enum(["max", "avg", "sum"], default="max"),
@@ -428,6 +568,48 @@ def _register():
                 params={"axis": Int(default=-1),
                         "temperature": Float(default=1.0)},
                 num_inputs=1, infer_shape=_same_shape)
+    register_op("log_softmax", _log_softmax,
+                params={"axis": Int(default=-1),
+                        "temperature": Float(default=1.0)},
+                num_inputs=1, infer_shape=_same_shape)
+    register_op("SoftmaxActivation",
+                lambda attrs, x: torch.softmax(
+                    x, dim=1 if attrs.mode == "channel" else -1),
+                params={"mode": Enum(["instance", "channel"],
+                                     default="instance")},
+                num_inputs=1, infer_shape=_same_shape)
+    register_op("LeakyReLU", _leaky_relu,
+                params={"act_type": Enum(["rrelu", "leaky", "prelu", "elu"],
+                                         default="leaky"),
+                        "slope": Float(default=0.25),
+                        "lower_bound": Float(default=0.125),
+                        "upper_bound": Float(default=0.334)},
+                num_inputs=lambda attrs: 2 if attrs.act_type == "prelu"
+                else 1,
+                input_names=lambda attrs: (["data", "gamma"]
+                                           if attrs.act_type == "prelu"
+                                           else ["data"]),
+                infer_shape=_lrelu_infer,
+                doc="Leaky / PReLU / ELU")
+    register_op("Dropout", _dropout,
+                params={"p": Float(default=0.5), "axes": Shape(default=()),
+                        "mode": Enum(["training", "always"],
+                                     default="training")},
+                num_inputs=1, needs_is_train=True, needs_rng=True,
+                infer_shape=_same_shape,
+                doc="Inverted dropout from mx.random's generators")
+    register_op("Pad", _pad,
+                params={"mode": Enum(["constant", "edge", "reflect"],
+                                     default="constant"),
+                        "pad_width": Shape(),
+                        "constant_value": Float(default=0.0)},
+                num_inputs=1, infer_shape=_pad_infer)
+    alias_op("Pad", "pad")
+    register_op("softmax_cross_entropy", _softmax_cross_entropy,
+                num_inputs=2, input_names=["data", "label"],
+                infer_shape=lambda attrs, i, a: (
+                    None if i[0] is None else ([i[0], (i[0][0],)], [(1,)],
+                                               a)))
     register_op(
         "BatchNorm", _batch_norm,
         params={"eps": Float(default=1e-3), "momentum": Float(default=0.9),

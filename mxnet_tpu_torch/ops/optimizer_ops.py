@@ -9,9 +9,11 @@ The imperative layer (``mx.nd.sgd_update(..., out=weight)``) then writes
 both into the given arrays in place (ndarray/register.py), where the JAX
 package rebinds each array to a new buffer.
 
-``lr`` is a Python float, or a 0-dim fp32 tensor when a training step reads
-it from the device (``parallel.ShardedTrainer``, so that a schedule needs
-no recapture). The JAX package's step passes it as a strongly typed fp32
+``lr`` is a Python float, or a 0-dim fp32 tensor when a training step
+reads it from the device (``parallel.ShardedTrainer`` and
+``gluon.Trainer.compile_step``, so that a schedule needs no recapture; the
+latter reads ``rescale_grad`` and ``clip_gradient`` from there too). The
+JAX package's step passes it as a strongly typed fp32
 scalar, which promotes a bf16 operand to fp32; a 0-dim torch tensor would
 not (torch keeps the dimensioned operand's dtype within a category), so
 every product or quotient with ``lr`` goes through :func:`_lr_mul` /
@@ -33,9 +35,14 @@ _COMMON = {
 
 
 def _prep_grad(attrs, grad):
+    """Rescaled and clipped gradient. A 0-dim tensor ``clip_gradient``
+    (a captured step reads it from the device) always clips."""
     g = grad * attrs.rescale_grad
-    if attrs.clip_gradient is not None and attrs.clip_gradient > 0:
-        g = torch.clamp(g, -attrs.clip_gradient, attrs.clip_gradient)
+    clip = attrs.clip_gradient
+    if isinstance(clip, torch.Tensor):
+        g = torch.clamp(g, -clip, clip)
+    elif clip is not None and clip > 0:
+        g = torch.clamp(g, -clip, clip)
     return g
 
 

@@ -60,8 +60,8 @@ class OpDef:
 
     def __init__(self, name, fn, params=None, num_inputs=1, input_names=None,
                  num_outputs=1, aux_names=(), infer_shape=None,
-                 infer_backward=None, infer_dtype=None, needs_is_train=False,
-                 hint=None, doc=""):
+                 infer_backward=None, infer_dtype=None, needs_rng=False,
+                 needs_is_train=False, hint=None, doc=""):
         self.name = name
         self.fn = fn
         self.params = params or {}
@@ -74,8 +74,9 @@ class OpDef:
         # updated in_shapes (FullyConnected assigns batch from its output)
         self.infer_backward = infer_backward
         self.infer_dtype = infer_dtype
-        # no RNG op is ported yet; the fold pass reads this flag
-        self.needs_rng = False
+        # a random op takes ``rng``: a torch.Generator, or None for the
+        # device's own (mx.random); the fold pass never folds it
+        self.needs_rng = needs_rng
         self.needs_is_train = needs_is_train
         self.hint = hint or name.strip("_").lower()
         self.doc = doc
@@ -135,11 +136,13 @@ class OpDef:
         return list(_resolve(self.aux_names, attrs))
 
     # --- execution -------------------------------------------------------
-    def apply(self, attrs, inputs, aux=(), is_train=False):
+    def apply(self, attrs, inputs, aux=(), is_train=False, rng=None):
         """Normalized call on tensors: returns (outputs_tuple, new_aux_tuple).
         The single entry point of the graph executor, the fold pass and
         the fused-region reference composition."""
         kw = {"is_train": is_train} if self.needs_is_train else {}
+        if self.needs_rng:
+            kw["rng"] = rng
         if self.get_aux_names(attrs):
             outputs, new_aux = self.fn(attrs, *inputs, aux=tuple(aux), **kw)
         else:

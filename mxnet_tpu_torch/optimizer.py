@@ -1,22 +1,29 @@
-"""Optimizers: the registry, ``SGD`` and the ``Updater``.
+"""Optimizers: the registry, SGD, NAG, Adam, AdaGrad, RMSProp, AdaDelta,
+Ftrl and the ``Updater``.
 
 Counterpart of ``mxnet_tpu/optimizer.py``: the registry / ``create``
-surface, per-index lr/wd multipliers, ``SGD`` (momentum and
-multi-precision) and the ``Updater`` with its pickled-state contract.
-``SGD`` runs the update ops of ``ops/optimizer_ops.py`` through
-``mx.nd`` with ``out=weight``, so each update writes the weight and its
-state in place. The other optimizers (DCASGD, SGLD, NAG, Adam, AdaGrad,
-RMSProp, AdaDelta, Ftrl, Adamax, Nadam) wait for the Gluon slice.
+surface, per-index lr/wd multipliers, the optimizers Gluon's Trainer
+fuses, and the ``Updater`` with its pickled-state contract. Each optimizer
+computes its step as a function of tensors (:meth:`Optimizer.step_tensors`:
+the update ops of ``ops/optimizer_ops.py`` where there is one, else the
+JAX package's arithmetic), and :meth:`Optimizer.update` writes the result
+into the weight and state arrays in place. ``lr``, ``rescale_grad`` and
+``clip_gradient`` may be 0-dim tensors, which a captured training step
+reads from the device. DCASGD, SGLD, Adamax and Nadam are not ported.
 """
 from __future__ import annotations
 
 import logging
+import math
 import pickle
 
 import numpy as np
+import torch
 
 from . import ndarray as nd
 from .ndarray import NDArray
+from .ops.optimizer_ops import _lr_mul, _prep_grad
+from .ops.registry import OpAttrs, get_op
 
 
 def _store_hyperparams(obj, local_vars, *names):
@@ -25,8 +32,37 @@ def _store_hyperparams(obj, local_vars, *names):
         setattr(obj, name, local_vars[name])
 
 
-__all__ = ["Optimizer", "SGD", "create", "register", "Updater",
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdaGrad", "RMSProp",
+           "AdaDelta", "Ftrl", "create", "register", "Updater",
            "get_updater"]
+
+
+def flat_state(state):
+    """An optimizer state (None, an NDArray or a tuple of NDArrays and
+    Nones) as the list of its arrays."""
+    if state is None:
+        return []
+    if isinstance(state, NDArray):
+        return [state]
+    return [s for s in state if s is not None]
+
+
+def _apply_op(name, weight, grad, states, **kw):
+    """The registry's update op on tensors: (new weight, new states).
+    Tensor-valued scalars go into the attrs as they are."""
+    opdef = get_op(name)
+    host = {k: (0.0 if isinstance(v, torch.Tensor) else v)
+            for k, v in kw.items() if v is not None}
+    attrs = opdef.parse_attrs(host)
+    attrs = OpAttrs(dict(attrs._d, **{k: v for k, v in kw.items()
+                                      if isinstance(v, torch.Tensor)}))
+    (new_w,), new_states = opdef.apply(attrs, (weight, grad), states)
+    return new_w, list(new_states)
+
+
+def _grad_attrs(rescale_grad, clip_gradient):
+    return OpAttrs({"rescale_grad": rescale_grad,
+                    "clip_gradient": clip_gradient})
 
 
 class Optimizer:
@@ -81,8 +117,28 @@ class Optimizer:
         """Per-parameter auxiliary state (None when stateless)."""
         return None
 
-    def update(self, index, weight, grad, state):
+    def step_tensors(self, index, weight, grad, states, lr, rescale_grad,
+                     clip_gradient):
+        """One step as a function of tensors: (new weight, new states) for
+        the weight, its gradient and the list of its state tensors
+        (:func:`flat_state` order)."""
         raise NotImplementedError()
+
+    def step_lr(self, index):
+        """The learning rate of this step of ``index`` (after its update
+        count advanced): Adam folds its bias correction in."""
+        return self._get_lr(index)
+
+    def update(self, index, weight, grad, state):
+        """One step of ``weight`` and ``state``, written in place."""
+        self._update_count(index)
+        arrays = flat_state(state)
+        with torch.no_grad():
+            new_w, new_states = self.step_tensors(
+                index, weight._data, grad._data, [a._data for a in arrays],
+                self.step_lr(index), self.rescale_grad, self.clip_gradient)
+            for arr, value in zip([weight] + arrays, [new_w] + new_states):
+                arr._set_data(value)
 
     # ----------------------------------------------------- hyperparameters
     def _sym_attr_mults(self, attr_key):
@@ -133,16 +189,6 @@ class Optimizer:
     def _get_wd(self, index):
         return self.wd * self._mult_for(self.wd_mult, index)
 
-    # ----------------------------------------------------- shared plumbing
-    def _fused_kwargs(self, index, **extra):
-        """kwargs for the fused update ops: lr/wd/rescale(/clip) + extras."""
-        kw = {"lr": self._get_lr(index), "wd": self._get_wd(index),
-              "rescale_grad": self.rescale_grad}
-        if self.clip_gradient is not None:
-            kw["clip_gradient"] = self.clip_gradient
-        kw.update(extra)
-        return kw
-
 
 register = Optimizer.register
 
@@ -176,21 +222,152 @@ class SGD(Optimizer):
             return None
         return nd.zeros(weight.shape, weight.context, dtype=weight.dtype)
 
-    def update(self, index, weight, grad, state):
-        self._update_count(index)
-        extra = {"momentum": self.momentum} if self.momentum > 0 else {}
-        kw = self._fused_kwargs(index, **extra)
-        if isinstance(state, (list, tuple)):  # multi-precision
-            mom, master = state
-            if mom is not None:
-                nd.mp_sgd_mom_update(weight, grad, mom, master, out=weight,
-                                     **kw)
-            else:
-                nd.mp_sgd_update(weight, grad, master, out=weight, **kw)
-        elif state is not None:
-            nd.sgd_mom_update(weight, grad, state, out=weight, **kw)
-        else:
-            nd.sgd_update(weight, grad, out=weight, **kw)
+    def step_tensors(self, index, weight, grad, states, lr, rescale_grad,
+                     clip_gradient):
+        kw = dict(lr=lr, wd=self._get_wd(index), rescale_grad=rescale_grad,
+                  clip_gradient=clip_gradient)
+        if self.momentum > 0:
+            kw["momentum"] = self.momentum
+        master = self.multi_precision and weight.dtype == torch.float16
+        name = ("mp_" if master else "") + \
+            ("sgd_mom_update" if self.momentum > 0 else "sgd_update")
+        return _apply_op(name, weight, grad, states, **kw)
+
+
+@register
+class NAG(SGD):
+    """Nesterov accelerated gradient."""
+
+    def step_tensors(self, index, weight, grad, states, lr, rescale_grad,
+                     clip_gradient):
+        wd = self._get_wd(index)
+        g = _prep_grad(_grad_attrs(rescale_grad, clip_gradient), grad)
+        if not states:
+            assert self.momentum == 0.0
+            return weight - _lr_mul(lr, g + wd * weight), []
+        mom = states[0] * self.momentum
+        g = g + wd * weight
+        mom = mom + g
+        g = g + self.momentum * mom
+        return weight - _lr_mul(lr, g), [mom]
+
+
+@register
+class Adam(Optimizer):
+    """Adam with the bias correction folded into the step size (the
+    adam_update op)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        _store_hyperparams(self, locals(), "beta1", "beta2", "epsilon")
+
+    def create_state(self, index, weight):
+        return (nd.zeros(weight.shape, weight.context, dtype=weight.dtype),
+                nd.zeros(weight.shape, weight.context, dtype=weight.dtype))
+
+    def step_lr(self, index):
+        t = self._index_update_count[index]
+        return (self._get_lr(index)
+                * math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t))
+
+    def step_tensors(self, index, weight, grad, states, lr, rescale_grad,
+                     clip_gradient):
+        return _apply_op("adam_update", weight, grad, states, lr=lr,
+                         wd=self._get_wd(index), rescale_grad=rescale_grad,
+                         clip_gradient=clip_gradient, beta1=self.beta1,
+                         beta2=self.beta2, epsilon=self.epsilon)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad: per-coordinate lr from the accumulated squared gradient."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return nd.zeros(weight.shape, weight.context)
+
+    def step_tensors(self, index, weight, grad, states, lr, rescale_grad,
+                     clip_gradient):
+        wd = self._get_wd(index)
+        g = _prep_grad(_grad_attrs(rescale_grad, clip_gradient), grad)
+        history = states[0] + g * g
+        denom = torch.sqrt(history + self.float_stable_eps)
+        return weight - _lr_mul(lr, g / denom + wd * weight), [history]
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp (Tieleman) / centered RMSProp (Graves), through the
+    rmsprop_update / rmspropalex_update ops."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        _store_hyperparams(self, locals(), "gamma1", "gamma2", "centered",
+                           "epsilon", "clip_weights")
+
+    def create_state(self, index, weight):
+        def zeros():
+            return nd.zeros(weight.shape, weight.context)
+        return (zeros(), zeros(), zeros()) if self.centered else zeros()
+
+    def step_tensors(self, index, weight, grad, states, lr, rescale_grad,
+                     clip_gradient):
+        kw = dict(lr=lr, wd=self._get_wd(index), rescale_grad=rescale_grad,
+                  clip_gradient=clip_gradient, gamma1=self.gamma1,
+                  epsilon=self.epsilon, clip_weights=self.clip_weights)
+        if self.centered:
+            return _apply_op("rmspropalex_update", weight, grad, states,
+                             gamma2=self.gamma2, **kw)
+        return _apply_op("rmsprop_update", weight, grad, states, **kw)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta: lr-free, the ratio of running RMS values."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        _store_hyperparams(self, locals(), "rho", "epsilon")
+
+    def create_state(self, index, weight):
+        return (nd.zeros(weight.shape, weight.context),
+                nd.zeros(weight.shape, weight.context))
+
+    def step_tensors(self, index, weight, grad, states, lr, rescale_grad,
+                     clip_gradient):
+        wd = self._get_wd(index)
+        g = _prep_grad(_grad_attrs(rescale_grad, clip_gradient), grad)
+        acc_g, acc_delta = states
+        acc_g = self.rho * acc_g + (1.0 - self.rho) * g * g
+        step = (torch.sqrt(acc_delta + self.epsilon)
+                / torch.sqrt(acc_g + self.epsilon)) * g
+        acc_delta = self.rho * acc_delta + (1.0 - self.rho) * step * step
+        return weight - (step + wd * weight), [acc_g, acc_delta]
+
+
+@register
+class Ftrl(Optimizer):
+    """Follow-the-regularized-leader, through the ftrl_update op."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        _store_hyperparams(self, locals(), "lamda1", "beta")
+
+    def create_state(self, index, weight):
+        return (nd.zeros(weight.shape, weight.context),   # z
+                nd.zeros(weight.shape, weight.context))   # n
+
+    def step_tensors(self, index, weight, grad, states, lr, rescale_grad,
+                     clip_gradient):
+        return _apply_op("ftrl_update", weight, grad, states, lr=lr,
+                         wd=self._get_wd(index), rescale_grad=rescale_grad,
+                         clip_gradient=clip_gradient, lamda1=self.lamda1,
+                         beta=self.beta)
 
 
 def _to_host(value):

@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import cuda_graph
 from ..base import MXNetError, torch_dtype
 from ..convert import tensor_from_array
 from ..executor import _GraphProgram, _grads_of
@@ -52,7 +53,6 @@ _FUSED_OPT = {
     "ftrl": ("ftrl_update", ("z", "n")),
 }
 
-_WARMUP_STEPS = 2      # eager steps on the side stream before a capture
 _MIN_SLOTS = 256       # learning-rate / loss slots of the device vectors
 
 
@@ -97,9 +97,6 @@ class ShardedTrainer:
         self.dtype = dtype
         self._dtype = torch_dtype(dtype)
         self._prog = _GraphProgram(symbol)
-        if any(node.opdef().needs_rng for node in self._prog.topo):
-            raise MXNetError("ShardedTrainer: random ops in a training graph "
-                             "are not yet ported (ROADMAP.md Queue A3)")
         self._input_names = [n for n in (*data_names, *label_names)
                              if n in self._prog.arg_names]
         self.param_names = [n for n in self._prog.arg_names
@@ -346,15 +343,8 @@ class ShardedTrainer:
             return self._step_body(b["params"], b["aux"], b["opt"], static,
                                    lr)
 
-        side = torch.cuda.Stream(device=self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _ in range(_WARMUP_STEPS):
-                body()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            params, aux, opt, outs = body()
+        def write_back(out):
+            params, aux, opt, outs = out
             with torch.no_grad():
                 for k, v in params.items():
                     b["params"][k].copy_(v)
@@ -366,6 +356,9 @@ class ShardedTrainer:
                 self._losses.index_copy_(0, self._index,
                                          outs[0].float().mean().view(1))
                 self._index.add_(1)
+
+        graph, (_p, _a, _o, outs) = cuda_graph.capture(body, self.device,
+                                                       write_back)
         self._captures += 1
         return _Captured(graph, static, outs)
 

@@ -56,6 +56,7 @@ import time
 import numpy as np
 import torch
 
+from ... import cuda_graph
 from ...base import MXNetError
 from ...config import get_flag
 from ...parallel.flash_attention import (paged_decode_attention,
@@ -74,8 +75,6 @@ __all__ = ["GenerationConfig", "Generator", "GenerationHandle",
 
 # valid KV-page storage dtypes ("model" = the checkpoint's dtype)
 KV_DTYPES = frozenset({"model", "bfloat16", "int8"})
-
-_WARMUP_RUNS = 2   # eager runs on the capture's side stream before a capture
 
 
 def default_prefill_ladder(max_seq):
@@ -275,19 +274,9 @@ class _Step:
         self.out = None
 
     def capture(self, reset):
-        side = torch.cuda.Stream(device=self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _ in range(_WARMUP_RUNS):
-                reset()
-                self.body()
-            reset()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side,
-                              capture_error_mode="thread_local"):
-            out = self.body()
-        self.graph, self.out = graph, out
+        self.graph, self.out = cuda_graph.capture(
+            self.body, self.device, reset=reset,
+            capture_error_mode="thread_local")
 
     def run(self):
         if self.graph is None:

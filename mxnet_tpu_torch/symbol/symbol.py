@@ -114,6 +114,50 @@ class Symbol:
             raise ValueError("cannot find output %r" % index)
         return Symbol([self._outputs[index]])
 
+    def __call__(self, *args, **kwargs):
+        """Compose: a new Symbol with this one's free variables replaced by
+        other symbols' outputs (positional in ``list_arguments()`` order,
+        or by name); this one is unchanged."""
+        kwargs.pop("name", None)
+        for a in list(args) + list(kwargs.values()):
+            if not isinstance(a, Symbol):
+                raise TypeError("compose expects Symbol arguments")
+        arg_names = self.list_arguments()
+        if len(args) > len(arg_names):
+            raise ValueError("too many positional arguments to compose")
+        mapping = dict(zip(arg_names, args))
+        for k, v in kwargs.items():
+            if k in mapping:
+                raise ValueError("duplicate binding for %r" % k)
+            mapping[k] = v
+        if any(len(s._outputs) != 1 for s in mapping.values()):
+            raise ValueError("can only compose with single-output symbols")
+        replace = {id(n): mapping[n.name]._outputs[0]
+                   for n in self.topo_nodes()
+                   if n.is_variable and n.name in mapping}
+        matched = {n.name for n in self.topo_nodes()
+                   if n.is_variable and n.name in mapping}
+        if set(mapping) - matched:
+            raise ValueError(
+                "compose: argument(s) %s match no free variable of this "
+                "symbol (arguments: %s)" % (sorted(set(mapping) - matched),
+                                            arg_names))
+        memo = {}
+
+        def entry(e):
+            node, idx = e
+            if id(node) in replace:
+                return replace[id(node)]
+            if node.is_variable:
+                return e
+            if id(node) not in memo:
+                memo[id(node)] = _Node(node.op, node.name, node.attrs,
+                                       node.user_attrs,
+                                       [entry(i) for i in node.inputs])
+            return (memo[id(node)], idx)
+
+        return Symbol([entry(e) for e in self._outputs])
+
     def get_internals(self):
         """Symbol grouping every internal output."""
         entries = []
@@ -478,6 +522,34 @@ class Symbol:
 
     def __truediv__(self, other):
         return self._binop(other, "broadcast_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return self._binop(other, "broadcast_div", "_rdiv_scalar",
+                           reverse=True)
+
+    def __mod__(self, other):
+        return self._binop(other, "broadcast_mod", "_mod_scalar")
+
+    def __pow__(self, other):
+        return self._binop(other, "broadcast_power", "_power_scalar")
+
+    def __rpow__(self, other):
+        return self._binop(other, "broadcast_power", "_rpower_scalar",
+                           reverse=True)
+
+    def __gt__(self, other):
+        return self._binop(other, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, other):
+        return self._binop(other, "broadcast_greater_equal",
+                           "_greater_equal_scalar")
+
+    def __lt__(self, other):
+        return self._binop(other, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, other):
+        return self._binop(other, "broadcast_lesser_equal",
+                           "_lesser_equal_scalar")
 
     def __neg__(self):
         return self.__mul__(-1.0)

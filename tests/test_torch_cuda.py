@@ -8,7 +8,10 @@ fused matmul on a ragged grid
 and through a transposed operand, a Module training step through the
 kernels against the same step on the plain composition, and a small
 ResNet's ShardedTrainer step captured as a CUDA graph against the same
-step run eagerly. Every test skips where there is no card.
+step run eagerly, and Gluon on the card: a compile_step replay against its
+body run eagerly (bit for bit, under cuDNN's deterministic algorithms),
+a captured Dropout's fresh masks, a recapture per batch shape, and the
+slice's op grid against the CPU. Every test skips where there is no card.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 that has only PyTorch with CUDA:
@@ -631,6 +634,70 @@ def test_sharded_trainer_graph_matches_eager(card):
         torch.backends.cudnn.deterministic = det
 
 
+def _dropout_trainer():
+    from mxnet_tpu_torch.parallel import ShardedTrainer, make_mesh
+
+    with mx.NameManager():
+        fc1 = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=64,
+                                    name="fc1")
+        drop = mx.sym.Dropout(mx.sym.Activation(fc1, act_type="relu"),
+                              p=0.5)
+        fc2 = mx.sym.FullyConnected(drop, num_hidden=10, name="fc2")
+        sym = mx.sym.SoftmaxOutput(fc2, name="softmax")
+    return ShardedTrainer(sym, make_mesh({"dp": 1}), optimizer="sgd",
+                          optimizer_params={"learning_rate": 0.1,
+                                            "momentum": 0.9})
+
+
+def test_sharded_trainer_graph_under_mirroring(card):
+    """MXNET_BACKWARD_DO_MIRROR with ShardedTrainer's captured step, cuDNN
+    deterministic. The small ResNet (no random op): the mirrored replay
+    equals the mirrored eager step and the unmirrored one to the bit. An
+    MLP with Dropout: the capture does not read the card's generator (a
+    capture cannot), and from one seed the mirrored replay equals the
+    unmirrored replay to the bit (one mask, drawn once); outside a capture
+    the mirrored eager step equals the unmirrored one from one seed."""
+    from mxnet_tpu_torch.config import set_flag
+
+    rng = np.random.RandomState(0)
+    data = {"data": rng.rand(8, 32, 32, 3).astype(np.float32),
+            "softmax_label": (np.arange(8) % 10).astype(np.float32)}
+    mlp_data = {"data": rng.rand(16, 32).astype(np.float32),
+                "softmax_label": (np.arange(16) % 10).astype(np.float32)}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        results = {}
+        for mirror in (0, 1):
+            set_flag("MXNET_BACKWARD_DO_MIRROR", mirror)
+            trainer = _card_trainer(schedule=False)
+            state0 = trainer.init({k: v.shape for k, v in data.items()})
+            batch = trainer.shard_batch(data)
+            eager, _ = trainer._step_eager(state0, batch)
+            graph, _ = trainer.step(state0, batch)
+            drop = _dropout_trainer()
+            d_state = drop.init({k: v.shape for k, v in mlp_data.items()})
+            d_batch = drop.shard_batch(mlp_data)
+            mx.random.seed(5)
+            d_eager, _ = drop._step_eager(d_state, d_batch)
+            drop.step(d_state, d_batch)      # captures
+            mx.random.seed(5)
+            d_graph, _ = drop.step(d_state, d_batch)
+            assert trainer._captures == 1 and drop._captures == 1
+            results[mirror] = [_trainer_tensors(s) for s in
+                               (eager, graph, d_eager, d_graph)]
+        for mirror in (0, 1):
+            eager, graph = results[mirror][:2]
+            assert all(torch.equal(graph[k], eager[k]) for k in eager), \
+                mirror
+        for i in range(4):
+            plain, mirrored = results[0][i], results[1][i]
+            assert all(torch.equal(mirrored[k], plain[k]) for k in plain), i
+    finally:
+        set_flag("MXNET_BACKWARD_DO_MIRROR", None)
+        torch.backends.cudnn.deterministic = det
+
+
 def test_generation_decode_graph_matches_eager(card):
     """The small causal LM's Generator on the card: warmup captures the
     decode step once; from a state of three active slots (seeded
@@ -673,3 +740,95 @@ def test_generation_decode_graph_matches_eager(card):
             logits, _, _ = model.prefill_forward(params, [toks])
             toks.append(int(torch.argmax(logits[0, -1])))
     assert got == toks[len(prompt):]
+
+
+def _small_gluon_net(dropout=0.0):
+    nn = mx.gluon.nn
+    net = nn.HybridSequential(prefix="card_")
+    with net.name_scope():
+        net.add(nn.Conv2D(8, 3, padding=1), nn.BatchNorm(),
+                nn.Activation("relu"), nn.MaxPool2D(2))
+        if dropout:
+            net.add(nn.Dropout(dropout))
+        net.add(nn.Flatten(), nn.Dense(10))
+    return net
+
+
+@pytest.mark.parametrize("opt,kw", [
+    ("sgd", {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}),
+    ("adam", {"learning_rate": 0.01, "clip_gradient": 0.5})])
+def test_gluon_compile_step_replay_equals_its_body(card, opt, kw):
+    """Under cuDNN's deterministic algorithms a compile_step replay equals
+    its body run eagerly from the same state to the bit (parameters, BN
+    moving statistics, optimizer state, loss); a learning-rate change
+    captures nothing new, and the eager tape from one state agrees
+    within 1e-5 of each tensor's max."""
+    from chip_smoke import (compare_tensors, gl_eager_step,
+                            gl_replay_vs_body, gl_restore, gl_snapshot)
+
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.rand(8, 3, 16, 16).astype(np.float32), ctx=mx.gpu())
+    y = mx.nd.array(rng.randint(0, 10, 8).astype(np.float32), ctx=mx.gpu())
+    np.random.seed(0)
+    net = _small_gluon_net()
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu())
+    net.hybridize()
+    net(x)      # the deferred shapes
+    trainer = mx.gluon.Trainer(net.collect_params(), opt, dict(kw),
+                               kvstore="local")
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    torch.backends.cudnn.deterministic = True
+    try:
+        step = trainer.compile_step(net, loss_fn)
+        for lr in (None, 0.002):
+            if lr is not None:
+                trainer.set_learning_rate(lr)
+            same, total, worst, name, loss_same = gl_replay_vs_body(
+                step, net, trainer, x, y)
+            assert same == total and loss_same, (name, worst)
+        assert step.compile_count == 1
+        s0 = gl_snapshot(net, trainer)
+        step(x, y)
+        compiled = gl_snapshot(net, trainer)
+        gl_restore(net, trainer, s0)
+        gl_eager_step(mx, net, trainer, loss_fn, x, y)
+        _same, _total, worst, name = compare_tensors(
+            gl_snapshot(net, trainer)[0], compiled[0])
+        assert worst <= 1e-5, (name, worst)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def test_gluon_captured_dropout_draws_anew_each_replay(card):
+    from chip_smoke import gl_captured_dropout
+
+    rates, captures = gl_captured_dropout(mx)
+    assert captures == 1 and len(rates) == 4
+
+
+def test_gluon_compile_step_recaptures_for_a_new_batch_shape(card):
+    np.random.seed(1)
+    net = _small_gluon_net(dropout=0.2)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu())
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "nag",
+                               {"learning_rate": 0.01, "momentum": 0.9})
+    step = trainer.compile_step(net, mx.gluon.loss.SoftmaxCrossEntropyLoss())
+    for n in (4, 4, 6, 6):
+        rng = np.random.RandomState(n)
+        x = mx.nd.array(rng.rand(n, 3, 16, 16).astype(np.float32),
+                        ctx=mx.gpu())
+        y = mx.nd.array(rng.randint(0, 10, n).astype(np.float32),
+                        ctx=mx.gpu())
+        loss = step(x, y).asnumpy()
+        assert loss.shape == (n,) and np.isfinite(loss).all()
+    assert step.compile_count == 2
+
+
+def test_gluon_op_grid_on_card_matches_cpu(card):
+    from chip_smoke import GL_GRID_TOL, GL_SUM_TOL, gl_op_grid
+
+    cases, worst, _rerun = gl_op_grid(mx)
+    assert cases > 100
+    assert worst["exact"][0] <= GL_GRID_TOL
+    assert worst["summing"][0] <= GL_SUM_TOL

@@ -21,53 +21,25 @@ import mxnet_tpu_torch as tmx
 # modules and classes of ``mx`` not ported yet
 MX_UNPORTED = frozenset({
     "Monitor", "NotImplementedForSymbol", "attribute", "autotune",
-    "contrib", "engine", "executor_manager", "fluent", "gluon", "image",
-    "img", "kvstore_server", "libinfo", "log", "mon", "monitor", "name",
-    "observability", "profiler", "random", "recordio", "registry",
-    "resilience", "rnd", "rnn", "runtime", "storage", "visualization",
-    "viz"
+    "contrib", "engine", "executor_manager", "fluent", "image", "img",
+    "kvstore_server", "libinfo", "log", "mon", "monitor", "name",
+    "observability", "profiler", "recordio", "registry", "resilience",
+    "rnn", "runtime", "storage", "visualization", "viz"
 })
 
 # ops of the registry not ported yet (both ``mx.sym`` and ``mx.nd``)
 OPS_UNPORTED = frozenset({
-    "BatchNorm_v1", "BilinearSampler", "BlockGrad", "Concat",
-    "Convolution_v1", "Correlation", "Correlation1D", "Crop",
-    "Deconvolution", "Dropout", "ElementWiseSum", "Embedding",
-    "GridGenerator", "IdentityAttachKLSparseReg", "InstanceNorm",
-    "L2Normalization", "LRN", "LSoftmax", "LeakyReLU",
-    "LinearRegressionOutput", "LogisticRegressionOutput",
-    "MAERegressionOutput", "MakeLoss", "MultiLogistic", "Pad",
-    "Pooling_v1", "RNN", "ROIPooling", "SCN", "SPN", "SVMOutput",
-    "SequenceLast", "SequenceMask", "SequenceReverse", "SliceChannel",
-    "SoftmaxActivation", "SpatialTransformer", "SwapAxis", "UpSampling",
-    "WeightedL1", "abs", "add_n", "arange", "arccos",
-    "arccosh", "arcsin", "arcsinh", "arctan", "arctanh", "argmax",
-    "argmax_channel", "argmin", "argsort", "batch_take",
-    "broadcast_axes", "broadcast_axis", "broadcast_equal",
-    "broadcast_greater", "broadcast_greater_equal", "broadcast_hypot",
-    "broadcast_lesser", "broadcast_lesser_equal", "broadcast_like",
-    "broadcast_maximum", "broadcast_minimum", "broadcast_mod",
-    "broadcast_not_equal", "broadcast_power", "broadcast_to",
-    "cast_storage", "cbrt", "ceil", "choose_element_0index", "clip",
-    "concat", "contrib", "contrib_ctc_loss", "cos", "cosh", "crop",
-    "ctc_loss", "degrees", "elemwise_div", "erf", "expand_dims",
-    "expm1", "fix", "flip", "floor", "gamma", "gammaln",
-    "gather_nd", "identity", "linalg_gelqf", "linalg_gemm",
-    "linalg_gemm2", "linalg_potrf", "linalg_potri", "linalg_sumlogdiag",
-    "linalg_syevd", "linalg_syrk", "linalg_trmm", "linalg_trsm", "log",
-    "log10", "log1p", "log2", "log_softmax", "logical_not", "make_loss",
-    "max", "max_axis", "mean", "min", "min_axis", "nAvg", "nanprod",
-    "nansum", "negative", "norm", "normal", "one_hot", "ones_like",
-    "pad", "pick", "prod", "radians", "random_exponential",
-    "random_gamma", "random_generalized_negative_binomial",
-    "random_negative_binomial", "random_normal", "random_poisson",
-    "random_uniform", "rcbrt", "reciprocal", "repeat", "reshape_like",
-    "reverse", "rint", "round",
-    "sample_multinomial", "scatter_nd", "sign", "sin", "sinh", "slice",
-    "slice_axis", "smooth_l1", "softmax_cross_entropy", "sort", "split",
-    "sqrt", "square", "stack", "stop_gradient", "sum", "sum_axis",
-    "swapaxes", "take", "tan", "tile", "topk", "trunc", "uniform",
-    "where", "zeros_like"
+    "BatchNorm_v1", "BilinearSampler", "Convolution_v1", "Correlation",
+    "Correlation1D", "Crop", "GridGenerator",
+    "IdentityAttachKLSparseReg", "InstanceNorm", "L2Normalization", "LRN",
+    "LSoftmax", "LinearRegressionOutput", "LogisticRegressionOutput",
+    "MAERegressionOutput", "MultiLogistic", "Pooling_v1", "RNN",
+    "ROIPooling", "SCN", "SPN", "SVMOutput", "SequenceLast", "SequenceMask",
+    "SequenceReverse", "SpatialTransformer", "UpSampling", "WeightedL1",
+    "arange", "cast_storage", "contrib", "contrib_ctc_loss", "ctc_loss",
+    "linalg_gelqf", "linalg_gemm", "linalg_gemm2", "linalg_potrf",
+    "linalg_potri", "linalg_sumlogdiag", "linalg_syevd", "linalg_syrk",
+    "linalg_trmm", "linalg_trsm", "nAvg"
 })
 
 # beyond the ops: ``mx.sym`` only, ``mx.nd`` only

@@ -20,6 +20,13 @@ import mxnet_tpu_torch.optimizer
 import mxnet_tpu_torch.rtc, mxnet_tpu_torch.nvrtc, mxnet_tpu_torch.operator
 import mxnet_tpu_torch.autograd, mxnet_tpu_torch.test_utils
 import mxnet_tpu_torch.models.lenet, mxnet_tpu_torch.models.mlp
+import mxnet_tpu_torch.random, mxnet_tpu_torch.ndarray.random
+import mxnet_tpu_torch.cuda_graph
+import mxnet_tpu_torch.ops.indexing, mxnet_tpu_torch.ops.random_ops
+import mxnet_tpu_torch.gluon, mxnet_tpu_torch.gluon.nn
+import mxnet_tpu_torch.gluon.loss, mxnet_tpu_torch.gluon.trainer
+import mxnet_tpu_torch.gluon.model_zoo.vision, mxnet_tpu_torch.gluon.data
+import mxnet_tpu_torch.gluon.utils, mxnet_tpu_torch.gluon.parameter
 bad = sorted(m for m in sys.modules
              if m in ("jax", "mxnet_tpu") or m.startswith("jax.")
              or m.startswith("mxnet_tpu."))
