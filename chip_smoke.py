@@ -217,7 +217,42 @@ Phases, each fatal on failure (exit code != 0, no result line):
    4 replays draws a new mask, its keep rate within 5 standard errors of
    0.5. No kernel of this package lies on the Gluon path (as in the JAX
    package, a hybridized block runs no graph pass).
-13. Print the ``kernels`` JSON line (the flash forward's row also carries
+13. RNN phase: the fused ``RNN`` op on cuDNN and the RNN family on the
+   card, TF32 off. (a) The CPU tests' grid (rnn_tanh, rnn_relu, lstm,
+   gru x 1, 2 layers x uni-, bidirectional) at H 200, T 35, N 32, fp32:
+   ``ops.rnn.rnn_cudnn`` (one ``torch._VF`` call, weights viewed out of
+   the flat vector and repacked by torch) against ``rnn_reference`` (the
+   plain loop over time) on the same inputs: outputs, final states and
+   the gradients of data, parameters and states within 5e-5 of each
+   tensor's max (cuDNN's fp32 tanh, ~7e-6 off float64 in one step, sets
+   the gap; both routes' errors against a float64 ``rnn_reference`` are
+   reported beside it, the plain one's held to 1e-5); both routes timed,
+   the forward as CUDA-graph replays, forward + backward between CUDA
+   events (cuDNN's RNN backward cannot be captured). (b)
+   ``bench_all.py:214-261`` ``bench_lstm_ptb`` in full: a
+   2 x 200 ``FusedRNNCell`` LSTM language model, T 35, batch 32, vocab
+   10000, SGD 0.1, ``Module`` on ``mx.gpu()``, parameters from
+   ``np.random.seed(0)``; the fuse pass carves nothing; the first step's
+   loss and every gradient against the same step with the op on
+   ``rnn_reference`` (1e-5); 2 warm and 60 timed steps ended by the
+   bench's ``.asnumpy()`` fetch (samples/s, ms/step); 3 steps under
+   ``torch.profiler``: device ms by family (cuDNN RNN forward and
+   backward, the weight repack, the weight-gradient scatter, cuBLAS FC,
+   softmax, Embedding, the update) and the busy share over their own
+   wall; peak memory; finite losses. (c) ``examples/rnn/lstm_bucketing.py``'s
+   drive at its defaults on the card: ``BucketingModule`` over buckets
+   10, 20, 30 with ``Perplexity``, 4 epochs, train perplexity under its
+   bar of 10. (d) A ``gluon.rnn.LSTM`` (2 x 200, TNC) under a Dense head
+   over the vocabulary: the first eager-tape step's gradients against
+   ``rnn_reference`` (1e-5), then the loss falls over 6 ``gluon.Trainer``
+   steps. (e) ``p`` 0.2 between two layers: the mask's keep rate within
+   3 standard errors and the output equal to ``rnn_reference``'s with the
+   same draws; the bench step with that dropout under
+   ``MXNET_BACKWARD_DO_MIRROR`` equal to the unmirrored one to the bit
+   (cuDNN's deterministic algorithms); a Dropout MLP's ``ShardedTrainer``
+   step's peak memory, eager and captured, mirrored and not. No kernel of
+   this package lies on the RNN path (the JAX op is a ``lax.scan``).
+14. Print the ``kernels`` JSON line (the flash forward's row also carries
    phase 11's prefill launches), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -4158,6 +4193,34 @@ def gl_grid_tensors(op, arrays, got, want):
     return named
 
 
+def cpu_math_info():
+    """The CPU math path of this process: torch's CPU capability (the
+    vector ISA its kernels dispatch to), its thread count and its parallel
+    backends (OpenMP, MKL)."""
+    import torch
+
+    return {"cpu_capability": torch.backends.cpu.get_cpu_capability(),
+            "threads": torch.get_num_threads(),
+            "parallel_info": torch.__config__.parallel_info()}
+
+
+_BARE_CPU_MATH = []
+
+
+def bare_cpu_math_info():
+    """:func:`cpu_math_info` of a fresh ``python`` that imports only
+    torch, on this machine (run once)."""
+    if not _BARE_CPU_MATH:
+        code = ("import json, torch; print(json.dumps({'cpu_capability': "
+                "torch.backends.cpu.get_cpu_capability(), 'threads': "
+                "torch.get_num_threads(), 'parallel_info': "
+                "torch.__config__.parallel_info()}))")
+        out = subprocess.run([sys.executable, "-c", code], check=True,
+                             capture_output=True, text=True, timeout=120)
+        _BARE_CPU_MATH.append(json.loads(out.stdout.splitlines()[-1]))
+    return _BARE_CPU_MATH[0]
+
+
 def gl_grid_reference(mx, op, arrays, attrs, grad):
     """(i): the CPU's (outputs, gradients) of one case, run until two runs
     agree to the bit, and the runs it took. On the H100 machine the CPU's
@@ -4173,6 +4236,10 @@ def gl_grid_reference(mx, op, arrays, attrs, grad):
         run = gl_grid_run(mx, op, arrays, attrs, grad, mx.cpu())
         if any(same(run, r) for r in runs):
             return run, len(runs) + 1
+        log("gl grid: the CPU's run %d of %s %s differs from the earlier "
+            "ones; this process's CPU math: %s; a bare process's: %s"
+            % (len(runs) + 1, op, attrs, json.dumps(cpu_math_info()),
+               json.dumps(bare_cpu_math_info())))
         runs.append(run)
     raise AssertionError("%s %s: the CPU gave %d different results in %d "
                          "runs" % (op, attrs, len(runs), len(runs)))
@@ -4186,6 +4253,8 @@ def gl_op_grid(mx):
     whose CPU reference took more than two runs])."""
     worst = {"exact": (0.0, None), "summing": (0.0, None)}
     bars = {"exact": GL_GRID_TOL, "summing": GL_SUM_TOL}
+    log("gl grid: this process's CPU math: %s; a bare process's: %s"
+        % (json.dumps(cpu_math_info()), json.dumps(bare_cpu_math_info())))
     cases = gl_grid_cases()
     rerun = []
     for n, (op, inputs, attrs, grad) in enumerate(cases):
@@ -4444,6 +4513,712 @@ def gluon_phase(mx, card, results):
     return out
 
 
+# -------------------------------------------------------------- RNN phase
+# (a): the CPU tests' grid of the fused RNN op at bench_lstm_ptb's width
+RNN_MODES = ("rnn_tanh", "rnn_relu", "lstm", "gru")
+RNN_T, RNN_N, RNN_H = 35, 32, 200
+RNN_TOL = 1e-5           # the main path: cuDNN against rnn_reference
+# (a): cuDNN's fp32 tanh (every mode at small H, rnn_tanh at H 200) is
+# ~7e-6 of max off a float64 rnn_reference in one step, rnn_reference's
+# ~1e-7 (measured on an H100, PERF.md section 6): over 35 steps and two
+# layers rnn_tanh's outputs reach 3e-5. The grid holds cuDNN to
+# rnn_reference at this bar, and reports both routes' error against the
+# float64 referee.
+RNN_CUDNN_TOL = 5e-5
+RNN_TIME_REPS = 3        # calls per captured graph when timing (a)
+# (b): bench_all.py:214-261 bench_lstm_ptb at its full (non-QUICK) size
+PTB_BS, PTB_T, PTB_H, PTB_LAYERS, PTB_VOCAB, PTB_LR = \
+    32, 35, 200, 2, 10000, 0.1
+PTB_WARM, PTB_TIMED, PTB_PROFILED = 2, 60, 3
+PTB_TOL = 1e-5           # first step, cuDNN against rnn_reference
+# (c): examples/rnn/lstm_bucketing.py at its defaults (not --smoke)
+BK_VOCAB, BK_HIDDEN, BK_EMBED, BK_BATCH, BK_EPOCHS, BK_BAR = \
+    32, 64, 32, 16, 4, 10.0
+BK_BUCKETS, BK_SENTENCES = (10, 20, 30), 400
+# (d): a gluon.rnn.LSTM at the bench's width, eager tape
+GLR_STEPS, GLR_LR = 6, 0.1
+# (e): dropout between the layers of the bench's LSTM
+RNN_DROP_P = 0.2
+# (e): Queue C item 3, a captured Dropout MLP's step at this size
+MIRROR_MLP_BATCH, MIRROR_MLP_WIDTH = 4096, 4096
+
+
+def rnn_module():
+    from mxnet_tpu_torch.ops import rnn
+
+    return rnn
+
+
+def rnn_case(mode, L, bi, gen):
+    """Inputs (data, parameters, state, state_cell) that require grad and
+    head gradients for (output, h, c), on the card."""
+    import torch
+
+    R = rnn_module()
+    D = 2 if bi else 1
+    dev = torch.device("cuda")
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).requires_grad_(True)
+
+    ins = [rand(RNN_T, RNN_N, RNN_H),
+           rand(R.rnn_param_size(L, RNN_H, RNN_H, mode, bi),
+                scale=RNN_H ** -0.5),
+           rand(L * D, RNN_N, RNN_H, scale=0.5),
+           rand(L * D, RNN_N, RNN_H, scale=0.5) if mode == "lstm" else None]
+    heads = [torch.randn((RNN_T, RNN_N, RNN_H * D), generator=gen,
+                         device=dev)] + [
+        torch.randn((L * D, RNN_N, RNN_H), generator=gen, device=dev)
+        for _ in range(2 if mode == "lstm" else 1)]
+    return ins, heads
+
+
+def rnn_route(route, mode, L, bi, ins, heads=None, p=0.0, is_train=False):
+    """(output, h[, c]) of one route, and with ``heads`` the gradients of
+    every input after them."""
+    import torch
+
+    out, h, c = route(mode, *ins, num_layers=L, state_size=RNN_H,
+                      bidirectional=bi, p=p, is_train=is_train)
+    outs = [out, h] + ([c] if mode == "lstm" else [])
+    if heads is None:
+        return outs
+    leaves = [t for t in ins if t is not None]
+    return outs + list(torch.autograd.grad(outs, leaves, heads))
+
+
+def rnn_worst(got, want, names):
+    """(worst error over its tensor's max |value|, that tensor's name)."""
+    worst, where = 0.0, None
+    for n, g, w in zip(names, got, want):
+        err = float((g.detach() - w.detach()).abs().max()
+                    / w.detach().abs().max().clamp_min(1e-30))
+        if err > worst:
+            worst, where = err, n
+    return worst, where
+
+
+def rnn_op_grid(card):
+    """(a): cuDNN against rnn_reference over the grid, outputs, states and
+    every gradient, and both routes timed as CUDA-graph replays."""
+    import torch
+
+    R = rnn_module()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for mode in RNN_MODES:
+        for L in (1, 2):
+            for bi in (False, True):
+                ins, heads = rnn_case(mode, L, bi, gen)
+                names = ["out", "h"] + (["c"] if mode == "lstm" else []) + [
+                    "d" + n for n, t in zip(("data", "parameters", "state",
+                                             "state_cell"), ins)
+                    if t is not None]
+                before = R.CUDNN_CALLS["rnn"]
+                got = rnn_route(R.rnn_cudnn, mode, L, bi, ins, heads)
+                if R.CUDNN_CALLS["rnn"] != before + 1:
+                    raise AssertionError("rnn_cudnn made %d cuDNN calls"
+                                         % (R.CUDNN_CALLS["rnn"] - before))
+                want = rnn_route(R.rnn_reference, mode, L, bi, ins, heads)
+                ins64 = [None if t is None else
+                         t.detach().double().requires_grad_(True)
+                         for t in ins]
+                exact = rnn_route(R.rnn_reference, mode, L, bi, ins64,
+                                  [h.double() for h in heads])
+                err, where = rnn_worst(got, want, names)
+                row = {"mode": mode, "layers": L, "bidirectional": bi,
+                       "err": err, "worst": where,
+                       "cudnn_vs_fp64": rnn_worst(got, exact, names)[0],
+                       "plain_vs_fp64": rnn_worst(want, exact, names)[0]}
+                if not (err <= RNN_CUDNN_TOL
+                        and row["plain_vs_fp64"] <= RNN_TOL):
+                    raise AssertionError("RNN grid %s: %s differs from "
+                                         "rnn_reference by %.3g of its max"
+                                         % (row, where, err))
+                with torch.no_grad():
+                    for name, route in (("cudnn", R.rnn_cudnn),
+                                        ("plain", R.rnn_reference)):
+                        row[name + "_fwd_ms"] = time_ms(
+                            lambda route=route: rnn_route(
+                                route, mode, L, bi, ins),
+                            reps=RNN_TIME_REPS, replays=3)
+                # cuDNN's RNN backward cannot be captured (it makes the
+                # legacy stream wait on the capturing one): forward +
+                # backward is timed between CUDA events, both routes
+                for name, route in (("cudnn", R.rnn_cudnn),
+                                    ("plain", R.rnn_reference)):
+                    row[name + "_fwd_bwd_ms"] = time_events_ms(
+                        lambda route=route: rnn_route(
+                            route, mode, L, bi, ins, heads, is_train=True))
+                rows.append(row)
+                log("rnn (a): %s L%d %s: worst %.3g of max (%s), against "
+                    "float64 cuDNN %.3g, plain %.3g; fwd cuDNN %.4f / plain "
+                    "%.4f ms (CUDA-graph replays), fwd+bwd cuDNN %.4f / "
+                    "plain %.4f ms (CUDA events), %s"
+                    % (mode, L, "bi" if bi else "uni", err, where,
+                       row["cudnn_vs_fp64"], row["plain_vs_fp64"],
+                       row["cudnn_fwd_ms"], row["plain_fwd_ms"],
+                       row["cudnn_fwd_bwd_ms"], row["plain_fwd_bwd_ms"],
+                       card))
+    return rows
+
+
+def ptb_module(mx, dropout=0.0):
+    """bench_lstm_ptb's graph and Module on the card, its parameters from
+    np.random's seed 0 (the default initializer, as the bench's)."""
+    stack = mx.rnn.FusedRNNCell(PTB_H, num_layers=PTB_LAYERS, mode="lstm",
+                                dropout=dropout)
+    data = mx.sym.Variable("data")
+    label = mx.sym.Variable("softmax_label")
+    embed = mx.sym.Embedding(data, input_dim=PTB_VOCAB, output_dim=PTB_H,
+                             name="embed")
+    outputs, _ = stack.unroll(PTB_T, inputs=embed, merge_outputs=True)
+    pred = mx.sym.Reshape(outputs, shape=(-1, PTB_H))
+    pred = mx.sym.FullyConnected(pred, num_hidden=PTB_VOCAB, name="pred")
+    lab = mx.sym.Reshape(label, shape=(-1,))
+    net = mx.sym.SoftmaxOutput(pred, lab, name="softmax")
+    mod = mx.mod.Module(net, context=mx.gpu())
+    mod.bind(data_shapes=[("data", (PTB_BS, PTB_T))],
+             label_shapes=[("softmax_label", (PTB_BS, PTB_T))])
+    np.random.seed(0)
+    mod.init_params()
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params=(("learning_rate", PTB_LR),))
+    return mod
+
+
+def ptb_batch(mx):
+    """bench_lstm_ptb's batch: RandomState(0) tokens and labels."""
+    rng = np.random.RandomState(0)
+    return mx.io.DataBatch(
+        data=[mx.nd.array(rng.randint(0, PTB_VOCAB, (PTB_BS, PTB_T))
+                          .astype(np.float32))],
+        label=[mx.nd.array(rng.randint(0, PTB_VOCAB, (PTB_BS, PTB_T))
+                           .astype(np.float32))])
+
+
+def ptb_loss(mod, batch):
+    """The mean cross entropy of the last forward's softmax outputs."""
+    import torch
+
+    prob = mod.get_outputs()[0]._data
+    label = batch.label[0]._data.reshape(-1).long()
+    return float(-torch.log(prob[torch.arange(label.numel(),
+                                              device=prob.device),
+                                 label]).mean())
+
+
+class plain_rnn_route:
+    """Within it the RNN op on the card runs rnn_reference, not cuDNN."""
+
+    def __enter__(self):
+        R = rnn_module()
+        self._real = R.rnn_cudnn
+        R.rnn_cudnn = R.rnn_reference
+
+    def __exit__(self, *exc):
+        rnn_module().rnn_cudnn = self._real
+
+
+def ptb_first_step(mod, batch):
+    """(loss, {name: gradient}) of one forward_backward, no update."""
+    mod.forward_backward(batch)
+    grads = {k: v._data.clone() for k, v in
+             mod._exec_group.execs[0].grad_dict.items() if v is not None}
+    return ptb_loss(mod, batch), grads
+
+
+def rnn_scope(names, kernel):
+    """The family of a kernel from its name and its op chain (innermost
+    first) in an RNN language model's step, or None."""
+    k = kernel.lower()
+    for n in names:
+        low = n.lower()
+        if "cudnn_rnn_backward" in low or "cudnnrnnbackward" in low:
+            return "cuDNN RNN backward"
+        if low == "aten::_cudnn_rnn":
+            # the views' copy into cuDNN's packed weight buffer
+            return ("weight repack" if "memcpy" in k or "copy" in k
+                    or any("copy_" in m for m in names)
+                    else "cuDNN RNN forward")
+        if "slicebackward" in low:
+            return "weight-gradient scatter"
+        if "embedding" in low:
+            return "Embedding"
+        if n == RN_SCOPES[1]:
+            return "update"
+        if "softmax" in low:
+            return "softmax"
+        if low in ("aten::addmm", "aten::mm", "aten::linear") or \
+                "mmbackward" in low:
+            return "cuBLAS FC"
+    return None
+
+
+def rnn_families(prof, n_steps):
+    """(device ms per step by family, device ms per step, the ten longest
+    kernels per step, {family: its three longest kernels}) of a profiled
+    RNN step."""
+    import torch
+
+    fams, by_name, linked, members = {}, {}, {}, {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        chain, up = [], ev
+        while up is not None:
+            chain.append(up.name)
+            up = up.cpu_parent
+        for k in ev.kernels:
+            fam = rnn_scope(chain, k.name) or kernel_family(k.name)
+            fams[fam] = fams.get(fam, 0.0) + k.duration
+            linked[k.name] = linked.get(k.name, 0.0) + k.duration
+            kin = members.setdefault(fam, {})
+            kin[k.name] = kin.get(k.name, 0.0) + k.duration
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(ev, "is_user_annotation", False) or \
+                ev.key in RN_SCOPES:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        by_name[ev.key] = by_name.get(ev.key, 0.0) + us
+        rest = us - linked.get(ev.key, 0.0)
+        if rest > 0:
+            fam = kernel_family(ev.key)
+            fams[fam] = fams.get(fam, 0.0) + rest
+            kin = members.setdefault(fam, {})
+            kin[ev.key] = kin.get(ev.key, 0.0) + rest
+    total = sum(by_name.values())
+    if not total:
+        raise AssertionError("torch.profiler recorded no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    per = 1e3 * n_steps
+    return ({k: v / per for k, v in fams.items()}, total / per,
+            [(k, v / per) for k, v in top],
+            {f: [(k, v / per) for k, v in sorted(
+                kin.items(), key=lambda kv: -kv[1])[:3]]
+             for f, kin in members.items()})
+
+
+def repack_ms():
+    """(b): the forward of the bench's LSTM stack (2 x 200, T 35, N 32)
+    from views of a flat vector, as the op calls it, and from cuDNN's own
+    packed buffer (torch.nn.LSTM's flattened weights, the same values),
+    as CUDA-graph replays: (views ms, packed ms, worst output gap). The
+    difference is the copy into the packed buffer on every call."""
+    import torch
+
+    R = rnn_module()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    flat = torch.randn(R.rnn_param_size(PTB_LAYERS, PTB_H, PTB_H, "lstm"),
+                       generator=gen, device="cuda") * 0.05
+    x = torch.randn((PTB_T, PTB_BS, PTB_H), generator=gen, device="cuda")
+    hc = (torch.zeros((PTB_LAYERS, PTB_BS, PTB_H), device="cuda"),
+          torch.zeros((PTB_LAYERS, PTB_BS, PTB_H), device="cuda"))
+    views = [w for v in R._weight_views(flat, PTB_LAYERS, PTB_H, PTB_H,
+                                         "lstm", False) for w in v]
+    ref = torch.nn.LSTM(PTB_H, PTB_H, num_layers=PTB_LAYERS).cuda()
+    with torch.no_grad():
+        for dst, src in zip(ref._flat_weights, views):
+            dst.copy_(src)
+        ref.flatten_parameters()
+
+        def run(weights):
+            return torch._VF.lstm(x, hc, weights, True, PTB_LAYERS, 0.0,
+                                  False, False, False)
+
+        gap = rnn_worst(run(views), run(ref._flat_weights), "ohc")[0]
+        return (time_ms(lambda: run(views), reps=10, replays=5),
+                time_ms(lambda: run(ref._flat_weights), reps=10, replays=5),
+                gap)
+
+
+def ptb_phase(mx, card, out):
+    """(b): bench_lstm_ptb's protocol on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    R = rnn_module()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mod = ptb_module(mx)
+    batch = ptb_batch(mx)
+    n_params = sum(int(np.prod(v.shape))
+                   for v in mod.get_params()[0].values())
+    regions = mod._exec_group.execs[0].fused_regions()
+    log("rnn (b): bench_lstm_ptb: 2 x %d FusedRNNCell LSTM, T %d, batch "
+        "%d, vocab %d, SGD %g, Module on %s; %d parameters; fuse regions: "
+        "%s" % (PTB_H, PTB_T, PTB_BS, PTB_VOCAB, PTB_LR, card, n_params,
+                regions or "none"))
+    if regions:
+        raise AssertionError("the fuse pass carved %s" % regions)
+    before = R.CUDNN_CALLS["rnn"]
+    loss, grads = ptb_first_step(mod, batch)
+    calls = R.CUDNN_CALLS["rnn"] - before
+    with plain_rnn_route():
+        p_loss, p_grads = ptb_first_step(mod, batch)
+    if R.CUDNN_CALLS["rnn"] != before + calls or calls != 1:
+        raise AssertionError("cuDNN calls: %d in the step, %d in the plain "
+                             "one" % (calls, R.CUDNN_CALLS["rnn"] - before
+                                      - calls))
+    loss_err = abs(loss - p_loss) / abs(p_loss)
+    worst, where = rnn_worst([grads[k] for k in sorted(p_grads)],
+                             [p_grads[k] for k in sorted(p_grads)],
+                             sorted(p_grads))
+    zero = [k for k, g in grads.items() if not bool(g.abs().max() > 0)]
+    log("rnn (b): first step, cuDNN vs rnn_reference: loss %.6f vs %.6f "
+        "(%.3g), worst gradient %.3g of its max (%s) over %d tensors"
+        % (loss, p_loss, loss_err, worst, where, len(grads)))
+    if not (loss_err <= PTB_TOL and worst <= PTB_TOL) or zero:
+        raise AssertionError("bench_lstm_ptb's first step: loss %.3g, %s "
+                             "%.3g, zero gradients %s"
+                             % (loss_err, where, worst, zero))
+    out["ptb_first_step"] = {"loss": loss, "plain_loss": p_loss,
+                             "loss_err": loss_err, "grad_err": worst,
+                             "worst": where, "cudnn_calls": calls}
+
+    losses = []
+    for _ in range(PTB_WARM):
+        mod.forward_backward(batch)
+        mod.update()
+    mod.get_outputs()[0].asnumpy()
+    t0 = time.perf_counter()
+    for _ in range(PTB_TIMED):
+        mod.forward_backward(batch)
+        mod.update()
+    mod.get_outputs()[0].asnumpy()
+    dt = time.perf_counter() - t0
+    losses.append(ptb_loss(mod, batch))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(PTB_PROFILED):
+            mod.forward_backward(batch)
+            with record_function(RN_SCOPES[1]):
+                mod.update()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3 / PTB_PROFILED
+    losses.append(ptb_loss(mod, batch))
+    fams, dev_ms, top, members = rnn_families(prof, PTB_PROFILED)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    res = {"samples_per_s": PTB_BS * PTB_TIMED / dt,
+           "ms_per_step": dt * 1e3 / PTB_TIMED,
+           "device_ms": dev_ms, "profiled_wall_ms": wall,
+           "busy": dev_ms / wall,
+           "device_over_timed_step": dev_ms / (dt * 1e3 / PTB_TIMED),
+           "families_ms": fams, "family_kernels": members, "top": top,
+           "peak_gb": peak, "losses": losses}
+    out["ptb"] = res
+    log("rnn (b): %d timed steps: %.1f samples/s, %.3f ms/step (%s)"
+        % (PTB_TIMED, res["samples_per_s"], res["ms_per_step"], card))
+    log("rnn (b): %d profiled steps: device %.3f ms/step in %.3f ms of "
+        "their wall (busy %.3f; %.3f of the unprofiled timed step); by "
+        "family: %s" % (
+            PTB_PROFILED, dev_ms, wall, res["busy"],
+            res["device_over_timed_step"],
+            ", ".join("%s %.3f" % kv for kv in
+                      sorted(fams.items(), key=lambda kv: -kv[1]))))
+    for fam, kernels in sorted(members.items()):
+        for name, ms in kernels:
+            log("rnn (b):   %s: %.3f ms  %s" % (fam, ms, name[:100]))
+    log("rnn (b): peak memory %.3f GB above the earlier phases; losses "
+        "%s" % (peak, ["%.4f" % v for v in losses]))
+    views_ms, packed_ms, gap = repack_ms()
+    res["lstm_fwd_views_ms"], res["lstm_fwd_packed_ms"] = views_ms, packed_ms
+    res["repack_ms"] = views_ms - packed_ms
+    log("rnn (b): the LSTM stack's forward from views of the flat vector "
+        "%.4f ms, from cuDNN's packed buffer %.4f ms (CUDA-graph replays; "
+        "outputs %.3g apart): the repack %.4f ms a call, %.3f of the "
+        "step's device time" % (views_ms, packed_ms, gap, res["repack_ms"],
+                                res["repack_ms"] / dev_ms))
+    if not gap <= RNN_TOL:
+        raise AssertionError("the LSTM from views and from cuDNN's packed "
+                             "buffer differ by %.3g" % gap)
+    if not all(np.isfinite(losses)):
+        raise AssertionError("bench_lstm_ptb's loss is not finite: %s"
+                             % losses)
+    del mod
+
+
+def bk_corpus(rng):
+    """examples/rnn/lstm_bucketing.py's synthetic_corpus."""
+    sents = []
+    for _ in range(BK_SENTENCES):
+        length = rng.randint(5, 30)
+        start = rng.randint(1, BK_VOCAB)
+        step = rng.randint(1, 4)
+        sents.append([(start + i * step) % (BK_VOCAB - 1) + 1
+                      for i in range(length)])
+    return sents
+
+
+def bucketing_drive(mx, card, out):
+    """(c): lstm_bucketing.py's drive on the card, to its own bar."""
+    import random
+
+    np.random.seed(0)
+    random.seed(0)
+    train = mx.rnn.BucketSentenceIter(bk_corpus(np.random.RandomState(0)),
+                                      BK_BATCH, buckets=list(BK_BUCKETS))
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data, input_dim=BK_VOCAB,
+                                 output_dim=BK_EMBED, name="embed")
+        stack = mx.rnn.SequentialRNNCell()
+        stack.add(mx.rnn.LSTMCell(num_hidden=BK_HIDDEN, prefix="lstm_l0_"))
+        outputs, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, BK_HIDDEN))
+        pred = mx.sym.FullyConnected(pred, num_hidden=BK_VOCAB, name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(pred, label, name="softmax",
+                                    use_ignore=True, ignore_label=-1,
+                                    normalization="valid")
+        return pred, ("data",), ("softmax_label",)
+
+    mod = mx.mod.BucketingModule(sym_gen,
+                                 default_bucket_key=train.default_bucket_key,
+                                 context=mx.gpu())
+    metric = mx.metric.Perplexity(ignore_label=-1)
+    t0 = time.perf_counter()
+    mod.fit(train, num_epoch=BK_EPOCHS, eval_metric=metric,
+            optimizer="adam", optimizer_params={"learning_rate": 0.01},
+            initializer=mx.init.Xavier())
+    fit_s = time.perf_counter() - t0
+    train.reset()
+    ppl = dict(mod.score(train, metric))["perplexity"]
+    buckets = sorted(mod._buckets)
+    on_card = all(v._data.is_cuda for v in
+                  mod._curr_module._exec_group.execs[0].arg_dict.values())
+    log("rnn (c): lstm_bucketing.py's drive on %s: %d epochs over buckets "
+        "%s in %.1f s, train perplexity %.3f (bar %g), arrays on the card "
+        "%s" % (card, BK_EPOCHS, buckets, fit_s, ppl, BK_BAR, on_card))
+    if not (ppl < BK_BAR and buckets == list(BK_BUCKETS) and on_card):
+        raise AssertionError("lstm_bucketing drive: perplexity %.3f, "
+                             "buckets %s, on the card %s"
+                             % (ppl, buckets, on_card))
+    out["bucketing"] = {"perplexity": ppl, "buckets": buckets,
+                        "fit_s": fit_s}
+
+
+def gluon_lm(mx):
+    """(d): gluon.rnn.LSTM (TNC) under a Dense head over the vocabulary,
+    in one Sequential, initialised on the card from seed 0."""
+    net = mx.gluon.nn.Sequential(prefix="glm_")
+    with net.name_scope():
+        net.add(mx.gluon.rnn.LSTM(PTB_H, num_layers=PTB_LAYERS,
+                                  layout="TNC", input_size=PTB_H),
+                mx.gluon.nn.Dense(PTB_VOCAB, flatten=False, in_units=PTB_H))
+    mx.random.seed(0)
+    np.random.seed(0)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu())
+    return net
+
+
+def gluon_lm_step(mx, net, loss_fn, x, y):
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    return loss
+
+
+def gluon_lstm_drive(mx, card, out):
+    """(d): first-step gradients cuDNN vs rnn_reference, then the loss
+    falls over GLR_STEPS eager-tape steps with gluon.Trainer."""
+    R = rnn_module()
+    net = gluon_lm(mx)
+    params = net.collect_params()
+    rng = np.random.RandomState(1)
+    x = mx.nd.array(rng.randn(PTB_T, PTB_BS, PTB_H).astype(np.float32))
+    y = mx.nd.array(rng.randint(0, PTB_VOCAB, (PTB_T, PTB_BS))
+                    .astype(np.float32))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def grads():
+        return {k: p.grad()._data.clone() for k, p in params.items()}
+
+    before = R.CUDNN_CALLS["rnn"]
+    gluon_lm_step(mx, net, loss_fn, x, y)
+    got = grads()
+    with plain_rnn_route():
+        gluon_lm_step(mx, net, loss_fn, x, y)
+    want = grads()
+    worst, where = rnn_worst([got[k] for k in sorted(want)],
+                             [want[k] for k in sorted(want)], sorted(want))
+    log("rnn (d): gluon.rnn.LSTM 2 x %d TNC + Dense(%d) on %s, first "
+        "step's %d gradients cuDNN vs rnn_reference: worst %.3g of its "
+        "max (%s)" % (PTB_H, PTB_VOCAB, card, len(want), worst, where))
+    if not worst <= PTB_TOL or R.CUDNN_CALLS["rnn"] != before + 1:
+        raise AssertionError("gluon LSTM gradients: %s %.3g, cuDNN calls %d"
+                             % (where, worst,
+                                R.CUDNN_CALLS["rnn"] - before))
+    trainer = mx.gluon.Trainer(params, "sgd",
+                               {"learning_rate": GLR_LR}, kvstore="local")
+    losses = []
+    for _ in range(GLR_STEPS):
+        loss = gluon_lm_step(mx, net, loss_fn, x, y)
+        trainer.step(PTB_BS)
+        losses.append(float(loss.mean().asnumpy()))
+    log("rnn (d): %d eager-tape steps, loss %s" % (
+        GLR_STEPS, ["%.4f" % v for v in losses]))
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError("gluon LSTM loss did not fall: %s" % losses)
+    out["gluon_lstm"] = {"grad_err": worst, "worst": where,
+                         "losses": losses}
+
+
+def mirror_mlp_peaks(mx):
+    """(e), Queue C item 3: peak memory (GB above what was allocated) of
+    a Dropout MLP's ShardedTrainer step, eager and captured (the capture
+    and its first replay), mirrored and not."""
+    import torch
+    from mxnet_tpu_torch.config import set_flag
+    from mxnet_tpu_torch.parallel import ShardedTrainer, make_mesh
+
+    rng = np.random.RandomState(0)
+    data = {"data": rng.rand(MIRROR_MLP_BATCH, MIRROR_MLP_WIDTH).astype(
+        np.float32),
+        "softmax_label": (np.arange(MIRROR_MLP_BATCH) % 10).astype(
+            np.float32)}
+    peaks = {}
+    for mirror in (0, 1):
+        set_flag("MXNET_BACKWARD_DO_MIRROR", mirror)
+        try:
+            with mx.NameManager():
+                h = mx.sym.var("data")
+                for i in range(3):
+                    h = mx.sym.Dropout(mx.sym.Activation(
+                        mx.sym.FullyConnected(h, num_hidden=MIRROR_MLP_WIDTH,
+                                              name="fc%d" % i),
+                        act_type="relu"), p=0.5)
+                sym = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+                    h, num_hidden=10, name="out"), name="softmax")
+            trainer = ShardedTrainer(sym, make_mesh({"dp": 1}),
+                                     optimizer="sgd",
+                                     optimizer_params={"learning_rate": 0.1})
+            state = trainer.init({k: v.shape for k, v in data.items()})
+            batch = trainer.shard_batch(data)
+            for kind in ("eager", "captured"):
+                gc.collect()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                if kind == "eager":
+                    trainer._step_eager(state, batch)
+                else:
+                    trainer.step(state, batch)
+                torch.cuda.synchronize()
+                peaks["%s_%s" % (kind, "mirrored" if mirror else "plain")] \
+                    = (torch.cuda.max_memory_allocated() - base) / 1e9
+        finally:
+            set_flag("MXNET_BACKWARD_DO_MIRROR", None)
+        del trainer, state, batch
+    return peaks
+
+
+def rnn_dropout_drive(mx, card, out):
+    """(e): the between-layers mask's keep rate and kept units, a mirrored
+    bench step equal to the unmirrored one to the bit, and the captured
+    Dropout MLP's peak memory mirrored and not."""
+    import torch
+    from mxnet_tpu_torch.config import set_flag
+
+    R = rnn_module()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    ins, _ = rnn_case("lstm", 2, False, gen)
+    start = torch.cuda.get_rng_state()
+    before = R.CUDNN_CALLS["rnn"]
+    got = rnn_route(R.rnn_cudnn, "lstm", 2, False, ins, p=RNN_DROP_P,
+                    is_train=True)
+    calls = R.CUDNN_CALLS["rnn"] - before
+    torch.cuda.set_rng_state(start)
+    mask = torch.rand((RNN_T, RNN_N, RNN_H), device="cuda") < 1 - RNN_DROP_P
+    torch.cuda.set_rng_state(start)
+    want = rnn_route(R.rnn_reference, "lstm", 2, False, ins, p=RNN_DROP_P,
+                     is_train=True)
+    err, where = rnn_worst(got, want, ["out", "h", "c"])
+    keep = float(mask.float().mean())
+    se = float(np.sqrt(RNN_DROP_P * (1 - RNN_DROP_P) / mask.numel()))
+    log("rnn (e): p %g between 2 layers on %s: keep rate %.5f (%.2f SE "
+        "from %g), %d cuDNN calls, outputs vs rnn_reference with the same "
+        "draws %.3g of max (%s)" % (RNN_DROP_P, card, keep,
+                                    abs(keep - (1 - RNN_DROP_P)) / se,
+                                    1 - RNN_DROP_P, calls, err, where))
+    if abs(keep - (1 - RNN_DROP_P)) > 3 * se or calls != 2 or \
+            not err <= RNN_TOL:
+        raise AssertionError("RNN dropout: keep %.5f, calls %d, %s %.3g"
+                             % (keep, calls, where, err))
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    steps = {}
+    try:
+        mod = ptb_module(mx, dropout=RNN_DROP_P)
+        batch = ptb_batch(mx)
+        for mirror in (0, 1, 0):
+            set_flag("MXNET_BACKWARD_DO_MIRROR", mirror)
+            try:
+                mx.random.seed(7)
+                steps.setdefault(mirror, []).append(
+                    ptb_first_step(mod, batch))
+            finally:
+                set_flag("MXNET_BACKWARD_DO_MIRROR", None)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (loss0, g0), (loss1, g1), (loss2, g2) = steps[0][0], steps[1][0], \
+        steps[0][1]
+    same = lambda a, b: all(torch.equal(a[k], b[k]) for k in a)  # noqa: E731
+    log("rnn (e): the bench step with p %g under cuDNN's deterministic "
+        "algorithms: mirrored vs unmirrored loss %.6f / %.6f, %d gradients "
+        "equal to the bit: %s (two unmirrored runs: %s)"
+        % (RNN_DROP_P, loss1, loss0, len(g0), same(g0, g1), same(g0, g2)))
+    if not (loss0 == loss1 and same(g0, g1)):
+        raise AssertionError("the mirrored RNN step differs from the "
+                             "unmirrored one")
+    # with cuDNN's default algorithms: do two runs give the same bits?
+    mx.random.seed(7)
+    _, d0 = ptb_first_step(mod, batch)
+    mx.random.seed(7)
+    _, d1 = ptb_first_step(mod, batch)
+    default_gap = rnn_worst([d1[k] for k in sorted(d0)],
+                            [d0[k] for k in sorted(d0)], sorted(d0))
+    log("rnn (e): the same step twice with cuDNN's default algorithms: "
+        "equal to the bit %s, worst %.3g of max (%s)"
+        % (same(d0, d1), default_gap[0], default_gap[1]))
+    del mod
+    peaks = mirror_mlp_peaks(mx)
+    log("rnn (e): Dropout MLP (3 x %d relu + Dropout 0.5, batch %d) step "
+        "peak memory, GB: %s" % (MIRROR_MLP_WIDTH, MIRROR_MLP_BATCH,
+                                  ", ".join("%s %.4f" % kv
+                                            for kv in sorted(peaks.items()))))
+    out["dropout"] = {"keep": keep, "se": se, "err": err,
+                      "mirror_bit_identical": True,
+                      "default_algorithms_gap": default_gap,
+                      "mirror_mlp_peak_gb": peaks}
+
+
+def rnn_phase(mx, card, results):
+    """Phase 13: the RNN family on the card (see the module docstring)."""
+    R = rnn_module()
+    out = {}
+    out["grid"] = rnn_op_grid(card)
+    R.CUDNN_CALLS["rnn"] = 0
+    ptb_phase(mx, card, out)
+    out["ptb_cudnn_calls"] = R.CUDNN_CALLS["rnn"]
+    bucketing_drive(mx, card, out)
+    gluon_lstm_drive(mx, card, out)
+    rnn_dropout_drive(mx, card, out)
+    results["rnn"] = out
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the detailed results here")
@@ -4500,6 +5275,7 @@ def main():
                   card, results["peaks"], results)
     gen_launches = generation_phase(mx, card, trained, results)
     gluon_phase(mx, card, results)
+    rnn_phase(mx, card, results)
 
     t8 = totals[8]
     kernels = {"kernels": [{

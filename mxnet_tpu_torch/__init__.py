@@ -9,7 +9,8 @@ training step (``mx.parallel``), and symbolic training: ``mx.nd``,
 ``mx.io``, ``mx.kv``, ``mx.callback``; imperative autograd
 (``mx.autograd``), custom operators (``mx.operator``), runtime CUDA
 kernels compiled by NVRTC (``mx.rtc``), the random generators
-(``mx.random``) and Gluon (``mx.gluon``). Entry points run on the CUDA card
+(``mx.random``), the symbolic RNN toolkit (``mx.rnn``) and Gluon
+(``mx.gluon``). Entry points run on the CUDA card
 unless the caller passes ``mx.cpu()`` or opens ``with mx.cpu():``. The
 package imports torch and numpy, never jax and nothing of ``mxnet_tpu``.
 """
@@ -48,6 +49,7 @@ from . import serving
 from . import parallel
 from . import rtc
 from . import test_utils
+from . import rnn
 from . import gluon
 from . import operator
 from .operator import _install_frontends as _iff

@@ -24,6 +24,7 @@ import torch
 
 from .base import MXNetError, dtype_name
 from .context import Context, as_device
+from .ops.registry import OpAttrs
 
 __all__ = ["Executor", "resolve_output_indices"]
 
@@ -59,8 +60,46 @@ class _GraphProgram:
         self.aux_names = [n.name for n in aux]
         # a random op in the walk (mirroring must replay its draws)
         self.random = any(n.opdef().needs_rng for n in self.topo)
+        # creation nodes with 0 (unknown) dims in their declared shape (the
+        # RNN cells' begin states): the real shape comes from inference
+        # over the bound arguments' shapes, as the JAX package's
+        self._deferred_init = [
+            n for n in self.topo if n.op in ("_zeros", "_ones")
+            and 0 in tuple(n.parsed_attrs().get("shape", ()))]
+        self._init_attrs = {}  # guarded-by: self._lock
         self._sel_topo = {}  # guarded-by: self._lock
         self._lock = threading.Lock()
+
+    def _resolve_init_attrs(self, arg_d):
+        """{id(node): attrs with the inferred shape} for the deferred
+        creation nodes, memoized per argument-shape signature."""
+        shapes = {n: tuple(arg_d[n].shape) for n in self.arg_names
+                  if n in arg_d}
+        key = tuple(sorted(shapes.items()))
+        with self._lock:
+            cached = self._init_attrs.get(key)
+        if cached is not None:
+            return cached
+        internals = self.symbol.get_internals()
+        try:
+            _, out_shapes, _ = internals.infer_shape_partial(**shapes)
+        except MXNetError:
+            out_shapes = [None] * len(internals._outputs)
+        by_id = {id(node): s for (node, idx), s in
+                 zip(internals._outputs, out_shapes) if idx == 0}
+        cached = {}
+        for node in self._deferred_init:
+            shape = by_id.get(id(node))
+            if shape is None or 0 in shape:
+                raise MXNetError(
+                    "cannot infer shape for %s node %r with declared shape "
+                    "%s" % (node.op, node.name,
+                            node.parsed_attrs().get("shape")))
+            attrs = node.parsed_attrs()
+            cached[id(node)] = OpAttrs(dict(attrs._d, shape=tuple(shape)))
+        with self._lock:
+            self._init_attrs[key] = cached
+        return cached
 
     def topo_for(self, sel):
         """(topo subset, output entries) for a selection of output indices:
@@ -101,6 +140,8 @@ class _GraphProgram:
         env = {}
         aux_updates = {}
         topo, out_entries = self.topo_for(sel)
+        init_attrs = (self._resolve_init_attrs(arg_d)
+                      if self._deferred_init else {})
 
         def get_entry(e):
             n, i = e
@@ -111,7 +152,7 @@ class _GraphProgram:
         for node in topo:
             n_main = node.num_main_inputs()
             outs, new_aux = node.opdef().apply(
-                node.parsed_attrs(),
+                init_attrs.get(id(node)) or node.parsed_attrs(),
                 [get_entry(e) for e in node.inputs[:n_main]],
                 [get_entry(e) for e in node.inputs[n_main:]],
                 is_train=is_train)

@@ -62,6 +62,11 @@ def _mp_load_raw(indices):
     return [_mp_dataset[i] for i in indices]
 
 
+def _shutdown_pool(pool):
+    """Stop a worker pool without waiting on batches still in flight."""
+    pool.shutdown(wait=True, cancel_futures=True)
+
+
 def _wrap_np(batch):
     if isinstance(batch, list):
         return [_wrap_np(b) for b in batch]
@@ -104,24 +109,42 @@ class DataLoader:
     def _get_pool(self):
         """Worker processes stay alive across epochs, as the reference's
         _MultiWorkerIter pool; spawned once per loader (a fork would copy
-        torch's threads), the dataset shipped to them once."""
+        torch's threads), the dataset shipped to them once. A
+        ``ProcessPoolExecutor``: when a worker dies, every batch in flight
+        fails with ``BrokenProcessPool`` instead of waiting forever."""
         if getattr(self, "_pool", None) is None:
             import multiprocessing as mp
+            import weakref
+            from concurrent.futures import ProcessPoolExecutor
 
-            ctx = mp.get_context("spawn")
-            self._pool = ctx.Pool(self._num_workers, initializer=_mp_init,
-                                  initargs=(self._dataset,))
+            self._pool = ProcessPoolExecutor(
+                self._num_workers, mp_context=mp.get_context("spawn"),
+                initializer=_mp_init, initargs=(self._dataset,))
+            self._pool_finalizer = weakref.finalize(
+                self, _shutdown_pool, self._pool)
         return self._pool
 
-    def __del__(self):
+    def close(self):
+        """Shut the worker processes down now (they are spawned again by
+        the next multi-process iteration)."""
         pool = getattr(self, "_pool", None)
         if pool is not None:
-            pool.terminate()
+            self._pool = None
+            self._pool_finalizer.detach()
+            _shutdown_pool(pool)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
     def _iter_multiprocess(self):
         """Process-based workers (reference: dataloader.py _MultiWorkerIter
         + worker_loop); results come back as numpy and are wrapped once in
-        the parent."""
+        the parent. An exhausted epoch leaves the workers up for the next
+        one; an epoch abandoned (the iterator closed) or failed (a worker
+        died, a sample raised) shuts them down."""
         custom_fn = (self._batchify_fn
                      if self._batchify_fn is not default_batchify_fn
                      else None)
@@ -130,25 +153,27 @@ class DataLoader:
         depth = 2 * self._num_workers
         pending = deque()
         it = iter(self._batch_sampler)
+        done = False
         try:
             for _ in range(depth):
-                pending.append(
-                    pool.apply_async(loader, (list(next(it)),)))
-        except StopIteration:
-            it = None
-        while pending:
-            res = pending.popleft()
-            if it is not None:
-                try:
-                    pending.append(
-                        pool.apply_async(loader, (list(next(it)),)))
-                except StopIteration:
-                    it = None
-            got = res.get()
-            # a custom batchify_fn runs in the parent over the raw
-            # samples the workers fetched (the fn may close over
-            # unpicklable state)
-            yield custom_fn(got) if custom_fn else _wrap_np(got)
+                batch = next(it, None)
+                if batch is None:
+                    break
+                pending.append(pool.submit(loader, list(batch)))
+            while pending:
+                fut = pending.popleft()
+                batch = next(it, None)
+                if batch is not None:
+                    pending.append(pool.submit(loader, list(batch)))
+                got = fut.result()
+                # a custom batchify_fn runs in the parent over the raw
+                # samples the workers fetched (the fn may close over
+                # unpicklable state)
+                yield custom_fn(got) if custom_fn else _wrap_np(got)
+            done = True
+        finally:
+            if not done:
+                self.close()
 
     def __iter__(self):
         if self._num_workers == 0:

@@ -6,9 +6,8 @@ nothing of the JAX package). Dispatch on parameter-name patterns
 attribute overrides. The fills are numpy on the host with numpy's global
 RNG, exactly as in the JAX package, so one ``np.random.seed`` gives the
 same bits in both packages; the caller moves the buffer onto the device.
-Every initializer of the JAX package is here but ``FusedRNN``, which
-unpacks a fused RNN cell's parameters and raises until the RNN slice
-(``ROADMAP.md`` Queue A7).
+Every initializer of the JAX package is here, ``FusedRNN`` included
+(it unpacks a fused RNN cell's parameters with ``rnn.rnn_cell``).
 """
 from __future__ import annotations
 
@@ -298,13 +297,43 @@ class LSTMBias(Initializer):
 @register
 class FusedRNN(Initializer):
     """Init for a fused RNN cell's packed parameters (reference:
-    initializer.py:FusedRNN). It unpacks them with ``rnn_cell``, which
-    the port does not have yet."""
+    initializer.py:FusedRNN): unpack with the cell, initialise per gate,
+    pack again."""
 
     def __init__(self, init, num_hidden, num_layers, mode,
                  bidirectional=False, forget_bias=1.0):
-        raise MXNetError("initializer.FusedRNN needs rnn_cell.FusedRNNCell, "
-                         "which is not yet ported (ROADMAP.md Queue A7)")
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = create(klass, **kwargs)
+        spec = _ctor_kwargs(locals())
+        spec.pop("klass", None)
+        spec.pop("kwargs", None)
+        spec["init"] = init.dumps() if init is not None else None
+        super().__init__(**spec)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        from .rnn import rnn_cell
+
+        cell = rnn_cell.FusedRNNCell(
+            self._num_hidden, self._num_layers, self._mode,
+            self._bidirectional, forget_bias=self._forget_bias, prefix="")
+        args = cell.unpack_weights({"parameters": arr})
+        for name in args:
+            desc_i = InitDesc(name, global_init=desc.global_init)
+            if name.endswith("bias") and self._forget_bias is not None \
+                    and "f_bias" in name:
+                args[name][:] = self._forget_bias
+            elif self._init is None:
+                desc.global_init(desc_i, args[name])
+            else:
+                self._init(desc_i, args[name])
+        arr[:] = cell.pack_weights(args)["parameters"]
 
 
 class Load:

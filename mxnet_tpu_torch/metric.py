@@ -6,12 +6,14 @@ class names, the ``update(labels, preds)`` / ``get_name_value()`` protocol
 and the ``sum_metric`` / ``num_inst`` accumulators. Metric math is numpy
 on the host, outside the train step, as in the JAX package: each update
 copies its outputs off the card (``NDArray.asnumpy``). The metrics are
-those ``Module.fit`` and ``score`` need, and ImageNet's top-k accuracy;
-the rest of the JAX package's (F1, perplexity, the regression errors,
-NLL, Pearson, Loss and custom metrics) wait for a later slice
-(``ROADMAP.md`` Queue A4).
+those ``Module.fit`` and ``score`` need, ImageNet's top-k accuracy and
+the language models' perplexity; the rest of the JAX package's (F1, the
+regression errors, NLL, Pearson, Loss and custom metrics) wait for a
+later slice (``ROADMAP.md`` Queue A4).
 """
 from __future__ import annotations
+
+import math
 
 import numpy
 
@@ -19,7 +21,7 @@ from .base import MXNetError
 from .ndarray import NDArray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "CrossEntropy", "create"]
+           "Perplexity", "CrossEntropy", "create"]
 
 _REGISTRY = {}
 
@@ -243,6 +245,44 @@ class TopKAccuracy(_PairwiseMetric):
 
 
 register(TopKAccuracy, "top_k_accuracy", "top_k_acc")
+
+
+@register
+class Perplexity(EvalMetric):
+    """exp(mean negative log prob of the target tokens), with an optional
+    ignored padding label."""
+
+    def __init__(self, ignore_label, axis=-1, name="perplexity",
+                 output_names=None, label_names=None):
+        super().__init__(name, **_fwd(locals(), "ignore_label", "axis"))
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        assert len(labels) == len(preds)
+        total_nll, total_count = 0.0, 0
+        for raw_label, raw_pred in zip(labels, preds):
+            label = _host(raw_label)
+            pred = _host(raw_pred)
+            if label.size != pred.size // pred.shape[-1]:
+                raise AssertionError("shape mismatch: %s vs. %s"
+                                     % (label.shape, pred.shape))
+            flat = label.reshape(-1).astype("int32")
+            target_prob = pred.reshape(-1, pred.shape[-1])[
+                numpy.arange(flat.size), flat]
+            if self.ignore_label is not None:
+                masked = (flat == self.ignore_label)
+                total_count -= int(masked.sum())
+                target_prob = numpy.where(masked, 1.0, target_prob)
+            total_nll -= numpy.log(numpy.maximum(1e-10, target_prob)).sum()
+            total_count += flat.size
+        self.sum_metric += total_nll
+        self.num_inst += total_count
+
+    def get(self):
+        if not self.num_inst:
+            return (self.name, float("nan"))
+        return (self.name, math.exp(self.sum_metric / self.num_inst))
 
 
 class CrossEntropy(_PairwiseMetric):

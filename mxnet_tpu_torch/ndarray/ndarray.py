@@ -207,6 +207,16 @@ class NDArray:
         axes = axes or tuple(reversed(range(self.ndim)))
         return _from_data(self._data.permute(*axes))
 
+    def squeeze(self, axis=None):
+        if axis is None:
+            return _from_data(self._data.squeeze())
+        axes = tuple(axis) if isinstance(axis, (list, tuple)) else (axis,)
+        for a in axes:
+            if self.shape[a] != 1:
+                raise ValueError("cannot squeeze axis %d of size %d"
+                                 % (a, self.shape[a]))
+        return _from_data(self._data.squeeze(axes))
+
     # --- reductions -------------------------------------------------------
     def _reduce(self, fn, axis, keepdims):
         if axis is None:

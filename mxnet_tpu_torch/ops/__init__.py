@@ -14,4 +14,5 @@ from . import random_ops
 from . import fused
 from . import optimizer_ops
 from . import init_ops
+from . import rnn
 from .. import operator as _operator  # noqa: F401  (registers Custom)

@@ -44,8 +44,8 @@ FA = importlib.import_module("mxnet_tpu_torch.parallel.flash_attention")
 
 sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__),
                                                 "..")))
-from chip_smoke import (FLASH_ROUNDED_TOL, check_flash_forward_rounding,  # noqa: E402
-                        check_flash_rounding)
+from chip_smoke import (FLASH_ROUNDED_TOL, RNN_CUDNN_TOL,  # noqa: E402
+                        check_flash_forward_rounding, check_flash_rounding)
 from tools.port_bf16_study import flash_delta_study  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -832,3 +832,124 @@ def test_gluon_op_grid_on_card_matches_cpu(card):
     assert cases > 100
     assert worst["exact"][0] <= GL_GRID_TOL
     assert worst["summing"][0] <= GL_SUM_TOL
+
+
+_RNN_GRID = [(mode, L, bi) for mode in ("rnn_tanh", "rnn_relu", "lstm",
+                                        "gru")
+             for L in (1, 2) for bi in (False, True)]
+
+
+def _rnn_inputs(mode, L, bi, gen, T=5, N=3, I=4, H=6):
+    from mxnet_tpu_torch.ops.rnn import rnn_param_size
+
+    D = 2 if bi else 1
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, device="cuda", generator=gen)
+                * scale).requires_grad_(True)
+
+    return [rand(T, N, I), rand(rnn_param_size(L, H, I, mode, bi),
+                                scale=0.3),
+            rand(L * D, N, H, scale=0.5),
+            rand(L * D, N, H, scale=0.5) if mode == "lstm" else None]
+
+
+def _rnn_all(route, mode, L, bi, ins, heads, **kw):
+    out, h, c = route(mode, *ins, num_layers=L, state_size=6,
+                      bidirectional=bi, **kw)
+    outs = [out, h] + ([c] if mode == "lstm" else [])
+    leaves = [t for t in ins if t is not None]
+    return outs + list(torch.autograd.grad(outs, leaves, heads[:len(outs)]))
+
+
+@pytest.mark.parametrize("mode,L,bi", _RNN_GRID, ids=[
+    "%s-L%d-%s" % (m, n, "bi" if b else "uni") for m, n, b in _RNN_GRID])
+def test_rnn_cudnn_matches_the_plain_version(card, mode, L, bi):
+    """The fused RNN op's cuDNN route against rnn_reference on the card:
+    outputs, final states and every input's gradient within RNN_CUDNN_TOL
+    of each tensor's max (TF32 off; cuDNN's fp32 tanh and sigmoid are
+    ~7e-6 off float64 at this H, chip_smoke.py's phase 13 (a)); one cuDNN
+    call."""
+    from mxnet_tpu_torch.ops import rnn as R
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ins = _rnn_inputs(mode, L, bi, gen)
+    D = 2 if bi else 1
+    heads = [torch.randn(5, 3, 6 * D, device="cuda", generator=gen)] + [
+        torch.randn(L * D, 3, 6, device="cuda", generator=gen)
+        for _ in range(2)]
+    before = R.CUDNN_CALLS["rnn"]
+    got = _rnn_all(R.rnn_cudnn, mode, L, bi, ins, heads)
+    assert R.CUDNN_CALLS["rnn"] == before + 1
+    want = _rnn_all(R.rnn_reference, mode, L, bi, ins, heads)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape
+        err = _rel(g, w)
+        assert err <= RNN_CUDNN_TOL, (i, err)
+
+
+def _rel(got, want):
+    return float((got.detach() - want.detach()).abs().max()
+                 / want.detach().abs().max())
+
+
+def test_rnn_op_on_card_and_its_dropout(card):
+    """nd.RNN on the card goes through cuDNN and matches the same op on the
+    CPU; with p > 0 in training each layer is one cuDNN call and the
+    between-layers mask is the card generator's draw."""
+    from mxnet_tpu_torch.ops import rnn as R
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(5, 3, 4).astype(np.float32)
+    p = (rng.randn(R.rnn_param_size(2, 6, 4, "gru")) * 0.3).astype(
+        np.float32)
+    h0 = (rng.randn(2, 3, 6) * 0.5).astype(np.float32)
+    outs = {}
+    for ctx in (mx.cpu(), mx.gpu()):
+        args = [mx.nd.array(a, ctx=ctx) for a in (x, p, h0)]
+        outs[ctx.device_type] = [o.asnumpy() for o in mx.nd.RNN(
+            *args, state_size=6, num_layers=2, mode="gru",
+            state_outputs=True)]
+    for i, (g, w) in enumerate(zip(outs["gpu"], outs["cpu"])):
+        err = np.abs(g - w).max() / np.abs(w).max()
+        assert err <= RNN_CUDNN_TOL, (i, err)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ins = _rnn_inputs("lstm", 2, False, gen, T=7, N=64)
+    start = torch.cuda.get_rng_state()
+    before = R.CUDNN_CALLS["rnn"]
+    got = R.rnn_cudnn("lstm", *ins, num_layers=2, state_size=6, p=0.4,
+                      is_train=True)
+    assert R.CUDNN_CALLS["rnn"] == before + 2
+    torch.cuda.set_rng_state(start)
+    want = R.rnn_reference("lstm", *ins, num_layers=2, state_size=6, p=0.4,
+                           is_train=True)
+    torch.cuda.set_rng_state(start)
+    keep = (torch.rand((7, 64, 6), device="cuda") < 0.6).float().mean()
+    assert abs(float(keep) - 0.6) < 3 * np.sqrt(0.24 / (7 * 64 * 6))
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert _rel(g, w) <= RNN_CUDNN_TOL, (i, _rel(g, w))
+
+
+def test_gluon_lstm_layer_on_card_matches_cpu(card):
+    """gluon.rnn.LSTM (2 layers, bidirectional, NTC) on the card against
+    the same layer on the CPU: output and every parameter's gradient."""
+    res = {}
+    for ctx in (mx.cpu(), mx.gpu()):
+        layer = mx.gluon.rnn.LSTM(6, num_layers=2, layout="NTC",
+                                  bidirectional=True, input_size=4,
+                                  prefix="l_")
+        np.random.seed(0)
+        layer.initialize(mx.init.Uniform(0.3), ctx=ctx)
+        x = mx.nd.array(np.random.RandomState(1).randn(3, 5, 4)
+                        .astype(np.float32), ctx=ctx)
+        with mx.autograd.record():
+            out = layer(x)
+            loss = (out * out).sum()
+        loss.backward()
+        res[ctx.device_type] = [out.asnumpy()] + [
+            p.grad(ctx).asnumpy() for _, p in
+            sorted(layer.collect_params().items())]
+    names = ["out"] + sorted(layer.collect_params())
+    for name, g, w in zip(names, res["gpu"], res["cpu"]):
+        err = np.abs(g - w).max() / np.abs(w).max()
+        assert err <= RNN_CUDNN_TOL, (name, err, np.abs(w).max())

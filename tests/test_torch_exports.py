@@ -24,7 +24,7 @@ MX_UNPORTED = frozenset({
     "contrib", "engine", "executor_manager", "fluent", "image", "img",
     "kvstore_server", "libinfo", "log", "mon", "monitor", "name",
     "observability", "profiler", "recordio", "registry", "resilience",
-    "rnn", "runtime", "storage", "visualization", "viz"
+    "runtime", "storage", "visualization", "viz"
 })
 
 # ops of the registry not ported yet (both ``mx.sym`` and ``mx.nd``)
@@ -33,7 +33,7 @@ OPS_UNPORTED = frozenset({
     "Correlation1D", "Crop", "GridGenerator",
     "IdentityAttachKLSparseReg", "InstanceNorm", "L2Normalization", "LRN",
     "LSoftmax", "LinearRegressionOutput", "LogisticRegressionOutput",
-    "MAERegressionOutput", "MultiLogistic", "Pooling_v1", "RNN",
+    "MAERegressionOutput", "MultiLogistic", "Pooling_v1",
     "ROIPooling", "SCN", "SPN", "SVMOutput", "SequenceLast", "SequenceMask",
     "SequenceReverse", "SpatialTransformer", "UpSampling", "WeightedL1",
     "arange", "cast_storage", "contrib", "contrib_ctc_loss", "ctc_loss",
@@ -75,7 +75,8 @@ def _public(package):
     """{module name: its public names}, as a fresh import sees them."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", _LIST, package], cwd=root,
-                         capture_output=True, text=True, check=True).stdout
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
     return {k: set(v) for k, v in json.loads(out.splitlines()[-1]).items()}
 
 

@@ -7,11 +7,13 @@ The loaders of both packages are driven on the same arrays under the same
 ``examples/gluon/mnist_gluon.py`` runs on the port with only its import
 line changed (``mxnet_tpu`` -> ``mxnet_tpu_torch``), inside
 ``with mx.cpu():``, imperative and hybridized, and passes its own smoke bar
-(train accuracy > 0.8).
+(train accuracy > 0.8). A process worker that dies makes the loader
+raise within seconds (a subprocess under a timeout holds the case).
 """
 import contextlib
 import io
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -123,6 +125,81 @@ def test_dataloader_process_workers_and_custom_batchify():
             ragged, batch_size=3, num_workers=2, thread_pool=False,
             batchify_fn=pad))
     assert [b.shape for b in batches] == [(3, 3), (3, 6)]
+
+
+_LOADER_SCRIPT = """
+import multiprocessing as mp
+import os
+import sys
+import time
+from concurrent.futures.process import BrokenProcessPool
+
+sys.path.insert(0, %(repo)r)
+import mxnet_tpu_torch as mx
+
+
+class Dying:
+    \"\"\"Sample 5 kills the worker that loads it.\"\"\"
+
+    def __len__(self):
+        return 8
+
+    def __getitem__(self, i):
+        if i == 5:
+            os._exit(3)
+        return float(i)
+
+
+def pids(loader):
+    return sorted(p.pid for p in loader._pool._processes.values())
+
+
+if __name__ == "__main__":
+    with mx.cpu():
+        # workers stay up across epochs; close() / the with block ends them
+        with mx.gluon.data.DataLoader(list(range(6)), batch_size=2,
+                                      num_workers=2,
+                                      thread_pool=False) as loader:
+            first = [b.asnumpy().tolist() for b in loader]
+            up = pids(loader)
+            second = [b.asnumpy().tolist() for b in loader]
+            assert first == second == [[0, 1], [2, 3], [4, 5]], first
+            assert pids(loader) == up and len(up) == 2
+            it = iter(loader)
+            next(it)
+            it.close()              # an abandoned epoch shuts them down
+            assert loader._pool is None and not mp.active_children()
+            assert [b.asnumpy().tolist() for b in loader] == first
+        assert loader._pool is None and not mp.active_children()
+        print("LIFECYCLE_OK")
+        loader = mx.gluon.data.DataLoader(Dying(), batch_size=2,
+                                          num_workers=2, thread_pool=False)
+        t0 = time.perf_counter()
+        try:
+            for _ in loader:
+                pass
+        except BrokenProcessPool:
+            print("RAISED %%.3f" %% (time.perf_counter() - t0))
+        assert loader._pool is None and not mp.active_children()
+"""
+
+
+def test_dataloader_worker_death_raises_instead_of_hanging(tmp_path):
+    """A worker process that dies (``os._exit`` in ``__getitem__``) makes
+    the loader raise ``BrokenProcessPool`` within seconds and shut its
+    pool down; workers stay up across epochs and are shut down by
+    ``close()`` (here the ``with`` block) or an abandoned epoch. The
+    script runs in its own process under a 120 s timeout, so a hang fails
+    the test instead of holding the run."""
+    script = tmp_path / "loader_death.py"
+    script.write_text(_LOADER_SCRIPT % {"repo": _REPO})
+    out = subprocess.run([sys.executable, str(script)], cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.splitlines()
+    assert "LIFECYCLE_OK" in lines
+    raised = [float(x.split()[1]) for x in lines if x.startswith("RAISED")]
+    assert len(raised) == 1 and raised[0] < 30, out.stdout
 
 
 def _example_source():

@@ -27,6 +27,9 @@ import mxnet_tpu_torch.gluon, mxnet_tpu_torch.gluon.nn
 import mxnet_tpu_torch.gluon.loss, mxnet_tpu_torch.gluon.trainer
 import mxnet_tpu_torch.gluon.model_zoo.vision, mxnet_tpu_torch.gluon.data
 import mxnet_tpu_torch.gluon.utils, mxnet_tpu_torch.gluon.parameter
+import mxnet_tpu_torch.ops.rnn, mxnet_tpu_torch.rnn
+import mxnet_tpu_torch.module.bucketing_module
+import mxnet_tpu_torch.gluon.rnn, mxnet_tpu_torch.gluon.contrib.rnn
 bad = sorted(m for m in sys.modules
              if m in ("jax", "mxnet_tpu") or m.startswith("jax.")
              or m.startswith("mxnet_tpu."))

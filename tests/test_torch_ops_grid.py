@@ -290,8 +290,10 @@ def test_op_matches_the_jax_op(op, inputs, grad, compose, attrs):
 def test_every_new_op_has_a_case():
     covered = {p.values[0] for p in CASES}
     new = set(tmx.ops.list_ops()) - _EARLIER - _RANDOM
-    # _scatter_set_nd backs indexed assignment: its own test below
-    assert new - covered == {"_scatter_set_nd"}, sorted(new - covered)
+    # _scatter_set_nd backs indexed assignment: its own test below; the
+    # fused RNN (a later slice) has its grid in tests/test_torch_rnn.py
+    assert new - covered == {"_scatter_set_nd", "RNN"}, \
+        sorted(new - covered)
 
 
 def test_scatter_set_nd_matches():

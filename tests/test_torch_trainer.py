@@ -587,8 +587,23 @@ def test_trainer_init_takes_an_initializer():
 
 
 def test_fused_rnn_initializer_raises():
-    with pytest.raises(MXNetError, match="A7"):
-        tinit.FusedRNN(None, 8, 1, "lstm")
+    """FusedRNN, ported with the RNN slice, fills a packed LSTM blob (the
+    forget-gate biases at forget_bias) and raises, as the JAX package's
+    does, on a blob whose size no cell of its shape has."""
+    from mxnet_tpu_torch.ops.rnn import rnn_param_size
+
+    fused = tinit.FusedRNN(None, 8, 1, "lstm", forget_bias=1.0)
+    glob = tinit.Xavier()
+    desc = tinit.InitDesc("lstm_parameters",
+                          attrs={"__init__": fused.dumps()}, global_init=glob)
+    size = rnn_param_size(1, 8, 4, "lstm")
+    arr = np.zeros(size, np.float32)
+    glob(desc, arr)
+    biases = arr[-2 * 32:].reshape(2, 4, 8)       # i2h, h2h x i, f, c, o
+    np.testing.assert_array_equal(biases[:, 1], 1.0)
+    assert np.abs(arr[:-2 * 32]).max() > 0
+    with pytest.raises(AssertionError, match="Invalid parameters size"):
+        glob(desc, np.zeros(size + 8, np.float32))
 
 
 # ------------------------------------------------------------- surface
