@@ -19,12 +19,18 @@ Phases, each fatal on failure (exit code != 0, no result line):
    2*M*N*K at its fp32 CUDA-core peak.
 3. Serve phase: ResNet-50 NHWC at 224x224, fp32, He-initialised random
    weights from a seed, carried onto the card by ``params_from_jax``, served
-   by ``InferenceServer`` over buckets (1, 2, 4, 8): warmup, 16 single-image
-   requests, one 8-image batch, then back-to-back 8-image batches for
-   throughput. Launch counts are reset just before and read just after;
-   every forward must launch the kernel exactly 32 times. The same requests
-   through a server with MXNET_FUSION_KERNEL=0 (the plain composition on
-   the card) must agree: logits within 1e-3 of max |logit|, top-1 1.0.
+   by ``InferenceServer`` over buckets (1, 2, 4, 8), each bucket one CUDA
+   graph: warmup (one capture per bucket), 16 single-image requests, one
+   8-image batch, then back-to-back 8-image batches for throughput. Launch
+   counts are reset just before and read just after: the wrapper counts
+   where it is called, in each capture's body runs (the warm-up runs of
+   ``cuda_graph.capture`` and the capture), so exactly 32 x (1 +
+   WARMUP_RUNS) x captures; a replay launches the captured 32 without the
+   wrapper, so the kernels that ran on the card are counted by
+   torch.profiler over 4 further (single, batch) pairs: exactly 32 per
+   replay (0 in the plain server below). The same requests through a server with
+   MXNET_FUSION_KERNEL=0 (the plain composition on the card) must agree:
+   logits within 1e-3 of max |logit|, top-1 1.0.
 4. Flash kernel phase: the three flash-attention kernels (forward, dq,
    dk/dv) against their plain PyTorch versions, and the autograd function
    they make against dense autograd of ``flash_attention_reference``, at
@@ -252,8 +258,37 @@ Phases, each fatal on failure (exit code != 0, no result line):
    (cuDNN's deterministic algorithms); a Dropout MLP's ``ShardedTrainer``
    step's peak memory, eager and captured, mirrored and not. No kernel of
    this package lies on the RNN path (the JAX op is a ``lax.scan``).
-14. Print the ``kernels`` JSON line (the flash forward's row also carries
-   phase 11's prefill launches), then the result line
+14. Serving in full: phase 3's ResNet-50 (the same seed-0 weights and
+   centred logits) behind ``InferenceServer`` with two replicas on the
+   card, buckets (1, 2, 4, 8), every (replica, bucket) one CUDA graph in
+   a pool per replica. (a) ``warmup()`` returns 8 and captures 8;
+   after 200 requests of 1-12 rows (FIFO, the first 24 against the eager
+   walk within 1e-4 of max |logit|) the captures stay 8 and no wrapper
+   launch happens (replays only); peak memory above the phase's start.
+   (b) Under cuDNN's deterministic algorithms, a new server: every
+   (replica, bucket) replay equal to the bit to the eager walk
+   (``_GraphProgram.infer_fn()`` called directly on the replica's
+   parameters), and 16 different 8-row batches back to back under
+   ``pipeline_depth`` 2 each equal to the bit to its eager walk. (c) Per
+   bucket: p50/p99 single-request latency, device ms per request and the
+   busy share under ``torch.profiler`` (which must see 32 fused_matmul
+   kernels run per replayed request; the eager walk's wrapper must launch
+   32 per request), each beside the eager walk's; img/s
+   from 16 back-to-back 8-row batches, graphs against the walk. (d)
+   ``serving.replica_execute[1]:raise@calls=1-2``: FIFO, results against
+   the eager walk, quarantines and batch retries >= 1, then after the
+   200 ms cooldown readmitted >= 1 and the breaker ``closed``. (e) 2 -> 1
+   -> 3 replicas while a thread submits 60 requests: results and FIFO;
+   captures 8 after the shrink, 16 after the regrow and ``warmup()`` (slot
+   1 recaptured, slot 2 new) and after more traffic; the shrink frees one
+   replica's parameters (``memory_allocated``). (f) ``get_stats()``
+   validates against the shared schema; every ``serving.*`` series renders
+   in ``dump_metrics()``; one sampled trace has the queue, batch, compute
+   and fetch events.
+15. Print the ``kernels`` JSON line (the flash forward's row also carries
+   phase 11's prefill launches, ``fused_matmul``'s phase 3's captures,
+   replays, and the profiled replays with the kernels the profiler saw run
+   in them), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -275,6 +310,7 @@ KERNEL_REGIONS = 32       # kernel-form regions of one ResNet-50 NHWC forward
 PATH_TOL = 1e-4           # fp32 kernel vs plain, over max(1, max |plain|)
 GRID_TOL = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 2e-3}
 SERVE_TOL = 1e-3          # logits, relative to max |logit|
+SERVE_PROFILED = 4        # served (single, batch) pairs under torch.profiler
 
 FLASH_SHAPE = (8, 8, 2048, 64)   # (B, H, T, D) of the train path
 # flash kernels vs their plain versions, relative to max |plain|: both
@@ -719,7 +755,9 @@ def kernel_phase(mx, sym, peaks, results):
 
 def serve(mx, served_sym, args, aux, images, batch, n_batches,
           device="cuda"):
-    """One server's run: warmup, singles, one batch, then throughput."""
+    """One server's run: warmup, singles, one batch, then throughput. Each
+    bucket is one CUDA graph: ``captures`` graphs, ``replays`` replays
+    (warmup's one per bucket and one per batch)."""
     import torch
 
     srv = mx.serving.InferenceServer(
@@ -727,7 +765,7 @@ def serve(mx, served_sym, args, aux, images, batch, n_batches,
         devices=[torch.device(device)],
         config=mx.serving.ServingConfig(buckets=BUCKETS))
     try:
-        srv.warmup()
+        warmed = srv.warmup()
         singles, lat = [], []
         for img in images:
             t0 = time.perf_counter()
@@ -739,13 +777,22 @@ def serve(mx, served_sym, args, aux, images, batch, n_batches,
         for f in futs:
             f.result(timeout=600)
         wall = time.perf_counter() - t0
+        # the launches that ran on the card, as the profiler saw them:
+        # SERVE_PROFILED requests (a single and a batch each), each one
+        # batch and so one replay
+        before = srv.get_stats()["batches"]
+        _dev, _wall, ran = profiled_ms(
+            lambda: (srv.predict(images[0], timeout=600),
+                     srv.predict(batch, timeout=600)), SERVE_PROFILED)
         stats = srv.get_stats()
     finally:
         srv.stop()
-    forwards = sum(v for k, v in stats.items() if k.startswith("bucket_"))
     return dict(singles=singles, batched=batched, latency_ms=lat,
                 img_per_s=n_batches * batch.shape[0] / wall,
-                forwards=forwards, stats=stats)
+                captures=stats["bucket_programs"],
+                replays=warmed + stats["batches"], stats=stats,
+                profiled_replays=stats["batches"] - before,
+                profiled_launches=ran.get("fused_matmul", 0))
 
 
 def compare(a, b, what):
@@ -764,7 +811,7 @@ def compare(a, b, what):
 
 
 def serve_phase(mx, sym, card, results):
-    from mxnet_tpu_torch import cuda_build
+    from mxnet_tpu_torch import cuda_build, cuda_graph
 
     rng = np.random.default_rng(1)
     np_args, np_aux = resnet50_params(sym, seed=0)
@@ -778,12 +825,32 @@ def serve_phase(mx, sym, card, results):
     cuda_build.reset_launch_counts()
     run = serve(mx, served, args, aux, images, batch, n_batches=16)
     launches = cuda_build.launch_counts().get("fused_matmul", 0)
-    log("serve: %d forwards, %d fused_matmul launches (%d per forward)"
-        % (run["forwards"], launches, launches / max(1, run["forwards"])))
-    if launches != KERNEL_REGIONS * run["forwards"] or not launches:
-        raise AssertionError("expected %d launches per forward, got %d over "
-                             "%d forwards" % (KERNEL_REGIONS, launches,
-                                              run["forwards"]))
+    # the wrapper counts where it is called: in each capture's warm-up
+    # runs and in the capture, not in a replay (the graph launches then)
+    body_runs = run["captures"] * (1 + cuda_graph.WARMUP_RUNS)
+    log("serve: %d captures (one per bucket), %d replays; %d fused_matmul "
+        "launches counted = %d per body run x %d body runs (%d warm-up "
+        "runs + the capture each); the profiler saw %d fused_matmul "
+        "kernels run in %d replays (%d per replay)"
+        % (run["captures"], run["replays"], launches,
+           launches / max(1, body_runs), body_runs, cuda_graph.WARMUP_RUNS,
+           run["profiled_launches"], run["profiled_replays"],
+           run["profiled_launches"] / max(1, run["profiled_replays"])))
+    if run["captures"] != len(BUCKETS) or not launches or \
+            launches != KERNEL_REGIONS * body_runs:
+        raise AssertionError("expected %d captures and %d launches per "
+                             "captured body run, got %d captures, %d "
+                             "launches" % (len(BUCKETS), KERNEL_REGIONS,
+                                           run["captures"], launches))
+    if run["profiled_replays"] != 2 * SERVE_PROFILED or \
+            run["profiled_launches"] != \
+            KERNEL_REGIONS * run["profiled_replays"]:
+        raise AssertionError("expected %d fused_matmul kernels on the card "
+                             "in %d profiled replays, the profiler saw %d "
+                             "in %d" % (KERNEL_REGIONS * 2 * SERVE_PROFILED,
+                                        2 * SERVE_PROFILED,
+                                        run["profiled_launches"],
+                                        run["profiled_replays"]))
 
     mx.config.set_flag("MXNET_FUSION_KERNEL", 0)
     cuda_build.reset_launch_counts()
@@ -791,7 +858,8 @@ def serve_phase(mx, sym, card, results):
         plain = serve(mx, served, args, aux, images, batch, n_batches=4)
     finally:
         mx.config.set_flag("MXNET_FUSION_KERNEL", None)
-    if cuda_build.launch_counts().get("fused_matmul", 0):
+    if cuda_build.launch_counts().get("fused_matmul", 0) or \
+            plain["profiled_launches"]:
         raise AssertionError("MXNET_FUSION_KERNEL=0 still launched the "
                              "kernel")
 
@@ -818,7 +886,9 @@ def serve_phase(mx, sym, card, results):
                              % (err, top1))
     p50 = float(np.percentile(run["latency_ms"], 50))
     results["serve"] = dict(
-        forwards=run["forwards"], launches=launches,
+        captures=run["captures"], replays=run["replays"],
+        launches=launches, profiled_replays=run["profiled_replays"],
+        profiled_launches=run["profiled_launches"],
         latency_ms=run["latency_ms"], p50_ms=p50,
         img_per_s_bucket8=run["img_per_s"],
         plain_p50_ms=float(np.percentile(plain["latency_ms"], 50)),
@@ -5219,6 +5289,531 @@ def rnn_phase(mx, card, results):
     return out
 
 
+# ------------------------------------------------- serving in full phase
+# ResNet-50 v2 NHWC fp32 behind InferenceServer with two replicas on one
+# card, every (replica, bucket) one CUDA graph
+SRV_REPLICAS = 2
+SRV_REQUESTS = 200          # (a): mixed sizes of 1 to SRV_MAX_ROWS rows
+SRV_MAX_ROWS = 12
+SRV_BACK_TO_BACK = 16       # (b), (c): back-to-back 8-row batches
+SRV_LATENCY_N = 40          # (c): single requests per bucket, graphs
+SRV_EAGER_N = 20            # (c): the eager walk's
+SRV_PROFILED = 10           # (c): requests per bucket under torch.profiler
+PROFILE_MARGIN_S = 0.02     # idle host time at each end of a profiled window
+SRV_COOLDOWN_MS = 200       # (d)
+# a request's logits against the eager walk of its rows at its own bucket,
+# over max |logit|: a coalesced request ran in a larger bucket, where cuDNN
+# may take another algorithm (another fp32 summation order)
+SRV_TOL = 1e-4
+SRV_SERIES = ("requests", "batches", "rows_real", "rows_padded",
+              "occupancy_pct", "latency_ms", "queue_depth",
+              "replicas_configured", "replicas_available", "resizes",
+              "replica_quarantined", "replica_readmitted", "bucket_compiles")
+
+
+def srv_server(mx, served, args, aux, **cfg):
+    import torch
+
+    cfg.setdefault("buckets", BUCKETS)
+    cfg.setdefault("max_wait_ms", 0)
+    return mx.serving.InferenceServer(
+        served, args, aux, data_shapes=[("data", (1,) + ROW)],
+        devices=[torch.device("cuda", 0)] * SRV_REPLICAS,
+        config=mx.serving.ServingConfig(**cfg))
+
+
+def eager_outputs(srv, replica, x):
+    """The eager walk of the server's program (``_GraphProgram.infer_fn()``
+    called directly) on replica ``replica``'s parameters and bindings:
+    what the server would answer for ``x`` (its rows a bucket) without
+    the graph. Device tensors."""
+    import torch
+
+    extras, aux = srv._bindings(replica, x.shape[0])
+    feed = dict(srv._replica_args[replica])
+    feed.update(extras)
+    feed["data"] = torch.from_numpy(x).cuda()
+    return srv._prog.infer_fn()(feed, aux)
+
+
+def replay_vs_eager(srv, replica, x):
+    """(one replay's host outputs, the eager walk's) on the same inputs."""
+    from mxnet_tpu_torch.serving.engine import _fetch
+
+    got = _fetch(*srv._run_bucket(replica, x.shape[0], [x]))
+    want = [o.cpu().numpy() for o in eager_outputs(srv, replica, x)]
+    return got, want
+
+
+def rel_gap(got, want):
+    return max(float(np.abs(g - w).max() / max(1.0, np.abs(w).max()))
+               for g, w in zip(got, want))
+
+
+def profiled_ms(fn, n):
+    """(device ms per call, wall ms per call, kernels run on the card by
+    ``kernel_family``) from torch.profiler over ``n`` calls ending in a
+    host fetch; raises where it saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # an idle margin at each end of the window, so that no counted
+        # kernel lies near its edges
+        time.sleep(PROFILE_MARGIN_S)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+        time.sleep(PROFILE_MARGIN_S)
+    _fams, dev, _top, _spans = device_families(
+        prof, n, scope_family=lambda _name: None, marks=())
+    ran = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                not getattr(ev, "is_user_annotation", False):
+            fam = kernel_family(ev.key)
+            ran[fam] = ran.get(fam, 0) + ev.count
+    return dev, wall, ran
+
+
+def srv_fifo_traffic(srv, xs):
+    """Submit every ``xs`` at once; (outputs in order, FIFO held)."""
+    order, futs = [], []
+    for i, x in enumerate(xs):
+        f = srv.submit(x)
+        f.add_done_callback(lambda _f, _i=i: order.append(_i))
+        futs.append(f)
+    outs = [f.result(timeout=600) for f in futs]
+    return outs, order == sorted(order) and len(order) == len(xs)
+
+
+def srv_check_rows(srv, xs, outs, what, tol=SRV_TOL):
+    """Every request's logits against the eager walk of its rows padded to
+    their bucket, on replica 0; returns the worst gap."""
+    worst = 0.0
+    for x, (probs, logits) in zip(xs, outs):
+        if not (np.isfinite(probs).all()
+                and probs.shape == (x.shape[0], 1000)):
+            raise AssertionError("%s: output %s" % (what, probs.shape))
+        # a request of more rows than the largest bucket is chunked
+        for lo in range(0, x.shape[0], BUCKETS[-1]):
+            part = x[lo:lo + BUCKETS[-1]]
+            n = part.shape[0]
+            pad = np.zeros((min(b for b in BUCKETS if b >= n),) + ROW,
+                           np.float32)
+            pad[:n] = part
+            want = eager_outputs(srv, 0, pad)[1][:n].cpu().numpy()
+            worst = max(worst, rel_gap([logits[lo:lo + n]], [want]))
+    if worst > tol:
+        raise AssertionError("%s: logits %.3g of max off the eager walk"
+                             % (what, worst))
+    return worst
+
+
+def srv_program_count(mx, srv, card, out):
+    """(a) captures: 8 after warmup, still 8 after 200 mixed requests,
+    which launch nothing eagerly."""
+    import torch
+
+    from mxnet_tpu_torch import cuda_build, cuda_graph
+
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    warmed = srv.warmup()
+    warm_s = time.perf_counter() - t0
+    captures = srv.get_stats()["bucket_programs"]
+    launches = cuda_build.launch_counts().get("fused_matmul", 0)
+    torch.cuda.synchronize()
+    # the server's own: two replicas' parameters, bindings, static buffers
+    # and graph pools, above what was allocated before it was built
+    peak = torch.cuda.max_memory_allocated() - out["base_bytes"]
+    # the graph pools: their blocks are reserved, not allocated, between
+    # replays
+    reserved = torch.cuda.memory_reserved() - out["base_reserved"]
+    rng = np.random.default_rng(14)
+    xs = [rng.standard_normal((int(n),) + ROW, dtype=np.float32)
+          for n in rng.integers(1, SRV_MAX_ROWS + 1, SRV_REQUESTS)]
+    t0 = time.perf_counter()
+    outs, fifo = srv_fifo_traffic(srv, xs)
+    wall = time.perf_counter() - t0
+    after = srv.get_stats()
+    # read before the eager references below, which call the wrapper
+    traffic_launches = cuda_build.launch_counts().get("fused_matmul", 0)
+    worst = srv_check_rows(srv, xs[:24], outs[:24], "serving (a)")
+    log("serving (a): warmup() %d programs in %.2f s, %d captures, %d "
+        "fused_matmul launches (%d per body run); %d requests (%d rows, "
+        "%d chunked) in %.3f s: %d batches, captures %d, launches %d, FIFO "
+        "%s, first 24 within %.3g of the eager walk; peak %.4f GB "
+        "allocated, %.4f GB reserved after warmup, on %s"
+        % (warmed, warm_s, captures, launches,
+           launches / max(1, captures * (1 + cuda_graph.WARMUP_RUNS)),
+           len(xs), sum(x.shape[0] for x in xs), after.get("chunked", 0),
+           wall, after["batches"], after["bucket_programs"],
+           traffic_launches, fifo, worst, peak / 1e9, reserved / 1e9,
+           card))
+    want = len(BUCKETS) * SRV_REPLICAS
+    if warmed != want or captures != want or \
+            after["bucket_programs"] != want or not fifo or \
+            traffic_launches != launches:
+        raise AssertionError("serving (a): warmup %d, captures %d -> %d "
+                             "(want %d), FIFO %s, launches under traffic"
+                             % (warmed, captures, after["bucket_programs"],
+                                want, fifo))
+    out["a"] = dict(warmup=warmed, warmup_s=warm_s, captures=captures,
+                    captures_after=after["bucket_programs"],
+                    requests=len(xs), batches=after["batches"],
+                    traffic_s=wall, launches=launches, peak_gb=peak / 1e9,
+                    reserved_gb=reserved / 1e9, max_gap=worst)
+
+
+def srv_parity(mx, served, args, aux, card, out):
+    """(b) replay against the eager walk bit for bit, under cuDNN's
+    deterministic algorithms, every bucket and replica; then back-to-back
+    different batches under pipeline_depth 2."""
+    import torch
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    srv = srv_server(mx, served, args, aux, pipeline_depth=2)
+    try:
+        srv.warmup()
+        rng = np.random.default_rng(15)
+        rows = {}
+        for rep in range(SRV_REPLICAS):
+            for b in BUCKETS:
+                x = rng.standard_normal((b,) + ROW, dtype=np.float32)
+                got, want = replay_vs_eager(srv, rep, x)
+                rows["%d/%d" % (rep, b)] = (
+                    all(np.array_equal(g, w) for g, w in zip(got, want)),
+                    rel_gap(got, want))
+        xs = [rng.standard_normal((8,) + ROW, dtype=np.float32)
+              for _ in range(SRV_BACK_TO_BACK)]
+        outs, fifo = srv_fifo_traffic(srv, xs)
+        b2b = []
+        for x, (probs, logits) in zip(xs, outs):
+            want = [o.cpu().numpy() for o in eager_outputs(srv, 0, x)]
+            b2b.append(np.array_equal(probs, want[0])
+                       and np.array_equal(logits, want[1]))
+        distinct = len({float(lg[0, 0]) for _p, lg in outs})
+    finally:
+        srv.stop()
+        torch.backends.cudnn.deterministic = det
+    log("serving (b), cuDNN deterministic: replay vs eager walk per "
+        "replica/bucket (bit-identical, gap): %s; %d back-to-back 8-row "
+        "batches at depth 2: %d of %d bit-identical to the eager walk, %d "
+        "distinct, FIFO %s, on %s"
+        % (json.dumps(rows), len(xs), sum(b2b), len(b2b), distinct, fifo,
+           card))
+    if not (all(ok for ok, _ in rows.values()) and all(b2b) and fifo
+            and distinct == len(xs)):
+        raise AssertionError("serving (b): a replay differs from the eager "
+                             "walk: %s; back-to-back %s"
+                             % (rows, b2b))
+    out["b"] = dict(per_bucket=rows, back_to_back_identical=sum(b2b),
+                    back_to_back=len(b2b))
+
+
+def srv_host_costs(srv, x, n=20):
+    """Host ms (medians) of one dispatch's parts on replica 0, each timed
+    on an idle card (synchronised before and after, so no call waits
+    behind queued work): staging the batch (pinned copy, asynchronous
+    upload), the graph's replay call, and the whole ``_run_bucket``."""
+    import torch
+
+    from mxnet_tpu_torch.runtime.staging import stage_pytree
+
+    prog = srv._programs[(0, x.shape[0])]
+    dev = srv._devices[0]
+    parts = {"stage": [], "replay": [], "run_bucket": []}
+    calls = (("stage", lambda: stage_pytree([x], dev)),
+             ("replay", prog.graph.replay),
+             ("run_bucket", lambda: srv._run_bucket(0, x.shape[0], [x])))
+    with torch.cuda.stream(srv._streams[0]):
+        for _ in range(n):
+            for name, fn in calls:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                parts[name].append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return {k: float(np.median(v)) for k, v in parts.items()}
+
+
+def srv_timing(mx, srv, card, out):
+    """(c) per bucket: single-request p50/p99, device ms per request and
+    busy share, graph against the eager walk, and where a request's host
+    time goes (its trace's phases, the dispatch's parts); img/s at bucket
+    8."""
+    from mxnet_tpu_torch import cuda_build
+    from mxnet_tpu_torch.observability import request_trace
+
+    rng = np.random.default_rng(16)
+    rows = {}
+    for b in BUCKETS:
+        x = rng.standard_normal((b,) + ROW, dtype=np.float32)
+        for _ in range(3):
+            srv.predict(x, timeout=600)
+        request_trace.reset()
+        lat = []
+        for _ in range(SRV_LATENCY_N):
+            t0 = time.perf_counter()
+            srv.predict(x, timeout=600)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        phases = {}
+        for t in request_trace.reservoir().recent():
+            for k, v in t.to_dict()["phases_ms"].items():
+                phases.setdefault(k, []).append(v)
+        phases = {k: float(np.median(v)) for k, v in phases.items()}
+        host = srv_host_costs(srv, x)
+        dev, wall, ran = profiled_ms(lambda: srv.predict(x, timeout=600),
+                                     SRV_PROFILED)
+
+        def eager():
+            return [o.cpu().numpy() for o in eager_outputs(srv, 0, x)]
+
+        for _ in range(3):
+            eager()
+        elat = []
+        for _ in range(SRV_EAGER_N):
+            t0 = time.perf_counter()
+            eager()
+            elat.append((time.perf_counter() - t0) * 1e3)
+        # a walk calls the wrapper, which counts each launch where it
+        # makes it; a replay calls none, so only the profiler sees its
+        # kernels run
+        cuda_build.reset_launch_counts()
+        edev, ewall, eran = profiled_ms(eager, SRV_PROFILED)
+        walked = cuda_build.launch_counts().get("fused_matmul", 0)
+        for what, got in (
+                ("the profiler saw run in %d replays", ran.get(
+                    "fused_matmul", 0)),
+                ("the wrapper launched in %d eager walks", walked)):
+            if got != KERNEL_REGIONS * SRV_PROFILED:
+                raise AssertionError(
+                    "serving (c) bucket %d: %d fused_matmul kernels %s, "
+                    "expected %d each" % (b, got, what % SRV_PROFILED,
+                                          KERNEL_REGIONS))
+        rows[b] = dict(
+            p50_ms=float(np.percentile(lat, 50)),
+            p99_ms=float(np.percentile(lat, 99)),
+            device_ms=dev, busy=dev / wall,
+            eager_p50_ms=float(np.percentile(elat, 50)),
+            eager_p99_ms=float(np.percentile(elat, 99)),
+            eager_device_ms=edev, eager_busy=edev / ewall,
+            trace_phases_ms=phases, host_ms=host)
+        log("serving (c) bucket %d: graph p50 %.3f p99 %.3f ms, device "
+            "%.3f ms/request, busy %.3f; eager walk p50 %.3f p99 %.3f ms, "
+            "device %.3f, busy %.3f; fused_matmul kernels in %d requests: "
+            "%d run in the replays (profiler), %d launched by the walks "
+            "(wrapper; the profiler saw %d); trace phases (median ms) %s; "
+            "host ms of a dispatch %s" % (
+                b, rows[b]["p50_ms"], rows[b]["p99_ms"], dev,
+                rows[b]["busy"], rows[b]["eager_p50_ms"],
+                rows[b]["eager_p99_ms"], edev, rows[b]["eager_busy"],
+                SRV_PROFILED, ran.get("fused_matmul", 0), walked,
+                eran.get("fused_matmul", 0),
+                json.dumps({k: round(v, 4) for k, v in phases.items()}),
+                json.dumps({k: round(v, 4) for k, v in host.items()})))
+    x8 = rng.standard_normal((8,) + ROW, dtype=np.float32)
+    rates, erates = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        srv_fifo_traffic(srv, [x8] * SRV_BACK_TO_BACK)
+        rates.append(SRV_BACK_TO_BACK * 8 / (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        prev = None
+        for _ in range(SRV_BACK_TO_BACK):   # the walk at depth 2
+            outs = eager_outputs(srv, 0, x8)
+            if prev is not None:
+                [o.cpu() for o in prev]
+            prev = outs
+        [o.cpu() for o in prev]
+        erates.append(SRV_BACK_TO_BACK * 8 / (time.perf_counter() - t0))
+    log("serving (c): %d back-to-back 8-row batches: %s img/s (graphs, %d "
+        "replicas) against %s (the eager walk), on %s"
+        % (SRV_BACK_TO_BACK, ", ".join("%.1f" % r for r in rates),
+           SRV_REPLICAS, ", ".join("%.1f" % r for r in erates), card))
+    out["c"] = dict(per_bucket=rows, img_per_s_bucket8=rates,
+                    eager_img_per_s_bucket8=erates)
+
+
+def srv_breaker(mx, srv, card, out):
+    """(d) replica 1 faults on its first two dispatches: FIFO, results,
+    quarantine, retry, then readmission after the cooldown."""
+    from mxnet_tpu_torch.resilience import faults
+
+    rng = np.random.default_rng(17)
+    xs = [rng.standard_normal((1 + i % 3,) + ROW, dtype=np.float32)
+          for i in range(12)]
+    before = srv.get_stats()
+    faults.configure("serving.replica_execute[1]:raise@calls=1-2", seed=0)
+    try:
+        outs, fifo = srv_fifo_traffic(srv, xs)
+        mid = srv.get_stats()
+        state_mid = srv.breaker_states()["state"]
+        for _ in range(2):
+            time.sleep(SRV_COOLDOWN_MS / 1e3 * 1.5)
+            for _ in range(4):
+                srv.predict(xs[0], timeout=600)
+        after = srv.get_stats()
+        fired = faults.fired()
+    finally:
+        faults.configure(None)
+    worst = srv_check_rows(srv, xs, outs, "serving (d)")
+    q = mid.get("quarantines", 0) - before.get("quarantines", 0)
+    r = mid.get("batch_retries", 0) - before.get("batch_retries", 0)
+    a = after.get("readmitted", 0) - before.get("readmitted", 0)
+    state = srv.breaker_states()["state"]
+    log("serving (d): %s; FIFO %s, results within %.3g of the eager walk, "
+        "quarantines %d, batch retries %d, breaker %s; after the %d ms "
+        "cooldown readmitted %d, breaker %s, on %s"
+        % (json.dumps(fired), fifo, worst, q, r, state_mid,
+           SRV_COOLDOWN_MS, a, state, card))
+    if not (fifo and q >= 1 and r >= 1 and a >= 1 and state == "closed"):
+        raise AssertionError("serving (d): FIFO %s, quarantines %d, "
+                             "retries %d, readmitted %d, state %s"
+                             % (fifo, q, r, a, state))
+    out["d"] = dict(quarantines=q, batch_retries=r, readmitted=a,
+                    state_during=state_mid, state_after=state,
+                    max_gap=worst)
+
+
+def srv_resize(mx, srv, card, out):
+    """(e) 2 -> 1 -> 3 replicas while a thread keeps submitting: results,
+    FIFO, the capture count, and the memory the shrink returns."""
+    import threading
+
+    import torch
+
+    rng = np.random.default_rng(18)
+    xs = [rng.standard_normal((1 + i % 8,) + ROW, dtype=np.float32)
+          for i in range(60)]
+    res = {}
+
+    def client():
+        try:
+            res["outs"], res["fifo"] = srv_fifo_traffic(srv, xs)
+        except Exception as err:   # surfaced below
+            res["err"] = err
+
+    param_bytes = sum(t.numel() * t.element_size() for t in
+                      list(srv._replica_args[1].values())
+                      + list(srv._replica_aux[1].values()))
+    before = srv.get_stats()["bucket_programs"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    thread = threading.Thread(target=client)
+    thread.start()
+    torch.cuda.synchronize()
+    mem0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    shrink = srv.resize_replicas(1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem1, res1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    after_shrink = srv.get_stats()["bucket_programs"]
+    time.sleep(0.05)
+    grow = srv.resize_replicas(3)
+    thread.join(600)
+    if thread.is_alive() or "err" in res:
+        raise AssertionError("serving (e): traffic %s"
+                             % res.get("err", "hung"))
+    worst = srv_check_rows(srv, xs, res["outs"], "serving (e)")
+    warmed = srv.warmup()
+    regrown = srv.get_stats()["bucket_programs"]
+    srv_fifo_traffic(srv, xs[:12])
+    flat = srv.get_stats()["bucket_programs"]
+    freed = mem0 - mem1    # under traffic: staged batches come and go
+    log("serving (e): resize %s then %s mid-traffic (%d requests): FIFO "
+        "%s, within %.3g of the eager walk; captures %d before, %d after "
+        "the shrink, %d after the regrow and warmup() (%d programs), %d "
+        "after more traffic; the shrink freed %.4f GB allocated (one "
+        "replica's parameters %.4f GB), %.4f GB reserved after "
+        "empty_cache, on %s"
+        % (json.dumps(shrink), json.dumps(grow), len(xs), res["fifo"],
+           worst, before, after_shrink, regrown, warmed, flat, freed / 1e9,
+           param_bytes / 1e9, (res0 - res1) / 1e9, card))
+    want = before + 2 * len(BUCKETS)   # slot 1 recaptured, slot 2 new
+    if not (res["fifo"] and after_shrink == before and regrown == want
+            and flat == want and warmed == 3 * len(BUCKETS)
+            and freed >= 0.9 * param_bytes
+            and srv.active_replicas() == [0, 1, 2]):
+        raise AssertionError("serving (e): FIFO %s, captures %d/%d/%d/%d "
+                             "(want %d), freed %d of %d bytes"
+                             % (res["fifo"], before, after_shrink, regrown,
+                                flat, want, freed, param_bytes))
+    out["e"] = dict(captures=[before, after_shrink, regrown, flat],
+                    freed_gb=freed / 1e9, reserved_freed_gb=(res0 - res1)
+                    / 1e9, param_gb=param_bytes / 1e9, max_gap=worst)
+
+
+def srv_observability(mx, srv, card, out):
+    """(f) the stats schema, the serving.* series in the exposition, one
+    sampled trace's four events."""
+    from mxnet_tpu_torch.observability import (metrics, request_trace,
+                                               stats_schema)
+
+    request_trace.reset()
+    srv.predict(np.zeros((3,) + ROW, np.float32), timeout=600)
+    (trace,) = request_trace.reservoir().recent(1)
+    events = [e[0] for e in trace.events]
+    stats = stats_schema.validate(srv.get_stats())
+    text = metrics.dump_metrics()
+    registered = sorted({i.name for i in metrics.all_instruments().values()
+                         if i.name.startswith("serving.")})
+    missing = [n for n in SRV_SERIES if "# TYPE mxnet_serving_%s " % n
+               not in text]
+    unrendered = [n for n in registered if "# TYPE %s " % (
+        "mxnet_" + n.replace(".", "_")) not in text]
+    log("serving (f): stats schema %d valid (%d keys), %d serving.* "
+        "series rendered, missing %s; one trace: %s, %s, phases %s ms"
+        % (stats["schema"], len(stats), len(registered), missing or "none",
+           events, json.dumps(trace.meta), json.dumps(
+               trace.to_dict()["phases_ms"])))
+    if missing or unrendered or events != ["submit", "queue", "batch",
+                                           "compute", "fetch"]:
+        raise AssertionError("serving (f): missing %s, unrendered %s, "
+                             "events %s" % (missing, unrendered, events))
+    out["f"] = dict(series=registered, trace=trace.to_dict())
+
+
+def serving_phase(mx, sym, card, results):
+    """Phase 14: serving in full (see the module docstring)."""
+    import torch
+
+    from mxnet_tpu_torch.observability import metrics
+
+    out = {}
+    metrics.set_enabled(True)
+    np_args, np_aux = resnet50_params(sym, seed=0)
+    center_fc_bias(mx, sym, np_args, np_aux, np.random.default_rng(1))
+    args, aux = mx.params_from_jax(np_args, np_aux, device="cuda")
+    served = mx.sym.Group([sym, sym.get_internals()["fc1_output"]])
+    gc.collect()      # what the earlier phases dropped is not ours
+    torch.cuda.empty_cache()
+    out["base_bytes"] = torch.cuda.memory_allocated()
+    out["base_reserved"] = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        srv = srv_server(mx, served, args, aux, cooldown_ms=SRV_COOLDOWN_MS)
+        try:
+            srv_program_count(mx, srv, card, out)
+            srv_parity(mx, served, args, aux, card, out)
+            srv_timing(mx, srv, card, out)
+            srv_breaker(mx, srv, card, out)
+            srv_resize(mx, srv, card, out)
+            srv_observability(mx, srv, card, out)
+        finally:
+            srv.stop()
+    finally:
+        metrics.set_enabled(False)
+    results["serving"] = out
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the detailed results here")
@@ -5276,6 +5871,7 @@ def main():
     gen_launches = generation_phase(mx, card, trained, results)
     gluon_phase(mx, card, results)
     rnn_phase(mx, card, results)
+    serving_phase(mx, sym, card, results)
 
     t8 = totals[8]
     kernels = {"kernels": [{
@@ -5284,6 +5880,9 @@ def main():
         "source": "mxnet_tpu_torch/csrc/fused_matmul.cu",
         "replaces": "mxnet_tpu/parallel/fused.py:168",
         "launches": launches, "max_abs_err": path_err,
+        "serve": {k: results["serve"][k] for k in
+                  ("captures", "replays", "profiled_replays",
+                   "profiled_launches")},
         "ms": t8["ms"], "plain_ms": t8["plain_ms"],
         "bound_ms": t8["bound_ms"], "bound_by": t8["bound_by"],
         "library_ms": t8["library_ms"],

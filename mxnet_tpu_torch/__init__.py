@@ -3,7 +3,9 @@
 ``import mxnet_tpu_torch as mx`` gives the same public names as
 ``mxnet_tpu`` for the ported slices: the symbol frontend (``mx.sym``),
 model builders (``mx.models``), the graph-pass layer (``mx.graph_pass``),
-inference serving (``mx.serving``), the kernels and transformer
+inference serving (``mx.serving``) with its telemetry, fault injection,
+staging and tuning cache (``mx.observability``, ``mx.resilience``,
+``mx.runtime``, ``mx.autotune``), the kernels and transformer
 training step (``mx.parallel``), and symbolic training: ``mx.nd``,
 ``mx.mod.Module``, ``mx.init``, ``mx.optimizer``, ``mx.metric``,
 ``mx.io``, ``mx.kv``, ``mx.callback``; imperative autograd
@@ -45,6 +47,10 @@ from . import callback
 from . import module
 from . import module as mod
 from . import models
+from . import observability
+from . import resilience
+from . import runtime
+from . import autotune
 from . import serving
 from . import parallel
 from . import rtc

@@ -14,11 +14,28 @@ the flags the ported slice reads:
     The fuse pass rejects regions whose scored interior traffic is below
     this many bytes.
 ``MXNET_SERVING_MAX_WAIT_MS`` (5), ``MXNET_SERVING_QUEUE`` (1024),
-``MXNET_SERVING_PIPELINE`` (2), ``MXNET_SERVING_DEADLINE_MS`` (0)
+``MXNET_SERVING_PIPELINE`` (2), ``MXNET_SERVING_DEADLINE_MS`` (0),
+``MXNET_SERVING_COOLDOWN_MS`` (1000)
     Serving micro-batch deadline, admission queue rows, in-flight batch
-    window and per-request queue deadline (serving/engine.py).
+    window, per-request queue deadline and the circuit breaker's cooldown
+    before a quarantined replica is probed (serving/engine.py).
     ``MXNET_SERVING_BUCKETS`` and ``MXNET_SERVING_BACKPRESSURE`` are
     strings read by serving itself.
+``MXNET_TELEMETRY`` (default 0)
+    Master switch of the metrics registry (observability/metrics.py): 0
+    hands out one shared no-op instrument, 1 records counters, gauges and
+    histograms.
+``MXNET_OBS_TRACE_SAMPLE`` (default 1), ``MXNET_OBS_RESERVOIR`` (32)
+    Request-trace sampling (0 off, 1 every request, N one in N) and the
+    capacity of the tail-exemplar reservoir
+    (observability/request_trace.py).
+``MXNET_HEALTH_RING`` (default 256)
+    Capacity of the flight recorder's ring of records
+    (observability/flight_recorder.py).
+``MXNET_TUNE`` (default 0)
+    Tuning-cache mode (autotune/cache.py): 0 consults the cache, -1
+    bypasses every lookup. The search of mode 1 is not ported (ROADMAP
+    A13).
 ``MXNET_CONV_SPACE_TO_DEPTH`` (default 1)
     Read for parity of the flag surface. Its space-to-depth stem rewrite
     is a TPU lane-utilisation device and is not ported: the port's
@@ -64,6 +81,12 @@ _DEFAULTS = {
     "MXNET_SERVING_QUEUE": 1024,
     "MXNET_SERVING_PIPELINE": 2,
     "MXNET_SERVING_DEADLINE_MS": 0,
+    "MXNET_SERVING_COOLDOWN_MS": 1000,
+    "MXNET_TELEMETRY": 0,
+    "MXNET_OBS_TRACE_SAMPLE": 1,
+    "MXNET_OBS_RESERVOIR": 32,
+    "MXNET_HEALTH_RING": 256,
+    "MXNET_TUNE": 0,
     "MXNET_FUSION_KERNEL": 1,
     "MXNET_FUSION_MIN_BYTES": 0,
     "MXNET_FLASH_ATTENTION_BWD": 1,
@@ -99,9 +122,29 @@ def get_flag(name, default=None):
         return default
 
 
+def _apply_telemetry(value):
+    # keep the registry's cached switch in sync with the flag
+    from .observability import metrics as _metrics
+
+    _metrics._enabled = bool(value)
+
+
+def _apply_obs_sample(value):
+    # keep request_trace's cached sampling rate coherent with the flag
+    from .observability import request_trace as _rtrace
+
+    _rtrace._apply_sample_flag(value)
+
+
+_APPLIERS = {"MXNET_TELEMETRY": _apply_telemetry,
+             "MXNET_OBS_TRACE_SAMPLE": _apply_obs_sample}
+
+
 def set_flag(name, value):
     """Programmatic override (None clears it)."""
     if value is None:
         _overrides.pop(name, None)
     else:
         _overrides[name] = int(value)
+    if name in _APPLIERS:
+        _APPLIERS[name](get_flag(name))

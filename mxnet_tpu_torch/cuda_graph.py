@@ -1,6 +1,7 @@
 """Capture of one step as a CUDA graph, shared by the captured training
-steps (``parallel.ShardedTrainer``, ``gluon.Trainer.compile_step``) and the
-generator's decode and verify steps.
+steps (``parallel.ShardedTrainer``, ``gluon.Trainer.compile_step``), the
+generator's decode and verify steps and the serving engine's bucket
+programs (one graph per replica and bucket).
 
 A step is a ``body`` over device buffers that live as long as the graph:
 the caller copies new inputs into them and the graph's writes land in
@@ -23,7 +24,10 @@ def capture(body, device, write_back=None, reset=None, **graph_kw):
     engine settle there) and its results are dropped, so a warm-up must
     not write the live state; ``reset`` runs before each warm-up and once
     after them. In the capture ``write_back(out)`` follows the body: the
-    copies of its results into the live buffers."""
+    copies of its results into the live buffers. ``graph_kw`` goes to
+    ``torch.cuda.graph``: e.g. ``pool`` (a memory pool several graphs
+    share, as one serving replica's bucket graphs do) and
+    ``capture_error_mode``."""
     side = torch.cuda.Stream(device=device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):

@@ -1,6 +1,6 @@
 """Device mesh: the port's counterpart of ``mxnet_tpu/parallel/mesh.py``
-(``make_mesh``, ``data_parallel_sharding``, ``replicated_sharding``,
-``write_and_fence``).
+(``make_mesh``, ``replica_devices``, ``data_parallel_sharding``,
+``replicated_sharding``, ``write_and_fence``).
 
 The JAX package builds a ``jax.sharding.Mesh`` and lets XLA insert the
 collectives. The port runs on one card for now: a mesh is a small record of
@@ -10,13 +10,15 @@ distribution is ported (ROADMAP Queue A10).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..base import MXNetError
 from ..context import Context, as_device, default_device
 
-__all__ = ["Mesh", "make_mesh", "Sharding", "data_parallel_sharding",
-           "replicated_sharding", "write_and_fence"]
+__all__ = ["Mesh", "make_mesh", "replica_devices", "Sharding",
+           "data_parallel_sharding", "replicated_sharding",
+           "write_and_fence"]
 
 
 class Mesh:
@@ -61,6 +63,32 @@ def make_mesh(axes=None, devices=None):
                          "not ported yet (ROADMAP Queue A10); use one "
                          "device" % total)
     return Mesh(devices[:total], sizes)
+
+
+def replica_devices(mesh=None, axis=None):
+    """Flat device list for replica round-robin dispatch (the serving
+    engine's layout). With ``axis`` the list is the devices along that
+    mesh axis (one serving replica per data-parallel slot); without it,
+    every device of the mesh, or with no mesh every visible card."""
+    if mesh is None:
+        if axis is not None:
+            raise ValueError(
+                "axis=%r needs a mesh to select from; pass mesh= or drop "
+                "axis" % (axis,))
+        if not torch.cuda.is_available():
+            return [default_device()]   # raises: no silent CPU fallback
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    if axis is None:
+        return list(mesh.devices)
+    if axis not in mesh.axis_names:
+        raise ValueError("axis %r not in mesh axes %s"
+                         % (axis, list(mesh.axis_names)))
+    grid = np.arange(len(mesh.devices)).reshape(
+        [mesh.shape[n] for n in mesh.axis_names])
+    sel = [0] * grid.ndim
+    sel[list(mesh.axis_names).index(axis)] = slice(None)
+    return [mesh.devices[i] for i in grid[tuple(sel)].flat]
 
 
 def _one_device(mesh):

@@ -1,7 +1,10 @@
 """The serving control plane (counterpart of ``mxnet_tpu/serving/control/``):
 SLO-class weighted admission with aging for the generation engine. The
 radix-tree prefix cache and the replica autoscaler are not ported yet:
-building either raises."""
+building either raises. The autoscaler's actuator,
+``InferenceServer.resize_replicas``, is; its policy needs the time-series
+plane and the SLO monitor (``observability/timeseries.py`` and
+``slo_monitor.py``), which come with it (ROADMAP A9)."""
 from ...base import MXNetError
 from .slo import BUILTIN_CLASSES, ClassQueue, SLOClass, resolve_class
 
@@ -25,12 +28,15 @@ class PrefixCache(_NotPorted):
 
 
 class AutoscalePolicy(_NotPorted):
-    _what = "replica autoscaling (serving/control/autoscale.py)"
+    _what = ("replica autoscaling (serving/control/autoscale.py, with "
+             "observability/timeseries.py and slo_monitor.py)")
 
 
 class Autoscaler(_NotPorted):
-    _what = "replica autoscaling (serving/control/autoscale.py)"
+    _what = ("replica autoscaling (serving/control/autoscale.py, with "
+             "observability/timeseries.py and slo_monitor.py)")
 
 
 class ScaleDecision(_NotPorted):
-    _what = "replica autoscaling (serving/control/autoscale.py)"
+    _what = ("replica autoscaling (serving/control/autoscale.py, with "
+             "observability/timeseries.py and slo_monitor.py)")

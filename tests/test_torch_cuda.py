@@ -1,11 +1,14 @@
 """Card-only tests of the port: the CUDA kernels against their plain
 versions, the wrappers' checks and launch counters, the served small ResNet
-on the card against the same server on the CPU, the flash-attention
-kernels at small ragged shapes (the bf16/fp16 backward also against the
-plain version that rounds p and ds as it does, and across two launches;
-and where their bf16 gradients part from plain attention's), the batched
-fused matmul on a ragged grid
-and through a transposed operand, a Module training step through the
+on the card against the same server on the CPU (each bucket of each
+replica one CUDA graph: outputs kept apart under a pipeline window,
+captures flat under mixed traffic, a replay equal to the eager walk to
+the bit, a scale-down that frees its replica, captures beside a
+Generator), the flash-attention kernels at small ragged shapes (the
+bf16/fp16 backward also against the plain version that rounds p and ds as
+it does, and across two launches; and where their bf16 gradients part
+from plain attention's), the batched fused matmul on a ragged grid and
+through a transposed operand, a Module training step through the
 kernels against the same step on the plain composition, and a small
 ResNet's ShardedTrainer step captured as a CUDA graph against the same
 step run eagerly, and Gluon on the card: a compile_step replay against its
@@ -140,7 +143,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
         F.fused_matmul(x, w, wt=True)
 
 
-def test_served_small_resnet_on_card_matches_cpu(card):
+def _small_resnet():
+    """The served small bottleneck ResNet (NHWC, six kernel-form regions
+    per forward) and random weights."""
     sym = mx.models.resnet.resnet(
         units=[1, 1, 1], num_stages=3, filter_list=[16, 32, 64, 128],
         num_classes=10, image_shape=(3, 32, 32), bottle_neck=True,
@@ -153,7 +158,29 @@ def test_served_small_resnet_on_card_matches_cpu(card):
     aux = {n: (np.ones(s) if n.endswith("_var")
                else rng.randn(*s) * 0.1).astype(np.float32)
            for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
-    x = rng.randn(5, 32, 32, 3).astype(np.float32)
+    return sym, args, aux
+
+
+def _small_server(dev, replicas=1, start=True, **cfg):
+    sym, args, aux = _small_resnet()
+    cfg.setdefault("buckets", (1, 2, 4, 8))
+    cfg.setdefault("max_wait_ms", 0)
+    return mx.serving.InferenceServer(
+        sym, args, aux, data_shapes=[("data", (1, 32, 32, 3))],
+        devices=[torch.device(dev)] * replicas, start=start,
+        config=mx.serving.ServingConfig(**cfg))
+
+
+def _images(n, seed):
+    return np.random.RandomState(seed).randn(n, 32, 32, 3).astype(
+        np.float32)
+
+
+def test_served_small_resnet_on_card_matches_cpu(card):
+    from mxnet_tpu_torch import cuda_graph
+
+    sym, args, aux = _small_resnet()
+    x = np.random.RandomState(0).randn(5, 32, 32, 3).astype(np.float32)
     outs = {}
     for dev in ("cpu", "cuda"):
         srv = mx.serving.InferenceServer(
@@ -164,12 +191,166 @@ def test_served_small_resnet_on_card_matches_cpu(card):
             cuda_build.reset_launch_counts()
             outs[dev] = srv.predict(x, timeout=120)
             launches = cuda_build.launch_counts().get("fused_matmul", 0)
+            programs = srv.get_stats()["bucket_programs"]
         finally:
             srv.stop()
-        # six kernel-form regions per forward on the card, none on the CPU
-        assert launches == (6 if dev == "cuda" else 0)
+        # six kernel-form regions per forward on the card, counted in each
+        # body run of the one capture (bucket 8); none on the CPU
+        assert programs == 1
+        assert launches == (6 * (1 + cuda_graph.WARMUP_RUNS)
+                            if dev == "cuda" else 0)
     np.testing.assert_allclose(outs["cuda"], outs["cpu"], rtol=1e-4,
                                atol=1e-4)
+
+
+def test_serving_graph_outputs_survive_the_window(card):
+    """One bucket, pipeline_depth 2, different inputs back to back: every
+    batch gets its own outputs, though the graph writes the same buffers
+    on every replay."""
+    xs = [_images(4, 10 + i) for i in range(12)]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        srv = _small_server(dev, buckets=(4,), pipeline_depth=2)
+        try:
+            got[dev] = [f.result(timeout=120)
+                        for f in [srv.submit(x) for x in xs]]
+            assert srv.get_stats()["bucket_programs"] == 1
+        finally:
+            srv.stop()
+    for g, w in zip(got["cuda"], got["cpu"]):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+    assert len({float(g[0, 0]) for g in got["cuda"]}) == len(xs)
+
+
+def test_stage_pytree_on_the_card(card):
+    from mxnet_tpu_torch.runtime.staging import stage_pytree
+
+    a = np.arange(12, dtype=np.float32).reshape(3, 4)
+    out = stage_pytree({"x": [a, a * 2]}, card)
+    a[0, 0] = 99.0      # the host array may change once staged
+    torch.cuda.synchronize()
+    assert out["x"][0].device.type == "cuda"
+    assert out["x"][0][0, 0].item() == 0.0
+    assert torch.equal(out["x"][1].cpu(),
+                       torch.arange(12.).reshape(3, 4) * 2)
+
+
+def test_serving_captures_stay_flat_under_mixed_traffic(card):
+    srv = _small_server("cuda", replicas=2)
+    ref = _small_server("cpu")
+    try:
+        assert srv.warmup() == 8
+        assert srv.get_stats()["bucket_programs"] == 8
+        cuda_build.reset_launch_counts()
+        rng = np.random.RandomState(3)
+        xs = [_images(int(n), i) for i, n in
+              enumerate(rng.randint(1, 13, size=40))]
+        outs = [f.result(timeout=120) for f in
+                [srv.submit(x) for x in xs]]
+        st = srv.get_stats()
+        assert st["bucket_programs"] == 8 and st["chunked"] >= 1
+        # replays only: the wrapper is never called under traffic
+        assert cuda_build.launch_counts().get("fused_matmul", 0) == 0
+        for x, out in zip(xs, outs):
+            np.testing.assert_allclose(out, ref.predict(x, timeout=120),
+                                       rtol=1e-4, atol=1e-4)
+    finally:
+        srv.stop()
+        ref.stop()
+
+
+def test_serving_replay_equals_the_eager_walk(card):
+    from chip_smoke import replay_vs_eager
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        srv = _small_server("cuda", replicas=2, start=False)
+        for rep in (0, 1):
+            for b in (1, 2, 4, 8):
+                got, want = replay_vs_eager(srv, rep, _images(b, b))
+                for g, w in zip(got, want):
+                    assert np.array_equal(g, w), (rep, b)
+        assert srv.get_stats()["bucket_programs"] == 8
+        srv.stop()
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def test_serving_scale_down_frees_the_replica(card):
+    import gc
+
+    srv = _small_server("cuda", replicas=2)
+    try:
+        assert srv.warmup() == 8
+        params = sum(t.numel() * t.element_size() for t in
+                     list(srv._replica_args[1].values())
+                     + list(srv._replica_aux[1].values()))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        assert srv.resize_replicas(1)["removed"] == [1]
+        gc.collect()
+        assert before - torch.cuda.memory_allocated() >= params
+        assert not [k for k in srv._programs if k[0] == 1]
+        x = _images(3, 0)
+        want = srv.predict(x, timeout=120)
+        assert srv.resize_replicas(2)["added"] == [1]
+        assert srv.warmup() == 8
+        # the reactivated slot captured its four graphs anew
+        assert srv.get_stats()["bucket_programs"] == 12
+        for _ in range(2):   # round-robin: both replicas answer alike
+            np.testing.assert_allclose(srv.predict(x, timeout=120), want,
+                                       rtol=1e-5, atol=1e-6)
+    finally:
+        srv.stop()
+
+
+def test_serving_captures_beside_a_generator(card):
+    """A server capturing its graphs on one thread while a Generator
+    serves (replaying its decode graph) on another: both stay right."""
+    import threading
+
+    from mxnet_tpu_torch.parallel import TransformerParallel, make_mesh
+
+    G = mx.serving.generation
+    model = TransformerParallel(make_mesh({"dp": 1}), vocab=64, d_model=32,
+                                n_heads=4, n_layers=2, d_ff=64, n_experts=2)
+    params = model.init(0)
+    gen = G.Generator(model, params, G.GenerationConfig(
+        page_size=8, max_batch=4, max_seq=64, prefill_buckets=(16, 32, 64)))
+    gen.warmup()
+    prompt = [4, 8, 15, 16, 23]
+    want = gen.generate(prompt, G.SamplingParams(max_new_tokens=12),
+                        timeout=120)
+    got, errors = [], []
+
+    def client():
+        try:
+            for _ in range(6):
+                got.append(gen.generate(
+                    prompt, G.SamplingParams(max_new_tokens=12),
+                    timeout=120))
+        except Exception as err:
+            errors.append(err)
+
+    srv = _small_server("cuda", replicas=2)
+    thread = threading.Thread(target=client)
+    try:
+        thread.start()
+        assert srv.warmup() == 8
+        thread.join(120)
+        assert not thread.is_alive() and not errors, errors
+        assert got == [want] * 6
+        assert gen.get_stats()["captures"] == 1
+        ref = _small_server("cpu")
+        x = _images(5, 1)
+        np.testing.assert_allclose(srv.predict(x, timeout=120),
+                                   ref.predict(x, timeout=120),
+                                   rtol=1e-4, atol=1e-4)
+        ref.stop()
+    finally:
+        srv.stop()
+        gen.stop()
 
 
 # ------------------------------------------------------- flash attention

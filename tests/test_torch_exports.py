@@ -20,11 +20,10 @@ import mxnet_tpu_torch as tmx
 
 # modules and classes of ``mx`` not ported yet
 MX_UNPORTED = frozenset({
-    "Monitor", "NotImplementedForSymbol", "attribute", "autotune",
-    "contrib", "engine", "executor_manager", "fluent", "image", "img",
-    "kvstore_server", "libinfo", "log", "mon", "monitor", "name",
-    "observability", "profiler", "recordio", "registry", "resilience",
-    "runtime", "storage", "visualization", "viz"
+    "Monitor", "NotImplementedForSymbol", "attribute", "contrib", "engine",
+    "executor_manager", "fluent", "image", "img", "kvstore_server",
+    "libinfo", "log", "mon", "monitor", "name", "profiler", "recordio",
+    "registry", "storage", "visualization", "viz"
 })
 
 # ops of the registry not ported yet (both ``mx.sym`` and ``mx.nd``)

@@ -30,6 +30,15 @@ import mxnet_tpu_torch.gluon.utils, mxnet_tpu_torch.gluon.parameter
 import mxnet_tpu_torch.ops.rnn, mxnet_tpu_torch.rnn
 import mxnet_tpu_torch.module.bucketing_module
 import mxnet_tpu_torch.gluon.rnn, mxnet_tpu_torch.gluon.contrib.rnn
+import mxnet_tpu_torch.observability.metrics
+import mxnet_tpu_torch.observability.request_trace
+import mxnet_tpu_torch.observability.flight_recorder
+import mxnet_tpu_torch.observability.stats_schema
+import mxnet_tpu_torch.observability.perf
+import mxnet_tpu_torch.resilience.faults, mxnet_tpu_torch.runtime.staging
+import mxnet_tpu_torch.autotune.cache, mxnet_tpu_torch.autotune.registry
+import mxnet_tpu_torch.autotune.cost_model, mxnet_tpu_torch.serving.buckets
+import mxnet_tpu_torch.serving.engine, mxnet_tpu_torch.parallel.mesh
 bad = sorted(m for m in sys.modules
              if m in ("jax", "mxnet_tpu") or m.startswith("jax.")
              or m.startswith("mxnet_tpu."))

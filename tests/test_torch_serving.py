@@ -143,7 +143,10 @@ def test_warmup_and_stats(served):
     tsrv = served[5]
     assert tsrv.warmup() == len(BUCKETS)
     stats = tsrv.get_stats()
-    assert stats["device"] == "cpu"
+    # one replica on the CPU: its programs are the eager walk, counted at
+    # their first use
+    assert tsrv._devices == [torch.device("cpu")]
+    assert stats["bucket_programs"] == len(BUCKETS)
     # the stem conv (its BN folded) + three regions per bottleneck unit
     assert len(stats["graph_pass"]["fuse"]["regions"]) == 10
 

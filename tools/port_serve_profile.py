@@ -5,9 +5,10 @@
 
 Serves ResNet-50 NHWC (224x224, fp32, the random He-initialised weights of
 chip_smoke.py, logits centred the same way) through
-``mxnet_tpu_torch.serving.InferenceServer`` with ``max_wait_ms=0`` (no
-micro-batching wait, so a request's wall time is its own), and, for
-buckets 1 and 8, with the fused kernel on and off (MXNET_FUSION_KERNEL):
+``mxnet_tpu_torch.serving.InferenceServer`` (each bucket one CUDA graph,
+replayed per request) with ``max_wait_ms=0`` (no micro-batching wait, so a
+request's wall time is its own), and, for buckets 1 and 8, with the fused
+kernel on and off (MXNET_FUSION_KERNEL):
 
 * the host wall time of a request (median over repeated predicts),
 * under ``torch.profiler``: device kernel time per forward, by kernel name
