@@ -285,7 +285,41 @@ Phases, each fatal on failure (exit code != 0, no result line):
    validates against the shared schema; every ``serving.*`` series renders
    in ``dump_metrics()``; one sampled trace has the queue, batch, compute
    and fetch events.
-15. Print the ``kernels`` JSON line (the flash forward's row also carries
+15. SSD phase: ``bench_all.py:263-309`` ``bench_ssd300`` in full through
+   the port's ``simple_bind`` on ``mx.gpu()``: SSD-300 (VGG16-reduced, 20
+   classes, 8732 anchors), batch 8 at 300x300, fp32 with TF32 off,
+   ``grad_req="write"``, parameters ``randn * 0.01`` and data from
+   ``RandomState(0)``, label rows -1 but ``[0, .3, .3, .7, .7]``. (a) The
+   bind's fuse report (regions carved; how many take the ``fused_matmul``
+   kernel, counted by a forward of the training graph on ``meta`` tensors:
+   none in NCHW), and the wrapper's launches over the phase's forwards
+   equal to that count times the forwards; the first step's outputs finite
+   and of their shapes, its gradients finite. (b) The first step's
+   ``MultiBoxTarget`` and ``MultiBoxDetection`` again on the CPU from the
+   card's own inputs: ``cls_target`` and the mask equal, ``loc_target``
+   within 1e-6 of max(1, max |value|); detection ids and row order equal,
+   scores and boxes within 1e-5. (c) 20 timed steps ended by the bench's
+   fetch of ``outputs[0]``: img/s, ms/step, peak memory; 3 steps under
+   ``torch.profiler`` with the three MultiBox ops and the greedy NMS under
+   ``record_function`` scopes: device ms and kernels per step by family
+   (cuDNN conv, elementwise, softmax, each MultiBox op, the NMS loop) and
+   the busy share; then the same step bound with the fuse pass off
+   (``MXNET_GRAPH_PASSES=default,-fuse``: no region recomputes its
+   convolution in the backward) timed over 5 steps, its outputs within
+   1e-4 of the fused step's. (d) ``tests/test_detection.py:162``'s toy SSD
+   on the card (``tiny_features``, batch 8 at 32x32, 300 steps of SGD 0.01
+   on clipped gradients over one fixed batch): the cls loss of the last 10
+   steps under 0.9 of the first, at least 3 of 8 squares found at IoU >
+   0.4 by the in-graph detector; then ``mode="inference"`` bound with
+   ``grad_req="null"`` on the trained weights runs one detection forward.
+   (e) 19 cases of the slice's other ops (ROIPooling, Proposal and
+   MultiProposal, ROIAlign_v2, PSROIPooling, the deformable pair, the
+   spatial ops, SVMOutput, and the MultiBox ops at the CPU tests' shapes)
+   on the card against the CPU, forward and gradients within 1e-5 of each
+   tensor's max; ids, masks and Proposal's rows (its scores, copied input
+   values, and batch column) equal. No kernel of this package lies on the
+   SSD path.
+16. Print the ``kernels`` JSON line (the flash forward's row also carries
    phase 11's prefill launches, ``fused_matmul``'s phase 3's captures,
    replays, and the profiled replays with the kernels the profiler saw run
    in them), then the result line
@@ -5814,6 +5848,725 @@ def serving_phase(mx, sym, card, results):
     return out
 
 
+# ------------------------------------------------------------ phase 15: SSD
+
+SSD_BATCH, SSD_SIZE = 8, 300     # bench_all.py:263-309 bench_ssd300
+SSD_ANCHORS = 8732
+SSD_TIMED = 20
+SSD_PROFILED = 3                 # (c): steps under torch.profiler
+SSD_UNFUSED_TIMED = 5            # (c): steps with the fuse pass off
+SSD_TARGET_TOL = 1e-6            # (b): loc_target, over max(1, max |CPU|)
+SSD_DET_TOL = 1e-5               # (b): scores and boxes, likewise
+SSD_OP_TOL = 1e-5                # (e): each tensor, over its max |CPU|
+SSD_TOY_STEPS = 300              # (d): tests/test_detection.py:162
+SSD_TOY = dict(num_classes=1, sizes=[[0.3, 0.4], [0.6, 0.8]],
+               ratios=[[1], [1]])
+SSD_OPS = ("_contrib_MultiBoxPrior", "_contrib_MultiBoxTarget",
+           "_contrib_MultiBoxDetection")
+SSD_NMS_SCOPE = "ssd::nms"
+
+
+class no_host_sync:
+    """Within it a CUDA call that makes the host wait for the card (a read
+    back, a copy from pageable host memory) raises: torch's sync debug
+    mode at "error"."""
+
+    def __enter__(self):
+        import torch
+
+        self._mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode(self._mode)
+
+
+class ssd_marks:
+    """Within it the three MultiBox ops run under ``record_function``
+    scopes named after them and the greedy NMS under ``SSD_NMS_SCOPE``;
+    with ``capture`` a dict, each op's first call leaves its attrs, its
+    inputs and its outputs there (clones), and each call runs under
+    ``no_host_sync``."""
+
+    def __init__(self, capture=None):
+        self.capture = capture
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        from mxnet_tpu_torch.ops import detection
+        from mxnet_tpu_torch.ops.registry import get_op
+
+        self._real = {n: get_op(n).fn for n in SSD_OPS}
+        self._nms = detection._greedy_nms
+        capture = self.capture
+
+        def marked(name, real):
+            def fn(attrs, *ins):
+                with record_function("ssd::" + name[len("_contrib_"):]):
+                    if capture is None:
+                        outs = real(attrs, *ins)
+                    else:
+                        with no_host_sync():
+                            outs = real(attrs, *ins)
+                if capture is not None and name not in capture:
+                    seq = outs if isinstance(outs, tuple) else (outs,)
+                    capture[name] = (attrs,
+                                     [t.detach().clone() for t in ins],
+                                     [t.detach().clone() for t in seq])
+                return outs
+            return fn
+
+        for n, real in self._real.items():
+            get_op(n).fn = marked(n, real)
+        real_nms = self._nms
+
+        def nms(*args, **kwargs):
+            with record_function(SSD_NMS_SCOPE):
+                return real_nms(*args, **kwargs)
+
+        detection._greedy_nms = nms
+        return self
+
+    def __exit__(self, *exc):
+        from mxnet_tpu_torch.ops import detection
+        from mxnet_tpu_torch.ops.registry import get_op
+
+        for n, real in self._real.items():
+            get_op(n).fn = real
+        detection._greedy_nms = self._nms
+
+
+def ssd_bench_executor(mx, passes=None):
+    """bench_ssd300's bind on the card: the SSD-300 training symbol
+    (VGG16-reduced, 20 classes), batch 8 at 300x300, grad_req "write",
+    parameters randn * 0.01 and data rand from RandomState(0), label rows
+    -1 but [0, .3, .3, .7, .7]. ``passes`` sets MXNET_GRAPH_PASSES for the
+    bind."""
+    from mxnet_tpu_torch.models.ssd import get_ssd
+
+    net = get_ssd(num_classes=20, mode="train")
+    old = os.environ.get("MXNET_GRAPH_PASSES")
+    if passes is not None:
+        os.environ["MXNET_GRAPH_PASSES"] = passes
+    try:
+        ex = net.simple_bind(mx.gpu(), data=(SSD_BATCH, 3, SSD_SIZE,
+                                             SSD_SIZE),
+                             label=(SSD_BATCH, 3, 5), grad_req="write")
+    finally:
+        if old is None:
+            os.environ.pop("MXNET_GRAPH_PASSES", None)
+        else:
+            os.environ["MXNET_GRAPH_PASSES"] = old
+    rng = np.random.RandomState(0)
+    for k, v in ex.arg_dict.items():
+        if k not in ("data", "label"):
+            v[:] = (rng.randn(*v.shape) * 0.01).astype(np.float32)
+    ex.arg_dict["data"][:] = rng.rand(SSD_BATCH, 3, SSD_SIZE,
+                                      SSD_SIZE).astype(np.float32)
+    lab = -np.ones((SSD_BATCH, 3, 5), np.float32)
+    lab[:, 0] = [0, 0.3, 0.3, 0.7, 0.7]
+    ex.arg_dict["label"][:] = lab
+    return net, ex
+
+
+def ssd_kernel_regions(ex):
+    """(the regions the fuse pass carved, how many take the kernel): the
+    second counted as ``fused_matmul`` calls of one forward of the bound
+    training graph on ``meta`` tensors (shapes only)."""
+    import torch
+    from mxnet_tpu_torch.executor import _GraphProgram
+    from mxnet_tpu_torch.parallel import fused as F
+
+    if ex._opt is None:
+        return [], 0
+    reports = {r["pass"]: r for r in ex._opt.reports}
+    regions = reports.get("fuse", {}).get("detail", {}).get("regions", [])
+    sym = ex._opt.symbol
+    shapes = {k: tuple(v.shape) for k, v in ex.arg_dict.items()}
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args = {n: torch.empty(s, device="meta")
+            for n, s in zip(sym.list_arguments(), arg_shapes)}
+    aux = {n: torch.empty(s, device="meta")
+           for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+    calls = []
+    real = F.fused_matmul
+
+    def record(x, w, extras=(), epilogue=(), wt=True, out_dtype=None):
+        calls.append(tuple(x.shape))
+        return torch.empty((x.shape[0], w.shape[0] if wt else w.shape[1]),
+                           device="meta")
+
+    F.fused_matmul = record
+    try:
+        _GraphProgram(sym).infer_fn()(args, aux)
+    finally:
+        F.fused_matmul = real
+    return regions, len(calls)
+
+
+def ssd_step(ex):
+    ex.forward(is_train=True)
+    ex.backward()
+
+
+def ssd_step_syncs(ex):
+    """The host waits on the card in one training step (forward and
+    backward) that torch's sync debug mode reports: [(file:line of the
+    Python frame that made it)]."""
+    import warnings
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ssd_step(ex)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    return ["%s:%d" % (os.path.relpath(w.filename), w.lineno)
+            for w in caught if "synchroniz" in str(w.message)]
+
+
+def ssd_parity(captured, out):
+    """(b): MultiBoxTarget and MultiBoxDetection of the first step run
+    again on the CPU from the card's own inputs."""
+    import torch
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    res = {}
+    for name in SSD_OPS[1:]:
+        attrs, ins, card_outs = captured[name]
+        with torch.no_grad():
+            cpu = get_op(name).fn(attrs, *[t.cpu() for t in ins])
+        cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+        got = [t.cpu().numpy() for t in card_outs]
+        want = [t.numpy() for t in cpu]
+        if name.endswith("Target"):
+            (loc_t, mask, cls_t), (w_loc, w_mask, w_cls) = got, want
+            err = float(np.abs(loc_t - w_loc).max()
+                        / max(1.0, np.abs(w_loc).max()))
+            r = res["target"] = {
+                "loc_target_err": err,
+                "cls_target_differ": int((cls_t != w_cls).sum()),
+                "cls_target_equal": bool(np.array_equal(cls_t, w_cls)),
+                "mask_equal": bool(np.array_equal(mask, w_mask)),
+                "positive": int((cls_t > 0).sum()),
+                "negative": int((cls_t == 0).sum()),
+                "ignored": int((cls_t < 0).sum())}
+            ok = r["cls_target_equal"] and r["mask_equal"] and \
+                err <= SSD_TARGET_TOL
+            log("ssd (b): MultiBoxTarget, card vs CPU on the card's inputs: "
+                "cls_target equal %s (%d differ), mask equal %s, "
+                "loc_target %.3g of max(1, max); %d positive, %d negative, "
+                "%d ignored anchors"
+                % (r["cls_target_equal"], r["cls_target_differ"],
+                   r["mask_equal"], err,
+                   r["positive"], r["negative"], r["ignored"]))
+        else:
+            (det,), (w_det,) = got, want
+            err = float(np.abs(det[..., 1:] - w_det[..., 1:]).max()
+                        / max(1.0, np.abs(w_det[..., 1:]).max()))
+            r = res["detection"] = {
+                "ids_equal": bool(np.array_equal(det[..., 0],
+                                                 w_det[..., 0])),
+                "err": err, "kept": int((det[..., 0] >= 0).sum())}
+            ok = r["ids_equal"] and err <= SSD_DET_TOL
+            log("ssd (b): MultiBoxDetection, card vs CPU: ids and order "
+                "equal %s, scores and boxes %.3g of max(1, max); %d of %d "
+                "rows kept" % (r["ids_equal"], err, r["kept"],
+                               det.shape[0] * det.shape[1]))
+        if not ok:
+            raise AssertionError("%s on the card differs from the CPU on "
+                                 "the card's inputs: %s" % (name, res))
+    out["parity"] = res
+
+
+def ssd_detection_ms(captured, n=5):
+    """Wall ms of one MultiBoxDetection call on the first step's inputs,
+    synchronized: its sort, decode and the NMS loop's launches."""
+    import torch
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    attrs, ins, _outs = captured[SSD_OPS[2]]
+    fn = get_op(SSD_OPS[2]).fn
+    with torch.no_grad():
+        fn(attrs, *ins)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(attrs, *ins)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def ssd_scope(names):
+    """The family of a kernel of an SSD step from its op chain (innermost
+    first), or None."""
+    for n in names:
+        if n == SSD_NMS_SCOPE:
+            return "NMS loop"
+        if n.startswith("ssd::"):
+            return n[len("ssd::"):]
+        low = n.lower()
+        if "convolution" in low or "cudnn" in low:
+            return "cuDNN conv"
+        if "softmax" in low:
+            return "softmax"
+    return None
+
+
+def ssd_families(prof, n_steps):
+    """({family: device ms per step}, {family: kernels per step}, device ms
+    per step, the ten longest kernels per step)."""
+    import torch
+
+    fams, counts, linked, by_name = {}, {}, {}, {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        chain, up = [], ev
+        while up is not None:
+            chain.append(up.name)
+            up = up.cpu_parent
+        for k in ev.kernels:
+            fam = ssd_scope(chain) or kernel_family(k.name)
+            fams[fam] = fams.get(fam, 0.0) + k.duration
+            counts[fam] = counts.get(fam, 0) + 1
+            linked[k.name] = linked.get(k.name, 0.0) + k.duration
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(ev, "is_user_annotation", False) or \
+                ev.key.startswith("ssd::"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        by_name[ev.key] = by_name.get(ev.key, 0.0) + us
+        rest = us - linked.get(ev.key, 0.0)
+        if rest > 0:
+            fam = kernel_family(ev.key)
+            fams[fam] = fams.get(fam, 0.0) + rest
+    total = sum(by_name.values())
+    if not total:
+        raise AssertionError("torch.profiler recorded no device time")
+    per = 1e3 * n_steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return ({k: v / per for k, v in fams.items()},
+            {k: v / n_steps for k, v in counts.items()}, total / per,
+            [(k, v / per) for k, v in top])
+
+
+def ssd_bench(mx, card, out):
+    """(a)-(c): bench_ssd300's protocol on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import cuda_build
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    net, ex = ssd_bench_executor(mx)
+    regions, kernel_regions = ssd_kernel_regions(ex)
+    n_params = sum(int(np.prod(v.shape)) for k, v in ex.arg_dict.items()
+                   if k not in ("data", "label"))
+    log("ssd (a): bench_ssd300 on %s: SSD-300 VGG16-reduced, 20 classes, "
+        "batch %d at %dx%d, %d parameters; fuse pass: %d regions carved "
+        "(%s), %d of them on the kernel" % (
+            card, SSD_BATCH, SSD_SIZE, SSD_SIZE, n_params, len(regions),
+            ", ".join(sorted({" + ".join(r["ops"]) for r in regions})),
+            kernel_regions))
+    captured = {}
+    with ssd_marks(captured):
+        ssd_step(ex)
+    forwards = 1
+    outs = [o.asnumpy() for o in ex.outputs]
+    names = net.list_outputs()
+    want = [(SSD_BATCH, 21, SSD_ANCHORS), (SSD_BATCH, SSD_ANCHORS * 4),
+            (SSD_BATCH, SSD_ANCHORS), (SSD_BATCH, SSD_ANCHORS, 6)]
+    if [o.shape for o in outs] != want or \
+            not all(np.isfinite(o).all() for o in outs):
+        raise AssertionError("outputs %s: %s, finite %s" % (
+            names, [o.shape for o in outs],
+            [bool(np.isfinite(o).all()) for o in outs]))
+    grads = {k: v._data for k, v in ex.grad_dict.items()
+             if k not in ("data", "label")}
+    zero = [k for k, g in grads.items() if not bool(g.abs().max() > 0)]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    log("ssd (a): first step: outputs %s finite; %d of %d parameter "
+        "gradients non-zero (zero: %s), all finite %s" % (
+            names, len(grads) - len(zero), len(grads), zero or "none",
+            finite))
+    if not finite or len(zero) == len(grads):
+        raise AssertionError("the SSD-300 gradients: zero %s, finite %s"
+                             % (zero, finite))
+    ssd_parity(captured, out)
+    syncs = ssd_step_syncs(ex)
+    forwards += 1
+    out["step_syncs"] = syncs
+    log("ssd (a): the MultiBox ops made no host wait (sync debug mode "
+        "\"error\" around each); the whole step made %d: %s" % (
+            len(syncs), sorted(set(syncs)) or "none"))
+
+    # (c): 20 timed steps ended by the bench's fetch
+    t0 = time.perf_counter()
+    for _ in range(SSD_TIMED):
+        ssd_step(ex)
+    ex.outputs[0].asnumpy()
+    dt = time.perf_counter() - t0
+    forwards += SSD_TIMED
+    with ssd_marks():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            t1 = time.perf_counter()
+            for _ in range(SSD_PROFILED):
+                ssd_step(ex)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3 / SSD_PROFILED
+            time.sleep(PROFILE_MARGIN_S)
+    forwards += SSD_PROFILED
+    fams, counts, dev_ms, top = ssd_families(prof, SSD_PROFILED)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launches = cuda_build.launch_counts().get("fused_matmul", 0)
+    res = out["bench"] = {
+        "img_per_s": SSD_BATCH * SSD_TIMED / dt,
+        "ms_per_step": dt * 1e3 / SSD_TIMED, "peak_gb": peak,
+        "device_ms": dev_ms, "profiled_wall_ms": wall, "busy": dev_ms / wall,
+        "families_ms": fams, "families_kernels": counts, "top": top,
+        "regions": len(regions), "kernel_regions": kernel_regions,
+        "fused_matmul_launches": launches, "forwards": forwards,
+        "kernels_per_step": sum(counts.values())}
+    log("ssd (c): %d timed steps: %.2f img/s, %.3f ms/step; peak memory "
+        "%.3f GB above the earlier phases (%s)" % (
+            SSD_TIMED, res["img_per_s"], res["ms_per_step"], peak, card))
+    log("ssd (c): %d profiled steps: device %.3f ms/step in %.3f ms of "
+        "wall (busy %.3f); by family, device ms (kernels) per step: %s" % (
+            SSD_PROFILED, dev_ms, wall, res["busy"], ", ".join(
+                "%s %.3f (%d)" % (k, v, counts.get(k, 0)) for k, v in
+                sorted(fams.items(), key=lambda kv: -kv[1]))))
+    res["device_over_timed_step"] = dev_ms / res["ms_per_step"]
+    nms_k, nms_ms = counts.get("NMS loop", 0), fams.get("NMS loop", 0.0)
+    res["detection_alone_ms"] = ssd_detection_ms(captured)
+    log("ssd (c): device time over the unprofiled timed step %.3f; the NMS "
+        "loop: %d kernels a step (%.3f of the step's %d), %.3f device ms "
+        "(%.3f of its device time); MultiBoxDetection alone on the first "
+        "step's inputs %.3f ms a call (wall, synchronized)" % (
+            res["device_over_timed_step"], nms_k,
+            nms_k / res["kernels_per_step"], res["kernels_per_step"],
+            nms_ms, nms_ms / dev_ms, res["detection_alone_ms"]))
+    for name, ms in top:
+        log("ssd (c):   %.3f ms  %s" % (ms, name[:100]))
+    log("ssd (a): fused_matmul launches over the phase's %d forwards: %d "
+        "(the report's %d regions on the kernel x %d)" % (
+            forwards, launches, kernel_regions, forwards))
+    if launches != kernel_regions * forwards:
+        raise AssertionError("fused_matmul launched %d times, the fuse "
+                             "report says %d x %d" % (
+                                 launches, kernel_regions, forwards))
+    if not all(np.isfinite(o.asnumpy()).all() for o in ex.outputs):
+        raise AssertionError("non-finite outputs after the timed steps")
+    params = {k: v._data for k, v in ex.arg_dict.items()}
+    first = [o._data.clone() for o in ex.outputs[:2]]
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same step without the fuse pass: no region recomputes its
+    # convolution in the backward
+    _net, plain = ssd_bench_executor(mx, passes="default,-fuse")
+    for k, v in params.items():
+        plain.arg_dict[k]._data.copy_(v)
+    ssd_step(plain)
+    gap = max(float((a._data - b).abs().max() / b.abs().max().clamp_min(1))
+              for a, b in zip(plain.outputs[:2], first))
+    plain.outputs[0].asnumpy()
+    t0 = time.perf_counter()
+    for _ in range(SSD_UNFUSED_TIMED):
+        ssd_step(plain)
+    plain.outputs[0].asnumpy()
+    res["unfused_ms_per_step"] = \
+        (time.perf_counter() - t0) * 1e3 / SSD_UNFUSED_TIMED
+    res["unfused_output_gap"] = gap
+    log("ssd (c): the fuse pass off: %.3f ms/step over %d steps (%.3f "
+        "with it); cls_prob and loc_loss %.3g of max(1, max) apart" % (
+            res["unfused_ms_per_step"], SSD_UNFUSED_TIMED,
+            res["ms_per_step"], gap))
+    if not gap <= 1e-4:
+        raise AssertionError("the step with and without the fuse pass: "
+                             "%.3g apart" % gap)
+
+
+def ssd_toy_batch(rng, bs):
+    """test_ssd_toy_convergence's batch: a bright square per image."""
+    data = rng.rand(bs, 3, 32, 32).astype(np.float32) * 0.2
+    lab = np.zeros((bs, 1, 5), np.float32)
+    for i in range(bs):
+        cx, cy = rng.uniform(0.3, 0.7, 2)
+        x1, y1, x2, y2 = cx - 0.15, cy - 0.15, cx + 0.15, cy + 0.15
+        lab[i, 0] = [0, x1, y1, x2, y2]
+        data[i, :, int(y1 * 32):int(y2 * 32), int(x1 * 32):int(x2 * 32)] = 1.0
+    return data, lab
+
+
+def ssd_found(det, lab):
+    """How many images' best detection covers their square at IoU > 0.4
+    (tests/test_detection.py:221-242)."""
+    found = 0
+    for i in range(det.shape[0]):
+        rows = det[i][det[i][:, 0] >= 0]
+        if len(rows) == 0:
+            continue
+        best = rows[np.argmax(rows[:, 1])]
+        gt = lab[i, 0, 1:]
+        ix1, iy1 = np.maximum(best[2:4], gt[:2])
+        ix2, iy2 = np.minimum(best[4:6], gt[2:])
+        inter = max(ix2 - ix1, 0) * max(iy2 - iy1, 0)
+        union = ((best[4] - best[2]) * (best[5] - best[3])
+                 + (gt[2] - gt[0]) * (gt[3] - gt[1]) - inter)
+        if union > 0 and inter / union > 0.4:
+            found += 1
+    return found
+
+
+def ssd_toy(mx, card, out):
+    """(d): tests/test_detection.py:162's toy SSD on the card, then its
+    trained weights bound in inference mode."""
+    import torch
+    from mxnet_tpu_torch.models.ssd import get_ssd, tiny_features
+
+    bs = 8
+    rng = np.random.RandomState(0)
+    net = get_ssd(mode="train", features=tiny_features, **SSD_TOY)
+    ex = net.simple_bind(mx.gpu(), data=(bs, 3, 32, 32), label=(bs, 1, 5),
+                         grad_req="write")
+    for k, v in ex.arg_dict.items():
+        if k not in ("data", "label"):
+            v[:] = (rng.randn(*v.shape) * 0.05).astype(np.float32)
+    data, lab = ssd_toy_batch(rng, bs)
+    ex.arg_dict["data"][:] = data
+    ex.arg_dict["label"][:] = lab
+    grads = {k: v for k, v in ex.grad_dict.items()
+             if k not in ("data", "label")}
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(SSD_TOY_STEPS):
+        ssd_step(ex)
+        ct = ex.outputs[2]._data
+        cp = ex.outputs[0]._data
+        valid = ct >= 0
+        picked = cp.gather(1, ct.clamp_min(0).long()[:, None, :])[:, 0]
+        losses.append(-(torch.log(picked.clamp_min(1e-8)) * valid).sum()
+                      / valid.sum())
+        with torch.no_grad():
+            for k, g in grads.items():
+                ex.arg_dict[k]._data.sub_(0.01 * g._data.clamp(-1, 1))
+    losses = torch.stack(losses).cpu().numpy().astype(float)
+    dt = time.perf_counter() - t0
+    final = float(np.mean(losses[-10:]))
+    ex.forward(is_train=True)
+    found = ssd_found(ex.outputs[3].asnumpy(), lab)
+    res = out["toy"] = {"first_loss": float(losses[0]), "final_loss": final,
+                        "found": found,
+                        "ms_per_step": dt * 1e3 / SSD_TOY_STEPS}
+    log("ssd (d): toy SSD on %s, %d clipped SGD steps (%.3f ms/step): cls "
+        "loss %.4f -> %.4f (last 10), %d of %d squares at IoU > 0.4" % (
+            card, SSD_TOY_STEPS, res["ms_per_step"], losses[0], final,
+            found, bs))
+    if not (final < losses[0] * 0.9 and found >= 3):
+        raise AssertionError("the toy SSD: loss %.4f -> %.4f, found %d"
+                             % (losses[0], final, found))
+    inet = get_ssd(mode="inference", features=tiny_features, **SSD_TOY)
+    iex = inet.simple_bind(mx.gpu(), data=(bs, 3, 32, 32), grad_req="null")
+    for k, v in iex.arg_dict.items():
+        if k != "data":
+            v._data.copy_(ex.arg_dict[k]._data)
+    iex.arg_dict["data"][:] = data
+    det = iex.forward(is_train=False)[0].asnumpy()
+    res["inference_found"] = ssd_found(det, lab)
+    res["inference_kept"] = int((det[..., 0] >= 0).sum())
+    log("ssd (d): inference bind on the trained weights: detections %s, "
+        "%d rows kept, %d of %d squares at IoU > 0.4" % (
+            det.shape, res["inference_kept"], res["inference_found"], bs))
+    if det.shape != (bs, 640, 6) or not np.isfinite(det).all() or \
+            not res["inference_kept"]:
+        raise AssertionError("the inference detections: %s, kept %d"
+                             % (det.shape, res["inference_kept"]))
+
+
+def ssd_op_cases():
+    """(e): (op, inputs, differentiated inputs, attrs, exact outputs) at
+    the JAX tests' shapes (tests/test_detection.py,
+    tests/test_linalg_spatial.py). ``exact``: {output: its column, or None
+    for all of it} that must equal the CPU's; Proposal's scores are its
+    input values copied into the chosen rows, in their order."""
+    r = np.random.RandomState(0)
+    f32 = np.float32
+    ramp = np.arange(32, dtype=f32).reshape(1, 2, 4, 4)
+    tied = np.zeros((1, 1, 4, 4), f32)
+    tied[0, 0, 1, 0] = tied[0, 0, 1, 1] = 9.0
+    anchors = np.array([[[0.0, 0.0, 0.5, 0.5], [0.5, 0.5, 1.0, 1.0],
+                         [0.0, 0.5, 0.5, 1.0], [0.5, 0.0, 1.0, 0.5],
+                         [0.2, 0.2, 0.4, 0.4], [0.6, 0.6, 0.8, 0.8]]], f32)
+    lab = np.full((1, 2, 5), -1.0, f32)
+    lab[0, 0] = [0, 0.0, 0.0, 0.5, 0.5]
+    c = r.uniform(0.1, 0.9, (60, 2))
+    half = r.uniform(0.05, 0.3, (60, 2))
+    det_anchors = np.concatenate([c - half, c + half], 1)[None].astype(f32)
+    logits = r.randn(2, 4, 60) * 2
+    e = np.exp(logits - logits.max(1, keepdims=True))
+    prop = dict(rpn_pre_nms_top_n=30, rpn_post_nms_top_n=8, rpn_min_size=4,
+                scales=(2.0, 4.0), ratios=(0.5, 1.0, 2.0), feature_stride=16,
+                output_score=True)
+    prop_in = [r.rand(2, 12, 4, 4).astype(f32),
+               (r.randn(2, 24, 4, 4) * 0.1).astype(f32),
+               np.array([[64, 64, 1.0]] * 2, f32)]
+    og = np.ogrid[:4, :4]
+    bil = np.zeros((3, 1, 4, 4), f32)
+    bil[:, 0] = (1 - abs(og[0] / 2.0 - 0.75)) * (1 - abs(og[1] / 2.0 - 0.75))
+    ident = np.tile(np.array([1, 0, 0, 0, 1, 0], f32), (2, 1))
+    return [
+        ("_contrib_MultiBoxPrior", [np.zeros((1, 8, 2, 3), f32)], (),
+         dict(sizes=(0.5, 0.3), ratios=(1.0, 2.0, 0.5)), {0: None}),
+        ("_contrib_MultiBoxTarget",
+         [anchors, lab, r.randn(1, 3, 6).astype(f32)], (0, 1),
+         dict(negative_mining_ratio=1.0, negative_mining_thresh=0.5),
+         {1: None, 2: None}),
+        ("_contrib_MultiBoxDetection",
+         [(e / e.sum(1, keepdims=True)).astype(f32),
+          (r.randn(2, 240) * 0.5).astype(f32), det_anchors], (0, 1, 2),
+         dict(nms_topk=30), {0: 0}),
+        ("ROIPooling", [ramp, np.array([[0, 0, 0, 3, 3], [0, 2, 2, 3, 3]],
+                                       f32)], (0,),
+         dict(pooled_size=(2, 2), spatial_scale=1.0), {}),
+        ("ROIPooling", [tied, np.array([[0, 0, 0, 3, 3]], f32)], (0,),
+         dict(pooled_size=(2, 2), spatial_scale=1.0), {}),
+        ("_contrib_Proposal", prop_in, (), prop, {0: 0, 1: None}),
+        ("_contrib_MultiProposal", prop_in, (), prop, {0: 0, 1: None}),
+        ("_contrib_ROIAlign_v2", [ramp, np.array([[0, 0, 0, 3, 3]], f32)],
+         (0,), dict(pooled_size=(2, 2), spatial_scale=1.0), {}),
+        ("_contrib_PSROIPooling", [r.rand(1, 8, 6, 6).astype(f32),
+                                   np.array([[0, 0, 0, 5, 5]], f32)], (0,),
+         dict(spatial_scale=1.0, output_dim=2, pooled_size=2), {}),
+        ("_contrib_DeformableConvolution",
+         [r.randn(2, 4, 6, 6).astype(f32),
+          (r.randn(2, 18, 4, 4) * 1.3).astype(f32),
+          r.randn(3, 4, 3, 3).astype(f32), r.randn(3).astype(f32)],
+         (0, 1, 2, 3), dict(kernel=(3, 3), num_filter=3), {}),
+        ("_contrib_DeformablePSROIPooling",
+         [r.randn(2, 8, 10, 12).astype(f32),
+          np.array([[0, 1, 1, 8, 9], [1, 2, 0, 11, 7]], f32),
+          (r.rand(2, 2, 3, 3) - 0.5).astype(f32)], (0, 2),
+         dict(spatial_scale=0.5, output_dim=2, group_size=2, pooled_size=3,
+              sample_per_part=2, trans_std=0.3), {}),
+        ("GridGenerator", [ident], (0,),
+         dict(transform_type="affine", target_shape=(5, 7)), {}),
+        ("GridGenerator", [r.randn(2, 2, 5, 7).astype(f32)], (0,),
+         dict(transform_type="warp"), {}),
+        ("BilinearSampler", [r.randn(2, 3, 5, 7).astype(f32),
+                             r.uniform(-1.3, 1.3, (2, 2, 5, 7)).astype(f32)],
+         (0, 1), {}, {}),
+        ("SpatialTransformer", [r.randn(2, 3, 6, 6).astype(f32),
+                                ident + r.randn(2, 6).astype(f32) * 0.3],
+         (0, 1), dict(target_shape=(6, 6), transform_type="affine",
+                      sampler_type="bilinear"), {}),
+        ("UpSampling", [np.ones((1, 1, 4, 4), f32),
+                        np.ones((1, 1, 2, 2), f32) * 2], (0, 1),
+         dict(scale=2, sample_type="nearest", num_args=2), {}),
+        ("UpSampling", [r.randn(1, 3, 4, 4).astype(f32), bil], (0, 1),
+         dict(scale=2, sample_type="bilinear", num_filter=3, num_args=2),
+         {}),
+        ("SVMOutput", [np.array([[2.0, -2.0, 0.5]], f32),
+                       np.array([0.0], f32)], (0,), dict(margin=1.0), {}),
+        ("SVMOutput", [np.array([[0.5, -0.5]], f32), np.array([0.0], f32)],
+         (0,), dict(margin=1.0, use_linear=True,
+                    regularization_coefficient=0.5), {}),
+    ]
+
+
+def ssd_op_run(mx, op, arrays, grad, attrs, ctx):
+    """(outputs, gradients of the ``grad`` inputs) as numpy: one call under
+    ``autograd.record`` on ``ctx``, then a backward with seeded heads over
+    the outputs the op records."""
+    fn = getattr(mx.nd._internal if op.startswith("_") else mx.nd, op)
+    ins = [mx.nd.array(a, ctx=ctx) for a in arrays]
+    for i in grad:
+        ins[i].attach_grad()
+    with mx.autograd.record():
+        if ctx.device_type == "gpu":
+            with no_host_sync():
+                out = fn(*ins, **attrs)
+        else:
+            out = fn(*ins, **attrs)
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    values = [o.asnumpy() for o in outs]
+    rng = np.random.RandomState(7)
+    heads = [mx.nd.array(rng.randn(*v.shape).astype(np.float32), ctx=ctx)
+             for v in values]
+    live = [(o, h) for o, h in zip(outs, heads) if o._data.requires_grad]
+    if grad and live:
+        mx.autograd.backward([o for o, _ in live], [h for _, h in live])
+    return values, [ins[i].grad.asnumpy() for i in grad]
+
+
+def ssd_op_grid(mx):
+    """(e): each case on the card against the same op on the CPU, forward
+    and gradients within SSD_OP_TOL of each tensor's max |CPU value|;
+    ids, masks, ranks and Proposal's rows equal. Returns (cases, (the worst
+    error, where))."""
+    worst = (0.0, None)
+    cases = ssd_op_cases()
+    for op, arrays, grad, attrs, exact in cases:
+        with mx.cpu():
+            want = ssd_op_run(mx, op, arrays, grad, attrs, mx.cpu())
+        got = ssd_op_run(mx, op, arrays, grad, attrs, mx.gpu())
+        tensors = [("output %d" % i, i, g, w) for i, (g, w) in
+                   enumerate(zip(got[0], want[0]))] + \
+            [("d input %d" % i, None, g, w)
+             for i, g, w in zip(grad, got[1], want[1])]
+        for what, i, g, w in tensors:
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError("%s %s: %s %s on the card, %s %s on "
+                                     "the CPU" % (op, what, g.shape, g.dtype,
+                                                  w.shape, w.dtype))
+            if i in exact:
+                col = exact[i]
+                ge, we = (g, w) if col is None else (g[..., col],
+                                                     w[..., col])
+                if not np.array_equal(ge, we):
+                    raise AssertionError("%s %s: not equal to the CPU's"
+                                         % (op, what))
+            scale = max(float(np.abs(w).max(initial=0.0)), 1e-30)
+            err = float(np.abs(g - w).max(initial=0.0)) / scale
+            if err > worst[0]:
+                worst = (err, "%s %s %s" % (op, attrs, what))
+    if worst[0] > SSD_OP_TOL:
+        raise AssertionError("op grid: %s differs from the CPU by %.3g of "
+                             "its max" % (worst[1], worst[0]))
+    return len(cases), worst
+
+
+def ssd_phase(mx, card, results):
+    """Phase 15: SSD-300 through bench_ssd300's protocol, the toy SSD's
+    convergence, and the slice's other ops on the card."""
+    out = {}
+    ssd_bench(mx, card, out)
+    ssd_toy(mx, card, out)
+    n, worst = ssd_op_grid(mx)
+    out["op_grid"] = {"cases": n, "worst": worst[0], "where": worst[1]}
+    log("ssd (e): %d op cases on the card against the CPU, forward and "
+        "gradients: worst %.3g of its max (%s); ids, masks, ranks and "
+        "Proposal's rows equal" % (n, worst[0], worst[1]))
+    results["ssd"] = out
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the detailed results here")
@@ -5872,6 +6625,7 @@ def main():
     gluon_phase(mx, card, results)
     rnn_phase(mx, card, results)
     serving_phase(mx, sym, card, results)
+    ssd_phase(mx, card, results)
 
     t8 = totals[8]
     kernels = {"kernels": [{

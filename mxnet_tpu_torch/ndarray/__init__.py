@@ -2,7 +2,8 @@
 ``mxnet_tpu/ndarray/``). Importing it registers every ported op and
 generates the ``nd.*`` functions from the registry; ``nd.save`` and
 ``nd.load`` read and write the reference ``.params`` format;
-``nd.random`` names the samplers by distribution."""
+``nd.random`` names the samplers by distribution; ``nd.contrib`` holds the
+``_contrib_*`` ops under their short names."""
 from .. import ops as _ops  # noqa: F401  (registers every op)
 
 from .ndarray import (NDArray, array, zeros, ones, full, empty, concatenate,
@@ -11,9 +12,10 @@ from . import op
 from . import utils
 from .utils import save, load
 from . import _internal
+from . import contrib
 from .register import populate_namespaces as _populate
 
-_populate(op, _internal)
+_populate(op, _internal, contrib)
 from . import random  # noqa: E402  (over the generated _internal ops)
 
 globals().update(

@@ -1,0 +1,3 @@
+"""``nd.contrib``: the ``_contrib_X`` registry ops as ``contrib.X``
+(counterpart of ``mxnet_tpu/ndarray/contrib.py``; filled from the registry
+at import by ``register.populate_namespaces``)."""

@@ -80,7 +80,16 @@ def _make_op_func(opdef):
     return op_fn
 
 
-def populate_namespaces(op_module, internal_module):
+def populate_namespaces(op_module, internal_module, contrib_module=None):
+    """One function per registered op: ``_contrib_X`` goes to
+    ``_internal`` under its own name and to ``contrib`` as ``X``, another
+    ``_X`` to ``_internal``, the rest to ``op``."""
     for name, opdef in OP_REGISTRY.items():
+        if name.startswith("_contrib_") and contrib_module is not None:
+            setattr(internal_module, name, _make_op_func(opdef))
+            pub = _make_op_func(opdef)
+            pub.__name__ = pub.__qualname__ = name[len("_contrib_"):]
+            setattr(contrib_module, pub.__name__, pub)
+            continue
         target = internal_module if name.startswith("_") else op_module
         setattr(target, name, _make_op_func(opdef))

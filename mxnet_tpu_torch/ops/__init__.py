@@ -15,4 +15,6 @@ from . import fused
 from . import optimizer_ops
 from . import init_ops
 from . import rnn
+from . import detection
+from . import spatial
 from .. import operator as _operator  # noqa: F401  (registers Custom)

@@ -14,8 +14,8 @@ import torch
 
 from ..base import MXNetError, dtype_name
 
-__all__ = ["Field", "Int", "Float", "Bool", "Str", "Shape", "Enum", "DType",
-           "required", "parse_params", "params_to_str_dict"]
+__all__ = ["Field", "Int", "Float", "Bool", "Str", "Shape", "FloatList",
+           "Enum", "DType", "required", "parse_params", "params_to_str_dict"]
 
 
 class _Required:
@@ -95,6 +95,28 @@ class Shape(Field):
             return "None"
         return "(" + ", ".join(
             "None" if x is None else str(int(x)) for x in v) + ")"
+
+
+class FloatList(Field):
+    """Tuple-of-float field: parses '(0.1, 0.2)', '0.5', '[1,2]' (the
+    detection ops' sizes, ratios and variances)."""
+
+    def parse(self, v):
+        if v is None:
+            return None
+        if isinstance(v, str):
+            s = v.strip()
+            if s in ("None", ""):
+                return None
+            v = ast.literal_eval(s)
+        if isinstance(v, (int, float, np.integer, np.floating)):
+            return (float(v),)
+        return tuple(float(x) for x in v)
+
+    def to_str(self, v):
+        if v is None:
+            return "None"
+        return "(" + ", ".join(repr(float(x)) for x in v) + ")"
 
 
 class Enum(Field):

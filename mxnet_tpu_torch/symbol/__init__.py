@@ -5,9 +5,10 @@ from .. import ops as _ops  # noqa: F401  (registers every op)
 from .symbol import Symbol, var, Variable, Group, load, load_json
 from . import op
 from . import _internal
+from . import contrib
 from .register import populate_namespaces as _populate
 
-_populate(op, _internal)
+_populate(op, _internal, contrib)
 
 globals().update(
     {k: v for k, v in op.__dict__.items() if not k.startswith("__")})

@@ -14,7 +14,9 @@ ResNet's ShardedTrainer step captured as a CUDA graph against the same
 step run eagerly, and Gluon on the card: a compile_step replay against its
 body run eagerly (bit for bit, under cuDNN's deterministic algorithms),
 a captured Dropout's fresh masks, a recapture per batch shape, and the
-slice's op grid against the CPU. Every test skips where there is no card.
+slice's op grid against the CPU, and the detection and spatial ops against
+the CPU (chip_smoke.py's phase 15 (e) cases). Every test skips where there
+is no card.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 that has only PyTorch with CUDA:
@@ -1013,6 +1015,14 @@ def test_gluon_op_grid_on_card_matches_cpu(card):
     assert cases > 100
     assert worst["exact"][0] <= GL_GRID_TOL
     assert worst["summing"][0] <= GL_SUM_TOL
+
+
+def test_detection_and_spatial_ops_on_card_match_cpu(card):
+    from chip_smoke import SSD_OP_TOL, ssd_op_grid
+
+    cases, (worst, _where) = ssd_op_grid(mx)
+    assert cases == 19
+    assert worst <= SSD_OP_TOL
 
 
 _RNN_GRID = [(mode, L, bi) for mode in ("rnn_tanh", "rnn_relu", "lstm",
