@@ -319,7 +319,49 @@ Phases, each fatal on failure (exit code != 0, no result line):
    tensor's max; ids, masks and Proposal's rows (its scores, copied input
    values, and batch column) equal. No kernel of this package lies on the
    SSD path.
-16. Print the ``kernels`` JSON line (the flash forward's row also carries
+16. Model-zoo phase: ``bench_all.py:153-211`` ``bench_gluon_resnet``'s
+   protocol (hybridized, NCHW fp32 with TF32 off, batch 32, 1000 classes,
+   ``SoftmaxCrossEntropyLoss``, SGD 0.05, ``kvstore="local"``,
+   ``Trainer.compile_step`` as one CUDA graph) with the network swapped for
+   each family's headline member: ``alexnet``, ``vgg16``,
+   ``squeezenet1_0``, ``mobilenet1_0``, ``densenet121`` at 224x224 and
+   ``inception_v3`` at 299x299, Xavier init after ``mx.random.seed(0)``
+   (the bench's default uniform init makes AlexNet diverge at SGD 0.05),
+   SGD 0.01 for the two nets without BatchNorm (AlexNet, VGG16), which
+   diverge at 0.05.
+   (a) Per net: the parameter count equal to the JAX package's published
+   one (``tests/test_gluon.py:350-360``); predict-mode logits hybridized
+   against imperative (1e-5 of max |logit|); under cuDNN's deterministic
+   algorithms the first ``compile_step`` step (a replay from the initial
+   state) against the eager tape's first step within 1e-5 of each tensor's
+   max, and a replay against its body run eagerly equal to the bit, both
+   started from the same state of the card's generator, so the Dropout
+   nets draw the same masks (torch's graph-safe Philox reads its seed and
+   offset at each replay); the loss falling over 12 steps (the mean of the
+   last three below the first three's); then with the
+   default algorithms compile_step and eager-tape img/s, the replays'
+   device ms and busy share, peak memory and the eager step's device ms by
+   family (cuDNN conv, BN, pooling, the avg pools' pad copies, cuBLAS FC,
+   concat, the update), mobilenet's depthwise route by kernel name; and
+   ``fused_matmul``'s launches over the six nets: 0 (NCHW). (b) A CTC
+   head: ``gluon.rnn.LSTM`` (2 x 256, TNC) under ``Dense(11)`` and
+   ``CTCLoss`` with label lengths, T 80, batch 32, labels of length 4-8:
+   the first batch's loss and input gradient on the card (the library's
+   CTC) against the CPU's recursion on the card's own logits (1e-5), 10
+   Adam steps on the eager tape with the loss falling (cuDNN's RNN
+   backward cannot be captured), and the infeasible (about 1e30),
+   zero-length and ``blank_label="last"`` cases against the CPU. (c) 49
+   cases of the slice's ops on the card against the CPU, forward and
+   gradients (1e-6 of each tensor's max, 1e-5 where the op sums in
+   another order; ``syevd``'s eigenvector rows up to sign); Correlation
+   at FlowNetC's setting (pad 20, kernel 1, displacement 20, strides 1 and
+   2, (8, 256, 48, 64)) and SPN / SCN at (4, 32, 128, 128) in both scan
+   directions: forward and forward + backward timed, their kernels
+   counted, peak memory, sample 0 against the CPU. (d) ccSGD, DCASGD,
+   Adamax, Nadam and Test: 5 ``trainer.step`` updates on the card against
+   the CPU within 1e-6; SGLD's noise mean and variance on 2**20 weights.
+   No kernel of this package lies on the zoo path.
+17. Print the ``kernels`` JSON line (the flash forward's row also carries
    phase 11's prefill launches, ``fused_matmul``'s phase 3's captures,
    replays, and the profiled replays with the kernels the profiler saw run
    in them), then the result line
@@ -6567,6 +6609,829 @@ def ssd_phase(mx, card, results):
     return out
 
 
+# ------------------------------------------------- phase 16: the model zoo
+# bench_all.py:153-211 bench_gluon_resnet's protocol with the network
+# swapped for each model-zoo family's headline member (1000 classes,
+# NCHW fp32 with TF32 off, batch 32, hybridized, SGD 0.05,
+# kvstore="local", Trainer.compile_step)
+ZOO_NETS = (("alexnet", 224), ("vgg16", 224), ("squeezenet1_0", 224),
+            ("mobilenet1_0", 224), ("densenet121", 224),
+            ("inception_v3", 299))
+# the JAX package's published parameter counts (tests/test_gluon.py:350-360)
+ZOO_PUBLISHED = {"alexnet": 61100840, "vgg16": 138357544,
+                 "squeezenet1_0": 1248424, "mobilenet1_0": 4253864,
+                 "densenet121": 8062504, "inception_v3": 23869000}
+# the two nets without BatchNorm train at a fifth of the protocol's rate:
+# at SGD 0.05 VGG16's loss went 6.9 -> 948 -> 6.7e11 -> NaN in four steps
+# and AlexNet's swung between 6 and 97 (CPU, Xavier init)
+ZOO_LR = {"alexnet": 0.01, "vgg16": 0.01}
+ZOO_TIMED, ZOO_EAGER_TIMED, ZOO_LEARN, ZOO_PROFILED = 20, 3, 12, 2
+ZOO_STEP_TOL = 1e-5      # (a): first compile_step step vs the eager tape
+# (b): the CTC head: gluon.rnn.LSTM 2 x 256 (TNC) -> Dense(11) ->
+# CTCLoss, T 80, batch 32, 40 input features, labels of length 4-8
+CTC_T, CTC_BATCH, CTC_FEATURES, CTC_HIDDEN, CTC_CLASSES = 80, 32, 40, 256, 11
+CTC_STEPS, CTC_TOL = 10, 1e-5
+CTC_WARM = 2             # steps before the timed ones (CTC_STEPS - CTC_WARM)
+# (c): the op cases, the card against the CPU (phase 12's bars)
+ZOO_OP_TOL, ZOO_SUM_TOL = 1e-6, 1e-5
+# FlowNetC's correlation layer and the SPN / SCN size
+FLOWNETC = dict(pad_size=20, kernel_size=1, max_displacement=20, stride1=1,
+                stride2=2)
+FLOWNETC_SHAPE = (8, 256, 48, 64)
+SPN_SHAPE = (4, 32, 128, 128)
+ZOO_OPT_TOL = 1e-6       # (d): 5 trainer.step updates, card vs CPU
+
+
+def zoo_scope(name):
+    """The family a model-zoo step's op scope names, or None."""
+    n = name.lower()
+    if "batchnorm" in n or "batch_norm" in n:
+        return "BN"
+    if name == RN_SCOPES[1]:
+        return "optimizer update"
+    if "convolution" in n:
+        return "cuDNN conv"
+    if "constant_pad" in n or "constantpad" in n:
+        return "pad (avg pools)"
+    if "pool" in n:
+        return "pooling"
+    if "addmm" in n or "linear" in n or n.endswith("::mm"):
+        return "cuBLAS FC"
+    if "cat" == n.split("::")[-1]:
+        return "concat"
+    return None
+
+
+def zoo_net(mx, name, size):
+    """(net, x, y): the family's member on the card, Xavier init (the
+    zoo's own initializers where it names them) after mx.random.seed(0)
+    and np.random.seed(0), with RandomState(0) data. The bench's default
+    init (uniform 0.07) makes AlexNet's logits explode at SGD 0.05 (its
+    loss 2.3e29 after one step, then NaN); Xavier keeps every net's loss
+    finite at the protocol's rate."""
+    mx.random.seed(0)
+    np.random.seed(0)
+    net = mx.gluon.model_zoo.vision.get_model(name, classes=GL_CLASSES)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu())
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.rand(GL_BATCH, 3, size, size).astype(np.float32),
+                    ctx=mx.gpu())
+    y = mx.nd.array(rng.randint(0, GL_CLASSES, GL_BATCH).astype(np.float32),
+                    ctx=mx.gpu())
+    return net, x, y
+
+
+def zoo_replay_vs_body(step, net, trainer, x, y):
+    """:func:`gl_replay_vs_body` with the card's generator put back: the
+    eager body starts from the generator state the replay started from,
+    so a Dropout draws the replay's mask (torch's graph-safe Philox reads
+    the seed and offset at each replay). The step must be captured."""
+    import torch
+
+    trainer._materialize_states(trainer._live_params())
+    s0 = gl_snapshot(net, trainer)
+    rng0 = torch.cuda.get_rng_state()
+    loss_g = step(x, y)._data.clone()
+    graph = gl_snapshot(net, trainer)
+    gl_restore(net, trainer, s0)
+    rng1 = torch.cuda.get_rng_state()
+    torch.cuda.set_rng_state(rng0)
+    loss_e, new_w, new_s, new_aux = step._step_eager(x, y, step._scalars)
+    step._write_back(step._tensors(x.context), new_w, new_s, new_aux)
+    torch.cuda.set_rng_state(rng1)
+    trainer._optimizer._index_update_count = dict(graph[1][0])
+    trainer._optimizer.num_update = graph[1][1]
+    eager = gl_snapshot(net, trainer)
+    torch.cuda.synchronize()
+    return compare_tensors(graph[0], eager[0]) + (torch_equal(loss_g,
+                                                              loss_e),)
+
+
+def zoo_first_step(mx, step, net, trainer, loss_fn, x, y):
+    """The first compile_step step (a replay, after a capture whose
+    effects are undone) against the eager tape's first step, both from the
+    initial state and the same generator state: (loss error, worst
+    tensor error, its name, bit-identical tensors, tensors)."""
+    import torch
+
+    trainer._materialize_states(trainer._live_params())
+    s0 = gl_snapshot(net, trainer)
+    step(x, y)                                   # capture
+    gl_restore(net, trainer, s0)
+    rng0 = torch.cuda.get_rng_state()
+    loss_c = step(x, y)._data.clone()
+    compiled = gl_snapshot(net, trainer)
+    gl_restore(net, trainer, s0)
+    torch.cuda.set_rng_state(rng0)
+    loss_t = gl_eager_step(mx, net, trainer, loss_fn, x, y)._data.detach()
+    tape = gl_snapshot(net, trainer)
+    same, total, worst, name = compare_tensors(tape[0], compiled[0])
+    loss_err = float((loss_t - loss_c).abs().max() / loss_c.abs().max())
+    return loss_err, worst, name, same, total
+
+
+def zoo_profiled_eager(mx, net, trainer, loss_fn, x, y):
+    """ZOO_PROFILED eager-tape steps under torch.profiler, the BatchNorm
+    op and the optimizer update marked as scopes: (families, device ms,
+    top kernels, spans) per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    bn = get_op("BatchNorm")
+    real_bn, real_update = bn.fn, trainer._fused_local_step
+
+    def marked_bn(*args, **kwargs):
+        with record_function(RN_SCOPES[0]):
+            return real_bn(*args, **kwargs)
+
+    def marked_update():
+        with record_function(RN_SCOPES[1]):
+            return real_update()
+
+    bn.fn = marked_bn
+    trainer._fused_local_step = marked_update
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(ZOO_PROFILED):
+                gl_eager_step(mx, net, trainer, loss_fn, x, y)
+            torch.cuda.synchronize()
+    finally:
+        bn.fn = real_bn
+        del trainer._fused_local_step
+    return device_families(prof, ZOO_PROFILED, scope_family=zoo_scope)
+
+
+def zoo_depthwise_route(top):
+    """Which kernels ran mobilenet's depthwise convolutions, by name."""
+    names = [k for k, _ in top]
+    if any("depthwise" in k.lower() for k in names):
+        return "torch's own depthwise kernels (conv_depthwise2d)"
+    return "cuDNN (no torch depthwise kernel among the top kernels)"
+
+
+def zoo_train(mx, name, size, card):
+    """(a) for one net; returns its record."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    net, x, y = zoo_net(mx, name, size)
+    imperative = net(x)._data.float()
+    n_params = sum(int(np.prod(p.shape))
+                   for p in net.collect_params().values())
+    if n_params != ZOO_PUBLISHED[name]:
+        raise AssertionError("%s: %d parameters, published %d"
+                             % (name, n_params, ZOO_PUBLISHED[name]))
+    net.hybridize()
+    hybrid = net(x)._data.float()
+    fwd_err = float((hybrid - imperative).abs().max()
+                    / imperative.abs().max())
+    if not fwd_err <= GL_FWD_TOL:
+        raise AssertionError("%s: hybridized forward differs by %.3g"
+                             % (name, fwd_err))
+    rec = dict(parameters=n_params, size=size, forward_err=fwd_err)
+    lr = ZOO_LR.get(name, GL_LR)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": lr}, kvstore="local")
+    rec["lr"] = lr
+    try:
+        torch.backends.cudnn.deterministic = True
+        step = trainer.compile_step(net, loss_fn)
+        loss_err, worst, wname, same, total = zoo_first_step(
+            mx, step, net, trainer, loss_fn, x, y)
+        if not (loss_err <= ZOO_STEP_TOL and worst <= ZOO_STEP_TOL):
+            raise AssertionError("%s: first compile_step step vs the eager "
+                                 "tape: loss %.3g, %s at %.3g"
+                                 % (name, loss_err, wname, worst))
+        rec["first_step"] = dict(loss_err=loss_err, worst=worst,
+                                 worst_name=wname, identical=same,
+                                 tensors=total)
+        same, total, worst, wname, loss_same = zoo_replay_vs_body(
+            step, net, trainer, x, y)
+        if same != total or not loss_same:
+            raise AssertionError("%s: replay differs from its body: %s at "
+                                 "%.3g (%d of %d equal)"
+                                 % (name, wname, worst, same, total))
+        rec["replay_vs_body"] = dict(identical=same, tensors=total)
+        losses = [float(step(x, y).asnumpy().mean())
+                  for _ in range(ZOO_LEARN)]
+        # the Dropout nets' losses are noisy step to step: the mean of the
+        # last three against the first three's
+        if not np.all(np.isfinite(losses)) or \
+                not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            raise AssertionError("%s: the loss did not fall: %s"
+                                 % (name, losses))
+        rec["losses"] = losses
+        rec["captures_deterministic"] = step.compile_count
+        del step
+    finally:
+        torch.backends.cudnn.deterministic = False
+    step = trainer.compile_step(net, loss_fn)
+    step(x, y).asnumpy()                         # capture + warm
+    t0 = time.perf_counter()
+    for _ in range(ZOO_TIMED):
+        loss = step(x, y)
+    loss.asnumpy()
+    dt = time.perf_counter() - t0
+    replay_dev, replay_wall = gl_profiled_replays(step, x, y)
+    gl_eager_step(mx, net, trainer, loss_fn, x, y).asnumpy()   # warm
+    t0 = time.perf_counter()
+    for _ in range(ZOO_EAGER_TIMED):
+        loss_e = gl_eager_step(mx, net, trainer, loss_fn, x, y)
+    loss_e.asnumpy()
+    eager_dt = time.perf_counter() - t0
+    fams, dev_ms, top, _spans = zoo_profiled_eager(mx, net, trainer,
+                                                   loss_fn, x, y)
+    rec.update(
+        compile_step_img_s=GL_BATCH * ZOO_TIMED / dt,
+        compile_step_ms=dt * 1e3 / ZOO_TIMED,
+        eager_img_s=GL_BATCH * ZOO_EAGER_TIMED / eager_dt,
+        eager_ms=eager_dt * 1e3 / ZOO_EAGER_TIMED,
+        replay_device_ms=replay_dev, replay_profiled_wall_ms=replay_wall,
+        busy=replay_dev / replay_wall if replay_dev else None,
+        eager_device_ms=dev_ms, eager_families_ms=fams,
+        eager_top_kernels_ms=top, captures=step.compile_count,
+        peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+    if step.compile_count != 1:
+        raise AssertionError("%s: compile_step captured %d times"
+                             % (name, step.compile_count))
+    if name.startswith("mobilenet"):
+        rec["depthwise_route"] = zoo_depthwise_route(top)
+    log("zoo (a): %s %dx%d, %d parameters (published): hybridized vs "
+        "imperative %.3g; deterministic cuDNN: first compile_step step vs "
+        "the eager tape loss %.3g, worst %s %.3g (%d of %d bit-identical); "
+        "replay vs its body %d of %d bit-identical; loss %.4f -> %.4f over "
+        "%d steps" % (name, size, size, n_params, fwd_err,
+                      rec["first_step"]["loss_err"],
+                      rec["first_step"]["worst_name"],
+                      rec["first_step"]["worst"],
+                      rec["first_step"]["identical"],
+                      rec["first_step"]["tensors"],
+                      rec["replay_vs_body"]["identical"],
+                      rec["replay_vs_body"]["tensors"], losses[0],
+                      losses[-1], ZOO_LEARN))
+    log("zoo (a): %s default algorithms: compile_step %.1f img/s (%.3f "
+        "ms/step), replay device %s ms (busy %s), eager tape %.1f img/s "
+        "(%.3f ms/step, device %.3f ms: %s), peak %.3f GB, %s%s" % (
+            name, rec["compile_step_img_s"], rec["compile_step_ms"],
+            "%.3f" % replay_dev if replay_dev else "not measured",
+            "%.3f" % rec["busy"] if rec["busy"] else "not measured",
+            rec["eager_img_s"], rec["eager_ms"], dev_ms,
+            ", ".join("%s %.3f" % kv for kv in sorted(
+                fams.items(), key=lambda kv: -kv[1])),
+            rec["peak_gb"], card,
+            "; depthwise: " + rec["depthwise_route"]
+            if "depthwise_route" in rec else ""))
+    del step, trainer, net, x, y
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ctc_batch(mx, rng, ctx):
+    """(features, labels 0-padded, label lengths) of one CTC batch."""
+    lens = rng.randint(4, 9, CTC_BATCH)
+    lab = np.zeros((CTC_BATCH, 8), np.float32)
+    for i, k in enumerate(lens):
+        lab[i, :k] = rng.randint(1, CTC_CLASSES, k)
+    feats = rng.randn(CTC_T, CTC_BATCH, CTC_FEATURES).astype(np.float32)
+    return (mx.nd.array(feats, ctx=ctx), mx.nd.array(lab, ctx=ctx),
+            mx.nd.array(lens.astype(np.float32), ctx=ctx))
+
+
+def ctc_against_cpu(mx, pred, label, extra, attrs):
+    """The op on the card (the library route) against the CPU's recursion
+    on the card's own inputs: (loss error, each sample's over max(1, its
+    |loss|): an infeasible sample's 1e30 must not hide the others'; the
+    gradient's over its max), the card's loss."""
+    outs = []
+    for ctx in (mx.gpu(), mx.cpu()):
+        p = mx.nd.array(pred, ctx=ctx)
+        p.attach_grad()
+        ins = [mx.nd.array(a, ctx=ctx) for a in [label] + extra]
+        with mx.autograd.record():
+            loss = mx.nd.ctc_loss(p, *ins, **attrs)
+        loss.backward(mx.nd.array(np.linspace(0.5, 1.5, loss.shape[0]),
+                                  dtype="float64", ctx=ctx))
+        outs.append((loss.asnumpy(), p.grad.asnumpy()))
+    (lg, gg), (lc, gc_) = outs
+    errs = (float((np.abs(lg - lc) / np.maximum(np.abs(lc), 1.0)).max()),
+            float(np.abs(gg - gc_).max() / max(np.abs(gc_).max(), 1e-30)))
+    return errs, lg
+
+
+def ctc_routes(mx, pred, label, lens):
+    """The op's forward + backward on the card (the library's CTC) and
+    the plain recursion on the same card tensors, timed with CUDA events:
+    {route: ms}."""
+    import torch
+    from mxnet_tpu_torch.ops.contrib import ctc_recursion
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    opdef = get_op("ctc_loss")
+    attrs = opdef.parse_attrs({"use_label_lengths": True})
+    data = pred._data.detach().requires_grad_(True)
+    lab, n = label._data, lens._data
+
+    def library():
+        (loss,), _ = opdef.apply(attrs, (data, lab, n))
+        loss.sum().backward()
+
+    def plain():
+        lab64 = lab.to(torch.int64).clamp(0, CTC_CLASSES - 1)
+        full = lab64.new_full((CTC_BATCH,), CTC_T)
+        ctc_recursion(data, lab64, full, n.to(lab64.dtype), 0).sum() \
+            .backward()
+
+    return {"library_ms": time_events_ms(library, reps=5),
+            "recursion_ms": time_events_ms(plain, reps=3)}
+
+
+def ctc_phase(mx, card):
+    """(b): a CTC head trained on the eager tape, and the op's edges."""
+    import torch
+
+    gluon = mx.gluon
+    mx.random.seed(0)
+    np.random.seed(0)
+    net = gluon.nn.Sequential(prefix="ctc_")
+    with net.name_scope():
+        net.add(gluon.rnn.LSTM(CTC_HIDDEN, num_layers=2, layout="TNC",
+                               input_size=CTC_FEATURES))
+        net.add(gluon.nn.Dense(CTC_CLASSES, flatten=False,
+                               in_units=CTC_HIDDEN))
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu())
+    loss_fn = gluon.loss.CTCLoss(layout="TNC", label_layout="NT")
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 0.01}, kvstore="local")
+    x, label, lens = ctc_batch(mx, np.random.RandomState(0), mx.gpu())
+    out = {}
+    losses, step_ms = [], []
+    for i in range(CTC_STEPS):
+        if i == 0:
+            pred = net(x)
+            errs, _ = ctc_against_cpu(
+                mx, pred.asnumpy(), label.asnumpy(), [lens.asnumpy()],
+                dict(use_label_lengths=True))
+            if max(errs) > CTC_TOL:
+                raise AssertionError("ctc: the card's loss / gradient vs "
+                                     "the CPU recursion: %s" % (errs,))
+            out["first_batch_vs_cpu"] = dict(loss_err=errs[0],
+                                             grad_err=errs[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = loss_fn(net(x), label, None, lens)
+        loss.backward()
+        trainer.step(CTC_BATCH)
+        losses.append(float(loss.asnumpy().mean()))
+        if i >= CTC_WARM:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("ctc: the loss did not fall: %s" % losses)
+    out["losses"] = losses
+    out["step_ms"] = step_ms
+    out["step_ms_median"] = float(np.median(step_ms))
+    out["routes"] = ctc_routes(mx, net(x), label, lens)
+    # the edges, each on the card against the CPU recursion
+    rng = np.random.RandomState(1)
+    data = rng.randn(12, 4, 6).astype(np.float32)
+    # rows 0 and 2 need 13 of the 12 steps (a blank between repeats)
+    infeasible = np.array([[1, 1, 1, 1, 2, 2, 3, 3], [2, 0, 0, 0, 0, 0, 0, 0],
+                           [3, 3, 3, 3, 3, 3, 3, 0], [0] * 8], np.float32)
+    errs, lg = ctc_against_cpu(mx, data, infeasible, [], {})
+    if max(errs) > CTC_TOL or not (lg[0] >= 1e29 and lg[2] >= 1e29
+                                   and lg[1] < 1e3 and lg[3] < 1e3):
+        raise AssertionError("ctc: infeasible / zero-length: losses %s, "
+                             "errors %s" % (lg, errs))
+    out["infeasible_zero_length"] = dict(losses=lg.tolist(),
+                                         loss_err=errs[0], grad_err=errs[1])
+    last = np.full((4, 5), -1, np.float32)
+    last[0, :3], last[1, :5], last[2, :1] = [0, 4, 4], [1, 2, 3, 0, 1], [2]
+    errs, lg = ctc_against_cpu(mx, data[:, :, :6], last,
+                               [np.array([12, 9, 10, 12], np.float32)],
+                               dict(blank_label="last",
+                                    use_data_lengths=True))
+    if max(errs) > CTC_TOL:
+        raise AssertionError("ctc: blank_label='last': %s" % (errs,))
+    out["blank_last"] = dict(loss_err=errs[0], grad_err=errs[1])
+    log("zoo (b): CTC head (LSTM 2 x %d TNC, Dense(%d), CTCLoss with "
+        "label_lengths), T %d batch %d on %s: first batch vs the CPU "
+        "recursion loss %.3g grad %.3g; loss %s over %d eager-tape steps "
+        "(the last %d: median %.3f ms, %.3f-%.3f; the op's forward + "
+        "backward on the library's CTC "
+        "%.3f ms, on the plain recursion %.3f ms); infeasible %.4g / "
+        "zero-length %.4f vs CPU %.3g / %.3g; blank_label='last' %.3g / "
+        "%.3g" % (
+            CTC_HIDDEN, CTC_CLASSES, CTC_T, CTC_BATCH, card,
+            out["first_batch_vs_cpu"]["loss_err"],
+            out["first_batch_vs_cpu"]["grad_err"],
+            " ".join("%.3f" % v for v in losses), CTC_STEPS,
+            len(step_ms), out["step_ms_median"], min(step_ms), max(step_ms),
+            out["routes"]["library_ms"],
+            out["routes"]["recursion_ms"], out["infeasible_zero_length"]["losses"][0],
+            out["infeasible_zero_length"]["losses"][3],
+            out["infeasible_zero_length"]["loss_err"],
+            out["infeasible_zero_length"]["grad_err"],
+            out["blank_last"]["loss_err"], out["blank_last"]["grad_err"]))
+    return out
+
+
+def zoo_op_cases():
+    """(c): (op, inputs, differentiated inputs, attrs, held as a sum) of
+    every op this slice registers, at small shapes."""
+    r = np.random.RandomState(0)
+    f32 = np.float32
+
+    def rn(*s):
+        return r.randn(*s).astype(f32)
+
+    def lengths(n, hi):
+        return r.randint(1, hi + 1, n).astype(f32)
+
+    spd = rn(4, 16, 16)
+    spd = spd @ spd.transpose(0, 2, 1) + 16 * np.eye(16, dtype=f32)
+    low = np.tril(rn(4, 16, 16)) * 0.2 + 2 * np.eye(16, dtype=f32)
+    q, _ = np.linalg.qr(r.randn(4, 16, 16))
+    eig = ((q * np.arange(1, 17)) @ q.transpose(0, 2, 1)).astype(f32)
+    gates = [r.uniform(-0.4, 0.4, (2, 4, 9, 11)).astype(f32)
+             for _ in range(3)]
+    spn_in = [rn(2, 4, 9, 11)] + gates
+    cases = [
+        ("LinearRegressionOutput", [rn(8, 5), rn(8, 5)], (0,), {}, False),
+        ("LogisticRegressionOutput", [rn(8, 5), r.rand(8, 5).astype(f32)],
+         (0,), {}, False),
+        ("MAERegressionOutput", [rn(8, 5), rn(8, 5)], (0,),
+         {"grad_scale": 0.5}, False),
+        ("L2Normalization", [rn(4, 6, 5, 5)], (0,), {"mode": "instance"},
+         True),
+        ("L2Normalization", [rn(4, 6, 5, 5)], (0,), {"mode": "channel"},
+         True),
+        ("L2Normalization", [rn(4, 6, 5, 5)], (0,), {"mode": "spatial"},
+         True),
+        ("LRN", [rn(2, 8, 6, 6)], (0,), {"nsize": 5}, True),
+        ("InstanceNorm", [rn(3, 4, 7, 7), rn(4), rn(4)], (0, 1, 2), {},
+         True),
+        ("SequenceMask", [rn(7, 5, 3), lengths(5, 7)], (0,),
+         {"use_sequence_length": True, "value": -2.0}, False),
+        ("SequenceLast", [rn(7, 5, 3), lengths(5, 7)], (0,),
+         {"use_sequence_length": True}, False),
+        ("SequenceReverse", [rn(7, 5, 3), lengths(5, 7)], (0,),
+         {"use_sequence_length": True}, False),
+        ("Crop", [rn(2, 3, 9, 9)], (0,), {"h_w": (5, 4), "offset": (1, 3)},
+         False),
+        ("Crop", [rn(2, 3, 9, 9), rn(2, 1, 4, 6)], (0,),
+         {"num_args": 2, "center_crop": True}, False),
+        ("IdentityAttachKLSparseReg",
+         [r.rand(6, 10).astype(f32), np.full(10, 0.3, f32)], (0,), {},
+         False),
+        ("_grad_add", [rn(5, 6), rn(5, 6)], (0, 1), {}, False),
+        ("_identity_with_attr_like_rhs", [rn(5, 6), rn(5, 6)], (0,), {},
+         False),
+        ("_scatter_plus_scalar", [rn(5, 6)], (0,), {"scalar": 1.5}, False),
+        ("_scatter_minus_scalar", [rn(5, 6)], (0,), {"scalar": 1.5},
+         False),
+        ("_scatter_elemwise_div", [rn(5, 6), rn(5, 6) + 4.0], (0, 1), {},
+         False),
+        ("Convolution_v1", [rn(2, 3, 8, 8), rn(4, 3, 3, 3), rn(4)],
+         (0, 1, 2), {"kernel": (3, 3), "num_filter": 4}, True),
+        ("Pooling_v1", [rn(2, 3, 8, 8)], (0,),
+         {"kernel": (2, 2), "stride": (2, 2), "pool_type": "max"}, False),
+        ("BatchNorm_v1", [rn(4, 3, 5, 5), rn(3), rn(3),
+                          np.zeros(3, f32), np.ones(3, f32)], (0, 1, 2),
+         {"fix_gamma": False}, True),
+        ("_full", [], (), {"shape": (3, 4), "value": 2.5}, False),
+        ("_arange", [], (), {"start": 1.0, "stop": 9.0, "step": 0.5,
+                             "repeat": 2}, False),
+        ("linalg_gemm", [rn(4, 16, 8), rn(4, 8, 12), rn(4, 16, 12)],
+         (0, 1, 2), {"alpha": 0.5, "beta": 2.0}, True),
+        ("linalg_gemm2", [rn(4, 8, 16), rn(4, 12, 8)], (0, 1),
+         {"transpose_a": True, "transpose_b": True}, True),
+        ("linalg_potrf", [spd], (0,), {}, True),
+        ("linalg_potri", [low], (0,), {}, True),
+        ("linalg_trmm", [low, rn(4, 16, 6)], (0, 1), {"alpha": 0.5}, True),
+        ("linalg_trmm", [low, rn(4, 6, 16)], (0, 1),
+         {"rightside": True, "transpose": True}, True),
+        ("linalg_trsm", [low, rn(4, 16, 6)], (0, 1), {"alpha": 2.0}, True),
+        ("linalg_trsm", [low, rn(4, 6, 16)], (0, 1),
+         {"rightside": True, "transpose": True}, True),
+        ("linalg_sumlogdiag", [spd], (0,), {}, True),
+        ("linalg_syrk", [rn(4, 8, 16)], (0,), {"alpha": 0.5}, True),
+        ("linalg_gelqf", [rn(4, 8, 16)], (0,), {}, True),
+        ("linalg_syevd", [eig], (0,), {}, True),
+        ("_contrib_fft", [rn(6, 32)], (0,), {}, True),
+        ("_contrib_ifft", [rn(6, 64)], (0,), {}, True),
+        ("_contrib_count_sketch",
+         [rn(8, 40), r.randint(0, 16, (1, 40)).astype(f32),
+          r.choice([-1.0, 1.0], (1, 40)).astype(f32)], (0,),
+         {"out_dim": 16}, True),
+        ("LSoftmax", [rn(8, 6), rn(5, 6), r.randint(0, 5, 8).astype(f32)],
+         (0, 1), {"num_hidden": 5, "margin": 3, "beta": 0.5}, True),
+        ("MultiLogistic", [rn(8, 5), r.randint(0, 2, (8, 5)).astype(f32)],
+         (0,), {"weight": 2.0}, False),
+        ("WeightedL1", [rn(8, 5), np.maximum(rn(8, 5), 0)], (0,), {},
+         False),
+        ("nAvg", [rn(2, 6, 5, 5) + 0.8], (0,), {}, True),
+        ("SPN", spn_in, (0, 1, 2, 3), {}, True),
+        ("SPN", spn_in, (0, 1, 2, 3), {"horizontal": True,
+                                       "reverse": True}, True),
+        ("SCN", spn_in + [r.rand(2, 4, 9, 11).astype(f32)],
+         (0, 1, 2, 3, 4), {"reverse": True}, True),
+        ("Correlation1D", [rn(2, 4, 6, 12), rn(2, 4, 6, 12)], (0, 1),
+         {"max_displacement": 3, "pad_size": 3, "kernel_size": 3}, True),
+        ("Correlation", [rn(2, 4, 9, 9), rn(2, 4, 9, 9)], (0, 1),
+         {"max_displacement": 2, "pad_size": 2, "stride2": 2}, True),
+        ("Correlation", [rn(2, 4, 9, 9), rn(2, 4, 9, 9)], (0, 1),
+         {"max_displacement": 1, "pad_size": 1, "is_multiply": False},
+         True),
+    ]
+    return cases
+
+
+def zoo_op_fn(mx, op):
+    if op.startswith("_contrib_"):
+        return getattr(mx.nd.contrib, op[len("_contrib_"):])
+    return getattr(mx.nd._internal if op.startswith("_") else mx.nd, op)
+
+
+def zoo_op_run(mx, op, arrays, grad, attrs, ctx):
+    """(outputs, gradients of the ``grad`` inputs) as numpy: one call
+    under ``autograd.record`` on ``ctx`` (a creation op in its scope),
+    then a backward with seeded heads (none on syevd's eigenvectors,
+    whose signs are each library's)."""
+    ins = [mx.nd.array(a, ctx=ctx) for a in arrays]
+    for i in grad:
+        ins[i].attach_grad()
+    with ctx:
+        with mx.autograd.record():
+            out = zoo_op_fn(mx, op)(*ins, **attrs)
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    values = [o.asnumpy() for o in outs]
+    if not grad:
+        return values, []
+    rng = np.random.RandomState(7)
+    heads = [mx.nd.array(rng.randn(*v.shape).astype(v.dtype), ctx=ctx)
+             for v in values]
+    if op == "linalg_syevd":
+        heads[0] = mx.nd.zeros(values[0].shape, ctx=ctx)
+    mx.autograd.backward(outs, heads)
+    return values, [ins[i].grad.asnumpy() for i in grad]
+
+
+def zoo_op_grid(mx):
+    """(c): each case on the card against the CPU: (cases, {"exact" /
+    "summing": (worst error over its tensor's max, where)})."""
+    worst = {"exact": (0.0, None), "summing": (0.0, None)}
+    bars = {"exact": ZOO_OP_TOL, "summing": ZOO_SUM_TOL}
+    cases = zoo_op_cases()
+    for op, arrays, grad, attrs, summing in cases:
+        want = zoo_op_run(mx, op, arrays, grad, attrs, mx.cpu())
+        got = zoo_op_run(mx, op, arrays, grad, attrs, mx.gpu())
+        if op == "linalg_syevd":
+            # each eigenvector row up to its sign
+            sign = np.sign(np.sum(got[0][0] * want[0][0], -1,
+                                  keepdims=True))
+            got[0][0] = got[0][0] * sign
+        kind = "summing" if summing else "exact"
+        pairs = list(zip(got[0], want[0])) + list(zip(got[1], want[1]))
+        for j, (g, w) in enumerate(pairs):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError("%s %s tensor %d: %s %s on the card, "
+                                     "%s %s on the CPU" % (
+                                         op, attrs, j, g.shape, g.dtype,
+                                         w.shape, w.dtype))
+            scale = max(float(np.abs(w).max(initial=0.0)), 1e-30)
+            err = float(np.abs(g.astype(np.float64) - w).max(initial=0.0)) \
+                / scale
+            if err > worst[kind][0]:
+                worst[kind] = (err, "%s %s tensor %d" % (op, attrs, j))
+    for kind, bar in bars.items():
+        if worst[kind][0] > bar:
+            raise AssertionError("zoo op grid: %s differs from the CPU by "
+                                 "%.3g of its max (bar %g)"
+                                 % (worst[kind][1], worst[kind][0], bar))
+    return len(cases), worst
+
+
+def zoo_big_op(mx, op, arrays, attrs, card, cpu_rows=None):
+    """An op at a real size on the card: forward and backward timed with
+    CUDA events, their kernels counted, the peak memory above the inputs;
+    forward and gradients against the CPU (on the first ``cpu_rows``
+    samples when given: each sample's result is its own)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ins = [mx.nd.array(a, ctx=mx.gpu()) for a in arrays]
+    for a in ins:
+        a.attach_grad()
+    head = None
+
+    def fwd():
+        return zoo_op_fn(mx, op)(*ins, **attrs)
+
+    def fwd_bwd():
+        with mx.autograd.record():
+            out = fwd()
+        out.backward(head)
+        return out
+
+    out = fwd()
+    rng = np.random.RandomState(3)
+    head = mx.nd.array(rng.randn(*out.shape).astype(np.float32),
+                       ctx=mx.gpu())
+    fwd_bwd()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms = time_events_ms(lambda: fwd(), reps=3)
+    fb_ms = time_events_ms(fwd_bwd, reps=3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    fwd_kernels = sum(profiled_ms(fwd, 1)[2].values())
+    fb_kernels = sum(profiled_ms(fwd_bwd, 1)[2].values())
+    got_out = fwd_bwd().asnumpy()
+    got_g = [a.grad.asnumpy() for a in ins]
+    n = cpu_rows or arrays[0].shape[0]
+    with mx.cpu():
+        c_ins = [mx.nd.array(a[:n], ctx=mx.cpu()) for a in arrays]
+        for a in c_ins:
+            a.attach_grad()
+        with mx.autograd.record():
+            c_out = zoo_op_fn(mx, op)(*c_ins, **attrs)
+        c_out.backward(mx.nd.array(head.asnumpy()[:n], ctx=mx.cpu()))
+    pairs = [(got_out[:n], c_out.asnumpy())] + \
+        [(g[:n], a.grad.asnumpy()) for g, a in zip(got_g, c_ins)]
+    err = max(float(np.abs(g - w).max() / np.abs(w).max())
+              for g, w in pairs)
+    if not err <= ZOO_SUM_TOL:
+        raise AssertionError("%s %s at %s: %.3g of the CPU's max"
+                             % (op, attrs, arrays[0].shape, err))
+    return dict(shape=list(arrays[0].shape), fwd_ms=fwd_ms,
+                fwd_bwd_ms=fb_ms, peak_gb=peak, fwd_kernels=fwd_kernels,
+                fwd_bwd_kernels=fb_kernels, err=err, cpu_rows=n)
+
+
+def zoo_big_ops(mx, card):
+    """(c): Correlation at FlowNetC's setting and SPN / SCN at
+    SPN_SHAPE, both scan directions."""
+    r = np.random.RandomState(5)
+    out = {}
+    a = r.randn(*FLOWNETC_SHAPE).astype(np.float32)
+    b = r.randn(*FLOWNETC_SHAPE).astype(np.float32)
+    out["correlation_flownetc"] = rec = zoo_big_op(
+        mx, "Correlation", [a, b], FLOWNETC, card, cpu_rows=1)
+    log("zoo (c): Correlation at FlowNetC's setting %s on %s: 441 "
+        "displacements, forward %.3f ms (%d kernels), forward + backward "
+        "%.3f ms (%d kernels), peak %.3f GB above the inputs; sample 0 vs "
+        "the CPU %.3g" % (FLOWNETC_SHAPE, card, rec["fwd_ms"],
+                          rec["fwd_kernels"], rec["fwd_bwd_ms"],
+                          rec["fwd_bwd_kernels"], rec["peak_gb"],
+                          rec["err"]))
+    x = r.randn(*SPN_SHAPE).astype(np.float32)
+    g = [r.uniform(-0.3, 0.3, SPN_SHAPE).astype(np.float32)
+         for _ in range(3)]
+    c = r.rand(*SPN_SHAPE).astype(np.float32)
+    for op, arrays in (("SPN", [x] + g), ("SCN", [x] + g + [c])):
+        for reverse in (False, True):
+            key = "%s_%s" % (op.lower(), "reverse" if reverse else "forward")
+            out[key] = rec = zoo_big_op(mx, op, arrays,
+                                        {"reverse": reverse}, card,
+                                        cpu_rows=1)
+            log("zoo (c): %s reverse=%s at %s: forward %.3f ms (%d kernels: "
+                "%d scan steps), forward + backward %.3f ms (%d kernels), "
+                "peak %.3f GB; sample 0 vs the CPU %.3g" % (
+                    op, reverse, SPN_SHAPE, rec["fwd_ms"],
+                    rec["fwd_kernels"], SPN_SHAPE[2], rec["fwd_bwd_ms"],
+                    rec["fwd_bwd_kernels"], rec["peak_gb"], rec["err"]))
+    return out
+
+
+ZOO_OPTIMIZERS = (
+    ("ccsgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-3}),
+    ("dcasgd", {"learning_rate": 0.1, "momentum": 0.9, "lamda": 0.5}),
+    ("adamax", {"learning_rate": 0.01, "wd": 1e-3}),
+    ("nadam", {"learning_rate": 0.01, "clip_gradient": 0.05}),
+    ("test", {"rescale_grad": 0.1}))
+
+
+def zoo_opt_steps(mx, opt, kw, ctx, n=5):
+    """n trainer.step updates of a 2-layer Dense net from seeded weights:
+    {name: value} of every weight and optimizer state."""
+    nn = mx.gluon.nn
+    net = nn.HybridSequential(prefix="opt_")
+    with net.name_scope():
+        net.add(nn.Dense(16, activation="tanh", in_units=8),
+                nn.Dense(4, in_units=16))
+    net.initialize(ctx=ctx)
+    rng = np.random.RandomState(0)
+    for p in net.collect_params().values():
+        p.set_data(mx.nd.array(rng.randn(*p.shape).astype(np.float32) * 0.3,
+                               ctx=ctx))
+    tr = mx.gluon.Trainer(net.collect_params(), opt, dict(kw),
+                          kvstore="local")
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    for i in range(n):
+        r = np.random.RandomState(10 + i)
+        x = mx.nd.array(r.randn(8, 8).astype(np.float32), ctx=ctx)
+        y = mx.nd.array(r.randint(0, 4, 8).astype(np.float32), ctx=ctx)
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        tr.step(8)
+    out = {"w:" + k: p.data().asnumpy()
+           for k, p in net.collect_params().items()}
+    for i, st in tr._updaters[0].states.items():
+        for j, s in enumerate(st if isinstance(st, (tuple, list))
+                              else (st,)):
+            if s is not None:
+                out["s:%d:%d" % (i, j)] = s.asnumpy()
+    return out
+
+
+def zoo_optimizers(mx):
+    """(d): five optimizers' 5 steps on the card against the CPU, and
+    SGLD's noise moments on the card."""
+    out = {}
+    for opt, kw in ZOO_OPTIMIZERS:
+        with mx.cpu():
+            want = zoo_opt_steps(mx, opt, kw, mx.cpu())
+        got = zoo_opt_steps(mx, opt, kw, mx.gpu())
+        worst = max(float(np.abs(got[k] - w).max()
+                          / max(np.abs(w).max(), 1e-30))
+                    for k, w in want.items())
+        if sorted(got) != sorted(want) or not worst <= ZOO_OPT_TOL:
+            raise AssertionError("%s: the card's 5 steps differ from the "
+                                 "CPU's by %.3g" % (opt, worst))
+        out[opt] = worst
+    lr, n = 0.01, 1 << 20
+    o = mx.optimizer.create("sgld", learning_rate=lr, seed=1)
+    w = mx.nd.zeros((n,), ctx=mx.gpu())
+    upd = mx.optimizer.get_updater(o)
+    means, variances = [], []
+    for _ in range(5):
+        before = w.asnumpy().astype(np.float64)
+        upd(0, mx.nd.zeros((n,), ctx=mx.gpu()), w)
+        d = w.asnumpy().astype(np.float64) - before
+        means.append(float(d.mean()))
+        variances.append(float(d.var()))
+    se_mean, se_var = np.sqrt(lr / n), lr * np.sqrt(2.0 / n)
+    if any(abs(m) > 5 * se_mean for m in means) or \
+            any(abs(v - lr) > 5 * se_var for v in variances):
+        raise AssertionError("sgld noise: means %s, variances %s (lr %g)"
+                             % (means, variances, lr))
+    out["sgld"] = dict(means=means, variances=variances, lr=lr,
+                       draws=o._noise_draws)
+    return out
+
+
+def model_zoo_phase(mx, card, results):
+    """Phase 16: the model zoo through bench_gluon_resnet's protocol, a
+    CTC head, the slice's ops and optimizers on the card."""
+    import torch
+    from mxnet_tpu_torch import cuda_build
+
+    out = {"nets": {}}
+    cuda_build.reset_launch_counts()
+    for name, size in ZOO_NETS:
+        out["nets"][name] = zoo_train(mx, name, size, card)
+    out["fused_matmul_launches"] = cuda_build.launch_counts().get(
+        "fused_matmul", 0)
+    if out["fused_matmul_launches"]:
+        raise AssertionError("the NCHW zoo nets launched fused_matmul %d "
+                             "times" % out["fused_matmul_launches"])
+    log("zoo (a): fused_matmul launches over the six nets: %d (NCHW: no "
+        "region of the kernel's form, as in the JAX package)"
+        % out["fused_matmul_launches"])
+    out["ctc"] = ctc_phase(mx, card)
+    n, worst = zoo_op_grid(mx)
+    out["op_grid"] = dict(cases=n, worst=worst)
+    log("zoo (c): %d op cases on the card against the CPU, forward and "
+        "gradients: worst %.3g (%s; bar %g), %.3g where a sum runs in "
+        "another order (%s; bar %g)" % (
+            n, worst["exact"][0], worst["exact"][1], ZOO_OP_TOL,
+            worst["summing"][0], worst["summing"][1], ZOO_SUM_TOL))
+    out["big_ops"] = zoo_big_ops(mx, card)
+    out["optimizers"] = zoo_optimizers(mx)
+    log("zoo (d): ccSGD, DCASGD, Adamax, Nadam and Test: 5 trainer.step "
+        "updates on the card vs the CPU, worst %.3g of each tensor's max "
+        "(bar %g); SGLD's noise on 2**20 weights over 5 steps: means %s, "
+        "variances %s (lr %g)" % (
+            max(v for k, v in out["optimizers"].items() if k != "sgld"),
+            ZOO_OPT_TOL,
+            " ".join("%.2e" % m for m in out["optimizers"]["sgld"]["means"]),
+            " ".join("%.6f" % v
+                     for v in out["optimizers"]["sgld"]["variances"]),
+            out["optimizers"]["sgld"]["lr"]))
+    torch.cuda.empty_cache()
+    results["zoo"] = out
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the detailed results here")
@@ -6626,6 +7491,7 @@ def main():
     rnn_phase(mx, card, results)
     serving_phase(mx, sym, card, results)
     ssd_phase(mx, card, results)
+    model_zoo_phase(mx, card, results)
 
     t8 = totals[8]
     kernels = {"kernels": [{

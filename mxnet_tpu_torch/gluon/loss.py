@@ -4,12 +4,11 @@ Counterpart of ``mxnet_tpu/gluon/loss.py`` (reference: gluon/loss.py): the
 class names, constructor signatures and weighting semantics. Every loss
 computes an elementwise term and hands it to one ``_finish`` step (sample
 weights, the scalar weight, the mean over every axis but the batch axis,
-``F.mean(..., exclude=True)``). ``CTCLoss`` needs the ``ctc_loss`` op,
-which is not yet ported: building one raises.
+``F.mean(..., exclude=True)``). ``CTCLoss`` only brings its layouts to
+the ``ctc_loss`` op's (``ops/contrib.py``).
 """
 from __future__ import annotations
 
-from ..base import MXNetError
 from ..symbol import Symbol
 from .block import HybridBlock
 
@@ -220,10 +219,32 @@ class TripletLoss(_MarginLoss):
 
 
 class CTCLoss(Loss):
-    """Connectionist Temporal Classification, over the ``ctc_loss`` op
-    (not yet ported: building one raises)."""
+    """Connectionist Temporal Classification over the ``ctc_loss`` op:
+    ``pred`` NTC or TNC, ``label`` NT or TN, optional ``pred_lengths`` /
+    ``label_lengths``; the per-sample loss, weighted."""
 
     def __init__(self, layout="NTC", label_layout="NT", weight=None,
                  **kwargs):
-        raise MXNetError("CTCLoss needs the ctc_loss op, which is not yet "
-                         "ported (ROADMAP.md Queue A6)")
+        if layout not in ("NTC", "TNC"):
+            raise AssertionError(
+                "Only 'NTC' and 'TNC' layouts for pred are supported. "
+                "Got: %s" % layout)
+        if label_layout not in ("NT", "TN"):
+            raise AssertionError(
+                "Only 'NT' and 'TN' layouts for label are supported. "
+                "Got: %s" % label_layout)
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        lengths = [x for x in (pred_lengths, label_lengths) if x is not None]
+        raw = F.ctc_loss(pred, label, *lengths,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None)
+        return _apply_weighting(F, raw, self._weight, sample_weight)

@@ -82,8 +82,8 @@ class PassConfig:
     def _checked(passes):
         missing = sorted(passes & NOT_PORTED)
         if missing:
-            raise MXNetError("graph pass %s: not yet ported"
-                             % ", ".join(missing))
+            raise MXNetError("graph pass %s: not yet ported (quantize: "
+                             "ROADMAP.md Queue A11)" % ", ".join(missing))
         return passes
 
     @property

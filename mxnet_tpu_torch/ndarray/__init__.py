@@ -6,8 +6,8 @@ generates the ``nd.*`` functions from the registry; ``nd.save`` and
 ``_contrib_*`` ops under their short names."""
 from .. import ops as _ops  # noqa: F401  (registers every op)
 
-from .ndarray import (NDArray, array, zeros, ones, full, empty, concatenate,
-                      waitall)
+from .ndarray import (NDArray, array, zeros, ones, full, empty, arange,
+                      concatenate, moveaxis, waitall)
 from . import op
 from . import utils
 from .utils import save, load

@@ -25,8 +25,8 @@ from ..autograd import is_recording
 from ..base import MXNetError, np_dtype, torch_dtype
 from ..context import Context, as_device
 
-__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty",
-           "concatenate", "waitall"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "concatenate", "moveaxis", "waitall"]
 
 
 def _wrap(data):
@@ -111,7 +111,8 @@ class NDArray:
         from .. import autograd
 
         if stype not in (None, "default"):
-            raise MXNetError("sparse gradient buffers are not ported")
+            raise MXNetError("sparse gradient buffers are not yet ported "
+                             "(ROADMAP.md Queue A13)")
         autograd.mark_variables([self], [_wrap(torch.zeros_like(
             self._data.detach()))], grad_req)
 
@@ -429,12 +430,27 @@ def full(shape, val, ctx=None, dtype=None):
                                  device=as_device(ctx)))
 
 
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
+    """numpy's ``arange`` values, each repeated ``repeat`` times, on
+    ``ctx`` (the card unless asked)."""
+    from ..ops.init_ops import arange_values
+
+    a = arange_values(start, stop, step, repeat, dtype or "float32")
+    return _from_data(torch.from_numpy(a).to(as_device(ctx)))
+
+
 def empty(shape, ctx=None, dtype=None):
     return zeros(shape, ctx=ctx, dtype=dtype)
 
 
 def concatenate(arrays, axis=0, always_copy=True):
     return _from_data(torch.cat([a._data for a in arrays], dim=axis))
+
+
+def moveaxis(tensor, source, destination):
+    """``tensor`` with axis ``source`` moved to ``destination`` (a view,
+    recorded on the tape)."""
+    return _from_data(torch.movedim(tensor._data, source, destination))
 
 
 def waitall():

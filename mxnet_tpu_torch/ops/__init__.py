@@ -17,4 +17,8 @@ from . import init_ops
 from . import rnn
 from . import detection
 from . import spatial
+from . import linalg
+from . import legacy_ops
+from . import contrib
+from . import fork_ops
 from .. import operator as _operator  # noqa: F401  (registers Custom)

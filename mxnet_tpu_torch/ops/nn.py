@@ -3,8 +3,9 @@
 Counterpart of ``mxnet_tpu/ops/nn.py`` for FullyConnected, Convolution,
 Deconvolution, Pooling, Activation, LeakyReLU, softmax, log_softmax,
 SoftmaxActivation, BatchNorm (training and inference), Dropout, Pad,
-SoftmaxOutput (a loss head whose backward injects MXNet's gradient) and
-softmax_cross_entropy.
+SoftmaxOutput (a loss head whose backward injects MXNet's gradient),
+softmax_cross_entropy, the regression heads, L2Normalization, LRN,
+InstanceNorm and the Sequence ops.
 Layouts follow the JAX package: a channels-last Convolution
 (``layout="NHWC"``) takes spatial-major HWIO weights, a channels-first one
 OIHW. The channels-last forms run as ``torch.nn.functional`` calls on a
@@ -507,6 +508,187 @@ def _so_infer(attrs, in_shapes, aux_shapes):
     return ([d, in_shapes[1] or lab], [d], aux_shapes)
 
 
+# --- regression heads -------------------------------------------------------
+
+class _HeadFn(torch.autograd.Function):
+    """A loss head whose backward ignores the head gradient: ``grad_of(pred,
+    label)`` for the data and a zero gradient for the label, as the JAX
+    package's ``jax.custom_vjp`` heads do."""
+
+    @staticmethod
+    def forward(ctx, forward, grad_of, data, label):
+        out = forward(data)
+        if out is data:
+            out = data.clone()
+        ctx.grad_of = grad_of
+        ctx.save_for_backward(out, label)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        pred, label = ctx.saved_tensors
+        return (None, None, ctx.grad_of(pred, label).to(pred.dtype),
+                torch.zeros_like(label))
+
+
+def loss_head(forward, grad_of):
+    """The op function of a head: ``forward(attrs, data)`` and, under
+    autograd, the backward ``grad_of(attrs, pred, label)`` (:class:`_HeadFn`).
+    """
+    def fn(attrs, data, label):
+        if torch.is_grad_enabled() and data.requires_grad:
+            return _HeadFn.apply(lambda x: forward(attrs, x),
+                                 lambda p, y: grad_of(attrs, p, y),
+                                 data, label)
+        return forward(attrs, data)
+    return fn
+
+
+def _regression(kind):
+    """Identity (or sigmoid) forward; the backward gives ``(pred - label)``
+    (``sign(...)`` for MAE) times ``grad_scale / prod(shape[1:])``
+    (``mxnet_tpu/ops/nn.py:791-813``)."""
+    def forward(attrs, data):
+        return torch.sigmoid(data) if kind == "logistic" else data
+
+    def grad_of(attrs, pred, label):
+        diff = pred - label.reshape(pred.shape)
+        grad = torch.sign(diff) if kind == "mae" else diff
+        num_out = float(np.prod(pred.shape[1:])) or 1.0
+        return grad * (attrs.grad_scale / num_out)
+    return loss_head(forward, grad_of)
+
+
+# --- normalization extras ---------------------------------------------------
+
+def _l2_normalization(attrs, x):
+    if attrs.mode == "instance":
+        axes = tuple(range(1, x.dim()))
+    elif attrs.mode == "channel":
+        axes = (1,)
+    else:  # spatial
+        axes = tuple(range(2, x.dim()))
+    return x / torch.sqrt(torch.sum(x * x, dim=axes, keepdim=True)
+                          + attrs.eps)
+
+
+def _lrn(attrs, x):
+    """Cross-channel LRN: the squares summed over a zero-padded window of
+    ``nsize`` channels, alpha divided by ``nsize``."""
+    pad = attrs.nsize // 2
+    sq = F.pad(x * x, (0, 0) * (x.dim() - 2) + (pad, pad))
+    window = sum(sq[:, i:i + x.shape[1]] for i in range(attrs.nsize))
+    return x / torch.pow(attrs.knorm + attrs.alpha * window / attrs.nsize,
+                         attrs.beta)
+
+
+def _instance_norm(attrs, x, gamma, beta):
+    """Per-sample, per-channel normalization with the biased variance."""
+    axes = tuple(range(2, x.dim()))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = ((x - mean) ** 2).mean(dim=axes, keepdim=True)
+    bshape = (1, -1) + (1,) * (x.dim() - 2)
+    return (x - mean) / torch.sqrt(var + attrs.eps) * gamma.reshape(bshape) \
+        + beta.reshape(bshape)
+
+
+# --- sequence ops (time-major; ``axis`` is accepted and ignored, as in the
+# JAX package) ---------------------------------------------------------------
+
+def _seq_inputs(attrs):
+    return ["data", "sequence_length"] if attrs.use_sequence_length \
+        else ["data"]
+
+
+def _seq_infer(out_of):
+    def infer(attrs, i, a):
+        if i[0] is None:
+            return None
+        ins = [i[0]] + ([(i[0][1],)] if attrs.use_sequence_length else [])
+        return (ins, [out_of(i[0])], a)
+    return infer
+
+
+def _sequence_mask(attrs, data, *rest):
+    """``data * mask + value * (1 - mask)``: a ``value`` of -inf gives NaN
+    at the kept steps too, as in the JAX package."""
+    T = data.shape[0]
+    if attrs.use_sequence_length and rest:
+        t = torch.arange(T, device=data.device)[:, None]
+        mask = (t < rest[0].to(torch.int32)[None, :]).to(data.dtype)
+    else:
+        mask = torch.ones((T, data.shape[1]), dtype=data.dtype,
+                          device=data.device)
+    mask = mask.reshape(mask.shape + (1,) * (data.dim() - 2))
+    return data * mask + attrs.value * (1 - mask)
+
+
+def _sequence_last(attrs, data, *rest):
+    if attrs.use_sequence_length and rest:
+        idx = rest[0].to(torch.int64) - 1
+        idx = torch.where(idx < 0, idx + data.shape[0], idx)
+        idx = idx.reshape((1, -1) + (1,) * (data.dim() - 2)).expand(
+            (1,) + tuple(data.shape[1:]))
+        return torch.gather(data, 0, idx)[0]
+    return data[-1]
+
+
+def _sequence_reverse(attrs, data, *rest):
+    if attrs.use_sequence_length and rest:
+        T = data.shape[0]
+        seq = rest[0].to(torch.int64)[None, :]
+        t = torch.arange(T, device=data.device)[:, None]
+        rev = torch.where(t < seq, seq - 1 - t, t)
+        rev = rev.reshape(rev.shape + (1,) * (data.dim() - 2)).expand(
+            data.shape)
+        return torch.gather(data, 0, rev)
+    return torch.flip(data, dims=(0,))
+
+
+def _register_extras():
+    for name, kind in (("LinearRegressionOutput", "linear"),
+                       ("LogisticRegressionOutput", "logistic"),
+                       ("MAERegressionOutput", "mae")):
+        register_op(name, _regression(kind),
+                    params={"grad_scale": Float(default=1.0)},
+                    num_inputs=2, input_names=["data", "label"],
+                    infer_shape=lambda attrs, i, a: (
+                        None if i[0] is None
+                        else ([i[0], i[1] or i[0]], [i[0]], a)))
+    register_op("L2Normalization", _l2_normalization,
+                params={"eps": Float(default=1e-10),
+                        "mode": Enum(["instance", "spatial", "channel"],
+                                     default="instance")},
+                num_inputs=1, infer_shape=_same_shape)
+    register_op("LRN", _lrn,
+                params={"alpha": Float(default=1e-4),
+                        "beta": Float(default=0.75),
+                        "knorm": Float(default=2.0), "nsize": Int()},
+                num_inputs=1, infer_shape=_same_shape)
+    register_op("InstanceNorm", _instance_norm,
+                params={"eps": Float(default=1e-3)},
+                num_inputs=3, input_names=["data", "gamma", "beta"],
+                infer_shape=lambda attrs, i, a: (
+                    None if i[0] is None else
+                    ([i[0], (i[0][1],), (i[0][1],)], [i[0]], a)))
+    seq_n = lambda attrs: 2 if attrs.use_sequence_length else 1  # noqa
+    register_op("SequenceMask", _sequence_mask,
+                params={"use_sequence_length": Bool(default=False),
+                        "value": Float(default=0.0), "axis": Int(default=0)},
+                num_inputs=seq_n, input_names=_seq_inputs,
+                infer_shape=_seq_infer(lambda d: d))
+    register_op("SequenceLast", _sequence_last,
+                params={"use_sequence_length": Bool(default=False),
+                        "axis": Int(default=0)},
+                num_inputs=seq_n, input_names=_seq_inputs,
+                infer_shape=_seq_infer(lambda d: d[1:]))
+    register_op("SequenceReverse", _sequence_reverse,
+                params={"use_sequence_length": Bool(default=False),
+                        "axis": Int(default=0)},
+                num_inputs=seq_n, input_names=_seq_inputs,
+                infer_shape=_seq_infer(lambda d: d))
+
+
 def _register():
     register_op(
         "FullyConnected", _fully_connected,
@@ -639,3 +821,4 @@ def _register():
 
 
 _register()
+_register_extras()

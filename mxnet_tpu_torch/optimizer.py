@@ -1,5 +1,6 @@
-"""Optimizers: the registry, SGD, NAG, Adam, AdaGrad, RMSProp, AdaDelta,
-Ftrl and the ``Updater``.
+"""Optimizers: the registry, SGD (and its alias ccSGD), DCASGD, SGLD, NAG,
+Adam, AdaGrad, RMSProp, AdaDelta, Ftrl, Adamax, Nadam, Test and the
+``Updater``.
 
 Counterpart of ``mxnet_tpu/optimizer.py``: the registry / ``create``
 surface, per-index lr/wd multipliers, the optimizers Gluon's Trainer
@@ -9,7 +10,11 @@ the update ops of ``ops/optimizer_ops.py`` where there is one, else the
 JAX package's arithmetic), and :meth:`Optimizer.update` writes the result
 into the weight and state arrays in place. ``lr``, ``rescale_grad`` and
 ``clip_gradient`` may be 0-dim tensors, which a captured training step
-reads from the device. DCASGD, SGLD, Adamax and Nadam are not ported.
+reads from the device. DCASGD, SGLD, Adamax, Nadam and Test update
+eagerly only, as in the JAX package (Gluon's ``compile_step`` refuses them):
+SGLD draws host-counted noise, Nadam multiplies one host ``m_schedule``
+shared by every parameter on each parameter's update, so its result
+depends on the update order, which is the JAX package's.
 """
 from __future__ import annotations
 
@@ -32,9 +37,9 @@ def _store_hyperparams(obj, local_vars, *names):
         setattr(obj, name, local_vars[name])
 
 
-__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdaGrad", "RMSProp",
-           "AdaDelta", "Ftrl", "create", "register", "Updater",
-           "get_updater"]
+__all__ = ["Optimizer", "SGD", "DCASGD", "SGLD", "NAG", "Adam", "AdaGrad",
+           "RMSProp", "AdaDelta", "Ftrl", "Adamax", "Nadam", "Test",
+           "create", "register", "Updater", "get_updater"]
 
 
 def flat_state(state):
@@ -235,6 +240,76 @@ class SGD(Optimizer):
 
 
 @register
+class ccSGD(SGD):
+    """[DEPRECATED] Alias of SGD, kept for reference back-compat
+    (reference: optimizer.py:657)."""
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated async SGD (Zheng et al. 2016): the state is the
+    momentum (None at momentum 0) and the previous weight."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        _store_hyperparams(self, locals(), "momentum", "lamda")
+
+    def create_state(self, index, weight):
+        mom = (nd.zeros(weight.shape, weight.context, dtype=weight.dtype)
+               if self.momentum != 0.0 else None)
+        return (mom, weight.copy())
+
+    def step_tensors(self, index, weight, grad, states, lr, rescale_grad,
+                     clip_gradient):
+        wd = self._get_wd(index)
+        g = _prep_grad(_grad_attrs(rescale_grad, clip_gradient), grad)
+        stale = states[-1]
+        # the delayed gradient compensated by a curvature estimate
+        compensated = g + self.lamda * g * g * (weight - stale)
+        step = -_lr_mul(lr, compensated + wd * weight)
+        # the new stale weight is this step's old one (a copy: update()
+        # writes the new weight in place first)
+        if len(states) == 2:
+            mom = states[0] * self.momentum + step
+            return weight + mom, [mom, weight.clone()]
+        assert self.momentum == 0.0
+        return weight + step, [weight.clone()]
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic Gradient Langevin Dynamics: SGD plus Gaussian noise of
+    variance lr. The noise comes from the optimizer's own stream (``seed``
+    and a draw counter, each draw a ``torch.Generator`` seeded from the
+    pair), not from ``mx.random``; the counter rides ``_resume_extras``,
+    so a resumed run replays the same noise. The stream is torch's, not
+    the JAX package's: the two agree in distribution."""
+
+    def __init__(self, seed=0, **kwargs):
+        super().__init__(**kwargs)
+        self.seed = int(seed)
+        self._noise_draws = 0
+
+    def _next_noise(self, weight, std):
+        key = np.random.SeedSequence([self.seed, self._noise_draws])
+        self._noise_draws += 1
+        gen = torch.Generator(device=weight.device)
+        gen.manual_seed(int(key.generate_state(1, np.uint64)[0] >> 1))
+        return std * torch.randn(weight.shape, generator=gen,
+                                 device=weight.device, dtype=weight.dtype)
+
+    def _resume_extras(self):
+        return {"_noise_draws": self._noise_draws}
+
+    def step_tensors(self, index, weight, grad, states, lr, rescale_grad,
+                     clip_gradient):
+        wd = self._get_wd(index)
+        g = _prep_grad(_grad_attrs(rescale_grad, clip_gradient), grad)
+        noise = self._next_noise(weight, math.sqrt(float(lr)))
+        return weight + (-_lr_mul(lr, g + wd * weight) / 2 + noise), []
+
+
+@register
 class NAG(SGD):
     """Nesterov accelerated gradient."""
 
@@ -368,6 +443,102 @@ class Ftrl(Optimizer):
                          wd=self._get_wd(index), rescale_grad=rescale_grad,
                          clip_gradient=clip_gradient, lamda1=self.lamda1,
                          beta=self.beta)
+
+
+def _decayed_grad(opt, index, weight, grad, rescale_grad, clip_gradient):
+    """``grad * rescale + wd * weight``, then clipped: Adamax's and
+    Nadam's order (weight decay before the clip)."""
+    g = grad * rescale_grad + opt._get_wd(index) * weight
+    if clip_gradient is not None:
+        g = torch.clamp(g, -clip_gradient, clip_gradient)
+    return g
+
+
+@register
+class Adamax(Optimizer):
+    """AdaMax: the infinity-norm variant of Adam."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        _store_hyperparams(self, locals(), "beta1", "beta2")
+
+    def create_state(self, index, weight):
+        return (nd.zeros(weight.shape, weight.context, dtype=weight.dtype),
+                nd.zeros(weight.shape, weight.context, dtype=weight.dtype))
+
+    def step_lr(self, index):
+        t = self._index_update_count[index]
+        return self._get_lr(index) / (1.0 - self.beta1 ** t)
+
+    def step_tensors(self, index, weight, grad, states, lr, rescale_grad,
+                     clip_gradient):
+        g = _decayed_grad(self, index, weight, grad, rescale_grad,
+                          clip_gradient)
+        m_t, u_t = states
+        m_t = self.beta1 * m_t + (1.0 - self.beta1) * g
+        u_t = torch.maximum(self.beta2 * u_t, torch.abs(g))
+        return weight - _lr_mul(lr, m_t) / u_t, [m_t, u_t]
+
+
+@register
+class Nadam(Optimizer):
+    """Adam with Nesterov momentum (Dozat 2016). ``m_schedule`` is one
+    host float shared by every parameter: each parameter's update
+    multiplies it by that step's momentum, so the result depends on the
+    order of the updates."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        _store_hyperparams(self, locals(), "beta1", "beta2", "epsilon",
+                           "schedule_decay")
+        self.m_schedule = 1.0
+
+    def _resume_extras(self):
+        return {"m_schedule": self.m_schedule}
+
+    def create_state(self, index, weight):
+        return (nd.zeros(weight.shape, weight.context, dtype=weight.dtype),
+                nd.zeros(weight.shape, weight.context, dtype=weight.dtype))
+
+    def _momentum_schedule(self, t):
+        """(mu_t, mu_{t+1}) of the decaying momentum schedule."""
+        def mu(step):
+            return self.beta1 * (1.0 - 0.5 * (0.96 ** (step * self.schedule_decay)))
+        return mu(t), mu(t + 1)
+
+    def step_tensors(self, index, weight, grad, states, lr, rescale_grad,
+                     clip_gradient):
+        t = self._index_update_count[index]
+        g = _decayed_grad(self, index, weight, grad, rescale_grad,
+                          clip_gradient)
+        mu_t, mu_next = self._momentum_schedule(t)
+        self.m_schedule *= mu_t
+        schedule_next = self.m_schedule * mu_next
+        m_t, v_t = states
+        m_t = self.beta1 * m_t + (1.0 - self.beta1) * g
+        v_t = self.beta2 * v_t + (1.0 - self.beta2) * g * g
+        grad_hat = g / (1.0 - self.m_schedule)
+        m_hat = m_t / (1.0 - schedule_next)
+        v_hat = v_t / (1.0 - self.beta2 ** t)
+        blended = (1.0 - mu_t) * grad_hat + mu_next * m_hat
+        return (weight - _lr_mul(lr, blended)
+                / (torch.sqrt(v_hat) + self.epsilon), [m_t, v_t])
+
+
+@register
+class Test(Optimizer):
+    """Accumulate-gradient optimizer used by the reference test suite:
+    ``weight += grad * rescale``, the state a copy of the new weight (no
+    update count)."""
+
+    def create_state(self, index, weight):
+        return nd.zeros(weight.shape, weight.context)
+
+    def update(self, index, weight, grad, state):
+        with torch.no_grad():
+            weight._set_data(weight._data + grad._data * self.rescale_grad)
+            state._set_data(weight._data)
 
 
 def _to_host(value):

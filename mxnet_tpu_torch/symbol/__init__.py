@@ -14,10 +14,15 @@ globals().update(
     {k: v for k, v in op.__dict__.items() if not k.startswith("__")})
 
 
-# creation sugar matching mx.sym.zeros/ones (map onto init ops)
+# creation sugar matching mx.sym.zeros/ones/arange (map onto init ops)
 def zeros(shape, dtype=None, **kwargs):
     return _internal._zeros(shape=shape, dtype=dtype or "float32", **kwargs)
 
 
 def ones(shape, dtype=None, **kwargs):
     return _internal._ones(shape=shape, dtype=dtype or "float32", **kwargs)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, dtype=None, **kwargs):
+    return _internal._arange(start=start, stop=stop, step=step, repeat=repeat,
+                             dtype=dtype or "float32", **kwargs)

@@ -14,8 +14,10 @@ ResNet's ShardedTrainer step captured as a CUDA graph against the same
 step run eagerly, and Gluon on the card: a compile_step replay against its
 body run eagerly (bit for bit, under cuDNN's deterministic algorithms),
 a captured Dropout's fresh masks, a recapture per batch shape, and the
-slice's op grid against the CPU, and the detection and spatial ops against
-the CPU (chip_smoke.py's phase 15 (e) cases). Every test skips where there
+slice's op grid against the CPU, the detection and spatial ops against
+the CPU (chip_smoke.py's phase 15 (e) cases) and the model-zoo slice's
+ops (linalg, CTC's neighbours, the fork's and the legacy ops; phase 16
+(c)). Every test skips where there
 is no card.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
@@ -1023,6 +1025,18 @@ def test_detection_and_spatial_ops_on_card_match_cpu(card):
     cases, (worst, _where) = ssd_op_grid(mx)
     assert cases == 19
     assert worst <= SSD_OP_TOL
+
+
+def test_slice_14_ops_on_card_match_cpu(card):
+    """The linalg, legacy, contrib, fork and nn.py ops of the model-zoo
+    slice (chip_smoke.py's phase 16 (c) cases) on the card against the
+    CPU, forward and gradients."""
+    from chip_smoke import ZOO_OP_TOL, ZOO_SUM_TOL, zoo_op_grid
+
+    cases, worst = zoo_op_grid(mx)
+    assert cases == 49
+    assert worst["exact"][0] <= ZOO_OP_TOL
+    assert worst["summing"][0] <= ZOO_SUM_TOL
 
 
 _RNN_GRID = [(mode, L, bi) for mode in ("rnn_tanh", "rnn_relu", "lstm",

@@ -453,8 +453,15 @@ def test_triplet_loss_matches():
 
 
 def test_ctc_loss_waits_for_its_op():
-    with pytest.raises(tmx.MXNetError, match="ctc_loss"):
-        tmx.gluon.loss.CTCLoss()
+    # the op is ported: CTCLoss builds and runs over it (its parity is
+    # tests/test_torch_ctc.py's)
+    loss = tmx.gluon.loss.CTCLoss()
+    pred = tmx.nd.array(_rng(14).randn(2, 6, 5).astype(np.float32),
+                        ctx=CPU)
+    label = tmx.nd.array(np.array([[1, 2], [3, 0]], np.float32), ctx=CPU)
+    out = loss(pred, label).asnumpy()
+    assert out.shape == (2,) and np.isfinite(out).all()
+    assert tmx.ops.registry.get_op("ctc_loss") is not None
 
 
 # --- SymbolBlock, files, utils ------------------------------------------------
@@ -547,7 +554,7 @@ def test_model_zoo_forward_matches_the_jax_package():
         got = _forward_backward(tmx, tnet, x, False, True)
     _compare(got, want)
     with pytest.raises(ValueError):
-        tmx.gluon.model_zoo.get_model("vgg16")
+        tmx.gluon.model_zoo.get_model("vgg17")
     with pytest.raises(tmx.MXNetError):
         tmx.gluon.model_zoo.vision.resnet18_v1(pretrained=True)
 

@@ -1,0 +1,21 @@
+"""Port parity for Gluon's model zoo, part c: DenseNet-121 at its full input
+(224x224: its last pool needs it), batch 1, 10 classes, through part a's
+``zoo_parity`` (logits, one step). The JAX net is hybridized: one
+compile of the whole graph instead of one per op.
+"""
+import pytest
+import torch
+
+from test_torch_model_zoo_a import zoo_parity
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_densenet121_matches_the_reference():
+    zoo_parity("densenet121", 224, True, jax_hybrid=True)
