@@ -157,7 +157,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    ``mx.serving.generation.Generator`` (max_seq 2048, 8 slots, page 16,
    decode blocks of 128 tokens, the default prefill ladder 16 ... 1024,
    2048); the decode step (and the verify and draft steps with
-   speculation) one CUDA graph, prefill eager through the flash forward.
+   speculation) one CUDA graph, and each prompt bucket's prefill one CUDA
+   graph through the flash forward.
    (a) fp32, ``init(0)``: ``prefill_forward``'s logits with the kernel
    within 1e-5 of max |logit| of the plain dense path's at T 16, 333 and
    2048 (one kernel launch per layer), and the greedy output of 8 prompts
@@ -176,9 +177,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
    arrivals at 3x the sequential capacity a warmed generator's probe of 4
    requests measures; continuous batching, then the sequential baseline:
    tokens/s, TTFT, inter-token and per-token latency p50/p99, the flash
-   forward's launches (launch counts reset just before each run and read
-   just after: exactly 8 per request), peak memory; each bucket's eager
-   prefill timed (wall and device ms); the decode step at 8 slots and
+   forward's launches (the prefill replays of the run times one body
+   run's launches, counted at the capture: exactly 8 per request; the
+   wrapper, reset just before, counts none), peak memory; each bucket's
+   prefill graph replayed against its body run eagerly (wall ms, device
+   ms, equal to the bit: token, key and the K/V it wrote, 8 flash forward
+   launches a replay); the decode step at 8 slots and
    1000 tokens of context replayed against its eager body (equal to the
    bit), timed both ways, its device ms by family under
    ``torch.profiler`` (paged attention and sampling marked as scopes) and
@@ -361,10 +365,59 @@ Phases, each fatal on failure (exit code != 0, no result line):
    Adamax, Nadam and Test: 5 ``trainer.step`` updates on the card against
    the CPU within 1e-6; SGLD's noise mean and variance on 2**20 weights.
    No kernel of this package lies on the zoo path.
-17. Print the ``kernels`` JSON line (the flash forward's row also carries
-   phase 11's prefill launches, ``fused_matmul``'s phase 3's captures,
-   replays, and the profiled replays with the kernels the profiler saw run
-   in them), then the result line
+17. Mixed precision and the generation control plane. (a) Phase 3's
+   ResNet-50 (same weights, centred logits) served under
+   ``MXNET_GRAPH_PASSES=default,amp``, buckets (1, 8), one replica: the
+   fuse report (casts, regions, the 33 regions that take
+   ``fused_matmul`` with bf16 operands: phase 3's 32 and fc1 with its cast
+   to fp32). The random network amplifies bf16 rounding (on the CPU the
+   JAX package's amp moves its logits as far as the port's:
+   ``tools/port_amp_conditioning.py``), so on phase 3's weights the gaps
+   of the logits to the fp32 server's and to ``MXNET_FUSION_KERNEL=0``'s
+   are reported; with BatchNorm's statistics brought to the data (30
+   training-mode forwards of 16 images) the probabilities are held to the
+   fp32 server's at the JAX test's amp tolerance (rtol 5e-2, atol 2e-2),
+   the same gaps reported, and the logits to the same graph's eager walk
+   with ``fused_matmul``'s plain version in its place within 2e-2 of
+   max(1, max |logit|), or within twice the gap between that plain version
+   and the same in float64 (the network's own amplification of one bf16
+   rounding) where that is wider; under cuDNN's deterministic algorithms each
+   bucket's replay equal to its eager walk to the bit; p50 latency at
+   buckets 1 and 8, img/s at 8; the launches as replays x the eager walk's
+   33 (the wrapper counts none outside the captures); ``fused_matmul`` in
+   bf16 at each region's shape of one forward per bucket beside its plain
+   version, ``torch.addmm`` in bf16 plus the epilogue and the bound (bf16
+   tensor-core peak, memory rate). (b) ``GenerationConfig(amp=True)`` over
+   phase 11 (a)'s fp32 LM: bf16 parameters, the ``graph_pass`` stats flag
+   and recent report, buckets + 1 captures, 8 flash forward launches (the
+   wgmma kernel) per prefill replay and per request, first-token logits of
+   a 333-token prompt within 2e-2 of max |logit| of the same bf16 weights
+   through the plain attention; greedy agreement with the fp32 generator
+   (reported) and tokens/s of both. (c) ``bench_all.py:946-1100``
+   ``bench_control``'s protocol at phase 11's width in fp32: 48 requests
+   (a 224-token head from ``RandomState(0)`` plus 1-8 tokens), 16 new
+   tokens, 8 slots, max_seq 256, Poisson arrivals at 2x one request's
+   sequential capacity; a cache-less pass, a seeding pass and a warm pass:
+   TTFT p50 / p99, hits, prefill tokens skipped, pages shared; warm
+   outputs token-identical to the cache-less generator's; the SLO
+   overtake (every slot busy, two queued interactive requests admitted
+   before two queued batch ones, which finish); captures buckets + 1; no
+   leaked page after the drain. (d) Each bucket's prefill graph against
+   its eager body (phase 11 (d)'s rows) and TTFT under phase 11 (d)'s
+   traffic beside PR 9's eager prefill (13.18 / 104.54 ms). (e)
+   ``generation.decode_step:raise@call=2`` fails the first request only;
+   the next one is served; ``generation.*`` series in ``dump_metrics()``;
+   one complete trace. (f) The autoscaler over ResNet-50 fp32 (one
+   replica, buckets (1, 8), a fake clock): a 96-request burst scales 1 ->
+   2 (warmup: 4 captures, buckets x replicas), a hot tick 5 s later is
+   clamped at 2 and held by the cooldown, a quiet window scales 2 -> 1 (2
+   live programs), a fault-killed replica with the TTFT objective burning
+   scales 1 -> 2.
+18. Print the ``kernels`` JSON line (the flash forward's row also carries
+   phase 11's prefill launches and phase 17's, ``fused_matmul``'s phase
+   3's captures, replays, and the profiled replays with the kernels the
+   profiler saw run in them, and phase 17 (a)'s bf16 figures), then the
+   result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -509,6 +562,15 @@ def card_bf16_peak(name):
     return 989e12   # H100 SXM, H200
 
 
+def phase_peaks(card=None):
+    """``results["peaks"]`` for the card (``nvidia_smi()``'s line): fp32
+    CUDA-core and bf16 tensor-core FLOP/s and the memory rate."""
+    name = (card or nvidia_smi()).split(",")[0]
+    fp32, bytes_per_s = card_peaks(name)
+    return {"fp32_flops": fp32, "bytes_per_s": bytes_per_s,
+            "bf16_flops": card_bf16_peak(name)}
+
+
 def time_events_ms(fn, reps=5):
     """Time of one ``fn`` call from CUDA events around ``reps`` calls,
     without a CUDA graph: for calls that allocate too much to capture
@@ -583,13 +645,13 @@ def resnet50_params(sym, seed):
     return args, aux
 
 
-def center_fc_bias(mx, sym, np_args, np_aux, rng, n=16):
+def center_fc_bias(mx, sym, np_args, np_aux, rng, n=16, device="cuda"):
     """Set ``fc1_bias`` so the logits of ``n`` random calibration images
     average zero. A random He-initialised ResNet puts nearly all of its
     pooled feature in one input-independent direction, which would give
     every image the same top-1 class; removing that mean makes the top-1
-    comparison of the serve phase informative. Runs the plain graph on the
-    card."""
+    comparison of the serve phase informative. Runs the plain graph on
+    ``device`` (the card)."""
     import torch
     from mxnet_tpu_torch.executor import _GraphProgram
 
@@ -597,10 +659,10 @@ def center_fc_bias(mx, sym, np_args, np_aux, rng, n=16):
     names = internals.list_outputs()
     idx = next(i for i, (node, _) in enumerate(internals._outputs)
                if node.op == "Flatten")
-    args, aux = mx.params_from_jax(np_args, np_aux, device="cuda")
+    args, aux = mx.params_from_jax(np_args, np_aux, device=device)
     x = rng.standard_normal((n,) + ROW, dtype=np.float32)
-    args["data"] = torch.from_numpy(x).cuda()
-    args["softmax_label"] = torch.zeros(n, device="cuda")
+    args["data"] = torch.from_numpy(x).to(device)
+    args["softmax_label"] = torch.zeros(n, device=device)
     (feat,) = _GraphProgram(internals).infer_fn(sel=(idx,))(args, aux)
     f_mean = feat.double().mean(0).cpu().numpy()
     np_args["fc1_bias"] = (-(np_args["fc1_weight"].astype(np.float64)
@@ -669,10 +731,15 @@ def make_case(case, dtype, gen):
     return x, w, extras
 
 
-def library_fn(x, w, extras, epilogue, wt):
+def library_fn(x, w, extras, epilogue, wt, native=False, out_dtype=None):
     """The yardstick: cuBLAS through torch.addmm/mm with the same epilogue
-    as PyTorch ops (timed only, never used by the port)."""
+    as PyTorch ops (timed only, never used by the port), in fp32, or with
+    ``native`` in the inputs' own dtype (bf16: the tensor cores), cast to
+    ``out_dtype`` (default: the inputs')."""
     import torch
+
+    def own(t):
+        return t if native else t.float()
 
     wm = w.t() if wt else w
     steps = list(epilogue)
@@ -681,9 +748,9 @@ def library_fn(x, w, extras, epilogue, wt):
                                                         "elemwise_add")):
         first = ex.pop(0)
         steps.pop(0)
-        y = torch.addmm(first.float(), x.float(), wm.float())
+        y = torch.addmm(own(first), own(x), own(wm))
     else:
-        y = torch.mm(x.float(), wm.float())
+        y = torch.mm(own(x), own(wm))
     for step in steps:
         kind = step[0]
         if kind in ("bias", "vadd"):
@@ -704,7 +771,7 @@ def library_fn(x, w, extras, epilogue, wt):
                  "_plus_scalar": lambda t: t + step[2],
                  "_minus_scalar": lambda t: t - step[2],
                  "_rminus_scalar": lambda t: step[2] - t}[step[1]](y)
-    return y.to(x.dtype)
+    return y.to(getattr(torch, out_dtype) if out_dtype else x.dtype)
 
 
 def bound_ms(case, itemsize, peaks):
@@ -3460,7 +3527,8 @@ def admit_slots(gen, prompts, params):
     E = gen_engine()
     for slot, prompt in enumerate(prompts):
         ent = E._Pending(prompt, params, E.GenerationHandle(),
-                         time.monotonic(), E.resolve_class(None), None)
+                         time.monotonic(), E._rtrace.NOOP_TRACE,
+                         E.resolve_class(None), None)
         with gen._cond:
             gen._n_active += 1
         gen._prefill(slot, ent, len(prompt) + params.max_new_tokens - 1)
@@ -3565,10 +3633,13 @@ def gen_greedy_fp32(mx, card, out):
     sp = G.SamplingParams(max_new_tokens=GEN_NEW)
     gen = G.Generator(model, params, gen_config(mx))
     warmed = gen.warmup()
-    if warmed != len(G.default_prefill_ladder(GEN_MAX_SEQ)) + 1 or \
-            gen.get_stats()["captures"] != 1:
-        raise AssertionError("warmup() gave %d programs and %d captures"
-                             % (warmed, gen.get_stats()["captures"]))
+    programs = len(G.default_prefill_ladder(GEN_MAX_SEQ)) + 1
+    if warmed != programs or gen.get_stats()["captures"] != programs:
+        raise AssertionError("warmup() gave %d programs and %d captures, "
+                             "want %d of each (a graph per prefill bucket "
+                             "and the decode step)"
+                             % (warmed, gen.get_stats()["captures"],
+                                programs))
     got, wall = serve_all(gen, [(p, sp) for p in prompts])
     stopped(gen)
     oracle = [recompute_tokens(model, params, p, GEN_NEW) for p in prompts]
@@ -3614,14 +3685,17 @@ def gen_speculative(mx, model, params, card, out):
                  if mode == "draft" else {})
         gen = G.Generator(model, params, gen_config(mx, **kw), **extra)
         warmed = gen.warmup()
-        if warmed != 8 + programs or gen.get_stats()["captures"] != programs:
+        # one graph per prefill bucket (the draft's prefill rides in it)
+        # and per step kind
+        if warmed != 8 + programs or \
+                gen.get_stats()["captures"] != 8 + programs:
             raise AssertionError("%s: warmup() gave %d programs, %d "
                                  "captures" % (mode, warmed,
                                                gen.get_stats()["captures"]))
         got, wall = serve_all(gen, reqs)
         spec = gen.get_stats()["speculative"]
         captures = stopped(gen)
-        if captures != programs:
+        if captures != 8 + programs:
             raise AssertionError("%s: %d captures after the traffic"
                                  % (mode, captures))
         tokens = sum(len(g) for g in got)
@@ -3651,39 +3725,97 @@ def gen_speculative(mx, model, params, card, out):
 
 
 def gen_prefill_timing(gen, card, out):
-    """(d): the prefill of each bucket as the scheduler runs it (eager,
-    onto the trash page, the first token fetched): wall ms (median of 5)
-    and device ms (torch.profiler over one more)."""
+    """(d): each prompt bucket's prefill step, its CUDA graph replayed (the
+    inputs copied in and the first token fetched, as the scheduler runs it)
+    against its body run eagerly: wall ms (median of 5), device ms (5
+    replays between CUDA events; the eager body under torch.profiler), one
+    replay against one eager run to the bit (token, key and the K/V it
+    wrote into pages 1..max_pages, real pages: the generator holds no
+    slot), and the flash forward launches of one body run (counted at the
+    capture). Returns the rows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    P = gen._max_pages
+    page_row = np.arange(1, P + 1)
+    rng = np.random.RandomState(3)
     rows = []
     with gen._device_scope(), gen._pages_lock:
         for bucket in gen._cfg.prefill_buckets:
-            def prefill():
-                tok, _ = gen._prefill_step(
-                    np.zeros((1, bucket), np.int64), bucket,
-                    np.zeros(gen._max_pages, np.int64), [0, 0], 0.0, 0)
-                return tok.cpu()
+            step = gen._captured("prefill%d" % bucket)
+            toks = rng.randint(1, TRAIN_CFG["vocab"], bucket)
 
-            prefill()
-            walls = []
+            def fill():
+                gen._fill_prefill(toks, bucket, 0, page_row, (0, 0), [0, 0],
+                                  0.0, 0)
+
+            def eager():
+                fill()
+                return step.body()[0].cpu()
+
+            def replayed():
+                fill()
+                return step.run()[0].cpu()
+
+            fill()
+            want = [t.clone() for t in step.body()]
+            want_kv = {k: v[:, 1:P + 1].clone()
+                       for k, v in gen._pools.items()}
+            for v in gen._pools.values():
+                v[:, 1:P + 1].zero_()
+            fill()
+            got = step.run()
+            same = (all(torch.equal(a, b) for a, b in zip(got, want))
+                    and all(torch.equal(v[:, 1:P + 1], want_kv[k])
+                            for k, v in gen._pools.items()))
+            del want_kv
+            walls = {}
+            for name, fn in (("replay", replayed), ("eager", eager)):
+                fn()
+                ts = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    fn()
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                walls[name] = float(np.median(ts))
+            fill()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             for _ in range(5):
-                t0 = time.perf_counter()
-                prefill()
-                walls.append((time.perf_counter() - t0) * 1e3)
+                step.graph.replay()
+            end.record()
+            end.synchronize()
+            replay_dev = start.elapsed_time(end) / 5
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                prefill()
+                eager()
             us = sum(getattr(ev, "self_device_time_total", 0.0)
                      for ev in prof.key_averages()
                      if ev.device_type == torch.autograd.DeviceType.CUDA)
-            rows.append(dict(bucket=bucket, wall_ms=float(np.median(walls)),
-                             device_ms=us / 1e3))
-    log("generation (d): eager prefill per bucket, wall ms (device ms): %s; "
-        "on %s" % (", ".join("%d: %.3f (%.3f)" % (r["bucket"], r["wall_ms"],
-                                                 r["device_ms"])
-                             for r in rows), card))
+            rows.append(dict(
+                bucket=bucket, replay_wall_ms=walls["replay"],
+                eager_wall_ms=walls["eager"], replay_device_ms=replay_dev,
+                eager_device_ms=us / 1e3, replay_equals_eager=same,
+                flash_fwd_per_replay=step.launches.get(
+                    "flash_attention_fwd", 0)))
+    log("generation (d): prefill per bucket, replayed wall ms / eager wall "
+        "ms (replay device ms / eager device ms), flash forward launches a "
+        "replay: %s; each replay equal to its eager body to the bit: %s; "
+        "on %s" % (", ".join(
+            "%d: %.3f / %.3f (%.3f / %.3f) %d" % (
+                r["bucket"], r["replay_wall_ms"], r["eager_wall_ms"],
+                r["replay_device_ms"], r["eager_device_ms"],
+                r["flash_fwd_per_replay"]) for r in rows),
+            all(r["replay_equals_eager"] for r in rows), card))
+    bad = [r["bucket"] for r in rows if not r["replay_equals_eager"]
+           or r["flash_fwd_per_replay"] != TRAIN_CFG["n_layers"]]
+    if bad:
+        raise AssertionError("prefill graphs of buckets %s: a replay "
+                             "differs from its eager body, or the flash "
+                             "forward is not launched once per layer" % bad)
     out["prefill_ms"] = rows
+    return rows
 
 
 def gen_step_timing(mx, gen, card, out):
@@ -3810,10 +3942,10 @@ def gen_traffic(mx, model, path, card, out):
                                           start=start)
         warmed = gen.warmup()
         captures = gen.get_stats()["captures"]
-        if warmed != n_buckets + 1 or captures != 1:
+        if warmed != n_buckets + 1 or captures != n_buckets + 1:
             raise AssertionError("warmup() gave %d programs and %d captures, "
-                                 "want %d and 1" % (warmed, captures,
-                                                    n_buckets + 1))
+                                 "want %d of each" % (warmed, captures,
+                                                      n_buckets + 1))
         return gen
 
     gen = new_generator()
@@ -3843,9 +3975,13 @@ def gen_traffic(mx, model, path, card, out):
 
     def run(sequential):
         torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
+        held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         gen = new_generator()
+        # the prefills replay their graphs: the launches of the traffic
+        # are the replays times one body run's (the wrapper counts only
+        # at a capture, and must count nothing here)
+        base = gen.graph_launches().get("flash_attention_fwd", 0)
         cuda_build.reset_launch_counts()
         res, threads = [None] * GEN_REQUESTS, []
         start = time.perf_counter()
@@ -3864,15 +4000,20 @@ def gen_traffic(mx, model, path, card, out):
         for t in threads:
             t.join(600)
         wall = time.perf_counter() - start - arrivals[0]
-        launches = cuda_build.launch_counts().get("flash_attention_fwd", 0)
+        launches = gen.graph_launches().get("flash_attention_fwd", 0) - base
+        eager_launches = cuda_build.launch_counts().get(
+            "flash_attention_fwd", 0)
         stats = gen.get_stats()
         captures = stopped(gen)
-        peak = torch.cuda.max_memory_allocated() - base
+        peak = torch.cuda.max_memory_allocated() - held
         del gen
-        if any(r is None for r in res) or captures != 1:
+        if any(r is None for r in res) or captures != n_buckets + 1 or \
+                eager_launches:
             raise AssertionError("traffic: %d requests unanswered, %d "
-                                 "captures" % (sum(r is None for r in res),
-                                               captures))
+                                 "captures, %d flash forward launches "
+                                 "outside a graph"
+                                 % (sum(r is None for r in res), captures,
+                                    eager_launches))
         tokens = sum(r[3] for r in res)
         pct = lambda xs, q: float(np.percentile(xs, q))  # noqa: E731
         ttft = [r[0] * 1e3 for r in res]
@@ -3888,14 +4029,15 @@ def gen_traffic(mx, model, path, card, out):
                    prefills=stats.get("prefills", 0), captures=captures,
                    flash_fwd_launches=launches,
                    launches_per_request=launches / GEN_REQUESTS,
-                   peak_bytes=peak, held_before_bytes=base)
+                   peak_bytes=peak, held_before_bytes=held)
         log("generation (d): %s, %d requests (prompts 2-%d tokens, %d new), "
             "Poisson arrivals at %gx the probed sequential capacity (%.3f s "
             "a request): %.1f tokens/s over %.3f s; TTFT p50 %.2f p99 %.2f "
             "ms; inter-token p50 %.2f p99 %.2f ms; per-token p50 %.2f p99 "
             "%.2f ms; %d decode steps, %d prefills; flash forward launches "
-            "%d (%.2f per request); %d capture; peak memory %.3f GB above "
-            "the %.3f GB held before; on %s"
+            "%d (%.2f per request, prefill replays x one body run's); %d "
+            "captures; peak memory %.3f GB above the %.3f GB held before; "
+            "on %s"
             % ("sequential" if sequential else "continuous", GEN_REQUESTS,
                GEN_MAX_SEQ - GEN_MAX_NEW - 1, GEN_MAX_NEW, GEN_OVERLOAD,
                t_req, row["tokens_per_s"], wall, row["ttft_p50_ms"],
@@ -3903,7 +4045,7 @@ def gen_traffic(mx, model, path, card, out):
                row["inter_token_p99_ms"], row["per_token_p50_ms"],
                row["per_token_p99_ms"], row["decode_steps"],
                row["prefills"], launches, row["launches_per_request"],
-               captures, peak / 1e9, base / 1e9, card))
+               captures, peak / 1e9, held / 1e9, card))
         if launches != TRAIN_CFG["n_layers"] * GEN_REQUESTS:
             raise AssertionError("%d flash forward launches for %d "
                                  "requests, want %d each"
@@ -7432,6 +7574,914 @@ def model_zoo_phase(mx, card, results):
     return out
 
 
+# ------------------------------ phase 17: mixed precision, control plane
+# (a): phase 3's ResNet-50 served under MXNET_GRAPH_PASSES=default,amp.
+# The random network amplifies bf16 rounding: on the CPU the JAX package's
+# amp moves its logits as much as the port's (tools/port_amp_conditioning.py),
+# so amp is held to fp32 on the JAX test's own quantity, the probabilities,
+# and the logits' gaps are reported
+AMP_BUCKETS = (1, 8)
+# kernel-form regions of one amp forward: phase 3's 32, and fc1 with the
+# cast that returns it to fp32 (the softmax island's input)
+AMP_REGIONS = 33
+AMP_TOL = dict(rtol=5e-2, atol=2e-2)   # tests/test_graph_passes.py:163
+# the amp graph with fused_matmul against it with the kernel's plain
+# version, logits over max(1, max |logit|): 2e-2, or AMP_FLOOR_X times
+# the gap the network opens between two roundings of the same function
+# (the plain version against itself in float64) where that is wider
+AMP_PLAIN_TOL = 2e-2
+AMP_FLOOR_X = 2.0
+AMP_LATENCY_N = 30       # sequential requests per bucket
+AMP_BATCHES = 16         # back-to-back 8-row requests
+AMP_CALIBRATE = 30       # training-mode forwards that set BN's statistics
+# (b): the amp generator's first-token logits against the same bf16
+# weights through the plain attention, over max |logit|
+AMP_GEN_TOL = 2e-2
+# (c): bench_all.py:946-1100 bench_control's protocol (its full size) at
+# phase 11's width in fp32
+CTL_REQUESTS, CTL_HEAD, CTL_NEW = 48, 224, 16
+CTL_SLOTS, CTL_MAX_SEQ, CTL_LOAD = 8, 256, 2.0
+# (d): PR 9's TTFT p50 / p99 under phase 11 (d)'s traffic, eager prefill
+PR9_TTFT_MS = (13.18, 104.54)
+# (f): the autoscaler over phase 14's ResNet-50 server
+AS_BURST = 96            # single-image requests submitted at once
+AS_BREAKER_MS = 2000     # the server's quarantine time
+
+
+def amp_region_calls(mx, served, bucket):
+    """The fused_matmul calls of one amp forward of the served graph at
+    ``bucket``, recorded on meta tensors (shapes only), with each call's
+    output dtype."""
+    import torch
+    from mxnet_tpu_torch.executor import _GraphProgram
+    from mxnet_tpu_torch.parallel import fused as F
+
+    frozen = [a for a in served.list_arguments()
+              if a not in ("data", "softmax_label")] + \
+        served.list_auxiliary_states()
+    opt = mx.graph_pass.optimize(
+        served, frozen=frozen, arg_shapes={"data": (1,) + ROW},
+        config=mx.graph_pass.PassConfig("default,amp"))
+    osym = opt.symbol
+    # the fold constants at their own dtypes (the casts amp put on the
+    # parameters are folded: bf16 weights)
+    arg_shapes, _, aux_shapes = served.infer_shape(data=(bucket,) + ROW)
+    values = {n: torch.empty(s, device="meta")
+              for n, s in zip(served.list_arguments() +
+                              served.list_auxiliary_states(),
+                              list(arg_shapes) + list(aux_shapes))}
+    values.update(opt.fold(values))
+    args = {n: values[n] for n in osym.list_arguments()}
+    aux = {n: values[n] for n in osym.list_auxiliary_states()}
+    calls = []
+    real = F.fused_matmul
+
+    def record(x, w, extras=(), epilogue=(), wt=True, out_dtype=None):
+        od = str(out_dtype or x.dtype).replace("torch.", "")
+        calls.append({"M": int(x.shape[0]), "K": int(x.shape[1]),
+                      "N": int(w.shape[0] if wt else w.shape[1]),
+                      "wt": bool(wt), "epilogue": tuple(epilogue),
+                      "out_dtype": od,
+                      "dtypes": [str(t.dtype).replace("torch.", "")
+                                 for t in [x, w] + list(extras)]})
+        return torch.empty((calls[-1]["M"], calls[-1]["N"]), device="meta",
+                           dtype=getattr(torch, od))
+
+    F.fused_matmul = record
+    try:
+        _GraphProgram(osym).infer_fn()(args, aux)
+    finally:
+        F.fused_matmul = real
+    return opt, calls
+
+
+def amp_bound_ms(case, bf16_peak, bytes_per_s):
+    """bf16 inputs and extras, the output in its own dtype, against the
+    bf16 tensor-core peak and the memory rate."""
+    M, N, K = case["M"], case["N"], case["K"]
+    n_extra = sum(M * N if s[0] == "res" else N for s in case["epilogue"]
+                  if s[0] in ("bias", "vadd", "vmul", "res"))
+    out_size = 4 if case["out_dtype"] == "float32" else 2
+    nbytes = (M * K + K * N + n_extra) * 2 + M * N * out_size
+    t_bytes = nbytes / bytes_per_s * 1e3
+    t_ops = 2.0 * M * N * K / bf16_peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                 else "operations")
+
+
+def amp_kernel_timing(mx, served, peaks):
+    """(a): fused_matmul at each amp region's shape of one forward at
+    buckets 1 and 8, bf16 inputs: held to its plain version (the bf16
+    grid's bar), timed beside it and beside torch.addmm in bf16 plus the
+    epilogue as CUDA-graph replays, with its bound. Per-forward sums."""
+    import torch
+    from mxnet_tpu_torch.parallel import fused as F
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    totals = {}
+    worst = 0.0
+    for bucket in AMP_BUCKETS:
+        _opt, calls = amp_region_calls(mx, served, bucket)
+        if len(calls) != AMP_REGIONS:
+            raise AssertionError("amp bucket %d forward has %d kernel-form "
+                                 "regions, want %d"
+                                 % (bucket, len(calls), AMP_REGIONS))
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                   t_ops=0.0, t_bytes=0.0)
+        for case in calls:
+            err, (x, w, extras) = check_case(F, case, torch.bfloat16, gen,
+                                             GRID_TOL["bfloat16"])
+            worst = max(worst, err)
+            ep, wt, od = case["epilogue"], case["wt"], case["out_dtype"]
+            bnd, by = amp_bound_ms(case, peaks["bf16_flops"],
+                                   peaks["bytes_per_s"])
+            tot["ms"] += time_ms(lambda: F.fused_matmul(
+                x, w, extras, ep, wt, out_dtype=od))
+            tot["plain_ms"] += time_ms(lambda: F.fused_matmul_reference(
+                x, w, extras, ep, wt, out_dtype=od))
+            tot["library_ms"] += time_ms(lambda: library_fn(
+                x, w, extras, ep, wt, native=True, out_dtype=od))
+            tot["bound_ms"] += bnd
+            tot["t_ops" if by == "operations" else "t_bytes"] += bnd
+        tot["bound_by"] = ("operations" if tot["t_ops"] >= tot["t_bytes"]
+                           else "bytes")
+        tot["launches"] = len(calls)
+        totals[bucket] = tot
+    return totals, worst
+
+
+def amp_server(mx, served, args, aux, spec="default,amp", **cfg):
+    import torch
+
+    mx.graph_pass.set_passes(spec)
+    try:
+        return mx.serving.InferenceServer(
+            served, args, aux, data_shapes=[("data", (1,) + ROW)],
+            devices=[torch.device("cuda", 0)],
+            config=mx.serving.ServingConfig(buckets=AMP_BUCKETS,
+                                            max_wait_ms=0, **cfg))
+    finally:
+        mx.graph_pass.set_passes(None)
+
+
+def amp_answers(srv, images, batch):
+    srv.warmup()
+    return ([srv.predict(x, timeout=600) for x in images]
+            + [srv.predict(batch, timeout=600)])
+
+
+def amp_parity(mx, served, args, aux, images, batch):
+    """The same requests through the fp32 server (default passes), the amp
+    server and the amp server with MXNET_FUSION_KERNEL=0 (the plain
+    composition): (fp32 answers, amp answers, plain amp answers)."""
+    answers = []
+    for spec, kernel in (("default", True), ("default,amp", True),
+                         ("default,amp", False)):
+        if not kernel:
+            mx.config.set_flag("MXNET_FUSION_KERNEL", 0)
+        try:
+            srv = amp_server(mx, served, args, aux, spec=spec)
+            try:
+                answers.append(amp_answers(srv, images, batch))
+            finally:
+                srv.stop()
+        finally:
+            mx.config.set_flag("MXNET_FUSION_KERNEL", None)
+    return answers
+
+
+def amp_gaps(fp32, amp, plain):
+    """amp against fp32 (logits over max |logit|, top-1, the JAX test's
+    tolerance on probabilities and, over max |logit|, on logits) and the
+    kernel against the plain composition."""
+    err, top1 = compare(amp, fp32, "amp vs fp32")
+    plain_err, plain_top1 = compare(amp, plain, "amp kernel vs plain")
+    probs_ok = all(np.allclose(a[0], f[0], **AMP_TOL)
+                   for a, f in zip(amp, fp32))
+    logits_ok = all(np.allclose(a[1], f[1], rtol=AMP_TOL["rtol"],
+                                atol=AMP_TOL["atol"] * max(
+                                    1.0, float(np.abs(f[1]).max())))
+                    for a, f in zip(amp, fp32))
+    scale = max(float(np.abs(f[1]).max()) for f in fp32)
+    return dict(logit_err=err, top1=top1, probs_within=probs_ok,
+                logits_within=logits_ok, max_logit=scale,
+                plain_logit_err=plain_err, plain_top1=plain_top1)
+
+
+def fused_matmul_fp64(x, w, extras=(), epilogue=(), wt=True, out_dtype=None):
+    """``fused_matmul``'s plain version with the product and the epilogue
+    in float64 before the one cast: the same function rounded once from
+    (nearly) exact values."""
+    from mxnet_tpu_torch.base import torch_dtype
+    from mxnet_tpu_torch.parallel import fused as F
+
+    wd = w.double()
+    y = x.double() @ (wd.t() if wt else wd)
+    y = F._reference_epilogue(y, extras, epilogue)
+    return y.to(torch_dtype(out_dtype) or x.dtype)
+
+
+def eager_plain_kernel(srv, x, plain=None):
+    """The eager walk of replica 0 with ``fused_matmul`` swapped for
+    ``plain`` (default: its plain version, ``fused_matmul_reference``):
+    host outputs."""
+    from mxnet_tpu_torch.parallel import fused as F
+
+    real = F.fused_matmul
+    F.fused_matmul = plain or F.fused_matmul_reference
+    try:
+        return [o.cpu().numpy() for o in eager_outputs(srv, 0, x)]
+    finally:
+        F.fused_matmul = real
+
+
+def calibrated_bn(mx, sym, np_args, np_aux, x, ctx=None):
+    """Phase 14's weights with BatchNorm's moving statistics brought to
+    the data, as a trained net's are: AMP_CALIBRATE training-mode forwards
+    of ``x`` (0.9^30 of the initial statistics left) on ``ctx`` (the
+    card). Returns the moving statistics as numpy."""
+    ctx = ctx or mx.gpu()
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", (x.shape[0],))])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=ctx)
+                                for k, v in np_args.items()},
+                    aux_params={k: mx.nd.array(v, ctx=ctx)
+                                for k, v in np_aux.items()},
+                    force_init=True)
+    batch = mx.io.DataBatch([mx.nd.array(x, ctx=ctx)],
+                            [mx.nd.zeros((x.shape[0],), ctx=ctx)])
+    for _ in range(AMP_CALIBRATE):
+        mod.forward(batch, is_train=True)
+    # the device copies (forward leaves the host dicts as they were)
+    grp = mod._exec_group
+    return {name: arrs[0].asnumpy()
+            for name, arrs in zip(grp.aux_names, grp.aux_arrays)}
+
+
+def amp_serve(mx, sym, card, peaks, out):
+    """(a): ResNet-50 under default,amp, buckets (1, 8), one replica."""
+    import torch
+    from mxnet_tpu_torch import cuda_build, cuda_graph
+
+    np_args, np_aux = resnet50_params(sym, seed=0)
+    center_fc_bias(mx, sym, np_args, np_aux, np.random.default_rng(1))
+    served = mx.sym.Group([sym, sym.get_internals()["fc1_output"]])
+    rng = np.random.default_rng(17)
+    images = rng.standard_normal((8,) + ROW, dtype=np.float32)
+    batch = rng.standard_normal((8,) + ROW, dtype=np.float32)
+    res = {}
+    # phase 14's weights: the random ResNet's logits share one
+    # input-independent component of a few hundred, which fc1_bias
+    # cancels; amp casts fc1_bias to bf16 (an FC input), which moves every
+    # logit by up to half a bf16 ulp of it (reported, not checked)
+    args, aux = mx.params_from_jax(np_args, np_aux, device="cuda")
+    res["phase14_weights"] = amp_gaps(*amp_parity(mx, served, args, aux,
+                                                  images, batch))
+    # the same weights with BatchNorm's statistics brought to the data
+    np_aux = calibrated_bn(mx, sym, np_args, np_aux, rng.standard_normal(
+        (16,) + ROW, dtype=np.float32))
+    center_fc_bias(mx, sym, np_args, np_aux, np.random.default_rng(1))
+    args, aux = mx.params_from_jax(np_args, np_aux, device="cuda")
+    gaps = amp_gaps(*amp_parity(mx, served, args, aux, images, batch))
+    res["calibrated"] = gaps
+
+    # the replays against the eager walk, bit for bit, under cuDNN's
+    # deterministic algorithms (a graph keeps its capture's algorithms)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    srv = amp_server(mx, served, args, aux)
+    try:
+        srv.warmup()
+        same = {}
+        for b in AMP_BUCKETS:
+            x = rng.standard_normal((b,) + ROW, dtype=np.float32)
+            got, want = replay_vs_eager(srv, 0, x)
+            same[b] = all(np.array_equal(g, w) for g, w in zip(got, want))
+        # the same amp graph with fused_matmul's plain version in its
+        # place (the same cuDNN algorithms): only the kernel differs
+        # the network's floor: the plain version against itself in
+        # float64, another rounding of the same function
+        replayed, plain, exact = [], [], []
+        for x in list(images[:4, None]) + [batch]:
+            got, _want = replay_vs_eager(srv, 0, x)
+            replayed.append(got)
+            plain.append(eager_plain_kernel(srv, x))
+            exact.append(eager_plain_kernel(srv, x, fused_matmul_fp64))
+        gaps["kernel_vs_plain_kernel"], gaps["kernel_vs_plain_top1"] = \
+            compare(replayed, plain, "amp kernel vs its plain version")
+        gaps["plain_vs_fp64"], _ = compare(plain, exact,
+                                           "plain version vs float64")
+    finally:
+        srv.stop()
+        torch.backends.cudnn.deterministic = det
+
+    cuda_build.reset_launch_counts()
+    srv = amp_server(mx, served, args, aux)
+    try:
+        warmed = srv.warmup()
+        captured = cuda_build.launch_counts().get("fused_matmul", 0)
+        cuda_build.reset_launch_counts()
+        eager_outputs(srv, 0, batch)
+        torch.cuda.synchronize()
+        per_body = cuda_build.launch_counts().get("fused_matmul", 0)
+        cuda_build.reset_launch_counts()
+        stats0 = srv.get_stats()
+        answers = amp_answers(srv, images, batch)
+        lat = {}
+        for b in AMP_BUCKETS:
+            x = rng.standard_normal((b,) + ROW, dtype=np.float32)
+            srv.predict(x, timeout=600)
+            ts = []
+            for _ in range(AMP_LATENCY_N):
+                t0 = time.perf_counter()
+                srv.predict(x, timeout=600)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            lat[b] = float(np.percentile(ts, 50))
+        t0 = time.perf_counter()
+        futs = [srv.submit(batch) for _ in range(AMP_BATCHES)]
+        for f in futs:
+            f.result(timeout=600)
+        img_s = AMP_BATCHES * batch.shape[0] / (time.perf_counter() - t0)
+        stats = srv.get_stats()
+        traffic_wrapper = cuda_build.launch_counts().get("fused_matmul", 0)
+    finally:
+        srv.stop()
+    report = stats["graph_pass"]
+    passes = {r["pass"]: r for r in report["passes"]}
+    regions = report["fuse"]["regions"]
+    casts = sum(1 for r in regions if "Cast" in r["ops"])
+    replays = stats.get("batches", 0) - stats0.get("batches", 0)
+    dtypes = {str(a[1].dtype) for a in answers}
+    timing, kerr = amp_kernel_timing(mx, served, peaks)
+    res.update(
+        amp_casts=passes["amp"]["rewrites"], regions=len(regions),
+        regions_ending_in_cast=casts, kernel_regions=per_body,
+        warmup=warmed, captures=stats["bucket_programs"],
+        capture_launches=captured,
+        capture_launches_per_body_run=captured / max(1, warmed * (
+            1 + cuda_graph.WARMUP_RUNS)),
+        replay_equals_eager=same, replays=replays,
+        launches=replays * per_body, traffic_wrapper_launches=traffic_wrapper,
+        p50_ms={str(b): lat[b] for b in AMP_BUCKETS}, img_per_s_bucket8=img_s,
+        kernel={str(b): t for b, t in timing.items()}, kernel_max_err=kerr,
+        output_dtypes=sorted(dtypes))
+    p14 = res["phase14_weights"]
+    log("amp (a): ResNet-50 NHWC under default,amp, buckets %s, one "
+        "replica: %d casts, %d fuse regions (%d ending in a cast), %d take "
+        "fused_matmul with bf16 operands; warmup %d captures (%d wrapper "
+        "launches, %.1f per body run); each replay equal to its eager walk "
+        "to the bit (cuDNN deterministic): %s; phase 14's weights (max "
+        "|logit| %.4g): logits vs the fp32 server %.4g of max |logit|, "
+        "top-1 %.3f, vs the plain composition %.4g (reported); BatchNorm "
+        "calibrated (max |logit| %.4g): vs the fp32 server %.4g, top-1 "
+        "%.3f, probabilities within rtol %g atol %g: %s, logits within the "
+        "same over max |logit|: %s (reported); vs the plain composition "
+        "(MXNET_FUSION_KERNEL=0) %.4g, top-1 %.3f (reported); vs the same "
+        "graph with fused_matmul's plain version %.4g, top-1 %.3f (that "
+        "plain version against itself in float64: %.4g); outputs %s; p50 "
+        "%s ms, "
+        "%.1f img/s at bucket 8; %d replays x %d launches = %d "
+        "fused_matmul launches, %d by the wrapper outside the captures; "
+        "on %s"
+        % (AMP_BUCKETS, res["amp_casts"], len(regions), casts, per_body,
+           warmed, captured, res["capture_launches_per_body_run"], same,
+           p14["max_logit"], p14["logit_err"], p14["top1"],
+           p14["plain_logit_err"], gaps["max_logit"], gaps["logit_err"],
+           gaps["top1"], AMP_TOL["rtol"], AMP_TOL["atol"],
+           gaps["probs_within"], gaps["logits_within"],
+           gaps["plain_logit_err"], gaps["plain_top1"],
+           gaps["kernel_vs_plain_kernel"], gaps["kernel_vs_plain_top1"],
+           gaps["plain_vs_fp64"], sorted(dtypes),
+           {b: round(v, 3) for b, v in lat.items()}, img_s, replays,
+           per_body, res["launches"], traffic_wrapper, card))
+    for b, t in timing.items():
+        log("amp (a): fused_matmul bf16, bucket %d forward: %d launches "
+            "ms=%.4f plain_ms=%.4f library_ms (torch.addmm bf16 + "
+            "epilogue)=%.4f bound_ms=%.4f (%s, bf16 peak %.0f TFLOP/s, "
+            "%.2f TB/s); worst kernel-vs-plain %.3g; on %s"
+            % (b, t["launches"], t["ms"], t["plain_ms"], t["library_ms"],
+               t["bound_ms"], t["bound_by"], peaks["bf16_flops"] / 1e12,
+               peaks["bytes_per_s"] / 1e12, kerr, card))
+    if not (all(same.values()) and per_body == AMP_REGIONS
+            and warmed == len(AMP_BUCKETS)
+            and stats["bucket_programs"] == len(AMP_BUCKETS)
+            and captured == AMP_REGIONS * warmed * (
+                1 + cuda_graph.WARMUP_RUNS)
+            and not traffic_wrapper and gaps["probs_within"]
+            and gaps["kernel_vs_plain_kernel"] <= max(
+                AMP_PLAIN_TOL, AMP_FLOOR_X * gaps["plain_vs_fp64"])
+            and dtypes == {"float32"} and passes["amp"]["rewrites"] > 0):
+        raise AssertionError("amp (a) failed: %s" % json.dumps(
+            {k: v for k, v in res.items() if k != "kernel"}, default=str))
+    out["a"] = res
+    return res
+
+
+def amp_generation(mx, card, out):
+    """(b): GenerationConfig(amp=True) over phase 11 (a)'s fp32 model."""
+    import torch
+
+    G = mx.serving.generation
+    model = mx.parallel.TransformerParallel(mx.parallel.make_mesh({"dp": 1}),
+                                            dtype="float32", **TRAIN_CFG)
+    params = model.init(0)
+    n_programs = len(G.default_prefill_ladder(GEN_MAX_SEQ)) + 1
+    prompts = gen_prompts(GEN_PROMPTS, 2, GEN_PROMPT_MAX, TRAIN_CFG["vocab"],
+                          2)
+    sp = G.SamplingParams(max_new_tokens=GEN_NEW)
+    res = {}
+    outs = {}
+    for mode in ("fp32", "amp"):
+        gen = G.Generator(model, params, gen_config(mx, amp=mode == "amp"))
+        warmed = gen.warmup()
+        per_replay = {name: step.launches.get("flash_attention_fwd", 0)
+                      for name, step in gen._steps.items()
+                      if name.startswith("prefill")}
+        dtypes = sorted({str(v.dtype) for v in gen._params.values()})
+        base = gen.graph_launches().get("flash_attention_fwd", 0)
+        got, wall = serve_all(gen, [(p, sp) for p in prompts])
+        launches = gen.graph_launches().get("flash_attention_fwd", 0) - base
+        stats = gen.get_stats()
+        if mode == "amp":
+            tok = torch.from_numpy(np.random.RandomState(1).randint(
+                0, TRAIN_CFG["vocab"], (1, GEN_PREFILL_T[1]))).cuda()
+            with torch.no_grad():
+                kern, _, _ = model.prefill_forward(gen._params, tok)
+                with plain_prefill():
+                    want, _, _ = model.prefill_forward(gen._params, tok)
+            first_err = float((kern[0, -1] - want[0, -1]).abs().max()
+                              / want[0, -1].abs().max())
+        captures = stopped(gen)
+        outs[mode] = got
+        res[mode] = dict(
+            warmed=warmed, captures=captures, param_dtypes=dtypes,
+            amp=stats["graph_pass"]["amp"], flash_fwd_per_replay=per_replay,
+            flash_fwd_launches=launches, prefills=stats["prefills"],
+            tokens_per_s=sum(len(g) for g in got) / wall, wall_s=wall)
+        del gen
+    noted = any(r.get("program") == "generation" and r.get("amp")
+                for r in mx.graph_pass.recent_reports())
+    same_seq = sum(a == b for a, b in zip(outs["amp"], outs["fp32"]))
+    same_tok = sum(x == y for a, b in zip(outs["amp"], outs["fp32"])
+                   for x, y in zip(a, b))
+    res.update(first_token_logit_err=first_err, recent_reports=noted,
+               agreement=dict(sequences=same_seq, tokens=same_tok,
+                              of_sequences=len(prompts),
+                              of_tokens=len(prompts) * GEN_NEW))
+    a = res["amp"]
+    log("amp (b): GenerationConfig(amp=True) over the fp32 LM (phase 11 "
+        "(a)'s init(0)): parameters %s, stats amp %s, graph_pass recent "
+        "reports note it: %s; %d programs warmed, %d captures; flash "
+        "forward launches a prefill replay: %s (bf16: the wgmma kernel); "
+        "%d prompts x %d new: %d flash forward launches over %d prefills; "
+        "first-token logits of a %d-token prompt within %.3g of max "
+        "|logit| of the same bf16 weights through the plain attention; "
+        "greedy agreement with the fp32 generator %d of %d sequences, %d "
+        "of %d tokens (reported, not checked); %.1f tokens/s amp, %.1f "
+        "fp32; on %s"
+        % (a["param_dtypes"], a["amp"], noted, a["warmed"], a["captures"],
+           sorted(set(a["flash_fwd_per_replay"].values())), len(prompts),
+           GEN_NEW, a["flash_fwd_launches"], a["prefills"],
+           GEN_PREFILL_T[1], first_err, same_seq, len(prompts), same_tok,
+           len(prompts) * GEN_NEW, a["tokens_per_s"],
+           res["fp32"]["tokens_per_s"], card))
+    n_layers = TRAIN_CFG["n_layers"]
+    if not (a["param_dtypes"] == ["torch.bfloat16"] and a["amp"] is True
+            and noted and a["warmed"] == a["captures"] == n_programs
+            and set(a["flash_fwd_per_replay"].values()) == {n_layers}
+            and a["flash_fwd_launches"] == n_layers * a["prefills"]
+            and first_err <= AMP_GEN_TOL
+            and res["fp32"]["amp"] is False):
+        raise AssertionError("amp (b) failed: %s" % json.dumps(res))
+    out["b"] = res
+    return res
+
+
+def step_replay_ms(gen, name, n=5):
+    """Device ms of one replay of ``gen``'s step ``name`` (CUDA events over
+    ``n``), from all-trash inputs: the work does not depend on them, and
+    the writes land on the trash page."""
+    import torch
+
+    with gen._device_scope(), gen._pages_lock:
+        step = gen._steps[name]
+        step.reset()
+        step.graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            step.graph.replay()
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def ctl_pass(gen, prompts, arrivals, sp):
+    """One bench_control pass: Poisson submissions, a consumer thread per
+    request. Returns (outputs, TTFT ms, the peak pages shared while
+    requests were in flight)."""
+    import threading
+
+    n = len(prompts)
+    ttfts, outs, threads = [None] * n, [None] * n, []
+    shared = [0]
+
+    def consume(handle, idx, t_sub):
+        stream = handle.stream(timeout=600)
+        toks = [next(stream)]
+        ttfts[idx] = (time.perf_counter() - t_sub) * 1e3
+        toks.extend(stream)
+        outs[idx] = toks
+
+    start = time.perf_counter()
+    for i, (a, p) in enumerate(zip(arrivals, prompts)):
+        now = time.perf_counter() - start
+        if now < a:
+            time.sleep(a - now)
+        t_sub = time.perf_counter()
+        h = gen.submit(p, sp)
+        t = threading.Thread(target=consume, args=(h, i, t_sub))
+        t.start()
+        threads.append(t)
+        if i % 4 == 3:
+            shared[0] = max(shared[0], gen.pool.get_stats()["pages_shared"])
+    for t in threads:
+        t.join(600)
+    if any(o is None for o in outs):
+        raise AssertionError("control (c): %d requests unanswered"
+                             % sum(o is None for o in outs))
+    return outs, ttfts, shared[0]
+
+
+def control_protocol(mx, card, out):
+    """(c): bench_control's protocol at phase 11's width, fp32: a
+    cache-less pass (cold), a seeding pass and a warm pass of the same
+    Poisson schedule, then the SLO witness."""
+    from mxnet_tpu_torch.observability import metrics
+
+    G = mx.serving.generation
+    model = mx.parallel.TransformerParallel(mx.parallel.make_mesh({"dp": 1}),
+                                            dtype="float32", **TRAIN_CFG)
+    params = model.init(0)
+    rng = np.random.RandomState(0)
+    vocab = TRAIN_CFG["vocab"]
+    head = [int(t) for t in rng.randint(1, vocab, size=CTL_HEAD)]
+    prompts = [head + [int(t) for t in rng.randint(
+        1, vocab, size=1 + int(rng.randint(8)))]
+        for _ in range(CTL_REQUESTS)]
+    sp = G.SamplingParams(max_new_tokens=CTL_NEW)
+    n_programs = len(G.default_prefill_ladder(CTL_MAX_SEQ)) + 1
+
+    def generator(cache):
+        gen = G.Generator(model, params, G.GenerationConfig(
+            prefix_cache=cache, max_batch=CTL_SLOTS, max_seq=CTL_MAX_SEQ,
+            page_size=GEN_PAGE, decode_blocks=GEN_BLOCKS))
+        if gen.warmup() != n_programs:
+            raise AssertionError("control (c): warmup() != %d" % n_programs)
+        return gen
+
+    gen = generator(True)
+    t0 = time.perf_counter()
+    gen.generate(prompts[0], sp, timeout=600)
+    t_req = time.perf_counter() - t0
+    arrivals = np.cumsum(rng.exponential(t_req / CTL_LOAD, CTL_REQUESTS))
+    pct = lambda xs, q: float(np.percentile(xs, q))  # noqa: E731
+
+    cold_gen = generator(False)
+    cold, cold_ttft, _ = ctl_pass(cold_gen, prompts, arrivals, sp)
+    # a cold prompt prefills at bucket 256 (the flash forward), a warm
+    # suffix at 16 over the gathered prefix pages (_suffix_attend)
+    replay_ms = {"cold_256": step_replay_ms(cold_gen, "prefill256")}
+    cold_captures = stopped(cold_gen)
+    del cold_gen
+    ctl_pass(gen, prompts, arrivals, sp)             # seeds every block
+    hits0 = metrics.get_value("generation.prefix_hits", 0)
+    skipped0 = metrics.get_value("generation.prefill_tokens_skipped", 0)
+    warm, warm_ttft, peak_shared = ctl_pass(gen, prompts, arrivals, sp)
+    hits = metrics.get_value("generation.prefix_hits", 0) - hits0
+    skipped = metrics.get_value("generation.prefill_tokens_skipped",
+                                0) - skipped0
+    cache = gen.prefix_cache.get_stats()
+    pool = gen.pool.get_stats()
+    replay_ms["warm_16"] = step_replay_ms(gen, "prefill16")
+
+    # the SLO witness: every slot busy, then two batch and two interactive
+    # requests queued; the interactive ones are admitted first and the
+    # batch ones still finish
+    admit = []
+    real = gen._prefill
+
+    def spy(slot, ent, worst):
+        admit.append((ent.slo.name, len(ent.prompt)))
+        return real(slot, ent, worst)
+
+    gen._prefill = spy
+    try:
+        blockers = [gen.submit(head, G.SamplingParams(
+            max_new_tokens=CTL_MAX_SEQ - CTL_HEAD - 1), slo="batch")
+            for _ in range(CTL_SLOTS)]
+        time.sleep(0.05)
+        batch_hs = [gen.submit(head + [2, i], sp, slo="batch")
+                    for i in range(2)]
+        inter_hs = [gen.submit(head + [3, i], sp, slo="interactive")
+                    for i in range(2)]
+        t0 = time.perf_counter()
+        for h in inter_hs:
+            h.result(timeout=600)
+        inter_s = time.perf_counter() - t0
+        finished = sum(len(h.result(timeout=600)) == CTL_NEW
+                       for h in batch_hs)
+        for h in blockers:
+            h.result(timeout=600)
+        batch_s = time.perf_counter() - t0
+    finally:
+        gen._prefill = real
+    queued = [c for c, n in admit if n == CTL_HEAD + 2]
+    overtake = queued[:2] == ["interactive"] * 2
+    captures = stopped(gen)             # drains, clears the cache, no leak
+    same = sum(a == b for a, b in zip(warm, cold))
+    res = dict(
+        t_req_s=t_req, cold=dict(ttft_p50_ms=pct(cold_ttft, 50),
+                                 ttft_p99_ms=pct(cold_ttft, 99)),
+        warm=dict(ttft_p50_ms=pct(warm_ttft, 50),
+                  ttft_p99_ms=pct(warm_ttft, 99), hits=hits,
+                  hit_rate=hits / CTL_REQUESTS,
+                  prefill_tokens_skipped=skipped,
+                  peak_pages_shared=peak_shared),
+        prefix_cache=cache, cow_copies=pool["cow_copies"],
+        prefill_replay_device_ms=replay_ms,
+        warm_equals_cold=same, requests=CTL_REQUESTS,
+        slo=dict(overtake=overtake, queued_admits=queued,
+                 interactive_s=inter_s, all_s=batch_s,
+                 batch_finished=finished),
+        captures=captures, cold_captures=cold_captures)
+    log("control (c): bench_control's protocol at phase 11's width, fp32, "
+        "%d requests (a %d-token head + 1-8 tokens), %d new each, %d slots, "
+        "max_seq %d, Poisson at %gx one request's sequential capacity "
+        "(%.3f s): TTFT p50 / p99 cold (no cache) %.2f / %.2f ms, warm "
+        "%.2f / %.2f ms; warm pass %d hits of %d (hit rate %.3f), %d "
+        "prefill tokens skipped, peak %d pages shared, %d COW copies; one "
+        "prefill replay's device ms: cold (bucket 256) %.3f, warm suffix "
+        "(bucket 16) %.3f; warm outputs token-identical to the cache-less "
+        "generator's: %d of %d; "
+        "SLO witness: queued admits %s (overtake %s), interactive done in "
+        "%.3f s, all in %.3f s, %d of 2 batch requests finished; captures "
+        "%d (cold generator %d); drained with no leaked page; on %s"
+        % (CTL_REQUESTS, CTL_HEAD, CTL_NEW, CTL_SLOTS, CTL_MAX_SEQ,
+           CTL_LOAD, t_req, res["cold"]["ttft_p50_ms"],
+           res["cold"]["ttft_p99_ms"], res["warm"]["ttft_p50_ms"],
+           res["warm"]["ttft_p99_ms"], hits, CTL_REQUESTS,
+           res["warm"]["hit_rate"], skipped, peak_shared,
+           pool["cow_copies"], replay_ms["cold_256"], replay_ms["warm_16"],
+           same, CTL_REQUESTS, queued, overtake,
+           inter_s, batch_s, finished, captures, cold_captures, card))
+    if not (same == CTL_REQUESTS and hits > 0 and skipped > 0 and overtake
+            and finished == 2 and captures == n_programs
+            and cold_captures == n_programs):
+        raise AssertionError("control (c) failed: %s" % json.dumps(res))
+    out["c"] = res
+    return res
+
+
+def prefill_graph_summary(mx, results, card, out):
+    """(d): each bucket's prefill graph against its eager body (phase 11
+    (d)'s rows; measured here when phase 11 did not run), and TTFT under
+    phase 11 (d)'s traffic beside PR 9's."""
+    gen_out = results.get("generation", {})
+    rows = gen_out.get("prefill_ms")
+    if rows is None:
+        G = mx.serving.generation
+        model = mx.parallel.TransformerParallel(
+            mx.parallel.make_mesh({"dp": 1}), dtype="float32", **TRAIN_CFG)
+        gen = G.Generator(model, model.init(0), gen_config(mx), start=False)
+        gen.warmup()
+        rows = gen_prefill_timing(gen, card, {})
+        stopped(gen)
+    cont = gen_out.get("continuous")
+    res = dict(per_bucket=rows,
+               ttft_ms=(None if cont is None else
+                        [cont["ttft_p50_ms"], cont["ttft_p99_ms"]]),
+               ttft_ms_pr9=list(PR9_TTFT_MS))
+    log("prefill graphs (d): replayed vs eager wall ms per bucket %s; "
+        "TTFT p50 / p99 under phase 11 (d)'s traffic %s ms (PR 9, eager "
+        "prefill: %.2f / %.2f ms); on %s"
+        % (", ".join("%d: %.3f vs %.3f" % (r["bucket"], r["replay_wall_ms"],
+                                           r["eager_wall_ms"])
+                     for r in rows),
+           "not run" if cont is None else "%.2f / %.2f" % tuple(
+               res["ttft_ms"]), PR9_TTFT_MS[0], PR9_TTFT_MS[1], card))
+    out["d"] = res
+    return res
+
+
+def gen_faults_metrics(mx, card, out):
+    """(e): a generation.decode_step fault fails only that step's slots;
+    the generation.* series in dump_metrics(); one complete trace."""
+    from mxnet_tpu_torch.observability import metrics, request_trace
+    from mxnet_tpu_torch.resilience import faults
+
+    G = mx.serving.generation
+    model = mx.parallel.TransformerParallel(mx.parallel.make_mesh({"dp": 1}),
+                                            dtype="float32", **TRAIN_CFG)
+    metrics.reset_metrics()
+    request_trace.reset()
+    faults.configure("generation.decode_step:raise@call=2", seed=0)
+    gen = G.Generator(model, model.init(0), G.GenerationConfig(
+        prefix_cache=True, max_batch=CTL_SLOTS, max_seq=CTL_MAX_SEQ,
+        page_size=GEN_PAGE, decode_blocks=GEN_BLOCKS))
+    try:
+        h1 = gen.submit(list(range(1, 40)), G.SamplingParams(
+            max_new_tokens=8))
+        try:
+            h1.result(timeout=600)
+            failed = False
+        except faults.InjectedFault:
+            failed = True
+        toks = gen.generate(list(range(50, 70)), G.SamplingParams(
+            max_new_tokens=4), timeout=600)
+        stats = gen.get_stats()
+        text = metrics.dump_metrics()
+    finally:
+        faults.reset()
+        stopped(gen)
+    series = sorted({line.split("{")[0].split()[0] for line in
+                     text.splitlines()
+                     if line.startswith("mxnet_generation_")})
+    want = ["mxnet_generation_" + n for n in (
+        "requests", "ttft_ms", "itl_ms", "decode_faults", "kv_pages_used",
+        "tokens_generated", "prefix_misses", "decode_step_ms",
+        "slo_completed", "prefill_batches")]
+    missing = [w for w in want if not any(s.startswith(w) for s in series)]
+    traces = [t for t in request_trace.reservoir().recent()
+              if t.status == "ok"]
+    trace = traces[-1].to_dict() if traces else {}
+    phases = [e[0] for e in traces[-1].events] if traces else []
+    complete = (phases[:4] == ["submit", "queue", "prefix_match",
+                               "prefill"]
+                and phases.count("decode") == 3
+                and abs(sum(trace["phases_ms"].values())
+                        - trace["total_ms"]) < 1e-3)
+    res = dict(first_failed=failed, second_tokens=len(toks),
+               decode_faults=stats["decode_faults"], series=series,
+               missing=missing, trace_phases=phases,
+               trace_complete=complete)
+    log("faults (e): generation.decode_step:raise@call=2 failed the first "
+        "request: %s; the next served %d tokens; decode_faults %d; %d "
+        "generation.* series in dump_metrics() (missing: %s); one trace: "
+        "%s, complete %s; on %s"
+        % (failed, len(toks), stats["decode_faults"], len(series),
+           missing, phases, complete, card))
+    if not (failed and len(toks) == 4 and stats["decode_faults"] == 1
+            and not missing and complete):
+        raise AssertionError("faults (e) failed: %s" % json.dumps(res))
+    out["e"] = res
+    return res
+
+
+def autoscale_drive(mx, sym, card, out):
+    """(f): the autoscaler over phase 14's ResNet-50 server (one replica,
+    buckets (1, 8)) on a fake clock: a queue burst scales 1 -> 2, a hot
+    tick inside the cooldown is computed (clamped at 2) and not applied,
+    a quiet window scales 2 -> 1, a fault-killed replica with the TTFT
+    objective burning scales 1 -> 2."""
+    import torch
+    from mxnet_tpu_torch.observability import (metrics, slo_monitor,
+                                               timeseries)
+    from mxnet_tpu_torch.resilience import faults
+
+    np_args, np_aux = resnet50_params(sym, seed=0)
+    args, aux = mx.params_from_jax(np_args, np_aux, device="cuda")
+    x1 = np.random.default_rng(18).standard_normal(ROW, dtype=np.float32)
+    srv = mx.serving.InferenceServer(
+        sym, args, aux, data_shapes=[("data", (1,) + ROW)],
+        devices=[torch.device("cuda", 0)],
+        config=mx.serving.ServingConfig(buckets=AMP_BUCKETS, max_wait_ms=0,
+                                        cooldown_ms=AS_BREAKER_MS))
+    clk = [0.0]
+    sampler = timeseries.TimeSeriesSampler(interval_ms=1000, retain=2000,
+                                           clock=lambda: clk[0])
+    ttft = metrics.histogram("slo.ttft_ms", buckets=(50, 200))
+    mon = slo_monitor.SLOMonitor(sampler.store, [slo_monitor.BurnRateAlert(
+        slo_monitor.LatencyObjective("ttft", "slo.ttft_ms", threshold=50.0,
+                                     q=0.95),
+        short_s=60.0, long_s=600.0, on_threshold=2.0, off_threshold=1.0)])
+    pol = mx.serving.control.AutoscalePolicy(
+        queue_high=16, queue_low=1, window_s=30, min_replicas=1,
+        max_replicas=2, slo_monitor=mon)
+    scaler = mx.serving.control.Autoscaler.for_server(
+        pol, sampler.store, srv, cooldown_ms=20_000, clock=lambda: clk[0])
+    trail = {}
+
+    def tick(t, what):
+        clk[0] = t
+        sampler.sample_once()
+        d = scaler.step(now=t)
+        trail[what] = dict(t=t, replicas=d.replicas, action=d.action,
+                           applied=d.applied, reason=d.reason,
+                           active=len(srv.active_replicas()),
+                           programs=len(srv._programs))
+        return d
+
+    try:
+        srv.warmup()
+        sampler.sample_once()                          # t = 0
+        futs = [srv.submit(x1) for _ in range(AS_BURST)]
+        queued = srv.get_stats()["queue_depth"]
+        tick(10.0, "burst")
+        srv.warmup()                                   # the new replica
+        trail["burst"]["captures"] = srv.get_stats()["bucket_programs"]
+        trail["burst"]["programs_after_warmup"] = len(srv._programs)
+        trail["burst"]["queued_at_burst"] = queued
+        for f in futs:
+            f.result(timeout=600)
+        for _ in range(20):
+            ttft.observe(500.0)
+        tick(15.0, "cooldown")                         # SLO firing
+        for _ in range(400):
+            ttft.observe(5.0)
+        for t in (680.0, 690.0):
+            clk[0] = t
+            sampler.sample_once()
+        tick(700.0, "quiet")
+        faults.configure("serving.replica_execute[0]:raise@call=1",
+                         seed=0)
+        # the one replica faults: quarantined, and with no survivor the
+        # batch fails fast (the circuit is open)
+        try:
+            srv.predict(x1, timeout=600)
+            failed_fast = False
+        except Exception:
+            failed_fast = True
+        quarantined = len(srv.get_stats()["quarantined_replicas"])
+        for _ in range(100):
+            ttft.observe(500.0)
+        tick(800.0, "fault")
+        served = srv.predict(x1, timeout=600)
+        trail["fault"].update(failed_fast=failed_fast,
+                              quarantined=quarantined,
+                              served_after=bool(np.isfinite(served).all()))
+    finally:
+        faults.reset()
+        scaler.stop()
+        sampler.stop()
+        srv.stop()
+    b, c, q, f = (trail[k] for k in ("burst", "cooldown", "quiet", "fault"))
+    log("autoscale (f): %d single-image requests at once (%d rows queued): "
+        "%s -> %d replicas (%s); warmup -> %d captures, %d live programs; "
+        "a hot tick 5 s later: %s to %d, applied %s (%s); quiet window: %s "
+        "-> %d replicas, %d live programs; replica 0 fault-killed (its "
+        "request failed fast: %s) with the TTFT objective burning: %s -> "
+        "%d (%s), applied %s, the next request served: %s; on %s"
+        % (AS_BURST, b["queued_at_burst"], b["action"], b["active"],
+           b["reason"], b["captures"], b["programs_after_warmup"],
+           c["action"], c["replicas"], c["applied"], c["reason"],
+           q["action"], q["active"], q["programs"], f["failed_fast"],
+           f["action"], f["active"], f["reason"], f["applied"],
+           f["served_after"], card))
+    n_b = len(AMP_BUCKETS)
+    if not (b["action"] == "up" and b["applied"] and b["active"] == 2
+            and b["captures"] == b["programs_after_warmup"] == 2 * n_b
+            and c["action"] == "up" and c["replicas"] == 2
+            and not c["applied"] and "cooldown" in c["reason"]
+            and q["action"] == "down" and q["applied"] and q["active"] == 1
+            and q["programs"] == n_b
+            and f["action"] == "up" and f["applied"] and f["active"] == 2
+            and "replicas lost (0/1 available)" in f["reason"]
+            and f["failed_fast"] and f["quarantined"] == 1
+            and f["served_after"]):
+        raise AssertionError("autoscale (f) failed: %s" % json.dumps(trail))
+    out["f"] = trail
+    return trail
+
+
+def amp_control_phase(mx, sym, card, peaks, results):
+    """Phase 17: mixed precision and the generation control plane."""
+    import torch
+
+    from mxnet_tpu_torch.observability import metrics
+
+    out = {}
+    metrics.set_enabled(True)
+    try:
+        amp_serve(mx, sym, card, peaks, out)
+        torch.cuda.empty_cache()
+        amp_generation(mx, card, out)
+        torch.cuda.empty_cache()
+        control_protocol(mx, card, out)
+        prefill_graph_summary(mx, results, card, out)
+        gen_faults_metrics(mx, card, out)
+        torch.cuda.empty_cache()
+        autoscale_drive(mx, sym, card, out)
+    finally:
+        metrics.set_enabled(False)
+    torch.cuda.empty_cache()
+    results["amp_control"] = out
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the detailed results here")
@@ -7454,10 +8504,8 @@ def main():
                                           torch.version.cuda,
                                           sys.version.split()[0]))
     peaks = card_peaks(card.split(",")[0])
-    results = {"card": card, "peaks": {
-        "fp32_flops": peaks[0], "bytes_per_s": peaks[1],
-        "bf16_flops": card_bf16_peak(card.split(",")[0])},
-        "kernel_cases": [], "bmm_cases": []}
+    results = {"card": card, "peaks": phase_peaks(card),
+               "kernel_cases": [], "bmm_cases": []}
 
     # every kernel source in the checkout, one nvcc each, all at once
     t0 = time.perf_counter()
@@ -7492,6 +8540,7 @@ def main():
     serving_phase(mx, sym, card, results)
     ssd_phase(mx, card, results)
     model_zoo_phase(mx, card, results)
+    amp = amp_control_phase(mx, sym, card, results["peaks"], results)
 
     t8 = totals[8]
     kernels = {"kernels": [{
@@ -7507,7 +8556,13 @@ def main():
         "bound_ms": t8["bound_ms"], "bound_by": t8["bound_by"],
         "library_ms": t8["library_ms"],
         "train": dict(rn["kernel_per_step"], launches=rn["launches"],
-                      launches_per_step=rn["launches_per_step"])}]}
+                      launches_per_step=rn["launches_per_step"]),
+        # phase 17 (a): bf16 operands in the amp-served buckets' graphs
+        "amp_serve": dict(
+            amp["a"]["kernel"]["8"], replays=amp["a"]["replays"],
+            launches=amp["a"]["launches"],
+            launches_per_replay=amp["a"]["kernel_regions"],
+            max_abs_err=amp["a"]["kernel_max_err"])}]}
     replaces = {"flash_attention_fwd": 106, "flash_attention_bwd_dq": 202,
                 "flash_attention_bwd_dkv": 236}
     for name, line in replaces.items():
@@ -7525,10 +8580,16 @@ def main():
         if "rounded_excess" in t:
             row["rounded_excess"] = t["rounded_excess"]
         if name == "flash_attention_fwd":
-            # its second path: the generation prefill, phase 11 (d)
+            # its second path: the generation prefill, one CUDA graph per
+            # bucket, phase 11 (d) (bf16) and phase 17 (b) (amp)
             row["generation"] = dict(
                 launches=gen_launches, requests=GEN_REQUESTS,
-                per_request=gen_launches / GEN_REQUESTS)
+                per_request=gen_launches / GEN_REQUESTS,
+                per_prefill_replay=sorted({
+                    r["flash_fwd_per_replay"]
+                    for r in amp["d"]["per_bucket"]}),
+                amp_launches=amp["b"]["amp"]["flash_fwd_launches"],
+                amp_prefills=amp["b"]["amp"]["prefills"])
         row["library"] = ("SDPA forward" if name == "flash_attention_fwd"
                           else "SDPA backward (dq, dk and dv in one call)")
         kernels["kernels"].append(row)

@@ -65,8 +65,17 @@ forever), ``MXNET_GEN_DEADLINE_MS`` (0 = none), ``MXNET_GEN_PREFIX_CACHE``
     The generation engine's knobs (serving/generation/engine.py), with the
     JAX package's defaults. ``MXNET_GEN_PREFILL_BUCKETS``,
     ``MXNET_GEN_BACKPRESSURE`` and ``MXNET_GEN_KV_DTYPE`` are strings read
-    by the engine itself. The prefix cache is not ported yet: enabling it
-    raises when a generator is built.
+    by the engine itself.
+``MXNET_OBS_TS_INTERVAL_MS`` (1000), ``MXNET_OBS_TS_RETAIN`` (600)
+    The time-series plane (observability/timeseries.py): the sampler's
+    period in milliseconds (0 = ``start_sampler()`` starts none) and its
+    ring depth in samples per instrument (at the default period, 10
+    minutes of look-back).
+``MXNET_AUTOSCALE_MIN`` (1), ``MXNET_AUTOSCALE_MAX`` (8),
+``MXNET_AUTOSCALE_COOLDOWN_MS`` (30000)
+    Replica autoscaling (serving/control/autoscale.py): the clamp bounds
+    of every proposed replica count, and the least spacing between two
+    actions.
 """
 import os
 
@@ -107,6 +116,11 @@ _DEFAULTS = {
     "MXNET_GEN_SLO_AGING_MS": 500,
     "MXNET_GEN_SPEC_K": 0,
     "MXNET_GEN_SPEC_NGRAM": 2,
+    "MXNET_OBS_TS_INTERVAL_MS": 1000,
+    "MXNET_OBS_TS_RETAIN": 600,
+    "MXNET_AUTOSCALE_MIN": 1,
+    "MXNET_AUTOSCALE_MAX": 8,
+    "MXNET_AUTOSCALE_COOLDOWN_MS": 30000,
 }
 
 

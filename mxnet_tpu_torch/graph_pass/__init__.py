@@ -3,9 +3,13 @@
 Counterpart of ``mxnet_tpu/graph_pass/``: ``prune`` (inference loss-head
 simplification and dead-node elimination), ``bn_fold`` (inference
 BatchNorm folded into the preceding conv/FC), ``layout`` (forced layout
-rewrite), ``fuse`` (fusion regions) and ``fold`` (frozen-parameter
-subgraphs evaluated once at bind). ``amp`` and ``quantize`` are not ported
-yet; naming them raises. Pipeline selection is ``MXNET_GRAPH_PASSES``.
+rewrite), ``amp`` (bfloat16 mixed precision with fp32 islands, opt-in),
+``fuse`` (fusion regions) and ``fold`` (frozen-parameter subgraphs
+evaluated once at bind). ``quantize`` is not ported yet (ROADMAP A11);
+naming it raises. Pipeline selection is ``MXNET_GRAPH_PASSES`` (or
+:func:`set_passes`). The per-program summaries of the rewrites (and what
+:func:`note_program` records, as the generation engine's amp policy) ride
+the ``graph_pass`` flight-recorder provider.
 """
 from __future__ import annotations
 
@@ -15,28 +19,73 @@ import threading
 import time
 
 from ..symbol.symbol import Symbol
-from . import fuse, passes
+from . import core, fuse, passes
 from .core import (DEFAULT_PASSES, INFERENCE_ONLY, PIPELINE_ORDER,
                    PassConfig, PassContext, clone_entries, topo_from)
 from .passes import eval_fold_exprs
 
 __all__ = ["PassConfig", "OptimizedGraph", "optimize", "optimize_for_bind",
-           "graph_fingerprint", "PIPELINE_ORDER", "DEFAULT_PASSES"]
+           "graph_fingerprint", "set_passes", "recent_reports",
+           "note_program", "PIPELINE_ORDER", "DEFAULT_PASSES"]
 
 _PASS_FNS = {
     "prune": passes.run_prune,
     "bn_fold": passes.run_bn_fold,
     "layout": passes.run_layout,
+    "amp": passes.run_amp,
     "fuse": fuse.run_fuse,
     "fold": passes.run_fold,
 }
 
 _lock = threading.Lock()
+_recent = collections.deque(maxlen=16)  # per-program summaries  # guarded-by: _lock
+_provider_armed = False                 # guarded-by: _lock
 # bind-level structure cache: a re-bind of the same symbol under the same
 # pass config never re-runs the pipeline (strong symbol ref, so id() can
 # never alias a dead object)
 _cache = collections.OrderedDict()   # guarded-by: _lock
 _CACHE_CAP = 64
+
+
+def set_passes(spec):
+    """Process-wide override of MXNET_GRAPH_PASSES (None clears); the
+    bind-level structure cache is dropped so the next bind re-resolves."""
+    core._SPEC_OVERRIDE = spec
+    with _lock:
+        _cache.clear()
+
+
+def recent_reports():
+    """Chronological copy of the last per-program pass summaries (the
+    flight-recorder provider's payload)."""
+    with _lock:
+        return list(_recent)
+
+
+def _graph_pass_state():
+    with _lock:
+        return {"recent": list(_recent)} if _recent else None
+
+
+def _arm_provider():
+    global _provider_armed
+    with _lock:
+        if _provider_armed:
+            return
+        _provider_armed = True
+    from ..observability import flight_recorder
+
+    flight_recorder.register_provider("graph_pass", _graph_pass_state)
+
+
+def note_program(kind, **summary):
+    """Record an externally built program's pass facts (the generation
+    engine's amp policy) into the provider ring."""
+    _arm_provider()
+    entry = {"program": str(kind)}
+    entry.update(summary)
+    with _lock:
+        _recent.append(entry)
 
 
 def graph_fingerprint(symbol_or_entries):
@@ -84,6 +133,7 @@ class OptimizedGraph:
                "nodes_before": self.nodes_before,
                "nodes_after": self.nodes_after,
                "folded_constants": len(self.fold_exprs),
+               "amp": "amp" in self.config.passes,
                "passes": list(self.reports)}
         for rep in self.reports:
             if rep["pass"] == "fuse" and "detail" in rep:
@@ -103,6 +153,7 @@ def optimize(symbol, for_training=False, frozen=(), arg_shapes=None,
     cfg = config if config is not None else PassConfig()
     if not cfg.enabled:
         return None
+    _arm_provider()
     outputs, _memo = clone_entries(symbol._outputs)
     graph_key = graph_fingerprint(outputs)
     ctx = PassContext(outputs, for_training, frozen, arg_shapes,
@@ -124,12 +175,20 @@ def optimize(symbol, for_training=False, frozen=(), arg_shapes=None,
             report["detail"] = extra
         ctx.reports.append(report)
     nodes_after = ctx.node_count()
-    changed = any(r["rewrites"] for r in ctx.reports)
-    if not changed:
+    if not any(r["rewrites"] for r in ctx.reports):
         return None
-    return OptimizedGraph(Symbol(list(ctx.outputs)), ctx.fold_exprs,
-                          ctx.reports, cfg, graph_key, for_training,
-                          nodes_before, nodes_after)
+    opt = OptimizedGraph(Symbol(list(ctx.outputs)), ctx.fold_exprs,
+                         ctx.reports, cfg, graph_key, for_training,
+                         nodes_before, nodes_after)
+    with _lock:
+        _recent.append(opt.summary())
+    amp_rw = sum(r["rewrites"] for r in ctx.reports if r["pass"] == "amp")
+    if amp_rw:
+        from ..observability import metrics
+
+        if metrics.enabled():
+            metrics.counter("graph_pass.precision_rewrites").inc(amp_rw)
+    return opt
 
 
 def optimize_for_bind(symbol, for_training=False, frozen=(),

@@ -13,12 +13,15 @@ from ..ops.registry import get_op
 from ..symbol.symbol import Symbol, _Node
 
 # canonical execution order; the env grammar toggles membership, never
-# order. amp and quantize are named so the grammar stays the JAX
-# package's, but they are not ported yet.
+# order. fuse runs after amp so the carved regions see the final dtype of
+# every chain (amp's casts are epilogue steps, not barriers); fold runs
+# last so the parameter casts amp inserts are materialized once at bind.
+# quantize is named so the grammar stays the JAX package's, but it is not
+# ported yet.
 PIPELINE_ORDER = ("prune", "bn_fold", "quantize", "layout", "amp", "fuse",
                   "fold")
 
-NOT_PORTED = frozenset({"amp", "quantize"})
+NOT_PORTED = frozenset({"quantize"})
 
 # passes that change inference-only semantics never run on a training bind
 INFERENCE_ONLY = frozenset({"prune", "bn_fold", "quantize"})
@@ -27,26 +30,34 @@ DEFAULT_PASSES = ("prune", "bn_fold", "layout", "fuse", "fold")
 
 _OFF_TOKENS = frozenset({"off", "none", "0", ""})
 
+# process-wide spec override (graph_pass.set_passes); None = env/default
+_SPEC_OVERRIDE = None
+
 
 class PassConfig:
     """Parsed ``MXNET_GRAPH_PASSES`` pipeline selection.
 
     Grammar (comma-separated, order-insensitive): ``default`` expands to
     the default pipeline; ``all`` to every pass; a bare pass name enables
-    it and ``-name`` disables it; ``layout=NHWC`` (or NCHW) forces the
-    layout target; ``off`` disables the layer. A selection that enables
-    ``amp`` or ``quantize`` raises: those passes are not ported yet.
+    it and ``-name`` disables it; ``amp`` / ``amp=<dtype>`` enables the
+    mixed-precision rewrite (bfloat16 unless a dtype is named);
+    ``layout=NHWC`` (or NCHW) forces the layout target; ``off`` disables
+    the layer. A selection that enables ``quantize`` (``all`` does) raises:
+    that pass is not ported yet.
     """
 
-    __slots__ = ("passes", "layout_force")
+    __slots__ = ("passes", "amp_dtype", "layout_force")
 
-    def __init__(self, spec=None, passes=None, layout_force=None):
+    def __init__(self, spec=None, passes=None, amp_dtype="bfloat16",
+                 layout_force=None):
+        self.amp_dtype = amp_dtype
         self.layout_force = layout_force
         if passes is not None:
             self.passes = self._checked(frozenset(passes))
             return
         if spec is None:
-            spec = os.environ.get("MXNET_GRAPH_PASSES", "default")
+            spec = (_SPEC_OVERRIDE if _SPEC_OVERRIDE is not None
+                    else os.environ.get("MXNET_GRAPH_PASSES", "default"))
         spec = spec.strip()
         if spec.lower() in _OFF_TOKENS:
             self.passes = frozenset()
@@ -73,6 +84,8 @@ class PassConfig:
                     "'default', 'all', 'off')"
                     % (name, ", ".join(PIPELINE_ORDER)))
             (neg if negated else pos).add(name)
+            if not negated and name == "amp" and value:
+                self.amp_dtype = value.lower()
             if not negated and name == "layout" and value:
                 self.layout_force = value.upper()
         base = pos if pos else set(DEFAULT_PASSES)
@@ -82,8 +95,8 @@ class PassConfig:
     def _checked(passes):
         missing = sorted(passes & NOT_PORTED)
         if missing:
-            raise MXNetError("graph pass %s: not yet ported (quantize: "
-                             "ROADMAP.md Queue A11)" % ", ".join(missing))
+            raise MXNetError("graph pass %s: not yet ported (ROADMAP.md "
+                             "Queue A11)" % ", ".join(missing))
         return passes
 
     @property
@@ -92,7 +105,8 @@ class PassConfig:
 
     def signature(self):
         """Stable cache-key component for this configuration."""
-        return (tuple(sorted(self.passes)), self.layout_force)
+        return (tuple(sorted(self.passes)), self.amp_dtype,
+                self.layout_force)
 
     def __repr__(self):
         return "PassConfig(%s)" % ",".join(

@@ -1,8 +1,8 @@
-"""The graph passes: prune, bn_fold, layout, fold.
+"""The graph passes: prune, bn_fold, layout, amp, fold.
 
-Counterpart of ``mxnet_tpu/graph_pass/passes.py`` (amp waits for a later
-slice). Each pass is ``run_<name>(ctx) -> rewrite_count`` over a
-:class:`~.core.PassContext` holding a private clone of the graph.
+Counterpart of ``mxnet_tpu/graph_pass/passes.py``. Each pass is
+``run_<name>(ctx) -> rewrite_count`` over a :class:`~.core.PassContext`
+holding a private clone of the graph.
 """
 from __future__ import annotations
 
@@ -279,6 +279,101 @@ def _sink_once(ctx):
     if entry_map:
         ctx.outputs = apply_entry_map(ctx.outputs, entry_map, skip=skip)
     return changed
+
+
+# ------------------------------------------------------------------ amp ----
+
+# ops that run in the low-precision dtype (the matmul-bound contractions)
+AMP_ALLOW = frozenset({"Convolution", "FullyConnected", "Deconvolution",
+                       "dot", "batch_dot"})
+# fp32 islands: normalization, softmax/exp families, loss heads
+AMP_DENY = frozenset({
+    "softmax", "log_softmax", "SoftmaxActivation", "SoftmaxOutput",
+    "BatchNorm", "LRN", "InstanceNorm", "L2Normalization", "norm",
+    "LinearRegressionOutput", "LogisticRegressionOutput",
+    "MAERegressionOutput", "MakeLoss", "softmax_cross_entropy",
+    "exp", "log",
+})
+
+_FLOATS = ("float32", "float64", "float16", "bfloat16")
+
+
+def run_amp(ctx):
+    """Automatic mixed precision as a graph rewrite: allow-list ops get
+    their floating main inputs cast to the policy dtype (bfloat16 by
+    default), deny-list ops get theirs cast back to float32 (the fp32
+    islands), everything else follows the dtype that arrives. Casts are
+    memoised per (entry, dtype); graph outputs are cast back to their
+    original dtypes so the interface stays put. Frozen parameter casts
+    are folded at bind by ``fold``, which runs after amp."""
+    target = str(ctx.config.amp_dtype)
+    dtypes = {}
+
+    def dt_of(entry):
+        node, idx = entry
+        if node.is_variable:
+            d = ctx.arg_dtypes.get(node.name)
+            return "float32" if d is None else str(d)
+        return dtypes.get((id(node), idx), "float32")
+
+    casts = {}
+
+    def cast_entry(entry, dtype):
+        key = ((id(entry[0]), entry[1]), dtype)
+        hit = casts.get(key)
+        if hit is not None:
+            return hit
+        node = make_node("Cast", "_gp_amp%d_%s" % (ctx.uid(),
+                                                   entry[0].name),
+                         [entry], dtype=dtype)
+        dtypes[(id(node), 0)] = dtype
+        casts[key] = (node, 0)
+        return casts[key]
+
+    def infer_node(node):
+        nm = node.num_main_inputs()
+        in_t = [dt_of(e) for e in node.inputs[:nm]]
+        aux_t = [dt_of(e) for e in node.inputs[nm:]]
+        try:
+            res = node.opdef().run_infer_dtype(node.parsed_attrs(), in_t,
+                                               aux_t)
+        except Exception:  # an op without a dtype rule follows its inputs
+            res = None
+        if res is not None:
+            for i, t in enumerate(res[1]):
+                if t is not None:
+                    dtypes[(id(node), i)] = str(t)
+
+    # pre-pass: the original output dtypes (the interface to restore)
+    for node in topo_from(ctx.outputs):
+        if not node.is_variable:
+            infer_node(node)
+    orig_out = [dt_of(e) for e in ctx.outputs]
+    dtypes.clear()
+
+    for node in topo_from(list(ctx.outputs)):
+        if node.is_variable:
+            continue
+        canon = node.opdef().name
+        want = target if canon in AMP_ALLOW else \
+            ("float32" if canon in AMP_DENY else None)
+        if want is not None:
+            for slot in range(node.num_main_inputs()):
+                d = dt_of(node.inputs[slot])
+                if d in _FLOATS and d != want:
+                    node.inputs[slot] = cast_entry(node.inputs[slot], want)
+        infer_node(node)
+
+    new_outputs = []
+    for entry, orig in zip(ctx.outputs, orig_out):
+        d = dt_of(entry)
+        if d in _FLOATS and orig in _FLOATS and d != orig:
+            new_outputs.append(cast_entry(entry, orig))
+        else:
+            new_outputs.append(entry)
+    ctx.outputs = new_outputs
+    ctx.invalidate_shapes()
+    return len(casts)
 
 
 # ----------------------------------------------------------------- fold ----

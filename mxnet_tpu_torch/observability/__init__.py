@@ -14,21 +14,34 @@ far as the serving engine needs it.
   ``get_stats()`` snapshots.
 * :mod:`.perf` — the ``perf`` section of those snapshots
   (``summary_brief`` only).
+* :mod:`.promparse` — the Prometheus text-format parser, the inverse of
+  :func:`dump_metrics`.
+* :mod:`.timeseries` — the time-series plane: a background sampler
+  snapshots the registry into bounded rings (``MXNET_OBS_TS_*``) with
+  windowed queries (counter rates, gauge windows, bucket-delta
+  quantiles) behind :func:`~.timeseries.varz` and the ``timeseries``
+  flight-recorder provider.
+* :mod:`.slo_monitor` — latency and availability objectives evaluated as
+  multi-window burn rates with hysteresis, the alerts the autoscaler
+  (serving/control/autoscale.py) acts on.
 
 The JAX package's other modules here (``instruments``, ``tracing``,
-``health``, ``exposition``, ``promparse``, ``timeseries``, ``fleet``,
-``slo_monitor``, ``dist_trace`` and the rest of ``perf``) are not ported
-yet (ROADMAP A9, A10, A13).
+``health``, ``exposition``, ``fleet``, ``dist_trace`` and the rest of
+``perf``) are not ported yet (ROADMAP A10, A13).
 """
 from . import metrics
 from . import request_trace
 from . import flight_recorder
 from . import stats_schema
 from . import perf
+from . import promparse
+from . import timeseries
+from . import slo_monitor
 from .metrics import (counter, gauge, histogram, dump_metrics,
                       reset_metrics, set_enabled, enabled)
 from .request_trace import RequestTrace
 
 __all__ = ["metrics", "request_trace", "flight_recorder", "stats_schema",
-           "perf", "counter", "gauge", "histogram", "dump_metrics",
-           "reset_metrics", "set_enabled", "enabled", "RequestTrace"]
+           "perf", "promparse", "timeseries", "slo_monitor", "counter",
+           "gauge", "histogram", "dump_metrics", "reset_metrics",
+           "set_enabled", "enabled", "RequestTrace"]

@@ -405,8 +405,8 @@ def all_instruments():
 
 
 def snapshot_values():
-    """Locked point-in-time snapshot for a time-series sampler (the JAX
-    package's ``timeseries.py``, ROADMAP A9): a list of ``(name, labels, kind, buckets,
+    """Locked point-in-time snapshot for the time-series sampler
+    (:mod:`.timeseries`): a list of ``(name, labels, kind, buckets,
     payload)`` rows, one per registered instrument. ``payload`` is the
     scalar value for counters/gauges and ``(cumulative bucket counts
     including +Inf, sum, count)`` for histograms; ``buckets`` is the

@@ -1,9 +1,9 @@
 """Autoregressive generation (counterpart of
 ``mxnet_tpu/serving/generation/``): a paged KV cache, the prefill / decode
 split, a continuous-batching scheduler, seeded sampling and speculative
-decoding (n-gram or draft-model proposals, one batched verify step). On
-the card the decode, verify and draft steps are CUDA graphs captured
-once."""
+decoding (n-gram or draft-model proposals, one batched verify step), the
+prefix cache and the amp policy. On the card each prefill bucket and the
+decode, verify and draft steps are CUDA graphs captured once."""
 from ..control import PrefixCache, SLOClass
 from .engine import (DeadlineExceeded, GenerationConfig, GenerationHandle,
                      Generator, QueueFullError, ServerClosedError,

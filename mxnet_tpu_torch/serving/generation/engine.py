@@ -8,22 +8,18 @@ three parts.
   of token-length buckets and runs one causal forward
   (``prefill_forward``: on the card the flash forward kernel in every
   layer), whose K/V go straight into the paged cache, and whose last
-  logits give the first sampled token. Prefill runs eagerly, one forward
-  per admitted request.
+  logits give the first sampled token. Each bucket's prefill is one
+  fixed-shape step over fixed device buffers (tokens, length, prefix
+  length, page row, copy-on-write pair, key, temperature, top-k).
 * **One decode step for any batch.** The decode step has fixed shapes: a
   ``max_batch`` slot layout, an active-slot mask, per-slot sampling knobs
   and gather / scatter against the page pools
-  (:func:`~...parallel.flash_attention.paged_decode_attention`). On the card
-  it is captured once as a CUDA graph and replayed for every step,
-  whatever the batch holds: the port's counterpart of the JAX package's
-  one compiled decode program. Its inputs sit in fixed device buffers that
-  each step refreshes from the scheduler's host mirrors with one copy; the
-  page pools are updated in place (the JAX package donates them); inactive
-  slots write to the trash page 0. With speculation the verify step, and
-  in draft mode the draft model's decode step, are captured once each the
-  same way. A capture runs its warm-up and records with every slot
-  inactive, so it disturbs no live sequence. On the CPU the same step
-  bodies run eagerly.
+  (:func:`~...parallel.flash_attention.paged_decode_attention`). Its
+  inputs sit in fixed device buffers that each step refreshes from the
+  scheduler's host mirrors with one copy; the page pools are updated in
+  place (the JAX package donates them); inactive slots write to the trash
+  page 0. With speculation the verify step, and in draft mode the draft
+  model's decode step, are steps of their own.
 * **Iteration-level scheduling.** Between decode steps the scheduler
   evicts finished sequences (EOS / max tokens), frees their pages and
   admits queued requests into the free slots, by SLO class
@@ -32,41 +28,65 @@ three parts.
   pages so a mid-flight extension never fails. Results stream through per-
   request handles.
 
-:meth:`Generator.warmup` runs every prefill bucket and captures (on the
-CPU: runs) every step, and returns the JAX package's program count:
-``len(prefill_buckets) + 1``, plus 1 with n-gram speculation, plus 2 with a
-draft model. ``get_stats()["captures"]`` counts the CUDA graphs captured;
-it stays at 1 (2, 3) under any traffic.
+On the card every step (each prefill bucket, decode, verify, draft) is
+captured once as a CUDA graph and replayed: the port's counterpart of the
+JAX package's one compiled program per step. A capture runs its warm-up
+and records with all-trash inputs, so it disturbs no live sequence. On
+the CPU the same step bodies run eagerly. :meth:`Generator.warmup`
+captures (on the CPU: runs) every step and returns the JAX package's
+program count: ``len(prefill_buckets) + 1``, plus 1 with n-gram
+speculation, plus 2 with a draft model; ``get_stats()["captures"]`` stays
+there under any traffic.
 
-Not ported yet, each raising where a caller asks for it: the prefix cache
-(ROADMAP A9), int8 KV pages (A11), ``amp`` (A9); the tuning-cache consult
-for ``page_size`` / ``decode_blocks`` / ``spec_k`` has no counterpart (an
-explicit value or the flag decides), and request metrics, traces and
-fault injection belong to A13.
+The serving control plane rides on top: with ``prefix_cache=True`` a
+radix tree (:class:`~..control.PrefixCache`) shares the KV pages of
+page-aligned prompt prefixes copy-on-write across requests, and each
+prefill runs only the suffix, attending the cached pages through
+:meth:`Generator._suffix_attend`. ``amp`` (``GenerationConfig(amp=True)``
+or ``amp`` in ``MXNET_GRAPH_PASSES``) casts the fp32 parameters to
+bfloat16 once, at construction; the logits return to fp32 before
+sampling. ``page_size`` / ``decode_blocks`` / ``spec_k`` / ``kv_dtype`` and
+the control knobs resolve as in the JAX package: explicit config, then the
+tuning cache (keyed by :func:`generation_tune_key`), then the flag. Every
+request carries a trace, the ``generation.*`` series reach the metrics
+registry, and the ``generation.decode_step`` fault point fails only the
+faulted step's slots. int8 KV pages are not ported yet (ROADMAP A11).
 """
 from __future__ import annotations
 
 import collections
 import concurrent.futures
 import contextlib
+import math
 import os
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
 
-from ... import cuda_graph
-from ...base import MXNetError
+from ... import cuda_build, cuda_graph
+from ...base import MXNetError, dtype_name
 from ...config import get_flag
+from ...observability import request_trace as _rtrace
+from ...observability import stats_schema as _schema
 from ...parallel.flash_attention import (paged_decode_attention,
                                          paged_verify_attention)
+from ...resilience import faults as _faults
 from ..buckets import pick_bucket
+from ..control.prefix_cache import PrefixCache
 from ..control.slo import ClassQueue, SLOClass, resolve_class
 from ..engine import DeadlineExceeded, QueueFullError, ServerClosedError
 from .kv_cache import PagePool
 from .sampling import SamplingParams, sample_tokens, seed_key, verify_tokens
 from .speculative import ngram_propose
+
+# a raise here is contained by the scheduler: the slots in the faulted
+# step fail, their pages free, and the loop keeps serving queued requests
+_faults.declare("generation.decode_step",
+                doc="inside one continuous-batching decode iteration, "
+                    "before the step runs")
 
 __all__ = ["GenerationConfig", "Generator", "GenerationHandle",
            "SamplingParams", "SLOClass", "QueueFullError",
@@ -88,14 +108,22 @@ def default_prefill_ladder(max_seq):
     return tuple(sorted(set(ladder)))
 
 
-def _not_ported(what, entry):
-    return MXNetError("%s is not yet ported (ROADMAP %s)" % (what, entry))
+def generation_tune_key(model, max_batch, max_seq):
+    """The ``generation.*`` tuning-cache key of one (checkpoint shape, slot
+    geometry): the JAX package's construction, so one cache file resolves
+    the same knobs in both packages."""
+    c = model.cfg
+    sig = "lm-L%d-d%d-H%d-ff%d-e%d-V%d-%s" % (
+        c["n_layers"], c["d_model"], c["n_heads"], c["d_ff"],
+        c["n_experts"], c["vocab"], dtype_name(model.dtype))
+    return (sig, "B%d-T%d" % (int(max_batch), int(max_seq)))
 
 
 class GenerationConfig:
     """Knobs for :class:`Generator`. Defaults come from the ``MXNET_GEN_*``
     environment, as in the JAX package; ``page_size`` / ``decode_blocks`` /
-    ``spec_k`` left unset take their flags."""
+    ``spec_k`` / ``kv_dtype`` left unset resolve through the tuning cache
+    first, then their flags."""
 
     def __init__(self, page_size=None, decode_blocks=None, max_batch=None,
                  max_seq=None, pool_pages=None, prefill_buckets=None,
@@ -240,48 +268,88 @@ class GenerationHandle:
 class _Seq:
     """Scheduler-side state of one admitted sequence (slot-resident)."""
 
-    __slots__ = ("handle", "prompt", "params", "tokens", "worst",
-                 "t_submit", "t_first", "t_last", "slo")
+    __slots__ = ("handle", "prompt", "prompt_len", "params", "tokens",
+                 "worst", "t_submit", "t_first", "t_last", "trace", "slo")
 
-    def __init__(self, handle, prompt, params, worst, t_submit, slo):
+    def __init__(self, handle, prompt, params, worst, t_submit,
+                 trace=_rtrace.NOOP_TRACE, slo=None):
         self.handle = handle
-        self.prompt = prompt
+        self.prompt = prompt          # token list (prefix-cache insert)
+        self.prompt_len = len(prompt)
         self.params = params          # SamplingParams
         self.worst = worst            # worst-case cached tokens (pages)
         self.tokens = []              # generated so far
         self.t_submit = t_submit
         self.t_first = None
-        self.t_last = None            # last token instant
-        self.slo = slo
+        self.t_last = None            # last token instant (ITL)
+        self.trace = trace            # RequestTrace (submit -> evict)
+        self.slo = slo if slo is not None else resolve_class(None)
 
 
 _Pending = collections.namedtuple(
-    "_Pending", ["prompt", "params", "handle", "t_submit", "slo",
-                 "deadline"])
+    "_Pending", ["prompt", "params", "handle", "t_submit", "trace",
+                 "slo", "deadline"])
+
+# every live generator, GC-pruned: ONE "generation" flight-recorder
+# provider walks them
+_live_generators = weakref.WeakSet()
+
+# gauges a Generator owns: removed from the registry when it stops or is
+# collected, so /metrics never serves a dead engine's last values
+_GENERATOR_GAUGES = ("generation.slo_queue_depth",
+                     "generation.decode_batch_occupancy",
+                     "generation.kv_pages_used",
+                     "generation.kv_bytes_used")
+
+
+def _generators_state():
+    views = []
+    for gen in list(_live_generators):
+        try:
+            views.append(gen.get_stats())
+        except Exception as err:
+            views.append({"error": repr(err)})
+    if not views:
+        return None
+    return views[0] if len(views) == 1 else {"generators": views}
 
 
 class _Step:
     """One fixed-shape step over the engine's device buffers. On the CPU
     :meth:`run` calls the body; on the card the body is captured once as a
     CUDA graph (warm-up runs on the capture's side stream first, every run
-    after ``reset()`` so that all slots are inactive) and :meth:`run`
-    replays it and returns the graph's output tensor."""
+    after ``reset()``, which sets all-trash inputs) and :meth:`run`
+    replays it and returns the graph's outputs.
 
-    def __init__(self, body, device):
+    A kernel wrapper counts its launches where it is called, so a replay
+    counts nothing: :attr:`launches` holds the launches of one body run,
+    measured over the capture's runs, and :attr:`replays` the replays
+    since; their product is what the replays launched."""
+
+    def __init__(self, body, device, reset):
         self.body = body
         self.device = device
+        self.reset = reset
         self.graph = None
         self.out = None
+        self.replays = 0
+        self.launches = {}
 
-    def capture(self, reset):
+    def capture(self):
+        before = cuda_build.launch_counts()
         self.graph, self.out = cuda_graph.capture(
-            self.body, self.device, reset=reset,
+            self.body, self.device, reset=self.reset,
             capture_error_mode="thread_local")
+        runs = cuda_graph.WARMUP_RUNS + 1
+        after = cuda_build.launch_counts()
+        self.launches = {k: (n - before.get(k, 0)) // runs
+                         for k, n in after.items() if n != before.get(k, 0)}
 
     def run(self):
         if self.graph is None:
             return self.body()
         self.graph.replay()
+        self.replays += 1
         return self.out
 
 
@@ -310,15 +378,21 @@ class Generator:
     def __init__(self, model, params, config=None, start=True,
                  draft_model=None, draft_params=None):
         from ... import graph_pass
+        from ...observability import flight_recorder, metrics
 
         self._model = model
         cfg = config if config is not None else GenerationConfig()
         self._cfg = cfg
         c = model.cfg
-        self.page_size = self._resolve(cfg.page_size, "MXNET_GEN_PAGE_SIZE")
-        self.decode_blocks = self._resolve(cfg.decode_blocks,
-                                           "MXNET_GEN_DECODE_BLOCKS")
-        self.spec_k = self._resolve(cfg.spec_k, "MXNET_GEN_SPEC_K",
+        self._tune_key = generation_tune_key(model, cfg.max_batch,
+                                             cfg.max_seq)
+        self.page_size = self._resolve("generation.page_size", "page_size",
+                                       cfg.page_size, "MXNET_GEN_PAGE_SIZE")
+        self.decode_blocks = self._resolve(
+            "generation.decode_blocks", "decode_blocks", cfg.decode_blocks,
+            "MXNET_GEN_DECODE_BLOCKS")
+        self.spec_k = self._resolve("generation.spec_k", "spec_k",
+                                    cfg.spec_k, "MXNET_GEN_SPEC_K",
                                     minimum=0)
         self.spec_ngram = int(cfg.spec_ngram)
         if draft_model is not None:
@@ -334,22 +408,29 @@ class Generator:
                           else "ngram")
         self._spec_draft = self.spec_mode == "draft"
         self._draft_model = draft_model if self._spec_draft else None
-        if cfg.amp or (cfg.amp is None
-                       and "amp" in graph_pass.PassConfig().passes):
-            raise _not_ported("GenerationConfig(amp=True), the bf16 "
-                              "prefill/decode rewrite,", "A9")
-        if cfg.prefix_cache:
-            raise _not_ported("the generation prefix cache "
-                              "(GenerationConfig(prefix_cache=True), "
-                              "MXNET_GEN_PREFIX_CACHE)", "A9")
         self.kv_dtype = self._resolve_kv_dtype(cfg.kv_dtype)
         if self.kv_dtype == "int8":
-            raise _not_ported("int8 KV pages (kv_dtype='int8')", "A11")
-        self.prefix_cache = None
+            raise MXNetError("int8 KV pages (kv_dtype='int8') are not yet "
+                             "ported (ROADMAP A11)")
         self._device = model.device
         self._params = _detached(params, self._device)
         self._draft_params = (_detached(draft_params, self._device)
                               if self._spec_draft else None)
+        # the amp policy: the graph pass's rewrite applied to the model's
+        # functions, the fp32 parameters cast to bf16 ONCE here so every
+        # step reads half-width weights; logits return to fp32 before
+        # sampling (the fp32 island)
+        if cfg.amp is None:
+            self._amp = "amp" in graph_pass.PassConfig().passes
+        else:
+            self._amp = bool(cfg.amp)
+        if self._amp:
+            self._params = _bf16_params(self._params)
+            if self._draft_params is not None:
+                self._draft_params = _bf16_params(self._draft_params)
+            graph_pass.note_program(
+                "generation", amp=True, dtype=dtype_name(model.dtype),
+                tune_key=list(self._tune_key))
 
         S = cfg.max_batch
         self._max_pages = -(-cfg.max_seq // self.page_size)
@@ -362,6 +443,19 @@ class Generator:
             pool_pages, self.page_size,
             bytes_per_token=2 * L * H * hd * pool_dt.itemsize,
             kv_dtype=self.kv_dtype)
+        # the control plane: the prefix cache shares page-aligned prompt
+        # prefixes copy-on-write; SLO admission ages between decode steps
+        self._use_prefix = bool(cfg.prefix_cache)
+        if self._use_prefix:
+            cap = self._resolve("control.prefix_pages", "prefix_pages",
+                                cfg.prefix_pages, "MXNET_GEN_PREFIX_PAGES",
+                                minimum=0)
+            self.prefix_cache = PrefixCache(self.pool, capacity_pages=cap)
+        else:
+            self.prefix_cache = None
+        self._aging_ms = self._resolve("control.slo_aging", "aging_ms",
+                                       cfg.slo_aging_ms,
+                                       "MXNET_GEN_SLO_AGING_MS", minimum=0)
         # the device KV state, updated in place by every step
         shape = (L, pool_pages, self.page_size, H, hd)
         self._pools = {  # guarded-by: self._pages_lock
@@ -379,15 +473,21 @@ class Generator:
                 * draft_model.dtype.itemsize)
         else:
             self.draft_bytes_per_token = 0
-        self._aging_ms = (cfg.slo_aging_ms if cfg.slo_aging_ms is not None
-                          else float(get_flag("MXNET_GEN_SLO_AGING_MS")))
 
         self._build_mirrors()
-        self._steps = {"decode": _Step(self._decode_body, self._device)}
+        self._steps = {}
+        for bucket in cfg.prefill_buckets:
+            self._steps["prefill%d" % bucket] = _Step(
+                self._prefill_body(bucket), self._device,
+                self._reset_prefill_inputs)
+        self._steps["decode"] = _Step(self._decode_body, self._device,
+                                      self._reset_inputs)
         if self.spec_k:
-            self._steps["verify"] = _Step(self._verify_body, self._device)
+            self._steps["verify"] = _Step(self._verify_body, self._device,
+                                          self._reset_inputs)
         if self._spec_draft:
-            self._steps["draft"] = _Step(self._draft_body, self._device)
+            self._steps["draft"] = _Step(self._draft_body, self._device,
+                                         self._reset_inputs)
         self._captures = 0            # guarded-by: self._pages_lock
         self._slots = [None] * S      # _Seq per occupied slot
 
@@ -403,22 +503,49 @@ class Generator:
         self._pages_lock = threading.Lock()
         self._thread = None
         self._life = threading.Lock()  # serializes start()/stop()
+        _live_generators.add(self)
+        flight_recorder.register_provider("generation", _generators_state)
+        metrics.unregister_on_collect(self, _GENERATOR_GAUGES)
         if start:
             self.start()
 
-    def _resolve(self, explicit, flag, minimum=1):
-        """Knob resolution: an explicit config value, else the flag."""
-        val = int(explicit) if explicit is not None else int(get_flag(flag))
+    def _resolve(self, op, field, explicit, flag, minimum=1):
+        """Knob resolution: explicit config value > tuning cache > flag.
+        ``minimum`` bounds what a cache entry may supply; a corrupt entry
+        falls back to the flag (tuning is an optimization)."""
+        if explicit is not None:
+            val = int(explicit)
+        else:
+            from ... import autotune
+
+            tuned = autotune.lookup(op, key=self._tune_key)
+            val = None
+            if isinstance(tuned, dict):
+                try:
+                    val = int(tuned.get(field))
+                except (TypeError, ValueError):
+                    val = None
+                if val is not None and val < minimum:
+                    val = None
+            if val is None:
+                val = int(get_flag(flag))
         if val < minimum:
             raise ValueError("%s must be >= %d, got %d"
                              % (flag, minimum, val))
         return val
 
-    @staticmethod
-    def _resolve_kv_dtype(explicit):
-        """Explicit config value > MXNET_GEN_KV_DTYPE > "model"."""
+    def _resolve_kv_dtype(self, explicit):
+        """Explicit config value > ``generation.kv_dtype`` tuning-cache
+        entry > MXNET_GEN_KV_DTYPE > "model"."""
         if explicit is not None:
             return explicit  # validated by GenerationConfig
+        from ... import autotune
+
+        tuned = autotune.lookup("generation.kv_dtype", key=self._tune_key)
+        if isinstance(tuned, dict):
+            val = str(tuned.get("kv_dtype", "")).lower()
+            if val in KV_DTYPES:
+                return val
         env = os.environ.get("MXNET_GEN_KV_DTYPE", "").strip().lower()
         return env if env in KV_DTYPES else "model"
 
@@ -433,33 +560,53 @@ class Generator:
         """The scheduler's host mirrors of the steps' inputs, as views of
         one int64 array (and one fp32 array of temperatures), and the
         device buffers they are copied into before each step, as views of
-        one device tensor: one copy refreshes every input. The sampling
-        keys live on the device only, advanced in place by the steps."""
+        one device tensor: one copy refreshes every input. The decode
+        steps and the prefill steps each have such a pair. The slots'
+        sampling keys live on the device only, advanced in place by the
+        steps."""
         S, P, k = self._cfg.max_batch, self._max_pages, self.spec_k
         fields = (("page_table", (S, P)), ("seq_len", (S,)),
                   ("active", (S,)), ("last_token", (S,)), ("top_k", (S,)),
                   ("span", (S,)), ("draft", (S, k)), ("draft_seq", (S,)),
                   ("draft_active", (S,)), ("draft_token", (S,)))
-        n = sum(int(np.prod(shape)) for _, shape in fields)
-        self._host_ints = np.zeros(n, np.int64)
-        self._dev_ints = torch.zeros(n, dtype=torch.int64,
-                                     device=self._device)
+        self._host_ints, self._dev_ints, self._dev = self._mirror(fields)
+        for name, view in self._views(self._host_ints, fields):
+            setattr(self, "_" + name, view)
         self._temp = np.zeros(S, np.float32)
         self._dev_temp = torch.zeros(S, dtype=torch.float32,
                                      device=self._device)
         self._keys = torch.zeros((S, 2), dtype=torch.int64,
                                  device=self._device)
-        self._dev = {}
+        # one prefill's inputs: the suffix tokens (padded to the top
+        # bucket; a bucket's step reads its leading columns), its length,
+        # the cached prefix length, the page row, the copy-on-write (src,
+        # dst) pair, the request's key and sampling knobs
+        pfields = (("tokens", (1, self._cfg.prefill_buckets[-1])),
+                   ("length", (1,)), ("prefix_len", (1,)),
+                   ("page_row", (P,)), ("cow", (2,)), ("key", (1, 2)),
+                   ("top_k", (1,)))
+        self._pre_host, self._pre_dev_ints, self._pre = self._mirror(pfields)
+        self._pre_host_view = dict(self._views(self._pre_host, pfields))
+        self._pre_temp_host = np.zeros(1, np.float32)
+        self._pre_temp = torch.zeros(1, dtype=torch.float32,
+                                     device=self._device)
+
+    @staticmethod
+    def _views(flat, fields):
         at = 0
         for name, shape in fields:
             size = int(np.prod(shape))
-            setattr(self, "_" + name,
-                    self._host_ints[at:at + size].reshape(shape))
-            self._dev[name] = self._dev_ints[at:at + size].view(shape)
+            yield name, flat[at:at + size].reshape(shape)
             at += size
 
+    def _mirror(self, fields):
+        n = sum(int(np.prod(shape)) for _, shape in fields)
+        host = np.zeros(n, np.int64)
+        dev = torch.zeros(n, dtype=torch.int64, device=self._device)
+        return host, dev, dict(self._views(dev, fields))
+
     def _upload(self):
-        """Copy the host mirrors into the device buffers."""
+        """Copy the decode steps' host mirrors into their device buffers."""
         self._dev_ints.copy_(torch.from_numpy(self._host_ints))
         self._dev_temp.copy_(torch.from_numpy(self._temp))
 
@@ -469,20 +616,55 @@ class Generator:
         self._dev_ints.zero_()
         self._dev_temp.zero_()
 
+    def _reset_prefill_inputs(self):
+        """An all-trash prefill (warm-up and capture): one token of
+        prompt, no prefix, every row on the trash page, greedy."""
+        self._pre_dev_ints.zero_()
+        self._pre["length"].fill_(1)
+        self._pre_temp.zero_()
+
     def _captured(self, name):
         """The step ``name``; on the card its graph is captured first if it
         has none. Caller holds ``_pages_lock``."""
         step = self._steps[name]
         if step.graph is None and self._device.type == "cuda":
-            step.capture(self._reset_inputs)
+            step.capture()
             self._captures += 1
         return step
 
     def _run(self, name):
-        """Refresh the device inputs and run one step. Caller holds
+        """Refresh the decode inputs and run one step. Caller holds
         ``_pages_lock``."""
         step = self._captured(name)
         self._upload()
+        return step.run()
+
+    def _fill_prefill(self, tokens, length, prefix_len, row, cow, key, temp,
+                      top_k):
+        """Copy one prefill's inputs into the prefill buffers (one copy):
+        the suffix ``tokens`` (zero-padded), their ``length``, the cached
+        ``prefix_len``, the page ``row``, the copy-on-write ``cow`` (src,
+        dst) pair and the sampling ``key`` / ``temp`` / ``top_k``."""
+        h = self._pre_host_view
+        h["tokens"][:] = 0
+        h["tokens"][0, :len(tokens)] = tokens
+        h["length"][0] = length
+        h["prefix_len"][0] = prefix_len
+        h["page_row"][:] = row
+        h["cow"][:] = cow
+        h["key"][0] = key
+        h["top_k"][0] = top_k
+        self._pre_temp_host[0] = temp
+        self._pre_dev_ints.copy_(torch.from_numpy(self._pre_host))
+        self._pre_temp.copy_(torch.from_numpy(self._pre_temp_host))
+
+    def _run_prefill(self, bucket, *inputs):
+        """Run bucket ``bucket``'s prefill step on ``inputs`` (as
+        :meth:`_fill_prefill` takes them). Returns (token (1,), new key
+        (1, 2)) device tensors, the step's own outputs: read them before
+        the next prefill. Caller holds ``_pages_lock``."""
+        step = self._captured("prefill%d" % bucket)
+        self._fill_prefill(*inputs)
         return step.run()
 
     # ----------------------------------------------------------- the steps
@@ -492,38 +674,104 @@ class Generator:
         pools[kname][li].index_put_((dest, off), k_new.to(pools[kname].dtype))
         pools[vname][li].index_put_((dest, off), v_new.to(pools[vname].dtype))
 
-    def _prefill_step(self, tokens, length, page_row, key, temp, top_k):
-        """The prefill of one prompt bucket: causal forward over
+    def _suffix_attend(self, page_row, prefix_len, kname="k", vname="v"):
+        """Attention hook of the prefix cache's suffix prefill: each suffix
+        query attends the cached prefix (gathered from the page planes
+        ``kname`` / ``vname`` through this slot's page row, masked to
+        ``prefix_len``) plus the causal suffix itself, with scores,
+        softmax and the P.V products in fp32. The fresh suffix K/V round-
+        trip through the pages' dtype, so a later request that reads these
+        positions from the cache sees the same values (warm and cold agree
+        token for token). ``prefix_len == 0`` masks the whole gathered
+        region: one step per bucket serves hits and misses alike. The
+        products are ``torch.einsum``, as the JAX package computes them
+        outside any Pallas kernel."""
+        max_ctx = self._max_pages * self.page_size
+        pools = self._pools
+
+        def attend(li, q, k, v):
+            T, hd = q.shape[2], q.shape[3]
+            kp = pools[kname][li][page_row].reshape(max_ctx, -1, hd).float()
+            vp = pools[vname][li][page_row].reshape(max_ctx, -1, hd).float()
+            k = k.to(pools[kname].dtype).float()
+            v = v.to(pools[vname].dtype).float()
+            qf = q.float() * (1.0 / math.sqrt(hd))
+            sp = torch.einsum("bhqd,khd->bhqk", qf, kp)
+            live = torch.arange(max_ctx, device=q.device) < prefix_len
+            sp = sp.masked_fill(~live, float("-inf"))
+            ss = torch.einsum("bhqd,bhkd->bhqk", qf, k)
+            causal = torch.ones((T, T), dtype=torch.bool,
+                                device=q.device).tril()
+            ss = ss.masked_fill(~causal, float("-inf"))
+            s = torch.cat([sp, ss], dim=-1)
+            # every row's own (causal-diagonal) score is live: the max is
+            # finite and the denominator positive
+            p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+            p = torch.where(torch.isneginf(s), torch.zeros_like(p), p)
+            w = p / p.sum(dim=-1, keepdim=True)
+            out = (torch.einsum("bhqk,khd->bhqd", w[..., :max_ctx], vp)
+                   + torch.einsum("bhqk,bhkd->bhqd", w[..., max_ctx:], v))
+            return out.to(q.dtype)
+
+        return attend
+
+    def _prefill_body(self, bucket):
+        """The body of bucket ``bucket``'s prefill step, over the prefill
+        input buffers."""
+        def body():
+            b = self._pre
+            return self._prefill_step(
+                b["tokens"][:, :bucket], b["length"], b["prefix_len"],
+                b["page_row"], b["cow"], b["key"], self._pre_temp,
+                b["top_k"])
+
+        return body
+
+    def _prefill_step(self, tokens, length, prefix_len, page_row, cow, key,
+                      temp, top_k):
+        """One prompt bucket's prefill: causal forward over the (suffix)
         ``tokens`` (1, bucket), K/V scattered into the pages of
         ``page_row`` (max_pages,; 0-padded, so rows past the owned pages
         land on the trash page), the first token sampled from row
-        ``length - 1``. In draft mode the draft model's prefill writes its
-        planes at the same coordinates. Returns (token, new key) tensors."""
-        dev = self._device
+        ``length - 1``. With the prefix cache, ``prefix_len`` positions
+        are served read-only from shared pages through
+        :meth:`_suffix_attend`, and the ``cow[0] -> cow[1]`` page copy
+        privatizes the last shared page before a write lands in it (0 ->
+        0 is a trash-page no-op). In draft mode the draft model's prefill
+        writes its planes at the same coordinates, in the same step.
+        Every argument is a device tensor. Returns (token (1,), new key
+        (1, 2))."""
+        dev = tokens.device
         bucket = tokens.shape[1]
-        tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev)
-        row = torch.as_tensor(page_row, dtype=torch.long, device=dev)
-        logits, ks, vs = self._model.prefill_forward(self._params, tokens)
-        pos = torch.arange(bucket, device=dev)
+        pools = self._pools
+        if self._use_prefix:
+            for plane in pools.values():
+                plane.index_copy_(1, cow[1:], plane.index_select(1, cow[:1]))
+            attend = self._suffix_attend(page_row, prefix_len)
+        else:
+            attend = None  # cold engines keep the flash prefill
+        logits, ks, vs = self._model.prefill_forward(self._params, tokens,
+                                                     attend=attend)
+        pos = prefix_len + torch.arange(bucket, device=dev)
         pidx = pos // self.page_size
+        # padded suffix rows past the page table go to the trash page (a
+        # suffix bucket may overhang max_seq when the prefix is long)
         dest = torch.where(pidx < self._max_pages,
-                           row[pidx.clamp(max=self._max_pages - 1)],
+                           page_row[pidx.clamp(max=self._max_pages - 1)],
                            torch.zeros_like(pidx))
         off = pos % self.page_size
-        pools = self._pools
         pools["k"][:, dest, off] = ks[:, 0].to(pools["k"].dtype)
         pools["v"][:, dest, off] = vs[:, 0].to(pools["v"].dtype)
         if self._spec_draft:
+            d_attend = (self._suffix_attend(page_row, prefix_len, "dk",
+                                            "dv")
+                        if self._use_prefix else None)
             _, dks, dvs = self._draft_model.prefill_forward(
-                self._draft_params, tokens)
+                self._draft_params, tokens, attend=d_attend)
             pools["dk"][:, dest, off] = dks[:, 0].to(pools["dk"].dtype)
             pools["dv"][:, dest, off] = dvs[:, 0].to(pools["dv"].dtype)
-        last = logits[0, length - 1]
-        tok, new_key = sample_tokens(
-            last[None], torch.tensor([key], dtype=torch.int64, device=dev),
-            torch.tensor([temp], dtype=torch.float32, device=dev),
-            torch.tensor([top_k], dtype=torch.int64, device=dev))
-        return tok[0], new_key[0]
+        last = logits[0].float().index_select(0, length - 1)
+        return sample_tokens(last, key, temp, top_k)
 
     def _slot_dest(self, page_table, seq_len, active):
         """(page, offset) of each slot's write at position ``seq_len``;
@@ -551,8 +799,8 @@ class Generator:
 
         logits = self._model.decode_forward(self._params, b["last_token"],
                                             attend)
-        toks, new_keys = sample_tokens(logits, self._keys, self._dev_temp,
-                                       b["top_k"])
+        toks, new_keys = sample_tokens(logits.float(), self._keys,
+                                       self._dev_temp, b["top_k"])
         self._keys.copy_(torch.where(active[:, None], new_keys, self._keys))
         return torch.where(active, toks, torch.full_like(toks, -1))
 
@@ -575,7 +823,7 @@ class Generator:
 
         logits = self._draft_model.decode_forward(
             self._draft_params, b["draft_token"], attend)
-        return torch.argmax(logits, dim=-1)
+        return torch.argmax(logits.float(), dim=-1)
 
     def _verify_body(self):
         """THE batched-verify step of speculative decoding: all k+1
@@ -607,7 +855,7 @@ class Generator:
 
         logits = self._model.verify_forward(self._params, tokens, attend)
         out, n_emit, new_keys = verify_tokens(
-            logits, b["draft"], b["span"], active, self._keys,
+            logits.float(), b["draft"], b["span"], active, self._keys,
             self._dev_temp, b["top_k"])
         self._keys.copy_(new_keys)
         return torch.cat([out, n_emit[:, None]], dim=1)
@@ -622,28 +870,22 @@ class Generator:
         return scope
 
     def warmup(self):
-        """Run every prefill bucket against the trash page and capture
-        (on the CPU: run) every step with all slots inactive, so the first
-        request pays no kernel build or capture. Returns the number of
-        programs warmed: ``len(prefill_buckets) + 1`` (+1 verify, +1 draft
-        decode).
+        """Capture (on the CPU: run) every step with all-trash inputs, so
+        the first request pays no kernel build or capture: each prefill
+        bucket, decode, and verify / draft decode with speculation.
+        Returns the number of programs warmed: ``len(prefill_buckets) +
+        1`` (+1 verify, +1 draft decode).
 
-        Safe while traffic flows: warmup drives synthetic all-inactive
-        inputs (writes land only on the trash page, keys stay) and holds
-        the lock the scheduler holds for its device work."""
+        Safe while traffic flows: warmup drives synthetic all-trash inputs
+        (writes land only on the trash page, keys stay) and holds the lock
+        the scheduler holds for its device work."""
         n = 0
         with self._pages_lock, self._device_scope():
-            for bucket in self._cfg.prefill_buckets:
-                tok, _ = self._prefill_step(
-                    np.zeros((1, bucket), np.int64), 1,
-                    np.zeros(self._max_pages, np.int64), seed_key(0), 0.0,
-                    0)
-                tok.cpu()
-                n += 1
-            for name in self._steps:
-                step = self._captured(name)
-                self._reset_inputs()
-                step.run().cpu()
+            for name, step in self._steps.items():
+                self._captured(name)
+                step.reset()
+                out = step.run()
+                (out[0] if isinstance(out, tuple) else out).cpu()
                 n += 1
         return n
 
@@ -669,7 +911,10 @@ class Generator:
         (seconds) bounds the drain: past it every pending request fails
         with :class:`ServerClosedError` and ``stop`` returns. A speculative
         step racing the stop commits every token it accepted before the
-        loop reads the stop state again."""
+        loop reads the stop state again. The prefix cache releases its
+        pages once the scheduler is down, so a drained pool holds none."""
+        from ...observability import metrics
+
         with self._cond:
             self._stop = True
             self._abort = not drain
@@ -682,6 +927,11 @@ class Generator:
                     self._abandon_drain(timeout)
             elif self._queue or self._n_active:
                 self._loop()  # never started: honor the drain contract
+            if (self.prefix_cache is not None
+                    and (thread is None or not thread.is_alive())):
+                self.prefix_cache.clear()
+        for name in _GENERATOR_GAUGES:
+            metrics.unregister(name)
         return self
 
     def _abandon_drain(self, timeout):
@@ -694,12 +944,15 @@ class Generator:
         with self._cond:
             self._abort = True
             stranded = self._queue.drain()
+            self._class_gauges(self._queue.depths())
             self._cond.notify_all()
         for ent in stranded:
             ent.handle._fail(err)
+            ent.trace.finish("error")
         for seq in list(self._slots):
             if seq is not None:
                 seq.handle._fail(err)
+                seq.trace.finish("error")
         with self._lock:
             self._stats["drain_timeouts"] += 1
 
@@ -722,6 +975,8 @@ class Generator:
         name (``"interactive"``/``"standard"``/``"batch"``), or None for
         the standard tier. Queue-expired requests fail with
         :class:`DeadlineExceeded` before prefill."""
+        from ...observability import metrics
+
         params = params if params is not None else SamplingParams()
         slo_cls = resolve_class(slo)
         prompt = [int(t) for t in prompt]
@@ -744,18 +999,29 @@ class Generator:
                 "(raise MXNET_GEN_POOL_PAGES)"
                 % (self.pool.pages_for(worst), self.pool.capacity))
         handle = GenerationHandle()
+        # request-scoped trace: queue ends at admission, a prefix_match
+        # phase covers the cache lookup, prefill ends at the first token
+        # (TTFT), one decode phase per generated token
+        trace = _rtrace.begin("generation")
+        trace.annotate(prompt_len=len(prompt),
+                       max_new_tokens=params.max_new_tokens,
+                       slo=slo_cls.name)
         t_submit = time.monotonic()
         dl_ms = (slo_cls.deadline_ms if slo_cls.deadline_ms is not None
                  else self._cfg.deadline_ms)
         deadline = (t_submit + dl_ms / 1e3) if dl_ms > 0 else None
-        ent = _Pending(prompt, params, handle, t_submit, slo_cls, deadline)
+        ent = _Pending(prompt, params, handle, t_submit, trace, slo_cls,
+                       deadline)
         with self._cond:
             if self._stop:
+                trace.finish("rejected")
                 raise ServerClosedError("submit() after stop()")
             if self._cfg.backpressure == "reject":
                 if len(self._queue) >= self._cfg.max_queue:
                     with self._lock:
                         self._stats["rejected"] += 1
+                    metrics.counter("generation.rejected").inc()
+                    trace.finish("rejected")
                     raise QueueFullError(
                         "admission queue full (%d requests); raise "
                         "MXNET_GEN_QUEUE or use backpressure='block'"
@@ -769,6 +1035,8 @@ class Generator:
                     if remaining is not None and remaining <= 0:
                         with self._lock:
                             self._stats["submit_timeouts"] += 1
+                        metrics.counter("generation.submit_timeouts").inc()
+                        trace.finish("rejected")
                         raise QueueFullError(
                             "admission queue still full after %.0f ms "
                             "(MXNET_GEN_SUBMIT_TIMEOUT); %d requests "
@@ -776,13 +1044,31 @@ class Generator:
                                         len(self._queue)))
                     self._cond.wait(remaining)
                     if self._stop:
+                        trace.finish("rejected")
                         raise ServerClosedError(
                             "server stopped while submit() was blocked")
             self._queue.push(ent)
+            depths = self._queue.depths()
             self._cond.notify_all()
         with self._lock:
             self._stats["requests"] += 1
+        metrics.counter("generation.requests").inc()
+        metrics.counter("generation.slo_requests",
+                        labels={"slo": slo_cls.name},
+                        help="requests submitted per SLO class").inc()
+        self._class_gauges(depths)
         return handle
+
+    @staticmethod
+    def _class_gauges(depths):
+        """Refresh every per-class queue-depth gauge, on each queue
+        transition, so an emptied class reads 0."""
+        from ...observability import metrics
+
+        for name, depth in depths.items():
+            metrics.gauge("generation.slo_queue_depth",
+                          labels={"slo": name},
+                          help="queued requests per SLO class").set(depth)
 
     def generate(self, prompt, params=None, timeout=None):
         """Synchronous convenience: ``submit(...).result(timeout)``."""
@@ -790,6 +1076,8 @@ class Generator:
 
     # ----------------------------------------------------------- scheduler
     def _loop(self):
+        from ...observability import metrics
+
         with self._device_scope():
             while True:
                 aborted = None
@@ -800,6 +1088,7 @@ class Generator:
                     if self._stop:
                         if self._abort:
                             aborted = self._queue.drain()
+                            self._class_gauges(self._queue.depths())
                             self._cond.notify_all()
                         elif not self._queue and not self._n_active:
                             return
@@ -815,9 +1104,12 @@ class Generator:
                             self._decode_once()
                     except Exception as err:
                         # contain the fault to the slots of the faulted
-                        # step; the loop keeps serving queued traffic
+                        # step; the loop keeps serving queued traffic (the
+                        # pools are updated in place: no other slot's
+                        # cache is lost)
                         with self._lock:
                             self._stats["decode_faults"] += 1
+                        metrics.counter("generation.decode_faults").inc()
                         for slot, seq in enumerate(self._slots):
                             if seq is not None:
                                 self._evict(slot, failed=err)
@@ -826,6 +1118,7 @@ class Generator:
         err = ServerClosedError("generator stopped without draining")
         for ent in pending:
             ent.handle._fail(err)
+            ent.trace.finish("error")
         for slot, seq in enumerate(self._slots):
             if seq is not None:
                 self._evict(slot, failed=err)
@@ -839,25 +1132,61 @@ class Generator:
     def _shed(self, expired):
         """Fail queue-expired requests with DeadlineExceeded before any
         prefill runs for them."""
+        from ...observability import metrics
+
         now = time.monotonic()
         for ent in expired:
             ent.handle._fail(DeadlineExceeded(
                 "generation request expired in queue after %.0f ms "
                 "(class %r deadline)" % ((now - ent.t_submit) * 1e3,
                                          ent.slo.name)))
+            ent.trace.finish("deadline_expired")
+            metrics.counter("generation.deadline_expired").inc()
+            metrics.counter("generation.slo_expired",
+                            labels={"slo": ent.slo.name},
+                            help="queue-expired requests per SLO class"
+                            ).inc()
         with self._lock:
             self._stats["expired"] += len(expired)
 
+    def _pressure_admit(self, ent, worst):
+        """The conservative ``can_admit(worst)`` gate failed: account the
+        sharing the request would get before reclaiming anything. A probe
+        match (counters untouched, refs dropped right back; the scheduler
+        thread is the only evictor, so the real match in ``_prefill`` sees
+        the same tree) supplies the shared-page discount; only the
+        remaining shortfall of cold cached prefixes is reclaimed, LRU
+        first. Returns True when admission can proceed."""
+        if self.prefix_cache is None:
+            return False
+        for attempt in range(2):
+            shared, matched = self.prefix_cache.match(ent.prompt,
+                                                      record=False)
+            cow = matched > 0 and matched == len(ent.prompt)
+            n_shared = len(shared)
+            for p in shared:
+                self.pool.decref(p)
+            if self.pool.can_admit(worst, shared_pages=n_shared, cow=cow):
+                return True
+            if attempt or not self.prefix_cache.reclaim(
+                    self.pool.admission_shortfall(
+                        worst, shared_pages=n_shared, cow=cow)):
+                return False
+        return False
+
     def _admit_pending(self):
         """Admit queued requests into free slots between decode steps, in
-        the SLO scheduler's order, shedding queue-expired ones first."""
+        the SLO scheduler's order, shedding queue-expired ones first; a
+        pool full of cached prefixes reclaims them under pressure."""
         while True:
             with self._cond:
                 expired = self._queue.shed_expired(time.monotonic())
+                depths = self._queue.depths() if expired else None
                 if expired:
                     self._cond.notify_all()  # queue space freed
             if expired:
                 self._shed(expired)
+                self._class_gauges(depths)
             slot = self._free_slot()
             if slot is None:
                 return
@@ -867,10 +1196,13 @@ class Generator:
                     return
                 worst = len(ent.prompt) + ent.params.max_new_tokens - 1
                 if not self.pool.can_admit(worst):
-                    return  # decode on, eviction frees some pages
+                    if not self._pressure_admit(ent, worst):
+                        return  # decode on, eviction frees some pages
                 self._queue.pop(ent)
+                depths = self._queue.depths()
                 self._n_active += 1
                 self._cond.notify_all()  # wake blocked submitters
+            self._class_gauges(depths)
             try:
                 self._prefill(slot, ent, worst)
             except Exception as err:  # fail THIS request, not the thread
@@ -879,26 +1211,67 @@ class Generator:
                     self._n_active -= 1
                     self._cond.notify_all()
                 ent.handle._fail(err)
+                ent.trace.finish("error")
 
     def _prefill(self, slot, ent, worst):
+        from ...observability import metrics
+
         plen = len(ent.prompt)
         sp = ent.params
-        bucket = pick_bucket(plen, self._cfg.prefill_buckets)
-        pages = self.pool.admit(slot, plen, worst)
+        ent.trace.event("queue")  # admission = end of queue wait
+        # the prefix-cache match: the longest cached page-aligned prefix
+        # attaches read-only, only the suffix prefills
+        shared, matched, cow = [], 0, False
+        if self.prefix_cache is not None:
+            shared, matched = self.prefix_cache.match(ent.prompt)
+            # a prompt that IS a cached page-aligned prefix still needs its
+            # last token recomputed (the first token's logits); that one
+            # write lands in the last shared page: copy-on-write
+            cow = matched > 0 and matched == plen
+            ent.trace.annotate(prefix_hit=bool(matched),
+                               prefix_tokens=int(matched))
+            metrics.counter("generation.prefix_hits" if matched
+                            else "generation.prefix_misses").inc()
+            ent.trace.event("prefix_match")
+        suffix_start = plen - 1 if cow else matched
+        suffix = ent.prompt[suffix_start:]
+        if suffix_start:
+            metrics.counter("generation.prefill_tokens_skipped").inc(
+                suffix_start)
+            with self._lock:
+                self._stats["prefix_hits"] += 1
+                self._stats["prefill_tokens_skipped"] += suffix_start
+        bucket = pick_bucket(len(suffix), self._cfg.prefill_buckets)
+        try:
+            pages = self.pool.admit(slot, plen, worst, shared_pages=shared,
+                                    cow_last=cow)
+        except BaseException:
+            for p in shared:
+                self.pool.decref(p)  # match's refs never reached a slot
+            raise
+        cow_pair = (0, 0)
+        if cow:
+            cow_pair = self.pool.cow(slot, len(shared) - 1)
+            pages = self.pool.pages_of(slot)
         row = np.zeros(self._max_pages, np.int64)
         row[:len(pages)] = pages
-        tokens = np.zeros((1, bucket), np.int64)
-        tokens[0, :plen] = ent.prompt
         with self._pages_lock:
-            tok, nkey = self._prefill_step(tokens, plen, row,
-                                           seed_key(sp.seed), sp.temperature,
-                                           sp.top_k)
-            self._keys[slot].copy_(nkey)
+            tok, nkey = self._run_prefill(
+                bucket, suffix, len(suffix), suffix_start, row, cow_pair,
+                seed_key(sp.seed), sp.temperature, sp.top_k)
+            self._keys[slot].copy_(nkey[0])
             # the one host sync of admission: the prompt's first token,
             # the time-to-first-token mark
-            first = int(tok)
-        seq = _Seq(ent.handle, ent.prompt, sp, worst, ent.t_submit, ent.slo)
+            first = int(tok[0])
+        seq = _Seq(ent.handle, ent.prompt, sp, worst, ent.t_submit,
+                   ent.trace, slo=ent.slo)
         seq.t_first = seq.t_last = time.monotonic()
+        ent.trace.event("prefill")
+        ent.trace.annotate(prefill_bucket=bucket, slot=slot)
+        metrics.histogram(
+            "generation.ttft_ms",
+            help="time to first token (submit -> first sampled token)"
+        ).observe((seq.t_first - ent.t_submit) * 1e3)
         self._slots[slot] = seq
         self._page_table[slot, :] = row
         self._seq_len[slot] = plen
@@ -909,6 +1282,8 @@ class Generator:
         with self._lock:
             self._stats["prefills"] += 1
             self._stats["tokens"] += 1
+        metrics.counter("generation.prefill_batches").inc()
+        metrics.counter("generation.tokens_generated").inc()
         self._emit(slot, first)
 
     def _emit(self, slot, token):
@@ -931,24 +1306,46 @@ class Generator:
         self.pool.release(slot, worst)
 
     def _evict(self, slot, failed=None):
+        from ...observability import metrics
+
         seq = self._slots[slot]
+        if failed is None and self.prefix_cache is not None:
+            # cold prefixes enter the tree on eviction: the prompt's full
+            # pages served real traffic and hold position-exact K/V
+            # (decode writes never land below the prompt's last full page)
+            try:
+                self.prefix_cache.insert(seq.prompt,
+                                         self.pool.pages_of(slot))
+            except Exception:
+                with self._lock:
+                    self._stats["prefix_insert_errors"] += 1
         self._reset_slot(slot, seq.worst)
         with self._cond:
             self._n_active -= 1
             self._cond.notify_all()
         if failed is not None:
             seq.handle._fail(failed)
+            seq.trace.finish("error")
         else:
             seq.handle._finish(seq.tokens)
+            seq.trace.finish("ok")
+            metrics.counter("generation.slo_completed",
+                            labels={"slo": seq.slo.name},
+                            help="completed requests per SLO class").inc()
         with self._lock:
             self._stats["evicted"] += 1
             if failed is None:
                 self._stats["completed"] += 1
+        metrics.counter("generation.sequences_evicted").inc()
 
     def _decode_once(self):
         """One iteration of the continuous-batching loop: extend pages
         where a sequence crosses a page boundary, run THE decode step,
         stream the sampled tokens, evict the finished."""
+        from ...observability import metrics
+
+        t0 = time.monotonic()
+        _faults.inject("generation.decode_step")
         for slot, seq in enumerate(self._slots):
             if seq is None:
                 continue
@@ -960,17 +1357,31 @@ class Generator:
             # the decode loop's one host fetch per step: S tokens
             sampled = self._run("decode").cpu().numpy()
         t_tok = time.monotonic()
+        itl_hist = metrics.histogram(
+            "generation.itl_ms",
+            help="inter-token latency (consecutive sampled tokens of "
+                 "one request)")
         for slot, seq in enumerate(self._slots):
             if seq is None:
                 continue
             self._seq_len[slot] += 1
             tok = int(sampled[slot])
             self._last_token[slot] = tok
+            # one decode phase per generated token: the trace's decode
+            # spans are the request's inter-token latencies
+            seq.trace.event("decode")
+            if seq.t_last is not None:
+                itl_hist.observe((t_tok - seq.t_last) * 1e3)
             seq.t_last = t_tok
             self._emit(slot, tok)
         with self._lock:
             self._stats["decode_steps"] += 1
             self._stats["tokens"] += n_active
+        metrics.counter("generation.tokens_generated").inc(n_active)
+        metrics.gauge("generation.decode_batch_occupancy").set(
+            100.0 * n_active / self._cfg.max_batch)
+        metrics.histogram("generation.decode_step_ms").observe(
+            (time.monotonic() - t0) * 1e3)
 
     def _propose(self, spans):
         """The draft phase of one speculative iteration: k candidate
@@ -1002,6 +1413,10 @@ class Generator:
         the pages only rejected positions needed (``PagePool.shrink``; the
         stale device K/V is masked by the committed lengths). A slot's
         tokens are all pushed before the loop reads stop / abort again."""
+        from ...observability import metrics
+
+        t0 = time.monotonic()
+        _faults.inject("generation.decode_step")
         k = self.spec_k
         S = self._cfg.max_batch
         # per-slot emission budget: min(k+1, remaining max_new) >= 1
@@ -1021,11 +1436,24 @@ class Generator:
         t_verify = time.monotonic()
         self._draft[:] = drafts
         self._span[:] = spans
+        n_active = int(self._active.sum())
         with self._pages_lock:
             # one host fetch per step: S x (k+1) tokens and S counts
             res = self._run("verify").cpu().numpy()
         out, accepted = res[:, :-1], res[:, -1]
         t_tok = time.monotonic()
+        itl_hist = metrics.histogram(
+            "generation.itl_ms",
+            help="inter-token latency (consecutive sampled tokens of "
+                 "one request)")
+        rate_hist = metrics.histogram(
+            "generation.spec_accept_rate",
+            help="per-step draft acceptance rate (accepted / proposed, "
+                 "slots with a nonzero proposal budget)")
+        tpv_hist = metrics.histogram(
+            "generation.spec_tokens_per_verify",
+            help="tokens committed per slot per batched-verify call "
+                 "(1 = no draft survived, k+1 = all accepted + bonus)")
         emitted_total = proposed_total = accepted_total = 0
         for slot, seq in enumerate(self._slots):
             if seq is None:
@@ -1034,11 +1462,22 @@ class Generator:
             toks = [int(t) for t in out[slot, :m]]
             self._seq_len[slot] += m
             self._last_token[slot] = toks[-1]
-            proposed_total += max(0, int(spans[slot]) - 1)
+            proposed = max(0, int(spans[slot]) - 1)
+            proposed_total += proposed
             accepted_total += m - 1
+            tpv_hist.observe(m)
+            if proposed:
+                rate_hist.observe((m - 1) / proposed)
+            # the m tokens left ONE step together: each is charged an
+            # equal share of the step gap
+            gap_ms = ((t_tok - seq.t_last) * 1e3 / m
+                      if seq.t_last is not None else None)
             for tok in toks:
                 if self._slots[slot] is None:
                     break  # EOS / max-tokens evicted the slot mid-burst
+                seq.trace.event("decode")
+                if gap_ms is not None:
+                    itl_hist.observe(gap_ms)
                 emitted_total += 1
                 self._emit(slot, tok)
             if self._slots[slot] is not None:
@@ -1057,14 +1496,45 @@ class Generator:
             self._stats["spec_accepted"] += accepted_total
             self._stats["spec_draft_ms"] += (t_verify - t_draft) * 1e3
             self._stats["spec_verify_ms"] += (t_tok - t_verify) * 1e3
+        metrics.counter(
+            "generation.spec_proposed",
+            help="draft tokens proposed to the batched-verify step"
+        ).inc(proposed_total)
+        metrics.counter(
+            "generation.spec_accepted",
+            help="draft tokens accepted by the batched-verify step"
+        ).inc(accepted_total)
+        metrics.counter("generation.tokens_generated").inc(emitted_total)
+        metrics.histogram(
+            "generation.spec_draft_ms",
+            help="draft-proposal phase per speculative step").observe(
+            (t_verify - t_draft) * 1e3)
+        metrics.histogram(
+            "generation.spec_verify_ms",
+            help="batched-verify phase per speculative step").observe(
+            (t_tok - t_verify) * 1e3)
+        metrics.gauge("generation.decode_batch_occupancy").set(
+            100.0 * n_active / self._cfg.max_batch)
+        metrics.histogram("generation.decode_step_ms").observe(
+            (time.monotonic() - t0) * 1e3)
 
     # --------------------------------------------------------------- stats
+    def graph_launches(self):
+        """Kernel launches the steps' CUDA-graph replays made, by kernel:
+        each step's replays times the launches of one run of its body
+        (measured at its capture). Empty on the CPU."""
+        out = collections.Counter()
+        with self._pages_lock:
+            for step in self._steps.values():
+                for kernel, n in step.launches.items():
+                    out[kernel] += step.replays * n
+        return dict(out)
+
     def get_stats(self):
-        """Operational snapshot in the JAX package's engine-stats layout
-        (schema 1: the shared core keys, ``capacity``, ``config``,
-        ``resilience``, ``control``, and the flat legacy keys; its ``perf``
-        roofline section belongs to A13), plus ``captures``: the CUDA
-        graphs captured so far (0 on the CPU)."""
+        """Operational snapshot in the shared engine-stats schema
+        (observability/stats_schema.py), the JAX engine's sections and
+        flat legacy keys, plus ``captures``: the CUDA graphs captured so
+        far (0 on the CPU)."""
         with self._cond:
             queued = len(self._queue)
             class_depths = self._queue.depths()
@@ -1090,18 +1560,23 @@ class Generator:
             "verify_ms": round(counters.get("spec_verify_ms", 0.0), 3),
             "draft_bytes_per_token": self.draft_bytes_per_token,
         }
-        stats = dict(counters)
-        stats.update(
-            queued=queued, active=n_active,
-            max_batch=self._cfg.max_batch, max_seq=self._cfg.max_seq,
-            page_size=self.page_size, decode_blocks=self.decode_blocks,
-            kv_dtype=self.kv_dtype,
-            prefill_buckets=list(self._cfg.prefill_buckets), pool=pool,
-            speculative=speculative, captures=captures,
-            engine="generation", schema=1, queue_depth=queued,
-            requests=int(counters.get("requests", 0)),
-            completed=int(counters.get("completed", 0)),
-            rejected=int(counters.get("rejected", 0)),
+        control = {
+            "slo": {"aging_ms": self._aging_ms,
+                    "deadline_ms": float(self._cfg.deadline_ms),
+                    "queues": class_depths,
+                    "expired": counters.get("expired", 0)},
+            "prefix_cache": (self.prefix_cache.get_stats()
+                             if self.prefix_cache is not None else None),
+            "prefill_tokens_skipped": counters.get(
+                "prefill_tokens_skipped", 0),
+            "pages_shared": pool["pages_shared"],
+            "cow_copies": pool["cow_copies"],
+        }
+        return _schema.engine_stats(
+            "generation", counters,
+            queue_depth=queued,
+            completed=counters.get("completed", 0),
+            running=self.running, stopped=stopped,
             capacity={
                 "max_batch": self._cfg.max_batch,
                 "active_slots": n_active,
@@ -1117,7 +1592,7 @@ class Generator:
                 "kv_dtype": self.kv_dtype,
                 "prefill_buckets": list(self._cfg.prefill_buckets),
                 "backpressure": self._cfg.backpressure,
-                "prefix_cache": False,
+                "prefix_cache": self._use_prefix,
                 "slo_aging_ms": self._aging_ms,
                 "deadline_ms": float(self._cfg.deadline_ms),
                 "spec_k": self.spec_k,
@@ -1125,18 +1600,19 @@ class Generator:
             resilience={
                 "decode_faults": counters.get("decode_faults", 0),
                 "drain_timeouts": counters.get("drain_timeouts", 0)},
-            control={
-                "slo": {"aging_ms": self._aging_ms,
-                        "deadline_ms": float(self._cfg.deadline_ms),
-                        "queues": class_depths,
-                        "expired": counters.get("expired", 0)},
-                "prefix_cache": None,
-                "prefill_tokens_skipped": 0,
-                "pages_shared": pool["pages_shared"],
-                "cow_copies": pool["cow_copies"]},
-            graph_pass={"amp": False, "kv_dtype": self.kv_dtype},
-            running=self.running, stopped=stopped)
-        return stats
+            control=control,
+            provenance={"amp": bool(self._amp), "kv_dtype": self.kv_dtype},
+            extra={
+                "queued": queued, "active": n_active,
+                "max_batch": self._cfg.max_batch,
+                "max_seq": self._cfg.max_seq,
+                "page_size": self.page_size,
+                "decode_blocks": self.decode_blocks,
+                "kv_dtype": self.kv_dtype,
+                "prefill_buckets": list(self._cfg.prefill_buckets),
+                "pool": pool,
+                "speculative": speculative,
+                "captures": captures})
 
     def kv_read_bytes_per_token(self, ctx_len):
         """Device bytes ONE decode step reads from the KV pool for one
@@ -1148,3 +1624,10 @@ class Generator:
 def _detached(params, device):
     """The parameter dict as plain (no-grad) tensors on ``device``."""
     return {k: v.detach().to(device) for k, v in params.items()}
+
+
+def _bf16_params(params):
+    """The amp policy's parameter cast: fp32 tensors to bf16, others as
+    they are."""
+    return {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v
+            for k, v in params.items()}

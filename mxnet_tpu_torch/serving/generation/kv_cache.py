@@ -12,9 +12,9 @@ reserving each sequence's worst case up front so an extension never
 fails. Pages are reference-counted (``incref`` / ``decref`` / ``cow``), and
 speculative decoding returns rejected tail pages with ``shrink``.
 
-The JAX package's ``generation.kv_pages_used`` / ``kv_bytes_used`` gauges
-belong to the metrics layer, not ported yet (ROADMAP A13);
-``get_stats()`` carries the same numbers.
+Occupancy is the ``generation.kv_pages_used`` gauge (and, with a byte
+model, ``generation.kv_bytes_used``), refreshed on every allocation and
+free, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -150,6 +150,7 @@ class PagePool:
             self._shared_admits += len(shared)
             self._reserved += worst - n_now
             self._peak = max(self._peak, self.capacity - len(self._free))
+        self._gauge()
         return list(self._owned[slot])
 
     def extend(self, slot):
@@ -167,6 +168,7 @@ class PagePool:
             self._owned[slot].append(page)
             self._reserved = max(0, self._reserved - 1)
             self._peak = max(self._peak, self.capacity - len(self._free))
+        self._gauge()
         return page
 
     def shrink(self, slot, n_tokens):
@@ -201,6 +203,8 @@ class PagePool:
                 self._free.append(page)
                 self._reserved += 1
                 n_freed += 1
+        if n_freed:
+            self._gauge()
         return n_freed
 
     def cow(self, slot, index):
@@ -228,6 +232,7 @@ class PagePool:
             pages[index] = new
             self._cow_copies += 1
             self._peak = max(self._peak, self.capacity - len(self._free))
+        self._gauge()
         return old, new
 
     def incref(self, page):
@@ -252,6 +257,8 @@ class PagePool:
                 freed = True
             else:
                 self._refs[page] = refs - 1
+        if freed:
+            self._gauge()
         return freed
 
     def release(self, slot, worst_case_tokens=0):
@@ -280,11 +287,21 @@ class PagePool:
             # pages it actually claimed (admit + extend both decrement)
             unused = max(0, self.pages_for(worst_case_tokens) - len(pages))
             self._reserved = max(0, self._reserved - unused)
+        self._gauge()
         return n_freed
 
     def pages_of(self, slot):
         with self._lock:
             return list(self._owned.get(slot, ()))
+
+    def _gauge(self):
+        from ...observability import metrics
+
+        used = self.pages_used()
+        metrics.gauge("generation.kv_pages_used").set(used)
+        if self.bytes_per_token:
+            metrics.gauge("generation.kv_bytes_used").set(
+                used * self.page_bytes)
 
     def assert_no_leaks(self):
         """Drain-time invariant check: every page back on the free list, no

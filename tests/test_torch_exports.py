@@ -149,3 +149,28 @@ def test_prefix_names_symbols_as_the_reference():
         names.append(fc.list_arguments())
     assert names[0] == names[1]
     assert names[1][1].startswith("enc_")
+
+
+def test_control_plane_names_are_real_exports():
+    """The serving control plane's names are the JAX package's, each the
+    port's own class (no placeholder), as are the observability modules
+    the autoscaler stands on."""
+    from mxnet_tpu import observability as jobs
+    from mxnet_tpu.serving import control as jcontrol
+    from mxnet_tpu_torch import observability as tobs
+    from mxnet_tpu_torch.serving import control as tcontrol
+
+    assert sorted(tcontrol.__all__) == sorted(jcontrol.__all__)
+    homes = {"PrefixCache": "prefix_cache", "AutoscalePolicy": "autoscale",
+             "Autoscaler": "autoscale", "ScaleDecision": "autoscale",
+             "SLOClass": "slo", "ClassQueue": "slo"}
+    for name, home in homes.items():
+        obj = getattr(tcontrol, name)
+        assert obj.__module__ == "mxnet_tpu_torch.serving.control." + home
+        assert getattr(jcontrol, name).__module__ == \
+            "mxnet_tpu.serving.control." + home
+    assert tmx.serving.generation.PrefixCache is tcontrol.PrefixCache
+    for mod in ("promparse", "timeseries", "slo_monitor"):
+        assert mod in tobs.__all__ and mod in jobs.__all__
+        assert sorted(getattr(tobs, mod).__all__) == \
+            sorted(getattr(jobs, mod).__all__)

@@ -16,7 +16,8 @@ geometry (page 8, 4 slots, max_seq 64, buckets 16 / 32 / 64).
   of the exact top-k / temperature probabilities (the streams differ:
   threefry there, a counter hash here);
 * the engine's behaviour: EOS eviction, backpressure, submit validation, a
-  pool too small, drain and abort, and what is not ported yet raising.
+  pool too small, drain and abort, and int8 KV pages (not ported yet)
+  raising.
 """
 import threading
 import time
@@ -514,16 +515,15 @@ def test_flags_and_prefill_ladder_match_jax():
 
 
 def test_unported_parts_raise(fp32):
-    with pytest.raises(MXNetError, match="ROADMAP A9"):
-        _generator(*fp32, prefix_cache=True, start=False)
+    # the control plane and amp are ported; int8 KV pages wait for A11
     with pytest.raises(MXNetError, match="ROADMAP A11"):
         _generator(*fp32, kv_dtype="int8", start=False)
-    with pytest.raises(MXNetError, match="ROADMAP A9"):
-        _generator(*fp32, amp=True, start=False)
-    with pytest.raises(MXNetError, match="ROADMAP A9"):
-        gen_mod.PrefixCache(None)
-    with pytest.raises(MXNetError, match="ROADMAP A9"):
-        mx.serving.control.Autoscaler()
+    with pytest.raises(MXNetError, match="A11"):
+        mx.graph_pass.PassConfig(spec="quantize")
+    gen = _generator(*fp32, prefix_cache=True, amp=True, start=False)
+    assert isinstance(gen.prefix_cache, gen_mod.PrefixCache)
+    assert gen.get_stats()["graph_pass"]["amp"] is True
+    gen.stop()
 
 
 def test_from_checkpoint_serves_a_jax_checkpoint(tmp_path, fp32):
