@@ -413,11 +413,41 @@ Phases, each fatal on failure (exit code != 0, no result line):
    clamped at 2 and held by the cooldown, a quiet window scales 2 -> 1 (2
    live programs), a fault-killed replica with the TTFT objective burning
    scales 1 -> 2.
-18. Print the ``kernels`` JSON line (the flash forward's row also carries
-   phase 11's prefill launches and phase 17's, ``fused_matmul``'s phase
-   3's captures, replays, and the profiled replays with the kernels the
-   profiler saw run in them, and phase 17 (a)'s bf16 figures), then the
-   result line
+18. Quantize phase: ``bench_all.py --quantize``'s protocol
+   (``bench_quantize``, bench_all.py:2299) in full, through the port. The
+   integer contractions run on the exact float64 route
+   (``ops/intmath.py``) and are profiled under a ``q::int_contraction``
+   mark. (a) ResNet-50 NCHW at 224, 1000 classes, batch 16, Xavier from
+   numpy's seed 0 with fc1_weight x 8, calibrated over 3 random batches:
+   fp32 (``default``) against int8 (``default,quantize``) on identical
+   weights, 50 timed ``Module.predict`` calls each, top-1 agreement over
+   256 rows, the coverage (every conv / FC quantized, their int8 weights
+   folded), device ms by family per predict and the aten ops the integer
+   contractions ran; the random net's top-1 rides on small margins, so
+   the bench's gate (>= 0.99) is reported and the agreement is held to the
+   JAX package's on the same weights and table (0.9063 on the CPU,
+   ``tools/port_quant_conditioning.py``) within 0.05. (b) Phase 3's NHWC
+   ResNet-50 behind ``InferenceServer(quantize=table)``, buckets (1, 8),
+   one replica, the table from ``calibrate`` under the default pipeline:
+   coverage, int8 weights per replica, fuse regions (rooted at an int32
+   contraction) and ``fused_matmul`` launches (0), replays equal to their
+   eager walks to the bit, captures flat under traffic, logits against
+   the fp32 server's (reported), p50 at buckets 1 and 8, img/s at 8, and
+   each server's bucket-8 walk profiled by family. (c) The bench's decode
+   LM (vocab 256, d 256, 4 heads, 4 layers, d_ff 256, 2 experts, fp32,
+   init(0)): 24 greedy requests of 2 to 231 tokens, 24 new, 8 slots,
+   max_seq 256, with ``kv_dtype`` model, bfloat16 and int8: tokens/s,
+   bytes a token read and cached, token agreement with the model arm; the
+   bench's gates hard: int8 / bf16 bytes <= 0.55, int8 agreement >= 0.9;
+   buckets + 1 captures in each arm, the flash forward once per layer per
+   prefill; for bf16 and int8 the decode step at 8 x 128 tokens replayed
+   against eager (bit for bit), its busy share and the paged composition's
+   device ms.
+19. Print the ``kernels`` JSON line (the flash forward's row also carries
+   phase 11's prefill launches, phase 17's and phase 18's int8 Generator's,
+   ``fused_matmul``'s phase 3's captures, replays, and the profiled
+   replays with the kernels the profiler saw run in them, and phase 17
+   (a)'s bf16 figures), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -3820,21 +3850,46 @@ def gen_prefill_timing(gen, card, out):
 
 def gen_step_timing(mx, gen, card, out):
     """(d): THE decode step of ``gen`` (warmed, its scheduler not started)
-    at full batch and GEN_STEP_CTX context:
-    replayed (with its input copy and token fetch, as the scheduler runs
-    it) against eager, device time per replay from CUDA events, and the
-    device ms per step by family over GEN_PROFILED eager steps (which
-    launch the graph's kernels) under torch.profiler, paged attention and
-    sampling marked as scopes."""
+    at full batch and GEN_STEP_CTX context: :func:`decode_step_profile`."""
+    G = mx.serving.generation
+    prompts = gen_prompts(GEN_MAX_BATCH, GEN_STEP_CTX, GEN_STEP_CTX + 1,
+                          TRAIN_CFG["vocab"], 7)
+    row = decode_step_profile(gen, prompts,
+                              G.SamplingParams(max_new_tokens=16))
+    row.update(ctx=GEN_STEP_CTX, batch=GEN_MAX_BATCH)
+    fams, device_ms = row["families_ms"], row["device_ms"]
+    log("generation (d): decode step, %d slots at %d tokens of context: "
+        "replayed %.3f ms (median of %d, input copy and token fetch "
+        "included; graph alone %.3f ms between CUDA events), eager %.3f ms; "
+        "device %.3f ms/step (torch.profiler over %d eager steps), busy "
+        "%.3f of the replayed step; replay equals eager to the bit: %s; on "
+        "%s" % (GEN_MAX_BATCH, GEN_STEP_CTX, row["replay_ms"], GEN_TIMED,
+                row["replay_device_ms"], row["eager_ms"], device_ms,
+                GEN_PROFILED, row["busy"], row["graph_equals_eager"], card))
+    for fam, v in sorted(fams.items(), key=lambda kv: -kv[1]):
+        log("    %9.3f ms  %.3f  %s" % (v, v / device_ms, fam))
+    for name, v in row["top_kernels_ms"][:6]:
+        log("    %9.3f ms  %s" % (v, name[:110]))
+    if not row["graph_equals_eager"]:
+        raise AssertionError("the replayed decode step differs from the "
+                             "eager one")
+    out["decode_step"] = row
+
+
+def decode_step_profile(gen, prompts, params):
+    """THE decode step of ``gen`` (warmed, its scheduler not started) with
+    ``prompts`` admitted into its slots: replayed (with its input copy and
+    token fetch, as the scheduler runs it) against eager, device time per
+    replay from CUDA events, and the device ms per step by family over
+    GEN_PROFILED eager steps (which launch the graph's kernels) under
+    torch.profiler, paged attention and sampling marked as scopes. The
+    slots are released after."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     E = gen_engine()
-    G = mx.serving.generation
-    prompts = gen_prompts(GEN_MAX_BATCH, GEN_STEP_CTX, GEN_STEP_CTX + 1,
-                          TRAIN_CFG["vocab"], 7)
     with gen._device_scope():
-        admit_slots(gen, prompts, G.SamplingParams(max_new_tokens=16))
+        admit_slots(gen, prompts, params)
         same = decode_graph_vs_eager(gen)
         step = gen._steps["decode"]
 
@@ -3891,27 +3946,10 @@ def gen_step_timing(mx, gen, card, out):
         scope_family=lambda n: ({GEN_SCOPES[0]: "paged attention",
                                  GEN_SCOPES[1]: "sampling"}.get(n)),
         marks=GEN_SCOPES)
-    row = dict(graph_equals_eager=same, replay_ms=walls["replay"],
-               eager_ms=walls["eager"], replay_device_ms=replay_dev,
-               device_ms=device_ms, families_ms=fams,
-               busy=device_ms / walls["replay"], top_kernels_ms=top,
-               ctx=GEN_STEP_CTX, batch=GEN_MAX_BATCH)
-    log("generation (d): decode step, %d slots at %d tokens of context: "
-        "replayed %.3f ms (median of %d, input copy and token fetch "
-        "included; graph alone %.3f ms between CUDA events), eager %.3f ms; "
-        "device %.3f ms/step (torch.profiler over %d eager steps), busy "
-        "%.3f of the replayed step; replay equals eager to the bit: %s; on "
-        "%s" % (GEN_MAX_BATCH, GEN_STEP_CTX, walls["replay"], GEN_TIMED,
-                replay_dev, walls["eager"], device_ms, GEN_PROFILED,
-                row["busy"], same, card))
-    for fam, v in sorted(fams.items(), key=lambda kv: -kv[1]):
-        log("    %9.3f ms  %.3f  %s" % (v, v / device_ms, fam))
-    for name, v in top[:6]:
-        log("    %9.3f ms  %s" % (v, name[:110]))
-    if not same:
-        raise AssertionError("the replayed decode step differs from the "
-                             "eager one")
-    out["decode_step"] = row
+    return dict(graph_equals_eager=same, replay_ms=walls["replay"],
+                eager_ms=walls["eager"], replay_device_ms=replay_dev,
+                device_ms=device_ms, families_ms=fams,
+                busy=device_ms / walls["replay"], top_kernels_ms=top)
 
 
 def gen_traffic(mx, model, path, card, out):
@@ -8482,6 +8520,524 @@ def amp_control_phase(mx, sym, card, peaks, results):
     return out
 
 
+# ------------------------------------------------------ phase 18: int8
+
+Q_BATCH = 16             # (a): bench_quantize's predict batch (bench_all.py:2329)
+Q_STEPS = 50             # (a): timed Module.predict calls of each arm
+Q_EVAL_ROWS = 256        # (a): rows of the top-1 agreement
+Q_CALIB = 3              # calibration batches
+Q_TOP1 = 0.99            # bench_all.py:2478: the bench's predict gate
+# the JAX package's int8-vs-fp32 top-1 agreement on (a)'s weights and
+# inputs, on the CPU (tools/port_quant_conditioning.py): the random net's
+# top-1 is decided by small margins, so the bench's gate fails for the
+# reference too, and (a) holds the port to the reference instead
+Q_JAX_TOP1 = 0.90625
+Q_TOP1_MARGIN = 0.05     # card against CPU: fp32 cuDNN moves near-ties
+Q_PROFILED = 3           # (a): predicts of each arm under torch.profiler
+Q_INT_SCOPE = "q::int_contraction"
+Q_MM_OPS = ("aten::linear", "aten::addmm", "aten::mm", "aten::matmul",
+            "aten::bmm", "aten::tensordot")
+Q_BUCKETS = (1, 8)       # (b)
+Q_LATENCY_N = 30         # (b): sequential requests per bucket
+Q_BATCHES = 16           # (b): back-to-back 8-row requests
+Q_LM = dict(vocab=256, d_model=256, n_heads=4, n_layers=4, d_ff=256,
+            n_experts=2)   # (c): bench_quantize's decode model
+Q_MAX_BATCH, Q_MAX_SEQ, Q_MAX_NEW, Q_REQUESTS = 8, 256, 24, 24
+Q_STEP_CTX = 128         # (c): context of the profiled decode steps
+Q_BYTES_GATE = 0.55      # bench_all.py:2481: int8 / bf16 bytes a token
+Q_TOKEN_GATE = 0.9       # bench_all.py:2485: int8 token agreement
+
+
+class int_scope:
+    """A scope in which every exact integer contraction (the int8
+    islands' convolutions, FCs and matmuls, casts and round included)
+    runs under the ``Q_INT_SCOPE`` profiler mark."""
+
+    def __enter__(self):
+        import importlib
+
+        from torch.profiler import record_function
+
+        self.mods = [importlib.import_module("mxnet_tpu_torch.ops." + m)
+                     for m in ("nn", "matrix")]
+        self.real = self.mods[0].integer_contraction
+
+        def marked(*args, **kwargs):
+            with record_function(Q_INT_SCOPE):
+                return self.real(*args, **kwargs)
+
+        for m in self.mods:
+            m.integer_contraction = marked
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.integer_contraction = self.real
+
+
+def q_families(prof, n):
+    """Device ms per predict by family: a kernel under the integer scope is
+    an int contraction's (its convolution, GEMM, or casts and round),
+    another under a convolution or matmul op an fp32 one, the rest by
+    name; the launches the profiler could not link to an op (the fused
+    kernel's ctypes launches) by name. Also the aten ops the integer
+    contractions ran (the route)."""
+    import torch
+
+    fams, linked, route = {}, {}, set()
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        names, e = [], ev
+        while e is not None:
+            names.append(e.name)
+            e = e.cpu_parent
+        is_int = Q_INT_SCOPE in names
+        if is_int and ev.kernels and ev.name.startswith("aten::"):
+            route.add(ev.name)
+        for k in ev.kernels:
+            if any("convolution" in m for m in names):
+                kind = "conv"
+            elif any(m in Q_MM_OPS for m in names):
+                kind = "GEMM"
+            else:
+                kind = "casts and round" if is_int else kernel_family(
+                    k.name)
+            fam = ("int " + kind) if is_int else (
+                "fp32 " + kind if kind in ("conv", "GEMM") else kind)
+            fams[fam] = fams.get(fam, 0.0) + k.duration
+            linked[k.name] = linked.get(k.name, 0.0) + k.duration
+    total = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if getattr(ev, "is_user_annotation", False) or \
+                ev.key == Q_INT_SCOPE:
+            continue
+        total += us
+        rest = us - linked.get(ev.key, 0.0)
+        if rest > 0:
+            fam = kernel_family(ev.key)
+            fams[fam] = fams.get(fam, 0.0) + rest
+    if not total:
+        raise AssertionError("torch.profiler recorded no device time")
+    return ({k: v / 1e3 / n for k, v in fams.items()}, total / 1e3 / n,
+            sorted(route))
+
+
+def q_predict(mx, card, rng, out):
+    """(a): bench_quantize's predict half (bench_all.py:2326-2397) in full:
+    ResNet-50 NCHW at 224, batch 16, 1000 classes, Xavier from seed 0 with
+    fc1_weight x 8, calibrated over 3 random batches; fp32 (``default``)
+    against int8 (``default,quantize``) on identical weights, 50 timed
+    Module.predict calls each, top-1 agreement over 256 rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    bs, size = Q_BATCH, 224
+    sym = mx.models.get_resnet(num_classes=1000, num_layers=50,
+                               image_shape=(3, size, size))
+    x = rng.rand(bs, 3, size, size).astype(np.float32)
+    eval_x = rng.rand(Q_EVAL_ROWS, 3, size, size).astype(np.float32)
+
+    def build(spec):
+        mx.graph_pass.set_passes(spec)
+        try:
+            mod = mx.mod.Module(sym, context=mx.gpu())
+            mod.bind(data_shapes=[("data", x.shape)], for_training=False)
+            # Xavier draws from numpy's global generator (the JAX
+            # package's initializer does too): seed 0
+            np.random.seed(0)
+            mod.init_params(mx.init.Xavier())
+            args, auxs = mod.get_params()
+            args = dict(args)
+            args["fc1_weight"] = args["fc1_weight"] * 8.0
+            mod.set_params(args, auxs)
+            return mod
+        finally:
+            mx.graph_pass.set_passes(None)
+
+    def it(data):
+        return mx.io.NDArrayIter(data, None, batch_size=bs)
+
+    def run(mod):
+        mod.predict(it(x))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(Q_STEPS):
+            mod.predict(it(x))
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / Q_STEPS
+        with int_scope(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+            for _ in range(Q_PROFILED):
+                mod.predict(it(x))
+            torch.cuda.synchronize()
+        return dt, mod.predict(it(eval_x)).asnumpy(), prof
+
+    t0 = time.perf_counter()
+    fp32 = build("default")
+    table = mx.graph_pass.calibrate(
+        fp32, [rng.rand(bs, 3, size, size).astype(np.float32)
+               for _ in range(Q_CALIB)])
+    calib_s = time.perf_counter() - t0
+    fp32_s, fp32_out, fp32_prof = run(fp32)
+    mx.graph_pass.set_calibration_table(table)
+    try:
+        q = build("default,quantize")
+        q.set_params(*fp32.get_params())   # identical weights, both arms
+        q_s, q_out, q_prof = run(q)
+    finally:
+        mx.graph_pass.set_calibration_table(None)
+    qinfo = q._exec_group.execs[0]._opt.summary()["quantize"]
+    folded = q._exec_group.execs[0]._folded()
+    int8_weights = sum(1 for v in folded.values() if v.dtype == torch.int8)
+    top1 = float((fp32_out.argmax(1) == q_out.argmax(1)).mean())
+    fams = {}
+    for arm, prof in (("fp32", fp32_prof), ("int8", q_prof)):
+        f, dev, route = q_families(prof, Q_PROFILED)
+        fams[arm] = dict(families_ms=f, device_ms=dev, route=route)
+    int_ms = sum(v for k, v in fams["int8"]["families_ms"].items()
+                 if k.startswith("int "))
+    res = dict(
+        fp32_ms=fp32_s * 1e3, int8_ms=q_s * 1e3, speedup=fp32_s / q_s,
+        images_per_s={"fp32": bs / fp32_s, "int8": bs / q_s},
+        top1_agreement=top1, coverage=qinfo, int8_weights=int8_weights,
+        table_entries=len(table), calibrate_s=calib_s, profile=fams,
+        int_contraction_ms=int_ms,
+        int_share=int_ms / fams["int8"]["device_ms"],
+        bench_gate_met=top1 >= Q_TOP1, jax_top1_agreement=Q_JAX_TOP1,
+        fp32_classes=int(len(set(fp32_out.argmax(1)))),
+        output_finite=bool(np.isfinite(q_out).all()),
+        output_shape=list(q_out.shape))
+    log("quantize (a): bench_quantize predict, ResNet-50 NCHW %dx%d batch "
+        "%d, Xavier (numpy seed 0) with fc1_weight x 8, calibrated over %d "
+        "batches (%d table entries, %.1f s): fp32 %.3f ms a batch (%.1f "
+        "img/s), int8 %.3f ms (%.1f img/s), %.3fx; top-1 agreement over %d "
+        "rows %.4f, the bench's gate >= %g %s; the JAX package's on the "
+        "same weights and inputs (CPU) %.4f, held within %g; the fp32 arm "
+        "predicts %d classes; coverage %d of %d ops (%s), %d int8 weight "
+        "tensors folded; on %s"
+        % (size, size, bs, Q_CALIB, len(table), calib_s, res["fp32_ms"],
+           res["images_per_s"]["fp32"], res["int8_ms"],
+           res["images_per_s"]["int8"], res["speedup"], Q_EVAL_ROWS, top1,
+           Q_TOP1, "met" if top1 >= Q_TOP1 else "NOT met", Q_JAX_TOP1,
+           Q_TOP1_MARGIN, res["fp32_classes"], qinfo["ops_quantized"],
+           qinfo["ops_eligible"], qinfo["skipped"] or "none skipped",
+           int8_weights, card))
+    for arm in ("fp32", "int8"):
+        f = fams[arm]
+        log("quantize (a): %s predict, device %.3f ms a batch "
+            "(torch.profiler over %d predicts)%s"
+            % (arm, f["device_ms"], Q_PROFILED,
+               "; the integer contractions ran %s, %.3f ms (%.3f of it)"
+               % (f["route"], int_ms, res["int_share"])
+               if arm == "int8" else ""))
+        for fam, v in sorted(f["families_ms"].items(), key=lambda kv: -kv[1]):
+            log("    %9.3f ms  %.3f  %s" % (v, v / f["device_ms"], fam))
+    if not (top1 >= Q_JAX_TOP1 - Q_TOP1_MARGIN and res["output_finite"]
+            and res["output_shape"] == [Q_EVAL_ROWS, 1000]
+            and qinfo["ops_quantized"] == qinfo["ops_eligible"] > 0
+            and int8_weights == qinfo["ops_quantized"]
+            and fams["int8"]["route"]):
+        raise AssertionError("quantize (a) failed: %s"
+                             % json.dumps(res, default=str))
+    out["a"] = res
+    return res
+
+
+def q_walk_profile(srv, x):
+    """Device ms by family of the served program's eager walk (the body of
+    its bucket graph) on ``x``, over Q_PROFILED walks under
+    torch.profiler, the integer contractions marked."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    eager_outputs(srv, 0, x)
+    torch.cuda.synchronize()
+    with int_scope(), profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+        for _ in range(Q_PROFILED):
+            eager_outputs(srv, 0, x)
+        torch.cuda.synchronize()
+    fams, dev, route = q_families(prof, Q_PROFILED)
+    return dict(families_ms=fams, device_ms=dev, route=route,
+                int_ms=sum(v for k, v in fams.items()
+                           if k.startswith("int ")))
+
+
+def q_server(mx, served, args, aux, **kw):
+    import torch
+
+    return mx.serving.InferenceServer(
+        served, args, aux, data_shapes=[("data", (1,) + ROW)],
+        devices=[torch.device("cuda", 0)],
+        config=mx.serving.ServingConfig(buckets=Q_BUCKETS, max_wait_ms=0),
+        **kw)
+
+
+def q_serve(mx, sym, card, out):
+    """(b): phase 3's NHWC ResNet-50 behind InferenceServer(quantize=
+    table), buckets (1, 8), one replica, calibrated by ``calibrate`` under
+    the serving spec minus quantize (the default pipeline)."""
+    import torch
+    from mxnet_tpu_torch import cuda_build, cuda_graph
+
+    np_args, np_aux = resnet50_params(sym, seed=0)
+    center_fc_bias(mx, sym, np_args, np_aux, np.random.default_rng(1))
+    served = mx.sym.Group([sym, sym.get_internals()["fc1_output"]])
+    rng = np.random.default_rng(18)
+    images = rng.standard_normal((8,) + ROW, dtype=np.float32)
+    batch = rng.standard_normal((8,) + ROW, dtype=np.float32)
+    mod = mx.mod.Module(served, context=mx.gpu())
+    mod.bind(data_shapes=[("data", (8,) + ROW)], for_training=False)
+    mod.set_params({k: mx.nd.array(v, ctx=mx.cpu())
+                    for k, v in np_args.items()},
+                   {k: mx.nd.array(v, ctx=mx.cpu())
+                    for k, v in np_aux.items()})
+    table = mx.graph_pass.calibrate(
+        mod, [rng.standard_normal((8,) + ROW, dtype=np.float32)
+              for _ in range(Q_CALIB)])
+    del mod
+    args, aux = mx.params_from_jax(np_args, np_aux, device="cuda")
+    srv = q_server(mx, served, args, aux)
+    try:
+        fp32 = amp_answers(srv, images, batch)
+        fp32_profile = q_walk_profile(srv, batch)
+    finally:
+        srv.stop()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    srv = q_server(mx, served, args, aux, quantize=table)
+    try:
+        srv.warmup()
+        same = {}
+        for b in Q_BUCKETS:
+            x = rng.standard_normal((b,) + ROW, dtype=np.float32)
+            got, want = replay_vs_eager(srv, 0, x)
+            same[b] = all(np.array_equal(g, w) for g, w in zip(got, want))
+    finally:
+        srv.stop()
+        torch.backends.cudnn.deterministic = det
+    cuda_build.reset_launch_counts()
+    srv = q_server(mx, served, args, aux, quantize=table)
+    try:
+        warmed = srv.warmup()
+        captured = cuda_build.launch_counts().get("fused_matmul", 0)
+        cuda_build.reset_launch_counts()
+        eager_outputs(srv, 0, batch)
+        torch.cuda.synchronize()
+        per_body = cuda_build.launch_counts().get("fused_matmul", 0)
+        cuda_build.reset_launch_counts()
+        stats0 = srv.get_stats()
+        int8 = amp_answers(srv, images, batch)
+        lat = {}
+        for b in Q_BUCKETS:
+            x = rng.standard_normal((b,) + ROW, dtype=np.float32)
+            srv.predict(x, timeout=600)
+            ts = []
+            for _ in range(Q_LATENCY_N):
+                t0 = time.perf_counter()
+                srv.predict(x, timeout=600)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            lat[b] = float(np.percentile(ts, 50))
+        t0 = time.perf_counter()
+        futs = [srv.submit(batch) for _ in range(Q_BATCHES)]
+        for f in futs:
+            f.result(timeout=600)
+        img_s = Q_BATCHES * batch.shape[0] / (time.perf_counter() - t0)
+        stats = srv.get_stats()
+        traffic_wrapper = cuda_build.launch_counts().get("fused_matmul", 0)
+        int8_args = sum(1 for v in srv._replica_args[0].values()
+                        if v.dtype == torch.int8)
+        int8_profile = q_walk_profile(srv, batch)
+    finally:
+        srv.stop()
+    report = stats["graph_pass"]
+    q = report["quantize"]
+    regions = report["fuse"]["regions"]
+    int_regions = sum(1 for r in regions if r["base"].endswith("_int"))
+    err, top1 = compare(int8, fp32, "int8 vs fp32 server")
+    replays = stats.get("batches", 0) - stats0.get("batches", 0)
+    res = dict(
+        coverage={k: q[k] for k in ("ops_quantized", "ops_eligible",
+                                    "skipped")},
+        table_entries=len(table), regions=len(regions),
+        int_regions=int_regions, kernel_regions=per_body,
+        fused_matmul_per_replay=per_body, capture_launches=captured,
+        warmup=warmed, captures=stats["bucket_programs"],
+        captures_before_traffic=stats0["bucket_programs"],
+        replay_equals_eager=same, replays=replays,
+        traffic_wrapper_launches=traffic_wrapper, int8_weights=int8_args,
+        logit_err_vs_fp32=err, top1_vs_fp32=top1,
+        p50_ms={str(b): lat[b] for b in Q_BUCKETS},
+        img_per_s_bucket8=img_s,
+        profile={"fp32": fp32_profile, "int8": int8_profile})
+    log("quantize (b): ResNet-50 NHWC behind InferenceServer(quantize="
+        "table), buckets %s, one replica: table of %d entries from "
+        "calibrate under the default pipeline; coverage %d of %d (%s); %d "
+        "int8 weight tensors per replica; %d fuse regions, %d rooted at an "
+        "int32 contraction, %d take fused_matmul (%d wrapper launches at "
+        "the %d captures, %d a replay of the eager walk); each replay "
+        "equal to its eager walk to the bit (cuDNN deterministic): %s; "
+        "logits vs the fp32 server %.4g of max |logit|, top-1 agreement "
+        "%.3f (reported); p50 %s ms, %.1f img/s at bucket 8; captures %d "
+        "before traffic, %d after %d replays; on %s"
+        % (Q_BUCKETS, len(table), q["ops_quantized"], q["ops_eligible"],
+           q["skipped"] or "none skipped", int8_args, len(regions),
+           int_regions, per_body, captured, warmed, per_body, same, err,
+           top1, {b: round(v, 3) for b, v in lat.items()}, img_s,
+           stats0["bucket_programs"], stats["bucket_programs"], replays,
+           card))
+    for arm, f in res["profile"].items():
+        log("quantize (b): %s server, bucket 8 walk (the replay's body), "
+            "device %.3f ms (torch.profiler over %d walks); integer "
+            "contractions %.3f ms (%.3f of it)"
+            % (arm, f["device_ms"], Q_PROFILED, f["int_ms"],
+               f["int_ms"] / f["device_ms"]))
+        for fam, v in sorted(f["families_ms"].items(),
+                             key=lambda kv: -kv[1]):
+            log("    %9.3f ms  %.3f  %s" % (v, v / f["device_ms"], fam))
+    if not (all(same.values()) and warmed == len(Q_BUCKETS)
+            and stats["bucket_programs"] == stats0["bucket_programs"]
+            == len(Q_BUCKETS) and not traffic_wrapper
+            and captured == per_body * warmed * (1 + cuda_graph.WARMUP_RUNS)
+            and q["ops_quantized"] > 0 and int8_args == q["ops_quantized"]
+            and int_regions > 0):
+        raise AssertionError("quantize (b) failed: %s"
+                             % json.dumps(res, default=str))
+    out["b"] = res
+    return res
+
+
+def q_decode(mx, card, rng, out):
+    """(c): bench_quantize's decode half (bench_all.py:2399-2457) in full:
+    the fp32 LM at vocab 256, d_model 256, 4 heads, 4 layers, d_ff 256, 2
+    experts, init(0); 24 greedy requests of 2 to 231 tokens, 24 new each,
+    8 slots, max_seq 256, with kv_dtype model, bfloat16 and int8. The
+    decode step of the bf16 and int8 arms profiled beside."""
+    import torch
+
+    G = mx.serving.generation
+    model = mx.parallel.TransformerParallel(mx.parallel.make_mesh({"dp": 1}),
+                                            dtype="float32", **Q_LM)
+    params = model.init(0)
+    prompts = [[int(t) for t in rng.randint(1, Q_LM["vocab"],
+                                            size=int(p))]
+               for p in rng.randint(2, Q_MAX_SEQ - Q_MAX_NEW,
+                                    size=Q_REQUESTS)]
+    mean_ctx = float(np.mean([len(p) + Q_MAX_NEW / 2 for p in prompts]))
+    step_prompts = gen_prompts(Q_MAX_BATCH, Q_STEP_CTX, Q_STEP_CTX + 1,
+                               Q_LM["vocab"], 7)
+    sp = G.SamplingParams(max_new_tokens=Q_MAX_NEW)
+    arms, tokens = {}, {}
+    for kv in ("model", "bfloat16", "int8"):
+        gen = G.Generator(model, params, G.GenerationConfig(
+            max_batch=Q_MAX_BATCH, max_seq=Q_MAX_SEQ, kv_dtype=kv),
+            start=False)
+        warmed = gen.warmup()
+        arm = {}
+        if kv != "model":
+            arm["decode_step"] = decode_step_profile(
+                gen, step_prompts, G.SamplingParams(max_new_tokens=16))
+        gen.start()
+        base = gen.graph_launches().get("flash_attention_fwd", 0)
+        prefills0 = gen.get_stats().get("prefills", 0)
+        got, wall = serve_all(gen, [(p, sp) for p in prompts])
+        launches = gen.graph_launches().get("flash_attention_fwd", 0) - base
+        prefills = gen.get_stats().get("prefills", 0) - prefills0
+        captures = stopped(gen)
+        tokens[kv] = got
+        arm.update(
+            tokens_per_s=sum(len(t) for t in got) / wall, wall_s=wall,
+            hbm_bytes_per_token=gen.kv_read_bytes_per_token(mean_ctx),
+            bytes_per_cached_token=gen.pool.bytes_per_token,
+            warmed=warmed, captures=captures, prefills=prefills,
+            flash_fwd_launches=launches,
+            pool_dtype=str(gen._pools["k"].dtype),
+            scale_pools=sorted(k for k in gen._pools if k.endswith("s")))
+        arms[kv] = arm
+        del gen
+        torch.cuda.empty_cache()
+    for kv in ("bfloat16", "int8"):
+        pairs = [(a, b) for r, s in zip(tokens["model"], tokens[kv])
+                 for a, b in zip(r, s)]
+        arms[kv]["token_agreement"] = float(np.mean([a == b
+                                                     for a, b in pairs]))
+    ratio = (arms["int8"]["hbm_bytes_per_token"]
+             / max(1, arms["bfloat16"]["hbm_bytes_per_token"]))
+    n_programs = len(G.default_prefill_ladder(Q_MAX_SEQ)) + 1
+    paged = {kv: arms[kv]["decode_step"]["families_ms"].get(
+        "paged attention", 0.0) for kv in ("bfloat16", "int8")}
+    res = dict(arms=arms, mean_ctx=mean_ctx, int8_vs_bf16_bytes_ratio=ratio,
+               int8_vs_bf16_tokens_ratio=(arms["int8"]["tokens_per_s"]
+                                          / arms["bfloat16"]["tokens_per_s"]),
+               paged_attention_ms=paged, n_programs=n_programs)
+    log("quantize (c): bench_quantize decode, LM %s fp32 init(0), %d greedy "
+        "requests of 2 to %d tokens, %d new, %d slots, max_seq %d, mean "
+        "context %.1f; int8 / bf16 bytes a token %.4f (gate <= %g); on %s"
+        % (Q_LM, Q_REQUESTS, Q_MAX_SEQ - Q_MAX_NEW - 1, Q_MAX_NEW,
+           Q_MAX_BATCH, Q_MAX_SEQ, mean_ctx, ratio, Q_BYTES_GATE, card))
+    for kv, a in arms.items():
+        step = a.get("decode_step")
+        log("quantize (c): kv_dtype %-8s pages %s%s: %.1f tokens/s, %d "
+            "hbm bytes a token, %d bytes a cached token, token agreement "
+            "with model %s; %d programs warmed, %d captures after traffic; "
+            "%d flash forward launches over %d prefills%s"
+            % (kv, a["pool_dtype"], " + fp32 scales" if a["scale_pools"]
+               else "", a["tokens_per_s"], a["hbm_bytes_per_token"],
+               a["bytes_per_cached_token"],
+               "%.4f" % a["token_agreement"] if kv != "model" else "-",
+               a["warmed"], a["captures"], a["flash_fwd_launches"],
+               a["prefills"],
+               "; decode step at %d x %d tokens: replayed %.3f ms (graph "
+               "%.3f), eager %.3f, device %.3f ms, busy %.3f, paged "
+               "attention %.3f ms, replay equals eager: %s"
+               % (Q_MAX_BATCH, Q_STEP_CTX, step["replay_ms"],
+                  step["replay_device_ms"], step["eager_ms"],
+                  step["device_ms"], step["busy"], paged[kv],
+                  step["graph_equals_eager"]) if step else ""))
+    n_layers = Q_LM["n_layers"]
+    if not (ratio <= Q_BYTES_GATE
+            and arms["int8"]["token_agreement"] >= Q_TOKEN_GATE
+            and all(a["warmed"] == a["captures"] == n_programs
+                    for a in arms.values())
+            and all(a["decode_step"]["graph_equals_eager"]
+                    for kv, a in arms.items() if kv != "model")
+            and arms["int8"]["pool_dtype"] == "torch.int8"
+            and arms["int8"]["scale_pools"] == ["ks", "vs"]
+            and all(a["flash_fwd_launches"] == n_layers * a["prefills"]
+                    for a in arms.values())):
+        raise AssertionError("quantize (c) failed: %s"
+                             % json.dumps(res, default=str))
+    out["c"] = res
+    return res
+
+
+def quantize_phase(mx, sym, card, results):
+    """Phase 18: int8 through bench_all.py --quantize's protocol
+    (bench_quantize, bench_all.py:2299), on the card, through the port."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {}
+    # one generator for (a) and (c), drawn in the bench's order
+    rng = np.random.RandomState(0)
+    q_predict(mx, card, rng, out)
+    torch.cuda.empty_cache()
+    q_serve(mx, sym, card, out)
+    torch.cuda.empty_cache()
+    q_decode(mx, card, rng, out)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log("quantize: phase 18 took %.1f s" % out["seconds"])
+    results["quantize"] = out
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the detailed results here")
@@ -8541,6 +9097,7 @@ def main():
     ssd_phase(mx, card, results)
     model_zoo_phase(mx, card, results)
     amp = amp_control_phase(mx, sym, card, results["peaks"], results)
+    quant = quantize_phase(mx, sym, card, results)
 
     t8 = totals[8]
     kernels = {"kernels": [{
@@ -8589,7 +9146,11 @@ def main():
                     r["flash_fwd_per_replay"]
                     for r in amp["d"]["per_bucket"]}),
                 amp_launches=amp["b"]["amp"]["flash_fwd_launches"],
-                amp_prefills=amp["b"]["amp"]["prefills"])
+                amp_prefills=amp["b"]["amp"]["prefills"],
+                # phase 18 (c): the int8 Generator's prefill replays
+                int8_launches=quant["c"]["arms"]["int8"][
+                    "flash_fwd_launches"],
+                int8_prefills=quant["c"]["arms"]["int8"]["prefills"])
         row["library"] = ("SDPA forward" if name == "flash_attention_fwd"
                           else "SDPA backward (dq, dk and dv in one call)")
         kernels["kernels"].append(row)

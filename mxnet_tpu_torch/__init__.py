@@ -8,7 +8,7 @@ staging and tuning cache (``mx.observability``, ``mx.resilience``,
 ``mx.runtime``, ``mx.autotune``), the kernels and transformer
 training step (``mx.parallel``), and symbolic training: ``mx.nd``,
 ``mx.mod.Module``, ``mx.init``, ``mx.optimizer``, ``mx.metric``,
-``mx.io``, ``mx.kv``, ``mx.callback``; imperative autograd
+``mx.io``, ``mx.kv``, ``mx.callback``, ``mx.mon``; imperative autograd
 (``mx.autograd``), custom operators (``mx.operator``), runtime CUDA
 kernels compiled by NVRTC (``mx.rtc``), the random generators
 (``mx.random``), the symbolic RNN toolkit (``mx.rnn``) and Gluon
@@ -46,6 +46,9 @@ from . import model
 from . import callback
 from . import module
 from . import module as mod
+from . import monitor
+from . import monitor as mon
+from .monitor import Monitor
 from . import models
 from . import observability
 from . import resilience

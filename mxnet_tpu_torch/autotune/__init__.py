@@ -8,18 +8,24 @@
   consumers pay one dict probe;
 * :mod:`.cost_model` — the ladder's analytic cost.
 
-Modes (``MXNET_TUNE``): ``0`` (default) consult the cache; ``-1`` bypass
-lookups. The measured search (``search.py``, ``tuners.py``, e.g.
-``tune_serving_buckets``), the learned cost model and the flash and fused
-cost models wait for ROADMAP A13.
-"""
-from . import cache, cost_model, registry
-from .cache import (cache_path, device_fingerprint, entries, lookup,
-                    lookup_entry, record, reload, reset, reset_stats, save,
-                    stats)
-from .registry import declare, get as get_tunable, names as tunable_names
+* :mod:`.tuners` — the int8 paths' measured arbitrations:
+  :func:`tune_generation_kv` (``generation.kv_dtype``) and
+  :func:`tune_quantize_layers` (``quantize.layers``).
 
-__all__ = ["cache", "registry", "cost_model", "cache_path",
+Modes (``MXNET_TUNE``): ``0`` (default) consult the cache; ``-1`` bypass
+lookups. The generic measured search (``search.py``), the other tuners
+(``tune_serving_buckets``, flash blocks, layout, remat), the learned cost
+model and the flash and fused cost models wait for ROADMAP A13.
+"""
+from . import cache, cost_model, registry, tuners
+from .cache import (cache_path, device_fingerprint, entries, lookup,
+                    lookup_entry, note_measurements, record, reload, reset,
+                    reset_stats, save, stats)
+from .registry import declare, get as get_tunable, names as tunable_names
+from .tuners import tune_generation_kv, tune_quantize_layers
+
+__all__ = ["cache", "registry", "cost_model", "tuners", "cache_path",
            "device_fingerprint", "entries", "lookup", "lookup_entry",
-           "record", "reload", "reset", "reset_stats", "save", "stats",
-           "declare", "get_tunable", "tunable_names"]
+           "note_measurements", "record", "reload", "reset", "reset_stats",
+           "save", "stats", "declare", "get_tunable", "tunable_names",
+           "tune_generation_kv", "tune_quantize_layers"]

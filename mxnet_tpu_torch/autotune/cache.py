@@ -6,9 +6,8 @@ and key scheme. One JSON file maps ``(device fingerprint, op,
 shape-bucket, dtype)`` to the winning candidate of a measured search.
 Consumers (``serving.InferenceServer``'s bucket ladder) call
 :func:`lookup`: a hit costs one dict probe, a miss falls back to the
-hand-picked default. The searches that write entries (the JAX package's
-``tune_*`` entry points) wait for ROADMAP A13; :func:`record` writes one
-by hand.
+hand-picked default. The tuners of :mod:`.tuners` write entries after a
+measured arbitration; :func:`record` writes one by hand.
 
 File protocol:
 
@@ -23,7 +22,8 @@ File protocol:
   ``cpu:cpu``), so an entry measured on another chip — a TPU entry of the
   JAX package included — never resolves here.
 
-Counters (:func:`stats`): ``hits`` / ``misses`` / ``records``.
+Counters (:func:`stats`): ``hits`` / ``misses`` / ``measurements`` /
+``records``.
 """
 from __future__ import annotations
 
@@ -35,12 +35,13 @@ import time
 
 __all__ = ["cache_path", "device_fingerprint", "lookup", "lookup_entry",
            "record", "save", "entries", "reload", "reset", "stats",
-           "reset_stats"]
+           "reset_stats", "note_measurements"]
 
 _lock = threading.RLock()
 _entries = None          # key -> entry dict; None = not loaded  # guarded-by: _lock
 _loaded_path = None      # path _entries came from  # guarded-by: _lock
-_stats = {"hits": 0, "misses": 0, "records": 0}  # guarded-by: _lock
+_stats = {"hits": 0, "misses": 0, "measurements": 0,
+          "records": 0}  # guarded-by: _lock
 _fp_probe = None         # memoized backend probe  # guarded-by: _lock
 
 _VERSION = 1
@@ -257,8 +258,17 @@ def reset():
         _fp_probe = None
 
 
+def note_measurements(n=1):
+    """Called by a tuner once per measured candidate."""
+    with _lock:
+        _stats["measurements"] += n
+    from ..observability import metrics
+
+    metrics.counter("autotune.measurements").inc(n)
+
+
 def stats():
-    """Copy of {hits, misses, records}."""
+    """Copy of {hits, misses, measurements, records}."""
     with _lock:
         return dict(_stats)
 

@@ -12,8 +12,15 @@ the loss heads ignore, as in the JAX package). Launches are asynchronous
 on the current CUDA stream, so one walk enqueues the whole forward before
 anything waits on it.
 
-Not ported: the monitor callback, model-parallel ``group2ctx`` binds and
-the health/perf hooks (``ROADMAP.md`` Queue A13); asking for them raises.
+With a monitor callback installed (:meth:`Executor.set_monitor_callback`)
+the walk hands every node output to the callback as it is computed, under
+the JAX package's ``<node>_output`` names and in its order: the per-node
+spy pass of the reference's ``ExecuteMonCallback``, which calibration of
+the ``quantize`` pass reads. The walk is eager anyway, so a monitored
+forward costs one walk, also in training.
+
+Not ported: model-parallel ``group2ctx`` binds and the health/perf hooks
+(``ROADMAP.md`` Queue A13); asking for them raises.
 """
 from __future__ import annotations
 
@@ -125,18 +132,20 @@ class _GraphProgram:
             self._sel_topo[key] = cached
         return cached
 
-    def _eval(self, arg_d, aux_d, is_train=False, sel=None):
+    def _eval(self, arg_d, aux_d, is_train=False, sel=None, callback=None):
         """Walk the graph once; returns (outputs, {aux name: new value}).
         The walk runs in the scope of the bound arrays' device, so an op
-        without inputs (``_zeros``) creates its tensor beside them."""
+        without inputs (``_zeros``) creates its tensor beside them. With
+        ``callback``, ``callback(entry name, tensor)`` fires for every
+        node output as it is computed."""
         first = next(iter(arg_d.values()), None)
         scope = contextlib.nullcontext()
         if first is not None and first.device.type in ("cpu", "cuda"):
             scope = Context.from_device(first.device)
         with scope:
-            return self._walk(arg_d, aux_d, is_train, sel)
+            return self._walk(arg_d, aux_d, is_train, sel, callback)
 
-    def _walk(self, arg_d, aux_d, is_train, sel):
+    def _walk(self, arg_d, aux_d, is_train, sel, callback=None):
         env = {}
         aux_updates = {}
         topo, out_entries = self.topo_for(sel)
@@ -158,6 +167,10 @@ class _GraphProgram:
                 is_train=is_train)
             for i, o in enumerate(outs):
                 env[(id(node), i)] = o
+                if callback is not None:
+                    # <node>_output entry naming (symbol list_outputs)
+                    callback(node.name + "_output" if len(outs) == 1
+                             else "%s_output%d" % (node.name, i), o)
             for (src, _), nv in zip(node.inputs[n_main:], new_aux):
                 if src.is_variable:
                     aux_updates[src.name] = nv
@@ -172,19 +185,24 @@ class _GraphProgram:
 
         return f
 
-    def train_walk(self, arg_d, aux_d, grad_names):
+    def train_walk(self, arg_d, aux_d, grad_names, callback=None):
         """The training forward under autograd: (outputs, aux updates,
         {name: leaf}) where each name in ``grad_names`` enters the walk
         as a leaf that requires grad (sharing its argument's storage).
         Under ``MXNET_BACKWARD_DO_MIRROR`` the backward recomputes the
-        walk (:func:`_maybe_mirror`)."""
+        walk (:func:`_maybe_mirror`); a ``callback`` (the monitor) sees
+        the first walk only."""
         leaves = {n: arg_d[n].detach().requires_grad_(True)
                   for n in grad_names}
         merged = dict(arg_d)
         merged.update(leaves)
         with torch.enable_grad():
-            outs, aux_upd = _maybe_mirror(self._eval, self.random)(
-                merged, aux_d, True)
+            if callback is not None:
+                outs, aux_upd = self._eval(merged, aux_d, True,
+                                           callback=callback)
+            else:
+                outs, aux_upd = _maybe_mirror(self._eval, self.random)(
+                    merged, aux_d, True)
         return outs, aux_upd, leaves
 
 
@@ -308,6 +326,10 @@ class Executor:
         self.outputs = []
         self._recorded = None   # (outputs, leaves) of the last train walk
         self._stashed_grads = None
+        # a re-bind (reshape, a bucket switch) keeps the monitor armed:
+        # calibration feeds batches of any size through Module.forward
+        self._monitor_callback = (shared_exec._monitor_callback
+                                  if shared_exec is not None else None)
 
     def _run_graph_passes(self, symbol, frozen_params):
         """The bind-time pass pipeline, run with ``for_training`` set when
@@ -409,14 +431,24 @@ class Executor:
                 self._param_version += 1
         self._recorded = None
         self._stashed_grads = None
-        if not is_train:
+        spy = self._spy()
+        if not is_train and spy is not None:
+            # the spy pass walks the whole graph; the output selection
+            # applies on the way out
+            arg_d, aux_d = self._feeds(self._prog)
+            with torch.inference_mode():
+                outs, _ = self._prog._eval(arg_d, aux_d, False,
+                                           callback=spy)
+            if self._out_sel is not None:
+                outs = [outs[i] for i in self._out_sel]
+        elif not is_train:
             arg_d, aux_d = self._feeds(self._prog)
             outs = self._prog.infer_fn(self._out_sel)(arg_d, aux_d)
         else:
             prog = self._train_program()
             arg_d, aux_d = self._feeds(prog)
             outs, aux_upd, leaves = prog.train_walk(
-                arg_d, aux_d, self._grad_names(prog))
+                arg_d, aux_d, self._grad_names(prog), callback=spy)
             for n, nv in aux_upd.items():
                 self.aux_dict[n]._set_data(nv.detach())
             self._recorded = (outs, leaves)
@@ -508,9 +540,27 @@ class Executor:
         return Executor(self._symbol, self._ctx, new_args, new_grads,
                         self.grad_req, new_aux, shared_exec=self)
 
+    def _spy(self):
+        """The walk's callback for the installed monitor, or None: each
+        node output reaches the monitor as a detached NDArray."""
+        cb = self._monitor_callback
+        if cb is None:
+            return None
+        from .ndarray.ndarray import _from_data
+
+        return lambda name, value: cb(name, _from_data(value.detach()))
+
     def set_monitor_callback(self, callback, use_jit=False):
-        raise MXNetError("executor monitor callbacks are not yet ported "
-                         "(ROADMAP.md Queue A13)")
+        """Install (None removes) a per-node monitor: every later forward
+        calls ``callback(name, NDArray)`` for each node output, under the
+        ``<node>_output`` names (``<node>_output<i>`` for a node of
+        several outputs), in walk order (reference:
+        MXExecutorSetMonitorCallback). ``use_jit`` is accepted for the JAX
+        package's signature and means nothing here: that package can run
+        the monitored forward as one compiled program, while this walk is
+        always the eager one."""
+        del use_jit
+        self._monitor_callback = callback
 
     def fused_regions(self):
         """``[{name, base_op, members}]`` for each ``_FusedRegion`` of the

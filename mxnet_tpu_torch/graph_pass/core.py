@@ -13,17 +13,18 @@ from ..ops.registry import get_op
 from ..symbol.symbol import Symbol, _Node
 
 # canonical execution order; the env grammar toggles membership, never
-# order. fuse runs after amp so the carved regions see the final dtype of
-# every chain (amp's casts are epilogue steps, not barriers); fold runs
-# last so the parameter casts amp inserts are materialized once at bind.
-# quantize is named so the grammar stays the JAX package's, but it is not
-# ported yet.
+# order. quantize runs after bn_fold so folded convs quantize as one unit,
+# and before layout so calibration entry names still resolve; fuse runs
+# after amp so the carved regions see the final dtype of every chain (the
+# int islands' rescales and amp's casts are epilogue steps, not barriers);
+# fold runs last so it materializes what the others leave behind: scale
+# vectors, parameter casts, int8 weight tensors.
 PIPELINE_ORDER = ("prune", "bn_fold", "quantize", "layout", "amp", "fuse",
                   "fold")
 
-NOT_PORTED = frozenset({"quantize"})
-
-# passes that change inference-only semantics never run on a training bind
+# passes that change inference-only semantics (loss-head simplification,
+# folded running statistics, the int8 rewrite) never run on a training
+# bind
 INFERENCE_ONLY = frozenset({"prune", "bn_fold", "quantize"})
 
 DEFAULT_PASSES = ("prune", "bn_fold", "layout", "fuse", "fold")
@@ -41,19 +42,23 @@ class PassConfig:
     the default pipeline; ``all`` to every pass; a bare pass name enables
     it and ``-name`` disables it; ``amp`` / ``amp=<dtype>`` enables the
     mixed-precision rewrite (bfloat16 unless a dtype is named);
-    ``layout=NHWC`` (or NCHW) forces the layout target; ``off`` disables
-    the layer. A selection that enables ``quantize`` (``all`` does) raises:
-    that pass is not ported yet.
+    ``quantize`` / ``quantize=<table.json>`` enables the int8 rewrite
+    (table resolution: :func:`~.quantize.resolve_table`; the path keeps
+    its case); ``layout=NHWC`` (or NCHW) forces the layout target; ``off``
+    disables the layer.
     """
 
-    __slots__ = ("passes", "amp_dtype", "layout_force")
+    __slots__ = ("passes", "amp_dtype", "layout_force", "quant_table",
+                 "quant_skip")
 
     def __init__(self, spec=None, passes=None, amp_dtype="bfloat16",
-                 layout_force=None):
+                 layout_force=None, quant_table=None, quant_skip=None):
         self.amp_dtype = amp_dtype
         self.layout_force = layout_force
+        self.quant_table = quant_table
+        self.quant_skip = frozenset(quant_skip or ())
         if passes is not None:
-            self.passes = self._checked(frozenset(passes))
+            self.passes = frozenset(passes)
             return
         if spec is None:
             spec = (_SPEC_OVERRIDE if _SPEC_OVERRIDE is not None
@@ -88,16 +93,12 @@ class PassConfig:
                 self.amp_dtype = value.lower()
             if not negated and name == "layout" and value:
                 self.layout_force = value.upper()
+            if not negated and name == "quantize" and value:
+                # a path: the table loads when the pass runs, and its
+                # fingerprint keys the bind cache through signature()
+                self.quant_table = value
         base = pos if pos else set(DEFAULT_PASSES)
-        self.passes = self._checked(frozenset(base - neg))
-
-    @staticmethod
-    def _checked(passes):
-        missing = sorted(passes & NOT_PORTED)
-        if missing:
-            raise MXNetError("graph pass %s: not yet ported (ROADMAP.md "
-                             "Queue A11)" % ", ".join(missing))
-        return passes
+        self.passes = frozenset(base - neg)
 
     @property
     def enabled(self):
@@ -105,8 +106,13 @@ class PassConfig:
 
     def signature(self):
         """Stable cache-key component for this configuration."""
+        quant_sig = None
+        if "quantize" in self.passes:
+            from .quantize import table_signature
+
+            quant_sig = table_signature(self)
         return (tuple(sorted(self.passes)), self.amp_dtype,
-                self.layout_force)
+                self.layout_force, quant_sig)
 
     def __repr__(self):
         return "PassConfig(%s)" % ",".join(

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.elemwise import eager_division
 from ..symbol.symbol import _Node
 from .core import (apply_entry_map, consumers_of, make_node, num_outputs_of,
                    set_attrs, topo_from)
@@ -442,7 +443,9 @@ def run_fold(ctx):
 def eval_fold_exprs(fold_exprs, values, for_training=False):
     """Evaluate every fold expression against ``values`` ({var name:
     tensor}) on the values' device; returns {fold var name: tensor}.
-    Shared sub-expressions evaluate once."""
+    Shared sub-expressions evaluate once. The JAX package evaluates them
+    op by op outside its compiled programs, so a scalar division here
+    divides (:func:`~..ops.elemwise.eager_division`)."""
     node_env = {}
 
     def get_entry(entry):
@@ -452,7 +455,7 @@ def eval_fold_exprs(fold_exprs, values, for_training=False):
         return node_env[(id(node), idx)]
 
     results = {}
-    with torch.inference_mode():
+    with torch.inference_mode(), eager_division():
         for name, entry, _deps in fold_exprs:
             for node in topo_from([entry]):
                 if node.is_variable or (id(node), 0) in node_env:

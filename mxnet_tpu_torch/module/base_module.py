@@ -4,10 +4,12 @@ Counterpart of ``mxnet_tpu/module/base_module.py``: ``fit`` / ``score`` /
 ``predict`` / ``iter_predict`` over the abstract bind / init / forward
 family, built on a lookahead batch iterator (``prepare`` sees the next
 batch while the current one runs) and a shared inference-batch
-generator. Not ported: ``fit(resume=...)`` (preemption-safe checkpoints),
-``monitor=``, and the health, flight-recorder and step-waterfall hooks of
-the JAX package's observability layer (``ROADMAP.md`` Queue A13): asking
-for ``resume`` or ``monitor`` raises, and the hooks are off.
+generator. ``fit(monitor=)`` installs a :class:`~..monitor.Monitor` on the
+bound executors and ticks it around every step. Not ported:
+``fit(resume=...)`` (preemption-safe checkpoints) and the health,
+flight-recorder and step-waterfall hooks of the JAX package's
+observability layer (``ROADMAP.md`` Queue A13): asking for ``resume``
+raises, and the hooks are off.
 """
 from __future__ import annotations
 
@@ -111,12 +113,11 @@ class BaseModule:
         if resume is not None:
             raise MXNetError("fit(resume=...) is not yet ported (ROADMAP.md "
                              "Queue A13)")
-        if monitor is not None:
-            raise MXNetError("fit(monitor=...) is not yet ported (ROADMAP.md "
-                             "Queue A13)")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -128,8 +129,8 @@ class BaseModule:
         for epoch in range(begin_epoch, num_epoch):
             started = time.time()
             train_metric.reset()
-            self._fit_epoch(train_data, train_metric, batch_end_callback,
-                            epoch)
+            self._fit_epoch(train_data, train_metric, monitor,
+                            batch_end_callback, epoch)
             for name, val in train_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
@@ -148,17 +149,21 @@ class BaseModule:
                                      name, val)
             train_data.reset()
 
-    def _fit_epoch(self, train_data, train_metric, batch_end_callback,
-                   epoch):
+    def _fit_epoch(self, train_data, train_metric, monitor,
+                   batch_end_callback, epoch):
         """One pass over train_data; returns the batches consumed."""
         nbatch = 0
         eval_metric = train_metric  # noqa: F841  (read via locals())
         for data_batch, _is_last, upcoming in _lookahead(train_data):
+            if monitor is not None:
+                monitor.tic()
             self.forward_backward(data_batch)
             self.update()
             if upcoming is not None:
                 self.prepare(upcoming)
             self.update_metric(train_metric, data_batch.label)
+            if monitor is not None:
+                monitor.toc_print()
             _fire(batch_end_callback,
                   BatchEndParam(epoch=epoch, nbatch=nbatch,
                                 eval_metric=train_metric, locals=locals()))

@@ -6,8 +6,8 @@ host-side parameter copies (on the CPU, as MXNet keeps them) and the bound
 executor, the gradients and the update on the module's device.
 ``Module(context=None)`` binds on the CUDA card (and raises where there is
 none); the CPU is used only when the caller passes ``mx.cpu()``. Not
-ported yet: more than one device (``ROADMAP.md`` Queue A10), resumable
-checkpoints and the monitor (Queue A13). ``save_checkpoint`` and
+ported yet: more than one device (``ROADMAP.md`` Queue A10) and resumable
+checkpoints (Queue A13). ``save_checkpoint`` and
 ``Module.load`` write and read MXNet's checkpoint files.
 """
 from __future__ import annotations
@@ -498,8 +498,9 @@ class Module(BaseModule):
         self._updater.set_states(blob)
 
     def install_monitor(self, mon):
-        raise MXNetError("monitors are not yet ported (ROADMAP.md Queue "
-                         "A13)")
+        self._require(bound=True)
+        for exe in self._exec_group.execs:
+            mon.install(exe)
 
     def prepare(self, data_batch):
         self._require(bound=True)

@@ -1,11 +1,12 @@
 """Contrib ops: ``_contrib_CTCLoss`` (also ``ctc_loss`` and
-``contrib_ctc_loss``), ``_contrib_fft``, ``_contrib_ifft`` and
-``_contrib_count_sketch``.
+``contrib_ctc_loss``), ``_contrib_fft``, ``_contrib_ifft``,
+``_contrib_count_sketch`` and ``_contrib_quantize`` /
+``_contrib_dequantize``.
 
 Counterpart of ``mxnet_tpu/ops/contrib.py`` (reference: contrib/ctc_loss.cc,
-fft-inl.h, ifft-inl.h, count_sketch-inl.h). ``_contrib_quantize`` /
-``_contrib_dequantize`` come with quantization (ROADMAP.md Queue A11) and
-``_contrib_SparseEmbedding`` with the sparse types (A13).
+fft-inl.h, ifft-inl.h, count_sketch-inl.h, quantize-inl.h,
+dequantize-inl.h). ``_contrib_SparseEmbedding`` comes with the sparse
+types (ROADMAP.md Queue A13).
 
 CTC keeps the JAX package's conventions: pre-softmax ``(T, N, C)`` input,
 the per-sample loss ``(N,)`` in float64 (the JAX package runs its
@@ -27,7 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .param import Bool, Enum, Int
+from .elemwise import div_scalar
+from .param import Bool, Enum, Int, Str
 from .registry import alias_op, register_op
 
 NEG_INF = -1e30
@@ -168,7 +170,45 @@ def _count_sketch(attrs, data, h, s):
     return out.index_add(1, idx, contrib).to(data.dtype)
 
 
+# --- uint8 quantization over a calibrated range ------------------------------
+
+def _uint8_step(lo, hi):
+    """255 / (hi - lo) as a float32 division (torch's ``255 / t`` would
+    multiply by a reciprocal, one rounding more than the reference)."""
+    span = hi - lo
+    return torch.full_like(span, 255.0) / span
+
+
+def _quantize(attrs, data, min_range, max_range):
+    """float -> uint8 over [min_range, max_range], round half to even."""
+    lo, hi = min_range.reshape(()), max_range.reshape(())
+    q = torch.round((data.to(torch.float32) - lo) * _uint8_step(lo, hi))
+    return q.clamp(0, 255).to(torch.uint8), min_range, max_range
+
+
+def _dequantize(attrs, data, min_range, max_range):
+    """The inverse of :func:`_quantize`: ``q * (hi - lo) / 255 + lo``."""
+    lo, hi = min_range.reshape(()), max_range.reshape(())
+    return (div_scalar(data.to(torch.float32) * (hi - lo), 255.0) + lo) \
+        .to(torch.float32)
+
+
 def _register():
+    register_op(
+        "_contrib_quantize", _quantize,
+        params={"out_type": Str(default="uint8")},
+        num_inputs=3, input_names=["data", "min_range", "max_range"],
+        num_outputs=3,
+        infer_shape=lambda attrs, s, a: (s, [s[0], (1,), (1,)], a)
+        if s[0] is not None else None,
+        doc="uint8 quantization over a calibration range")
+    register_op(
+        "_contrib_dequantize", _dequantize,
+        params={"out_type": Str(default="float32")},
+        num_inputs=3, input_names=["data", "min_range", "max_range"],
+        infer_shape=lambda attrs, s, a: (s, [s[0]], a)
+        if s[0] is not None else None,
+        doc="the inverse of _contrib_quantize")
     register_op(
         "_contrib_CTCLoss", _ctc_loss,
         params={"use_data_lengths": Bool(default=False),

@@ -9,6 +9,8 @@ expressions.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -124,12 +126,42 @@ def _scalar_like(s, x):
     return torch.tensor(s, dtype=x.dtype, device=x.device)
 
 
+# set while fold expressions evaluate (eager_division)
+_EAGER_DIVISION = contextvars.ContextVar("eager_division", default=False)
+
+
+def div_scalar(x, s):
+    """``x / s`` for a constant ``s`` as the JAX package computes it. In
+    its compiled programs XLA multiplies by the reciprocal of ``s``,
+    rounded once in ``x``'s dtype (torch's card kernels divide by a
+    scalar that way too); its eager ops, which evaluate the fold
+    expressions, divide. A true division parts from the product by an ulp
+    on about half the inputs, which moves a round to int8 at its
+    boundaries, so the walk takes the product and :func:`eager_division`
+    the quotient, on either device."""
+    if x.dtype not in (torch.float32, torch.float64):
+        return x / s
+    if _EAGER_DIVISION.get():
+        return x / torch.full((), s, dtype=x.dtype, device=x.device)
+    return x * torch.reciprocal(torch.tensor(s, dtype=x.dtype)).item()
+
+
+@contextlib.contextmanager
+def eager_division():
+    """Scalar divisions inside the scope divide (see :func:`div_scalar`)."""
+    token = _EAGER_DIVISION.set(True)
+    try:
+        yield
+    finally:
+        _EAGER_DIVISION.reset(token)
+
+
 _SCALAR = {
     "_plus_scalar": lambda x, s: x + s,
     "_minus_scalar": lambda x, s: x - s,
     "_rminus_scalar": lambda x, s: s - x,
     "_mul_scalar": lambda x, s: x * s,
-    "_div_scalar": lambda x, s: x / s,
+    "_div_scalar": div_scalar,
     "_rdiv_scalar": lambda x, s: s / x,
     "_mod_scalar": lambda x, s: torch.remainder(x, s),
     "_rmod_scalar": lambda x, s: torch.remainder(_scalar_like(s, x), x),

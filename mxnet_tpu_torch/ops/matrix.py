@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError, torch_dtype
+from .intmath import integer_contraction, is_integer
 from .param import Bool, DType, Enum, Float, Int, Shape
 from .registry import alias_op, register_op
 
@@ -118,6 +119,8 @@ def _cast(attrs, x):
 
 
 def _dot(attrs, a, b):
+    if is_integer(a, b):
+        return integer_contraction(lambda x, y: _dot(attrs, x, y), a, b)
     if attrs.transpose_a:
         a = a.t() if a.dim() == 2 else torch.movedim(a, 0, -1)
     if attrs.transpose_b:
@@ -138,11 +141,18 @@ def _dot_infer(attrs, in_shapes, aux_shapes):
 
 
 def _batch_dot(attrs, a, b):
+    if is_integer(a, b):
+        return integer_contraction(torch.matmul,
+                                   *_batch_operands(attrs, a, b))
+    return torch.matmul(*_batch_operands(attrs, a, b))
+
+
+def _batch_operands(attrs, a, b):
     if attrs.transpose_a:
         a = a.transpose(-1, -2)
     if attrs.transpose_b:
         b = b.transpose(-1, -2)
-    return torch.matmul(a, b)
+    return a, b
 
 
 # --- slicing ---------------------------------------------------------------

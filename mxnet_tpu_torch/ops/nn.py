@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from .. import random as _random
 from ..base import MXNetError
 from .elemwise import softrelu, softsign
+from .intmath import integer_contraction, is_integer
 from .param import Bool, Enum, Float, Int, Shape, Str
 from .registry import alias_op, register_op
 
@@ -42,7 +43,10 @@ def _to_channels_last(x, nd):
 
 def _fully_connected(attrs, data, weight, *rest):
     x = data.reshape(data.shape[0], -1) if attrs.flatten else data
-    return F.linear(x, weight, None if attrs.no_bias else rest[0])
+    bias = None if attrs.no_bias else rest[0]
+    if is_integer(x, weight):
+        return integer_contraction(F.linear, x, weight, bias)
+    return F.linear(x, weight, bias)
 
 
 def _fc_infer(attrs, in_shapes, aux_shapes):
@@ -74,6 +78,14 @@ _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
 def _convolution(attrs, data, weight, *rest):
+    if is_integer(data, weight):
+        return integer_contraction(
+            lambda x, w, *b: _float_convolution(attrs, x, w, *b),
+            data, weight, *rest)
+    return _float_convolution(attrs, data, weight, *rest)
+
+
+def _float_convolution(attrs, data, weight, *rest):
     # The JAX package rewrites a stride-2 channels-last stem with few input
     # channels into a space-to-depth convolution (_s2d_conv) so the TPU's
     # 128 lanes are not wasted on 3 channels. That is a rewrite of the same

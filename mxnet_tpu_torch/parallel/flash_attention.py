@@ -390,12 +390,10 @@ def _paged_attention(q, k_pages, v_pages, page_table, limits, scale,
     """The online softmax of ``q`` (S, Q, H, d) over each slot's pages in
     blocks of whole pages; query (s, i) attends positions below
     ``limits[s, i]``. Scores, softmax and the P.V product are fp32 whatever
-    the page dtype; a query with no live key gives zeros. Only shapes
-    steer the Python here: no value is read back to the host, so the
-    function can run inside a captured CUDA graph."""
-    if k_scale is not None or v_scale is not None:
-        raise MXNetError("paged attention over int8 pages (k_scale / "
-                         "v_scale) is not yet ported (ROADMAP A11)")
+    the page dtype; int8 pages dequantize on gather by their (P, page, H)
+    scales. A query with no live key gives zeros. Only shapes steer the
+    Python here: no value is read back to the host, so the function can
+    run inside a captured CUDA graph."""
     S, Q, H, d = q.shape
     page = k_pages.shape[1]
     n_pages = page_table.shape[1]
@@ -412,6 +410,10 @@ def _paged_attention(q, k_pages, v_pages, page_table, limits, scale,
         tab = page_table[:, i * bp:(i + 1) * bp]
         kb = k_pages[tab].reshape(S, blk, H, d).float()
         vb = v_pages[tab].reshape(S, blk, H, d).float()
+        if k_scale is not None:
+            kb = kb * k_scale[tab].reshape(S, blk, H)[..., None]
+        if v_scale is not None:
+            vb = vb * v_scale[tab].reshape(S, blk, H)[..., None]
         s = torch.einsum("sqhd,sthd->sqht", qf, kb)
         s = s.masked_fill(dead[..., i * blk:(i + 1) * blk], _NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
@@ -438,8 +440,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
     positions; ``lengths``: (S,) live keys per slot (a slot of length 0
     gives zeros). Keys stream in blocks of whole pages, at most
     ``block_tokens`` positions (a divisor of the table width), through the
-    online softmax, in fp32. ``k_scale`` / ``v_scale`` (int8 pages) raise:
-    not yet ported (ROADMAP A11)."""
+    online softmax, in fp32. ``k_scale`` / ``v_scale``: (P, page, H) fp32,
+    the int8 pool mode: pages hold symmetric-int8 K/V with one scale per
+    (position, head), and each gathered block dequantizes inside the
+    recurrence."""
     limits = lengths.long()[:, None]
     return _paged_attention(q[:, None], k_pages, v_pages, page_table, limits,
                             scale, block_tokens, k_scale, v_scale)[:, 0]

@@ -47,8 +47,11 @@ CUDA work of this server and does not trip over another thread's. A
 capture that fails raises (from ``warmup()`` or into the batch's
 futures): the server never walks the graph eagerly on a card.
 
-Left for later: the int8 serving bind ``quantize=`` (ROADMAP A11) and
-replicas on more than one card (A10).
+``quantize=`` (a :class:`~..graph_pass.CalibrationTable`, its JSON path,
+or True for the ambient table) binds the int8 rewrite: int8 weights per
+replica, exact int32 contractions inside each bucket's CUDA graph. A
+``quantize=`` that resolves no table raises. Left for later: replicas on
+more than one card (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -326,9 +329,6 @@ class InferenceServer:
         from .. import autotune, graph_pass
         from ..observability import flight_recorder
 
-        if quantize is not None:
-            raise MXNetError("InferenceServer(quantize=...): the int8 "
-                             "serving bind is not yet ported (ROADMAP A11)")
         if data_shapes is None:
             raise ValueError("data_shapes is required: [(name, shape), ...] "
                              "with the batch axis leading")
@@ -381,7 +381,10 @@ class InferenceServer:
         self._arg_dtypes = self._infer_dtypes()
 
         # freeze -> fold -> specialize: every parameter enters the pass
-        # pipeline frozen, and the fold constants are computed once here
+        # pipeline frozen, and the fold constants are computed once here.
+        # ``quantize=`` appends the int8 rewrite to the ambient pipeline:
+        # the conv / FC / matmul islands compute on the int8 lattice and
+        # the fold materializes int8 weights per replica
         feed = {n: (1,) + s for n, s in zip(self._data_names,
                                             self._row_shapes)}
         opt = graph_pass.optimize_for_bind(
@@ -389,7 +392,8 @@ class InferenceServer:
             arg_shapes=feed,
             arg_dtypes={**{k: dtype_name(v.dtype) for k, v in aux.items()},
                         **{k: dtype_name(v.dtype) for k, v in args.items()},
-                        **self._arg_dtypes})
+                        **self._arg_dtypes},
+            config=self._quantize_config(quantize))
         self._opt = opt
         opt_symbol = symbol
         if opt is not None:
@@ -455,6 +459,29 @@ class InferenceServer:
             self.start()
 
     # ------------------------------------------------------------ plumbing
+    @staticmethod
+    def _quantize_config(quantize):
+        """The pass config of a ``quantize=`` bind (None: the ambient
+        one). ``quantize`` is a CalibrationTable, its JSON path, or True
+        for the ambient table; int8 was asked for, so a table that does
+        not resolve raises instead of serving fp32."""
+        if quantize is None:
+            return None
+        from .. import graph_pass
+        from ..graph_pass import quantize as _quant
+
+        cfg = graph_pass.PassConfig()
+        cfg.passes = frozenset(cfg.passes | {"quantize"})
+        if quantize is not True:
+            cfg.quant_table = _quant.as_table(quantize)
+        if _quant.resolve_table(cfg) is None:
+            raise MXNetError(
+                "InferenceServer(quantize=...): no calibration table "
+                "resolvable: pass a CalibrationTable or its JSON path, "
+                "call graph_pass.set_calibration_table(), or set "
+                "MXNET_QUANT_TABLE")
+        return cfg
+
     def _infer_dtypes(self):
         """Argument dtype names from graph type inference."""
         arg_types, _, _ = self._symbol.infer_type()

@@ -50,7 +50,11 @@ the control knobs resolve as in the JAX package: explicit config, then the
 tuning cache (keyed by :func:`generation_tune_key`), then the flag. Every
 request carries a trace, the ``generation.*`` series reach the metrics
 registry, and the ``generation.decode_step`` fault point fails only the
-faulted step's slots. int8 KV pages are not ported yet (ROADMAP A11).
+faulted step's slots. ``kv_dtype="int8"`` stores symmetric-int8 pages
+with one fp32 scale per (position, head) in scale pools beside them: K/V
+quantize before every scatter (:func:`_quantize_kv`) and dequantize on
+gather inside the paged attention's online softmax; the scale pools are
+buffers the captured steps read and write like the pages.
 """
 from __future__ import annotations
 
@@ -71,6 +75,7 @@ from ...base import MXNetError, dtype_name
 from ...config import get_flag
 from ...observability import request_trace as _rtrace
 from ...observability import stats_schema as _schema
+from ...ops.elemwise import div_scalar
 from ...parallel.flash_attention import (paged_decode_attention,
                                          paged_verify_attention)
 from ...resilience import faults as _faults
@@ -95,6 +100,16 @@ __all__ = ["GenerationConfig", "Generator", "GenerationHandle",
 
 # valid KV-page storage dtypes ("model" = the checkpoint's dtype)
 KV_DTYPES = frozenset({"model", "bfloat16", "int8"})
+
+
+def _quantize_kv(arr):
+    """Symmetric-int8 quantization of K/V vectors along head_dim: one fp32
+    scale per (..., head), ``max(|x|, 1e-8) / 127``, values rounded half
+    to even and clipped to +-127. Returns (int8 values, scales)."""
+    a32 = arr.float()
+    scale = div_scalar(a32.abs().amax(dim=-1).clamp_min(1e-8), 127.0)
+    q = torch.round(a32 / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
 
 
 def default_prefill_ladder(max_seq):
@@ -409,9 +424,7 @@ class Generator:
         self._spec_draft = self.spec_mode == "draft"
         self._draft_model = draft_model if self._spec_draft else None
         self.kv_dtype = self._resolve_kv_dtype(cfg.kv_dtype)
-        if self.kv_dtype == "int8":
-            raise MXNetError("int8 KV pages (kv_dtype='int8') are not yet "
-                             "ported (ROADMAP A11)")
+        self._quant_kv = self.kv_dtype == "int8"
         self._device = model.device
         self._params = _detached(params, self._device)
         self._draft_params = (_detached(draft_params, self._device)
@@ -437,12 +450,17 @@ class Generator:
         pool_pages = cfg.pool_pages or (S * self._max_pages + 1)
         L, H = c["n_layers"], c["n_heads"]
         hd = c["d_model"] // H
-        pool_dt = (model.dtype if self.kv_dtype == "model"
-                   else torch.bfloat16)
-        self.pool = PagePool(
-            pool_pages, self.page_size,
-            bytes_per_token=2 * L * H * hd * pool_dt.itemsize,
-            kv_dtype=self.kv_dtype)
+        pool_dt = {"model": model.dtype, "int8": torch.int8,
+                   "bfloat16": torch.bfloat16}[self.kv_dtype]
+        # device bytes per cached token: K + V across layers and heads at
+        # the pool dtype, plus the per-(position, head) fp32 scales an
+        # int8 pool stores beside its pages
+        bytes_per_token = 2 * L * H * hd * pool_dt.itemsize
+        if self._quant_kv:
+            bytes_per_token += 2 * L * H * 4
+        self.pool = PagePool(pool_pages, self.page_size,
+                             bytes_per_token=bytes_per_token,
+                             kv_dtype=self.kv_dtype)
         # the control plane: the prefix cache shares page-aligned prompt
         # prefixes copy-on-write; SLO admission ages between decode steps
         self._use_prefix = bool(cfg.prefix_cache)
@@ -461,6 +479,13 @@ class Generator:
         self._pools = {  # guarded-by: self._pages_lock
             "k": torch.zeros(shape, dtype=pool_dt, device=self._device),
             "v": torch.zeros(shape, dtype=pool_dt, device=self._device)}
+        if self._quant_kv:
+            for name in ("ks", "vs"):
+                self._pools[name] = torch.zeros(
+                    shape[:-1], dtype=torch.float32, device=self._device)
+            # provenance: a dump says these steps decode quantized pages
+            graph_pass.note_program("generation", kv_dtype=self.kv_dtype,
+                                    tune_key=list(self._tune_key))
         if self._spec_draft:
             dc = draft_model.cfg
             dshape = (dc["n_layers"], pool_pages, self.page_size,
@@ -668,11 +693,26 @@ class Generator:
         return step.run()
 
     # ----------------------------------------------------------- the steps
-    def _scatter(self, pools, kname, vname, li, dest, off, k_new, v_new):
-        """Write new K/V vectors into layer ``li`` of two page planes at
-        (dest, off), in the planes' dtype."""
-        pools[kname][li].index_put_((dest, off), k_new.to(pools[kname].dtype))
-        pools[vname][li].index_put_((dest, off), v_new.to(pools[vname].dtype))
+    def _scatter(self, pools, kname, vname, index, k_new, v_new):
+        """Write new K/V vectors into two page planes at ``index`` ((layer,
+        page, offset) or (all layers, page, offset)), in the planes'
+        dtype; the target planes of an int8 pool quantize on the way in,
+        their scales landing in the scale pools at the same coordinates
+        (draft planes never quantize)."""
+        if self._quant_kv and kname == "k":
+            for name, new in (("k", k_new), ("v", v_new)):
+                pools[name][index], pools[name + "s"][index] = \
+                    _quantize_kv(new)
+            return
+        pools[kname][index] = k_new.to(pools[kname].dtype)
+        pools[vname][index] = v_new.to(pools[vname].dtype)
+
+    def _scales(self, li):
+        """(k_scale, v_scale) of layer ``li`` for the paged attention: the
+        scale pools of an int8 pool, else (None, None)."""
+        if not self._quant_kv:
+            return None, None
+        return self._pools["ks"][li], self._pools["vs"][li]
 
     def _suffix_attend(self, page_row, prefix_len, kname="k", vname="v"):
         """Attention hook of the prefix cache's suffix prefill: each suffix
@@ -680,21 +720,34 @@ class Generator:
         ``kname`` / ``vname`` through this slot's page row, masked to
         ``prefix_len``) plus the causal suffix itself, with scores,
         softmax and the P.V products in fp32. The fresh suffix K/V round-
-        trip through the pages' dtype, so a later request that reads these
-        positions from the cache sees the same values (warm and cold agree
-        token for token). ``prefix_len == 0`` masks the whole gathered
-        region: one step per bucket serves hits and misses alike. The
+        trip through the pages' dtype (an int8 pool's through its quantize
+        and dequantize, its pages dequantizing on gather), so a later
+        request that reads these positions from the cache sees the same
+        values (warm and cold agree token for token). ``prefix_len == 0``
+        masks the whole gathered region: one step per bucket serves hits
+        and misses alike. The
         products are ``torch.einsum``, as the JAX package computes them
         outside any Pallas kernel."""
         max_ctx = self._max_pages * self.page_size
         pools = self._pools
+        quant = self._quant_kv and kname == "k"
 
         def attend(li, q, k, v):
             T, hd = q.shape[2], q.shape[3]
             kp = pools[kname][li][page_row].reshape(max_ctx, -1, hd).float()
             vp = pools[vname][li][page_row].reshape(max_ctx, -1, hd).float()
-            k = k.to(pools[kname].dtype).float()
-            v = v.to(pools[vname].dtype).float()
+            if quant:
+                kp = kp * pools["ks"][li][page_row].reshape(
+                    max_ctx, -1)[..., None]
+                vp = vp * pools["vs"][li][page_row].reshape(
+                    max_ctx, -1)[..., None]
+                kq, ksc = _quantize_kv(k)
+                vq, vsc = _quantize_kv(v)
+                k = kq.float() * ksc[..., None]
+                v = vq.float() * vsc[..., None]
+            else:
+                k = k.to(pools[kname].dtype).float()
+                v = v.to(pools[vname].dtype).float()
             qf = q.float() * (1.0 / math.sqrt(hd))
             sp = torch.einsum("bhqd,khd->bhqk", qf, kp)
             live = torch.arange(max_ctx, device=q.device) < prefix_len
@@ -760,16 +813,16 @@ class Generator:
                            page_row[pidx.clamp(max=self._max_pages - 1)],
                            torch.zeros_like(pidx))
         off = pos % self.page_size
-        pools["k"][:, dest, off] = ks[:, 0].to(pools["k"].dtype)
-        pools["v"][:, dest, off] = vs[:, 0].to(pools["v"].dtype)
+        self._scatter(pools, "k", "v", (slice(None), dest, off), ks[:, 0],
+                      vs[:, 0])
         if self._spec_draft:
             d_attend = (self._suffix_attend(page_row, prefix_len, "dk",
                                             "dv")
                         if self._use_prefix else None)
             _, dks, dvs = self._draft_model.prefill_forward(
                 self._draft_params, tokens, attend=d_attend)
-            pools["dk"][:, dest, off] = dks[:, 0].to(pools["dk"].dtype)
-            pools["dv"][:, dest, off] = dvs[:, 0].to(pools["dv"].dtype)
+            self._scatter(pools, "dk", "dv", (slice(None), dest, off),
+                          dks[:, 0], dvs[:, 0])
         last = logits[0].float().index_select(0, length - 1)
         return sample_tokens(last, key, temp, top_k)
 
@@ -792,10 +845,12 @@ class Generator:
         pools = self._pools
 
         def attend(li, q, k_new, v_new):
-            self._scatter(pools, "k", "v", li, dest, off, k_new, v_new)
+            self._scatter(pools, "k", "v", (li, dest, off), k_new, v_new)
+            k_scale, v_scale = self._scales(li)
             return paged_decode_attention(
                 q, pools["k"][li], pools["v"][li], b["page_table"],
-                seq_len + 1, block_tokens=self.decode_blocks)
+                seq_len + 1, block_tokens=self.decode_blocks,
+                k_scale=k_scale, v_scale=v_scale)
 
         logits = self._model.decode_forward(self._params, b["last_token"],
                                             attend)
@@ -816,7 +871,7 @@ class Generator:
         pools = self._pools
 
         def attend(li, q, k_new, v_new):
-            self._scatter(pools, "dk", "dv", li, dest, off, k_new, v_new)
+            self._scatter(pools, "dk", "dv", (li, dest, off), k_new, v_new)
             return paged_decode_attention(
                 q, pools["dk"][li], pools["dv"][li], b["page_table"],
                 seq_len + 1, block_tokens=self.decode_blocks)
@@ -848,10 +903,12 @@ class Generator:
         pools = self._pools
 
         def attend(li, q, k_new, v_new):
-            self._scatter(pools, "k", "v", li, dest, off, k_new, v_new)
+            self._scatter(pools, "k", "v", (li, dest, off), k_new, v_new)
+            k_scale, v_scale = self._scales(li)
             return paged_verify_attention(
                 q, pools["k"][li], pools["v"][li], b["page_table"], seq_len,
-                block_tokens=self.decode_blocks)
+                block_tokens=self.decode_blocks, k_scale=k_scale,
+                v_scale=v_scale)
 
         logits = self._model.verify_forward(self._params, tokens, attend)
         out, n_emit, new_keys = verify_tokens(

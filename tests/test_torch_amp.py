@@ -2,7 +2,7 @@
 islands) against the JAX package's, on the CPU.
 
 * the ``MXNET_GRAPH_PASSES`` grammar gives both packages the same pass sets
-  (``all`` enables quantize, which the port does not have yet: it raises);
+  (``all`` enables quantize in both);
 * over the JAX tests' ``bn_heavy`` graph and a small NHWC bottleneck
   ResNet, the pipeline under ``default,amp`` gives the same per-pass
   reports (rewrite counts, fuse regions), the same rewritten graph and the
@@ -27,7 +27,6 @@ from mxnet_tpu import graph_pass as jgp
 from mxnet_tpu.config import set_flag as jset_flag
 from mxnet_tpu.ops import fused as jfused
 from mxnet_tpu_torch import graph_pass as tgp
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.parallel import fused as tfused
 
 AMP_TOL = dict(rtol=5e-2, atol=2e-2)   # tests/test_graph_passes.py:163
@@ -150,9 +149,9 @@ def test_pass_config_grammar(spec):
 
 def test_pass_config_grammar_errors_and_all():
     assert "amp" in jgp.PassConfig("all").passes
-    # 'all' is every pass, quantize included, which is not ported yet
-    with pytest.raises(MXNetError, match="quantize.*A11"):
-        tgp.PassConfig("all")
+    # 'all' is every pass, quantize included
+    assert tgp.PassConfig("all").passes == jgp.PassConfig("all").passes
+    assert "quantize" in tgp.PassConfig("all").passes
     assert tgp.PassConfig("all,-quantize").passes == \
         jgp.PassConfig("all,-quantize").passes
     for pkg in (jmx, tmx):

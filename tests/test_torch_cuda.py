@@ -17,7 +17,10 @@ a captured Dropout's fresh masks, a recapture per batch shape, and the
 slice's op grid against the CPU, the detection and spatial ops against
 the CPU (chip_smoke.py's phase 15 (e) cases) and the model-zoo slice's
 ops (linalg, CTC's neighbours, the fork's and the legacy ops; phase 16
-(c)). Every test skips where there
+(c)), and int8: the exact integer route of the contractions at ResNet-50's
+shapes against the CPU bit for bit (also replayed from a CUDA graph),
+int8 paged attention against its plain version, and the sampler's draws
+against the exact distribution. Every test skips where there
 is no card.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
@@ -1163,3 +1166,158 @@ def test_gluon_lstm_layer_on_card_matches_cpu(card):
     for name, g, w in zip(names, res["gpu"], res["cpu"]):
         err = np.abs(g - w).max() / np.abs(w).max()
         assert err <= RNN_CUDNN_TOL, (name, err, np.abs(w).max())
+
+
+# ------------------------------------------------------------------- int8
+
+# ResNet-50's integer contractions under the quantize pass, at batch 2:
+# the 7x7 stem, a 1x1 stride-2 projection, the widest 3x3 (3 x 3 x 512 =
+# 4608 products a sum), in both layouts, and fc1
+_INT_CONVS = [
+    ("stem", (2, 3, 224, 224), dict(kernel=(7, 7), stride=(2, 2),
+                                    pad=(3, 3), num_filter=64)),
+    ("proj", (2, 1024, 14, 14), dict(kernel=(1, 1), stride=(2, 2),
+                                     num_filter=2048)),
+    ("wide", (2, 512, 7, 7), dict(kernel=(3, 3), pad=(1, 1),
+                                  num_filter=512)),
+]
+
+
+def _int_operands(shapes, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(-127, 128, size=s).astype(np.int32) for s in shapes]
+
+
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+@pytest.mark.parametrize("name,shape,kw", _INT_CONVS)
+def test_int_route_on_card_equals_cpu(card, name, shape, kw, layout):
+    """The exact integer route (float64 on the library, rounded to int32)
+    on the card equals the CPU composition bit for bit, eagerly and
+    replayed from a CUDA graph."""
+    kw = dict(kw, no_bias=True)
+    if layout == "NHWC":
+        shape = (shape[0],) + shape[2:] + (shape[1],)
+        kw["layout"] = "NHWC"
+    sym = mx.sym.Convolution(mx.sym.var("data"), name="c", **kw)
+    arg_shapes, _, _ = sym.infer_shape(data=shape)
+    x, w = _int_operands(arg_shapes, len(name))
+    outs = {}
+    for ctx in (mx.cpu(), mx.gpu()):
+        out = mx.nd.Convolution(mx.nd.array(x, ctx=ctx, dtype="int32"),
+                                mx.nd.array(w, ctx=ctx, dtype="int32"),
+                                **kw)
+        outs[ctx.device_type] = out.asnumpy()
+    assert outs["gpu"].dtype == np.int32
+    assert np.array_equal(outs["gpu"], outs["cpu"])
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    op = get_op("Convolution")
+    attrs = op.parse_attrs(kw)
+    xs, ws = torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda()
+    op.apply(attrs, [xs, ws], [])      # warm the library's plans
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        (captured,), _ = op.apply(attrs, [xs, ws], [])
+    graph.replay()
+    assert np.array_equal(captured.cpu().numpy(), outs["cpu"])
+
+
+@pytest.mark.parametrize("op,shapes,kw", [
+    ("FullyConnected", [(16, 2048), (1000, 2048)],
+     dict(num_hidden=1000, no_bias=True)),
+    ("dot", [(64, 256), (256, 64)], {}),
+    ("batch_dot", [(8, 64, 64), (8, 64, 64)], dict(transpose_b=True)),
+])
+def test_int_contractions_on_card_equal_cpu(card, op, shapes, kw):
+    arrays = _int_operands(shapes, 3)
+    outs = {}
+    for ctx in (mx.cpu(), mx.gpu()):
+        out = getattr(mx.nd, op)(*[mx.nd.array(a, ctx=ctx, dtype="int32")
+                                   for a in arrays], **kw)
+        outs[ctx.device_type] = out.asnumpy()
+    assert outs["gpu"].dtype == np.int32
+    assert np.array_equal(outs["gpu"], outs["cpu"])
+
+
+@pytest.mark.parametrize("verify", [False, True])
+def test_int8_paged_attention_matches_plain(card, verify):
+    """Paged attention over int8 pages with their scales on the card
+    against its plain version (the same pages dequantized up front, in
+    fp32) and against the CPU, within 1e-6 of max |out|."""
+    from mxnet_tpu_torch.serving.generation.engine import _quantize_kv
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    S, Q, H, d, page, n_pages, P = 8, 3, 4, 64, 16, 16, 129
+    k = torch.randn(P, page, H, d, device="cuda", generator=gen) * 3
+    v = torch.randn(P, page, H, d, device="cuda", generator=gen)
+    (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+    table = torch.randperm(P - 1, device="cuda", generator=gen)[
+        :S * n_pages].reshape(S, n_pages).int() + 1
+    lengths = torch.tensor([0, 1, 17, 100, 255, 256, 31, 64],
+                           dtype=torch.int32, device="cuda")
+    q = torch.randn(S, Q, H, d, device="cuda", generator=gen)
+    fn = FA.paged_verify_attention if verify else FA.paged_decode_attention
+    qq = q if verify else q[:, 0]
+    lens = lengths.clamp(max=n_pages * page - Q) if verify else lengths
+    got = fn(qq, kq, vq, table, lens, block_tokens=128, k_scale=ks,
+             v_scale=vs)
+    plain = fn(qq, kq.float() * ks[..., None], vq.float() * vs[..., None],
+               table, lens, block_tokens=128)
+    cpu = fn(*(t.cpu() for t in (qq, kq, vq, table, lens)),
+             block_tokens=128, k_scale=ks.cpu(), v_scale=vs.cpu())
+    scale = float(plain.abs().max())
+    assert float((got - plain).abs().max()) <= 1e-6 * scale
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-5 * scale
+    if not verify:
+        assert not got[0].any(), "a slot of length 0 gives zeros"
+
+
+# chi-square bounds at p = 1e-6 by degrees of freedom (top-k support - 1)
+_CHI2_1E6 = {1: 23.93, 2: 27.63, 3: 30.66, 4: 33.38, 5: 35.89, 6: 38.26,
+             7: 40.52}
+
+
+@pytest.mark.parametrize("temperature,top_k", [(1.0, 0), (0.6, 3),
+                                               (1.7, 5)])
+def test_sampling_on_card_meets_the_distribution(card, temperature, top_k):
+    """sample_tokens on the card, 102,400 draws (1024 slots x 100 steps,
+    each slot's key advanced by the function itself), against the exact
+    temperature / top-k probabilities that the JAX package's and the
+    port's draws meet on the CPU (test_torch_generation.py): chi-square
+    over the support below its p = 1e-6 quantile, every token's frequency
+    and the mean token within 5 standard errors, nothing outside the top
+    k. (Neither package has a top-p knob.)"""
+    from mxnet_tpu_torch.serving.generation import sampling
+
+    V, S, steps = 8, 1024, 100
+    logits = np.random.RandomState(1).randn(V).astype(np.float32) * 1.5
+    scaled = logits / temperature
+    keep = np.argsort(-scaled)[:top_k] if top_k else np.arange(V)
+    exact = np.zeros(V)
+    exact[keep] = np.exp(scaled[keep] - scaled[keep].max())
+    exact /= exact.sum()
+    keys = torch.tensor([sampling.seed_key(i) for i in range(S)],
+                        device="cuda")
+    lg = torch.from_numpy(np.tile(logits, (S, 1))).cuda()
+    temp = torch.full((S,), temperature, device="cuda")
+    k = torch.full((S,), top_k, device="cuda")
+    draws = []
+    for _ in range(steps):
+        tok, keys = sampling.sample_tokens(lg, keys, temp, k)
+        draws.append(tok)
+    draws = torch.stack(draws).cpu().numpy().ravel()
+    n = draws.size
+    assert n >= 100_000
+    counts = np.bincount(draws, minlength=V)
+    assert not counts[exact == 0].any()
+    live = exact > 0
+    chi2 = float((((counts - n * exact) ** 2)[live]
+                  / (n * exact[live])).sum())
+    assert chi2 <= _CHI2_1E6[int(live.sum()) - 1], (chi2, counts)
+    freq = counts / n
+    assert (np.abs(freq - exact)
+            <= 5 * np.sqrt(exact * (1 - exact) / n) + 1e-12).all()
+    mean = float((np.arange(V) * exact).sum())
+    var = float(((np.arange(V) - mean) ** 2 * exact).sum())
+    assert abs(draws.mean() - mean) <= 5 * np.sqrt(var / n)

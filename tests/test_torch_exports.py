@@ -20,9 +20,9 @@ import mxnet_tpu_torch as tmx
 
 # modules and classes of ``mx`` not ported yet
 MX_UNPORTED = frozenset({
-    "Monitor", "NotImplementedForSymbol", "attribute", "contrib", "engine",
+    "NotImplementedForSymbol", "attribute", "contrib", "engine",
     "executor_manager", "fluent", "image", "img", "kvstore_server",
-    "libinfo", "log", "mon", "monitor", "name", "profiler", "recordio",
+    "libinfo", "log", "name", "profiler", "recordio",
     "registry", "storage", "visualization", "viz"
 })
 
@@ -30,9 +30,9 @@ MX_UNPORTED = frozenset({
 # the storage cast comes with the sparse types (A13)
 OPS_UNPORTED = frozenset({"cast_storage"})
 
-# ``mx.nd.contrib`` / ``mx.sym.contrib`` ops not ported yet: int8
-# quantization (A11) and the row-sparse embedding (A13)
-CONTRIB_UNPORTED = frozenset({"SparseEmbedding", "dequantize", "quantize"})
+# ``mx.nd.contrib`` / ``mx.sym.contrib`` ops not ported yet: the
+# row-sparse embedding (A13)
+CONTRIB_UNPORTED = frozenset({"SparseEmbedding"})
 
 # every name of the JAX package's op registry that the port's lacks,
 # private names included (the public-name tests skip ``_``-names), each
@@ -40,7 +40,6 @@ CONTRIB_UNPORTED = frozenset({"SparseEmbedding", "dequantize", "quantize"})
 REGISTRY_UNPORTED = {
     "_contrib_SparseEmbedding": "A13", "cast_storage": "A13",
     "_sparse_retain": "A13", "_square_sum": "A13",
-    "_contrib_quantize": "A11", "_contrib_dequantize": "A11",
     "_CrossDeviceCopy": "A13 (group2ctx)",
 }
 

@@ -16,8 +16,8 @@ geometry (page 8, 4 slots, max_seq 64, buckets 16 / 32 / 64).
   of the exact top-k / temperature probabilities (the streams differ:
   threefry there, a counter hash here);
 * the engine's behaviour: EOS eviction, backpressure, submit validation, a
-  pool too small, drain and abort, and int8 KV pages (not ported yet)
-  raising.
+  pool too small, drain and abort, and the int8 / amp / prefix-cache
+  options constructing.
 """
 import threading
 import time
@@ -35,7 +35,6 @@ from mxnet_tpu.parallel import make_mesh as jmake_mesh
 from mxnet_tpu.parallel.transformer import TransformerParallel as JTP
 from mxnet_tpu.serving import generation as jgen
 from mxnet_tpu.serving.generation import sampling as jsampling
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.config import get_flag
 from mxnet_tpu_torch.parallel import TransformerParallel, make_mesh
 from mxnet_tpu_torch.serving import generation as gen_mod
@@ -515,11 +514,14 @@ def test_flags_and_prefill_ladder_match_jax():
 
 
 def test_unported_parts_raise(fp32):
-    # the control plane and amp are ported; int8 KV pages wait for A11
-    with pytest.raises(MXNetError, match="ROADMAP A11"):
-        _generator(*fp32, kv_dtype="int8", start=False)
-    with pytest.raises(MXNetError, match="A11"):
-        mx.graph_pass.PassConfig(spec="quantize")
+    # the control plane, amp and int8 KV pages are all ported now: each
+    # option constructs, and none raises
+    gen = _generator(*fp32, kv_dtype="int8", start=False)
+    assert gen.kv_dtype == "int8"
+    assert gen._pools["k"].dtype == torch.int8
+    assert gen._pools["ks"].shape == gen._pools["k"].shape[:-1]
+    gen.stop()
+    assert "quantize" in mx.graph_pass.PassConfig(spec="quantize").passes
     gen = _generator(*fp32, prefix_cache=True, amp=True, start=False)
     assert isinstance(gen.prefix_cache, gen_mod.PrefixCache)
     assert gen.get_stats()["graph_pass"]["amp"] is True

@@ -112,8 +112,10 @@ def test_pass_grammar():
     assert "amp" in tgp.PassConfig(spec="default,amp").passes
     assert tgp.PassConfig(spec="amp=float16").amp_dtype == "float16"
     for spec in ("quantize=table.json", "all"):
-        with pytest.raises(MXNetError, match="not yet ported.*A11"):
-            tgp.PassConfig(spec=spec)
+        assert tgp.PassConfig(spec=spec).passes == \
+            jgp.PassConfig(spec=spec).passes
+    assert tgp.PassConfig(spec="quantize=Table.json").quant_table == \
+        "Table.json"
     with pytest.raises(MXNetError, match="unknown pass"):
         tgp.PassConfig(spec="nope")
 

@@ -21,7 +21,6 @@ import torch
 import mxnet_tpu_torch as mx
 from mxnet_tpu.parallel import make_mesh as jmake_mesh
 from mxnet_tpu.parallel.transformer import TransformerParallel as JTP
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.parallel import TransformerParallel, make_mesh
 
 JFA = importlib.import_module("mxnet_tpu.parallel.flash_attention")
@@ -107,16 +106,24 @@ def test_paged_attention_keeps_fp32_arithmetic_for_bf16_pages():
 
 
 def test_paged_attention_int8_scales_not_ported():
+    """The int8 pool mode is ported: unit scales over int8 pages equal the
+    same pages in fp32, for decode and verify alike, and a k-only scale
+    dequantizes only the keys."""
     q, k, v, table = _pool(3)
-    scale = torch.ones(k.shape[:3])
-    with pytest.raises(MXNetError, match="ROADMAP A11"):
-        FA.paged_decode_attention(_t(q[:, 0]), _t(k), _t(v), _t(table),
-                                  torch.ones(3, dtype=torch.int32),
-                                  k_scale=scale, v_scale=scale)
-    with pytest.raises(MXNetError, match="ROADMAP A11"):
-        FA.paged_verify_attention(_t(q), _t(k), _t(v), _t(table),
-                                  torch.ones(3, dtype=torch.int32),
-                                  k_scale=scale)
+    k8 = np.clip(np.round(k * 20), -127, 127).astype(np.int8)
+    v8 = np.clip(np.round(v * 20), -127, 127).astype(np.int8)
+    ones = torch.ones(k.shape[:3])
+    lengths = torch.tensor([0, 5, 13], dtype=torch.int32)
+    got = FA.paged_decode_attention(_t(q[:, 0]), _t(k8), _t(v8), _t(table),
+                                    lengths, k_scale=ones, v_scale=ones)
+    want = FA.paged_decode_attention(_t(q[:, 0]), _t(k8).float(),
+                                     _t(v8).float(), _t(table), lengths)
+    assert torch.equal(got, want)
+    got = FA.paged_verify_attention(_t(q), _t(k8), _t(v8), _t(table),
+                                    lengths, k_scale=2 * ones)
+    want = FA.paged_verify_attention(_t(q), 2 * _t(k8).float(),
+                                     _t(v8).float(), _t(table), lengths)
+    torch.testing.assert_close(got, want, rtol=0, atol=PAGED_TOL)
 
 
 # --------------------------------------------------------------- forwards

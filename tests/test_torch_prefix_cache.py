@@ -12,8 +12,8 @@ geometry (page 8, 4 slots, max_seq 64, buckets 16 / 32 / 64).
   package's, with the same ``prefill_tokens_skipped``, hit rate and COW
   copies;
 * warm-cache output equals cold output (fp32 pools, a bf16 checkpoint,
-  bf16 pools under an fp32 model: tests/test_control.py's cases but int8,
-  which waits for ROADMAP A11);
+  bf16 and int8 pools under an fp32 model: tests/test_control.py's
+  cases);
 * a reader keeps decoding while the cache evicts its pages, and admission
   under pressure reclaims cold prefixes without shredding the one it
   shares;
@@ -203,6 +203,7 @@ def test_prefix_cached_generator_matches_jax(fp32):
     ("float32", None),            # fp32 pools
     ("bfloat16", None),           # bf16 checkpoint + pools
     ("float32", "bfloat16"),      # fp32 model, narrow bf16 pools
+    ("float32", "int8"),          # fp32 model, int8 pools with scales
 ])
 def test_cache_hit_identical_to_cold_path(dtype, kv_dtype):
     model, params = _model(dtype)

@@ -280,7 +280,9 @@ def test_resize_rejects_zero_and_frees_the_slot():
 
 
 def test_unported_options_name_their_roadmap_entry():
-    with pytest.raises(MXNetError, match="ROADMAP A11"):
+    # the int8 bind is ported: without a calibration table it raises
+    # instead of serving fp32
+    with pytest.raises(MXNetError, match="calibration table"):
         tmx.serving.InferenceServer(
             _mlp(tmx), _params(), data_shapes=[("data", (1, 6))],
             devices=[tmx.cpu()], quantize=True, start=False)
