@@ -443,11 +443,40 @@ Phases, each fatal on failure (exit code != 0, no result line):
    prefill; for bf16 and int8 the decode step at 8 x 128 tokens replayed
    against eager (bit for bit), its busy share and the paged composition's
    device ms.
-19. Print the ``kernels`` JSON line (the flash forward's row also carries
+19. IO phase: data and IO through the port. (a) ``bench_all.py
+   --input-pipeline``'s protocol (``bench_input_pipeline``,
+   bench_all.py:2497-2689) in full: 512 random JPEGs at 224x224 (q90,
+   label = record id) written by the port's ``recordio.pack_img``, batch
+   32; iterator img/s of sync_serial (one decode thread, prefetch 2),
+   sync_pooled and streaming (forkserver decode workers) over 3 timed
+   epochs after a warm one, with the reader of each arm (the native
+   ``recordio`` library, held) and the streaming arm's stage figures;
+   the exactness guard (sync_pooled and streaming hand out the same
+   batches, bit for bit); the bench's conv net fit from each backend
+   (img/s, host stall = time in ``next()`` over the wall); hard gates:
+   streaming >= 1.5x sync_serial, and streaming adds no CUDA graph
+   capture and no kernel build over sync. (b) ResNet-50 NHWC composed
+   onto ``transpose(data, axes=(0, 2, 3, 1))``, phase 9's init and SGD,
+   fp32, batch 32, trained 2 epochs through ``Module.fit`` from those
+   records by ``ImageRecordIter(streaming=True, rand_mirror=True)`` with
+   ImageNet mean / std: 16 training regions, the first step from the
+   first streamed batch against ``MXNET_FUSION_KERNEL=0`` under cuDNN's
+   deterministic algorithms (1e-5), exactly 16 ``fused_matmul`` launches
+   per step, finite losses, every parameter moved; ms/step (fenced),
+   img/s, host stall, busy share over 3 profiled steps, and the same fit
+   over the records decoded once onto the card (the reader's cost),
+   beside phase 9's synthetic-batch figures. (c) 64 detection records at
+   300x300 with 1-4 boxes (no ``.idx``: the native prefetcher reads them)
+   through ``ImageDetRecordIter(rand_crop=1, rand_pad=1,
+   rand_mirror=True)``, batch 8: padded labels in [0, 1]; 3 steps of
+   phase 15's SSD-300 on them (finite losses, positive anchors from the
+   real boxes). The native ``recordio`` and ``prefetch`` libraries must
+   have been built and used.
+20. Print the ``kernels`` JSON line (the flash forward's row also carries
    phase 11's prefill launches, phase 17's and phase 18's int8 Generator's,
    ``fused_matmul``'s phase 3's captures, replays, and the profiled
-   replays with the kernels the profiler saw run in them, and phase 17
-   (a)'s bf16 figures), then the result line
+   replays with the kernels the profiler saw run in them, phase 17
+   (a)'s bf16 figures and phase 19 (b)'s launches), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
@@ -9038,6 +9067,619 @@ def quantize_phase(mx, sym, card, results):
     return out
 
 
+# ------------------------------------------------ phase 19: data and IO
+# (a): bench_all.py:2497-2689 bench_input_pipeline at its full size
+IO_N, IO_SIZE, IO_BATCH, IO_EPOCHS = 512, 224, 32, 3
+IO_GATE = 1.5            # streaming >= 1.5 x sync_serial, the bench's gate
+IO_ARMS = ("sync_serial", "sync_pooled", "streaming")
+IO_FIT_SEED, IO_FIT_LR = 5, 0.01
+# (b): ResNet-50 NHWC fed from (a)'s records through ImageRecordIter,
+# phase 9's initialisation and optimizer, 2 epochs of 16 steps
+IO_RN_EPOCHS, IO_RN_PROFILED = 2, 3
+IMAGENET_MEAN = (123.68, 116.28, 103.53)
+IMAGENET_STD = (58.395, 57.12, 57.375)
+# (c): detection records for phase 15's SSD-300
+DET_N, DET_SIZE, DET_BATCH, DET_STEPS, DET_LR = 64, 300, 8, 3, 1e-3
+
+
+def io_build_rec(mx, path, n, size):
+    """tools/io_smoke.py:33-47 build_rec through the port's recordio:
+    random uint8 images from RandomState(0), JPEG quality 90, label =
+    record id; returns (.rec, .idx)."""
+    rng = np.random.RandomState(0)
+    rec, idx = path + ".rec", path + ".idx"
+    w = mx.recordio.MXIndexedRecordIO(idx, rec, "w")
+    for i in range(n):
+        img = rng.randint(0, 255, (size, size, 3)).astype(np.uint8)
+        w.write_idx(i, mx.recordio.pack_img(
+            mx.recordio.IRHeader(0, float(i), i, 0), img, img_fmt=".jpg",
+            quality=90))
+    w.close()
+    return rec, idx
+
+
+def io_make(mx, kind, rec, idx):
+    """The bench's three arms (bench_all.py:2539-2550), batches on the
+    card."""
+    shape = (3, IO_SIZE, IO_SIZE)
+    if kind == "sync_serial":
+        return mx.io.ImageRecordIter(rec, shape, IO_BATCH, path_imgidx=idx,
+                                     streaming=False, preprocess_threads=1,
+                                     prefetch_buffer=2)
+    if kind == "sync_pooled":
+        return mx.io.ImageRecordIter(rec, shape, IO_BATCH, path_imgidx=idx,
+                                     streaming=False)
+    return mx.io.ImageRecordIter(rec, shape, IO_BATCH, path_imgidx=idx,
+                                 streaming=True)
+
+
+def io_reader(it):
+    """(reader class, native?) of an arm's record reader."""
+    rd = (it._source._record if hasattr(it, "_source")
+          else it.iters[0].imgrec)
+    return type(rd).__name__, rd._lib is not None
+
+
+def io_iter_throughput(mx, kind, rec, idx):
+    """bench_all.py:2552-2565: a warm epoch, then IO_EPOCHS timed; img/s,
+    the reader, and the streaming arm's stage figures."""
+    it = io_make(mx, kind, rec, idx)
+    try:
+        reader = io_reader(it)
+        for _ in it:
+            pass
+        rows = 0
+        t0 = time.perf_counter()
+        for _ in range(IO_EPOCHS):
+            it.reset()
+            for b in it:
+                rows += IO_BATCH - (b.pad or 0)
+        out = {"img_per_s": rows / (time.perf_counter() - t0),
+               "reader": reader[0], "native_reader": reader[1]}
+        if hasattr(it, "get_stats"):
+            st = it.get_stats()
+            out.update(decode_backend=st["decode_backend"],
+                       decode_workers=st["decode_workers"],
+                       prefetch_depth=st["prefetch_depth"],
+                       stage_depth=st["stage_depth"], stages=st["stages"])
+        else:
+            out["decode_threads"] = (it.iters[0]._pool._max_workers
+                                     if it.iters[0]._pool is not None else 1)
+        return out
+    finally:
+        it.close()
+
+
+def io_exactness(mx, rec, idx):
+    """bench_all.py:2570-2591: sync_pooled and streaming hand out the same
+    batch sequence, bit for bit, pads and labels included (lockstep)."""
+    import itertools
+
+    ref, got = io_make(mx, "sync_pooled", rec, idx), \
+        io_make(mx, "streaming", rec, idx)
+    n = 0
+    try:
+        sentinel = object()
+        for i, (rb, gb) in enumerate(itertools.zip_longest(
+                ref, got, fillvalue=sentinel)):
+            if rb is sentinel or gb is sentinel:
+                raise AssertionError("io (a): exactness guard: the batch "
+                                     "counts diverged")
+            if int(rb.pad or 0) != int(gb.pad or 0) or \
+                    not np.array_equal(rb.data[0].asnumpy(),
+                                       gb.data[0].asnumpy()) or \
+                    not np.array_equal(rb.label[0].asnumpy(),
+                                       gb.label[0].asnumpy()):
+                raise AssertionError("io (a): exactness guard failed at "
+                                     "batch %d" % i)
+            n += 1
+    finally:
+        ref.close()
+        got.close()
+    return n
+
+
+class io_timed_iter:
+    """Times next() on the consumer thread (bench_all.py:2594-2624): the
+    host-stall measurement of a fit arm."""
+
+    def __init__(self, inner):
+        self._it = inner
+        self.wait_s = 0.0
+        self.provide_data = inner.provide_data
+        self.provide_label = inner.provide_label
+        self.batch_size = inner.batch_size
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        try:
+            return next(self._it)
+        finally:
+            self.wait_s += time.perf_counter() - t0
+
+    next = __next__
+
+    def reset(self):
+        self._it.reset()
+
+    def close(self):
+        self._it.close()
+
+
+def io_small_net(mx):
+    """bench_all.py:2626-2635: the bench's small conv net."""
+    x = mx.sym.Variable("data")
+    x = mx.sym.Convolution(x, num_filter=16, kernel=(3, 3), stride=(2, 2),
+                           name="c1")
+    x = mx.sym.Activation(x, act_type="relu")
+    x = mx.sym.Pooling(x, kernel=(2, 2), stride=(2, 2), pool_type="max")
+    x = mx.sym.FullyConnected(mx.sym.Flatten(x), num_hidden=10, name="fc")
+    return mx.sym.SoftmaxOutput(x, name="softmax")
+
+
+class io_compile_count:
+    """CUDA graph captures (``cuda_graph.capture`` calls), kernel builds
+    (nvcc libraries and NVRTC programs) within it: the compile-flatness
+    guard's counts."""
+
+    def __init__(self, mx):
+        self.mx = mx
+
+    def _builds(self):
+        from mxnet_tpu_torch import cuda_build, nvrtc
+
+        return len(cuda_build._info) + nvrtc.compile_count()
+
+    def __enter__(self):
+        from mxnet_tpu_torch import cuda_graph
+
+        self.captures = 0
+        self._real = cuda_graph.capture
+
+        def counted(*a, **k):
+            self.captures += 1
+            return self._real(*a, **k)
+
+        cuda_graph.capture = counted
+        self._b0 = self._builds()
+        return self
+
+    def __exit__(self, *exc):
+        from mxnet_tpu_torch import cuda_graph
+
+        cuda_graph.capture = self._real
+        self.builds = self._builds() - self._b0
+
+
+def io_fit_arm(mx, kind, rec, idx):
+    """bench_all.py:2637-2655 on the card: img/s, host stall (time in
+    next() over the wall) and the arm's captures and kernel builds."""
+    import torch
+
+    np.random.seed(IO_FIT_SEED)
+    mx.random.seed(IO_FIT_SEED)
+    it = io_timed_iter(io_make(mx, kind, rec, idx))
+    mod = mx.mod.Module(io_small_net(mx), context=mx.gpu())
+    with io_compile_count(mx) as cc:
+        t0 = time.perf_counter()
+        try:
+            mod.fit(it, num_epoch=IO_EPOCHS, optimizer="sgd",
+                    optimizer_params=(("learning_rate", IO_FIT_LR),),
+                    initializer=mx.init.Uniform(0.1))
+            torch.cuda.synchronize()
+        finally:
+            it.close()
+        wall = time.perf_counter() - t0
+    return {"img_per_s": IO_EPOCHS * IO_N / wall,
+            "host_stall": it.wait_s / wall, "wall_s": wall,
+            "captures": cc.captures, "kernel_builds": cc.builds}
+
+
+def io_bench(mx, card, rec, idx, out):
+    """(a): bench_input_pipeline's protocol in full through the port."""
+    ips = {k: io_iter_throughput(mx, k, rec, idx) for k in IO_ARMS}
+    for k in IO_ARMS:
+        if not ips[k]["native_reader"]:
+            raise AssertionError("io (a): the %s arm read through the "
+                                 "Python reader" % k)
+    n_exact = io_exactness(mx, rec, idx)
+    io_fit_arm(mx, "sync_pooled", rec, idx)        # warm
+    fit = {"sync": io_fit_arm(mx, "sync_pooled", rec, idx),
+           "streaming": io_fit_arm(mx, "streaming", rec, idx)}
+    for what in ("captures", "kernel_builds"):
+        if fit["streaming"][what] > fit["sync"][what]:
+            raise AssertionError("io (a): streaming added %s (%d vs %d)"
+                                 % (what, fit["streaming"][what],
+                                    fit["sync"][what]))
+    ratio = ips["streaming"]["img_per_s"] / ips["sync_serial"]["img_per_s"]
+    st = ips["streaming"]
+    log("io (a): %d %dx%d JPEGs, batch %d, %d timed epochs on %s: "
+        "iterator img/s sync_serial %.1f (%s, native %s, 1 decode thread), "
+        "sync_pooled %.1f (%d threads), streaming %.1f (%s, %s backend, %d "
+        "workers, prefetch %d, stage %d): streaming / sync_serial %.3f "
+        "(gate %.1f), / sync_pooled %.3f; exactness: %d batches of "
+        "sync_pooled and streaming equal to the bit"
+        % (IO_N, IO_SIZE, IO_SIZE, IO_BATCH, IO_EPOCHS, card,
+           ips["sync_serial"]["img_per_s"], ips["sync_serial"]["reader"],
+           ips["sync_serial"]["native_reader"],
+           ips["sync_pooled"]["img_per_s"],
+           ips["sync_pooled"]["decode_threads"], st["img_per_s"],
+           st["reader"], st["decode_backend"], st["decode_workers"],
+           st["prefetch_depth"], st["stage_depth"], ratio, IO_GATE,
+           st["img_per_s"] / ips["sync_pooled"]["img_per_s"], n_exact))
+    log("io (a): streaming stages (per batch / row): %s"
+        % json.dumps(st["stages"]))
+    log("io (a): fit (the bench's conv net, Uniform(0.1), SGD %.2f, %d "
+        "epochs): sync %.1f img/s, host stall %.4f, %d captures, %d kernel "
+        "builds; streaming %.1f img/s, host stall %.4f, %d captures, %d "
+        "kernel builds"
+        % (IO_FIT_LR, IO_EPOCHS, fit["sync"]["img_per_s"],
+           fit["sync"]["host_stall"], fit["sync"]["captures"],
+           fit["sync"]["kernel_builds"], fit["streaming"]["img_per_s"],
+           fit["streaming"]["host_stall"], fit["streaming"]["captures"],
+           fit["streaming"]["kernel_builds"]))
+    if ratio < IO_GATE:
+        raise AssertionError("io (a): streaming %.1f img/s is only %.3f x "
+                             "sync_serial's %.1f (gate %.1f)"
+                             % (st["img_per_s"], ratio,
+                                ips["sync_serial"]["img_per_s"], IO_GATE))
+    out["a"] = {"iterator": ips, "streaming_vs_sync_serial": ratio,
+                "streaming_vs_sync_pooled":
+                    st["img_per_s"] / ips["sync_pooled"]["img_per_s"],
+                "exact_batches": n_exact, "fit": fit}
+
+
+def io_resnet_sym(mx):
+    """ResNet-50 NHWC composed onto transpose(data, axes=(0, 2, 3, 1)):
+    the record iterators' NCHW batches feed the NHWC graph."""
+    net = mx.models.get_resnet(1000, 50, layout="NHWC")
+    return net(data=mx.sym.transpose(mx.sym.Variable("data"),
+                                     axes=(0, 2, 3, 1)))
+
+
+def io_record_iter(mx, rec, idx):
+    kw = {}
+    for c, m, s in zip("rgb", IMAGENET_MEAN, IMAGENET_STD):
+        kw["mean_" + c], kw["std_" + c] = m, s
+    return mx.io.ImageRecordIter(rec, (3, IO_SIZE, IO_SIZE), RN_BATCH,
+                                 path_imgidx=idx, streaming=True,
+                                 rand_mirror=True, **kw)
+
+
+def io_fit_timed(mx, sym, it, arg0, aux0):
+    """Module.fit of ``sym`` over ``it`` for IO_RN_EPOCHS from arg0 / aux0
+    with phase 9's optimizer, each step fenced in its batch-end callback:
+    (module, losses, step ms, wall s, fused_matmul launches)."""
+    import torch
+    from mxnet_tpu_torch import cuda_build
+
+    mod = mx.mod.Module(sym, context=mx.gpu())
+    losses, step_ms = [], []
+    mark = [None]
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if mark[0] is not None:
+            step_ms.append((now - mark[0]) * 1e3)
+        mark[0] = now
+        losses.append(batch_loss(param.locals["self"],
+                                 param.locals["data_batch"]))
+
+    cuda_build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=IO_RN_EPOCHS, optimizer="sgd",
+            optimizer_params={"learning_rate": RN_LR,
+                              "momentum": RN_MOMENTUM, "wd": RN_WD},
+            kvstore="local", batch_end_callback=on_batch,
+            arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                        for k, v in arg0.items()},
+            aux_params={k: mx.nd.array(v, ctx=mx.cpu())
+                        for k, v in aux0.items()},
+            force_init=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (mod, losses, step_ms, wall,
+            cuda_build.launch_counts().get("fused_matmul", 0))
+
+
+def io_resnet(mx, card, rec, idx, results, out):
+    """(b): ResNet-50 NHWC trained from (a)'s records through
+    ImageRecordIter(streaming=True, rand_mirror=True)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import cuda_build
+
+    sym = io_resnet_sym(mx)
+    it = io_record_iter(mx, rec, idx)
+    first = it.next()
+    x0, y0 = first.data[0].asnumpy(), first.label[0].asnumpy()
+    it.close()
+    init = mx.mod.Module(sym, context=mx.gpu())
+    init.bind(data_shapes=[("data", (RN_BATCH, 3, IO_SIZE, IO_SIZE))],
+              label_shapes=[("softmax_label", (RN_BATCH,))])
+    np.random.seed(0)
+    init.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                    magnitude=2))
+    arg0, aux0 = ({k: v.asnumpy() for k, v in d.items()}
+                  for d in init.get_params())
+    regions = init._exec_group.execs[0].fused_regions()
+    del init
+    if len(regions) != RN_REGIONS or any(
+            r["base_op"] != "Convolution" or len(r["members"]) != 2
+            for r in regions):
+        raise AssertionError("io (b): training bind regions %s" % regions)
+
+    # the first step, from the first streamed batch, with the kernel and
+    # with MXNET_FUSION_KERNEL=0, under cuDNN's deterministic algorithms
+    batch_it = mx.io.NDArrayIter(mx.nd.array(x0, ctx=mx.gpu()),
+                                 mx.nd.array(y0, ctx=mx.gpu()),
+                                 batch_size=RN_BATCH)
+    torch.backends.cudnn.deterministic = True
+    try:
+        cuda_build.reset_launch_counts()
+        kern = host_params(*resnet_fit_step(mx, sym, arg0, aux0, batch_it,
+                                            []).get_params())
+        first_launches = cuda_build.launch_counts().get("fused_matmul", 0)
+        mx.config.set_flag("MXNET_FUSION_KERNEL", 0)
+        cuda_build.reset_launch_counts()
+        plain = host_params(*resnet_fit_step(mx, sym, arg0, aux0, batch_it,
+                                             []).get_params())
+        plain_launches = cuda_build.launch_counts().get("fused_matmul", 0)
+    finally:
+        mx.config.set_flag("MXNET_FUSION_KERNEL", None)
+        torch.backends.cudnn.deterministic = False
+    worst, worst_name, identical = max_rel_err(kern, plain)
+    if first_launches != RN_REGIONS or plain_launches:
+        raise AssertionError("io (b): the first step launched fused_matmul "
+                             "%d times (plain route %d), want %d and 0"
+                             % (first_launches, plain_launches, RN_REGIONS))
+    if worst > MODULE_TOL:
+        raise AssertionError("io (b): first step with the kernel vs "
+                             "MXNET_FUSION_KERNEL=0: %s at %.3g > %.1g"
+                             % (worst_name, worst, MODULE_TOL))
+
+    # the main path: Module.fit from the streaming reader, fenced steps
+    train = io_timed_iter(io_record_iter(mx, rec, idx))
+    try:
+        mod, losses, step_ms, wall, launches = io_fit_timed(
+            mx, sym, train, arg0, aux0)
+        stall = train.wait_s / wall
+        stats = train._it.get_stats()
+        # RN_PROFILED more steps from the reader under torch.profiler
+        train.reset()
+        batches = [next(train) for _ in range(IO_RN_PROFILED)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            p0 = time.perf_counter()
+            for b in batches:
+                mod.forward_backward(b)
+                mod.update()
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - p0) * 1e3 / IO_RN_PROFILED
+        # the control: the same fit loop over the same records decoded
+        # once, on the card (an NDArrayIter): the gap is the reader's cost
+        train.reset()
+        xs, ys = [], []
+        for b in train:
+            xs.append(b.data[0]._data.clone())
+            ys.append(b.label[0]._data.clone())
+    finally:
+        train.close()
+    ctrl = mx.io.NDArrayIter(mx.nd.array(torch.cat(xs)),
+                             mx.nd.array(torch.cat(ys)), batch_size=RN_BATCH)
+    del xs, ys
+    _m, ctrl_losses, ctrl_ms, ctrl_wall, ctrl_launches = io_fit_timed(
+        mx, sym, ctrl, arg0, aux0)
+    del _m, ctrl
+    n_steps = len(losses)
+    if n_steps != IO_RN_EPOCHS * IO_N // RN_BATCH or \
+            len(ctrl_losses) != n_steps:
+        raise AssertionError("io (b): %d steps, the control %d"
+                             % (n_steps, len(ctrl_losses)))
+    if launches != RN_REGIONS * n_steps or ctrl_launches != launches:
+        raise AssertionError("io (b): fused_matmul launched %d times over "
+                             "%d steps (the control %d), want %d per step"
+                             % (launches, n_steps, ctrl_launches,
+                                RN_REGIONS))
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("io (b): losses %s" % losses)
+    final = host_params(*mod.get_params())
+    unmoved = [k for k in final if k.startswith("arg:")
+               and np.array_equal(final[k], arg0[k[4:]])]
+    if unmoved:
+        raise AssertionError("io (b): %s did not move" % unmoved)
+    fams, device_ms, top, _spans = device_families(prof, IO_RN_PROFILED)
+    ms = float(np.median(step_ms))
+    cms = float(np.median(ctrl_ms))
+    p9 = results.get("resnet_train", {})
+    log("io (b): ResNet-50 NHWC (composed onto transpose(data, (0, 2, 3, "
+        "1))) fed from %d records by ImageRecordIter(streaming, "
+        "rand_mirror, ImageNet mean / std), batch %d, %d epochs on %s: "
+        "training bind %d regions; first step vs MXNET_FUSION_KERNEL=0 "
+        "(cuDNN deterministic): %d of %d tensors bit-identical, worst %s "
+        "at %.3g; %d fused_matmul launches over %d steps (%d per step); "
+        "loss %s; %.3f ms/step (median of %d fenced steps), %.1f img/s "
+        "(wall of fit %.1f), host stall %.4f of the wall; device %.3f "
+        "ms/step, busy %.3f of the profiled step's %.3f ms; the control "
+        "(the same fit over the records decoded once, on the card): %.3f "
+        "ms/step, %.1f img/s (the reader costs %.3f ms a step); phase 9's "
+        "synthetic batch: %s ms/step, %s img/s"
+        % (IO_N, RN_BATCH, IO_RN_EPOCHS, card, len(regions), identical,
+           len(plain), worst_name, worst, launches, n_steps,
+           launches // n_steps, " ".join("%.3f" % v for v in losses), ms,
+           len(step_ms), RN_BATCH / ms * 1e3,
+           n_steps * RN_BATCH / wall, stall, device_ms,
+           device_ms / prof_wall, prof_wall, cms, RN_BATCH / cms * 1e3,
+           ms - cms,
+           "%.3f" % p9["ms_per_step"] if "ms_per_step" in p9 else "n/a",
+           "%.1f" % p9["img_per_s"] if "img_per_s" in p9 else "n/a"))
+    for fam, v in sorted(fams.items(), key=lambda kv: -kv[1]):
+        log("    %9.3f ms  %.3f  %s" % (v, v / device_ms, fam))
+    log("io (b): reader stages: %s, verdict %s"
+        % (json.dumps(stats["stages"]), stats["verdict"]))
+    out["b"] = dict(
+        regions=len(regions), first_step=dict(
+            worst=worst, worst_name=worst_name, identical=identical,
+            tensors=len(plain)),
+        launches=launches, steps=n_steps,
+        launches_per_step=launches // n_steps, losses=losses,
+        ms_per_step=ms, step_ms=step_ms, img_per_s=RN_BATCH / ms * 1e3,
+        fit_wall_s=wall, fit_img_per_s=n_steps * RN_BATCH / wall,
+        host_stall=stall, device_ms=device_ms,
+        busy_profiled=device_ms / prof_wall, profiled_wall_ms=prof_wall,
+        families_ms=fams, reader_stats=stats,
+        control=dict(ms_per_step=cms, step_ms=ctrl_ms,
+                     img_per_s=RN_BATCH / cms * 1e3, losses=ctrl_losses,
+                     fit_wall_s=ctrl_wall),
+        phase9_ms_per_step=p9.get("ms_per_step"),
+        phase9_img_per_s=p9.get("img_per_s"))
+
+
+def io_det_records(mx, path):
+    """DET_N VOC-style records at DET_SIZE: 1-4 boxes each, the label
+    (header width 2, object width 5, then class, xmin, ymin, xmax, ymax
+    per object) that ImageDetIter reads; no .idx (the native prefetcher
+    reads them in sequence). Returns (.rec, boxes per record)."""
+    rng = np.random.RandomState(3)
+    rec = path + ".rec"
+    w = mx.recordio.MXRecordIO(rec, "w")
+    counts = []
+    for i in range(DET_N):
+        img = rng.randint(0, 255, (DET_SIZE, DET_SIZE, 3)).astype(np.uint8)
+        objs = []
+        for _ in range(rng.randint(1, 5)):
+            x1, y1 = rng.uniform(0, 0.6, 2)
+            bw, bh = rng.uniform(0.15, 0.4, 2)
+            objs += [rng.randint(0, 20), x1, y1, min(1.0, x1 + bw),
+                     min(1.0, y1 + bh)]
+        counts.append(len(objs) // 5)
+        label = np.array([2, 5] + objs, np.float32)
+        w.write(mx.recordio.pack_img(mx.recordio.IRHeader(0, label, i, 0),
+                                     img, quality=90))
+    w.close()
+    return rec, counts
+
+
+def io_detection(mx, card, path, out):
+    """(c): ImageDetRecordIter over DET_N records, then DET_STEPS steps of
+    phase 15's SSD-300 training on those batches."""
+    import torch
+    from mxnet_tpu_torch.models.ssd import get_ssd
+
+    rec, counts = io_det_records(mx, path)
+    t0 = time.perf_counter()
+    it = mx.io.ImageDetRecordIter(rec, (3, DET_SIZE, DET_SIZE), DET_BATCH,
+                                  rand_crop=1, rand_pad=1, rand_mirror=True)
+    reader = type(it.imgrec).__name__
+    batches = []
+    for b in it:
+        lab = b.label[0].asnumpy()
+        if lab.shape != (DET_BATCH,) + it.label_shape or \
+                it.label_shape[1] != 5:
+            raise AssertionError("io (c): label shape %s, iterator %s"
+                                 % (lab.shape, it.label_shape))
+        real = lab[lab[..., 0] >= 0]
+        if not len(real) or real[:, 1:5].min() < 0 or \
+                real[:, 1:5].max() > 1:
+            raise AssertionError("io (c): boxes out of [0, 1]: %s"
+                                 % real[:, 1:5])
+        batches.append((b.data[0], b.label[0], int(b.pad or 0)))
+    it.close()
+    read_s = time.perf_counter() - t0
+    if reader != "MXRecordIOPrefetcher" or len(batches) != DET_N // DET_BATCH:
+        raise AssertionError("io (c): %d batches through %s"
+                             % (len(batches), reader))
+    net = get_ssd(num_classes=20, mode="train")
+    ex = net.simple_bind(mx.gpu(), data=(DET_BATCH, 3, DET_SIZE, DET_SIZE),
+                         label=(DET_BATCH,) + it.label_shape,
+                         grad_req="write")
+    rng = np.random.RandomState(0)
+    for k, v in ex.arg_dict.items():
+        if k not in ("data", "label"):
+            v[:] = (rng.randn(*v.shape) * 0.01).astype(np.float32)
+    steps = []
+    for data, label, _pad in batches[:DET_STEPS]:
+        ex.arg_dict["data"][:] = data
+        ex.arg_dict["label"][:] = label
+        ex.forward(is_train=True)
+        ex.backward()
+        cls_prob, loc_loss, cls_target = (o._data for o in ex.outputs[:3])
+        tgt = cls_target.long()
+        valid = tgt >= 0
+        p = cls_prob.gather(1, tgt.clamp_min(0)[:, None])[:, 0]
+        ce = float(-torch.log(p.clamp_min(1e-12))[valid].mean())
+        loc = float(loc_loss.sum())
+        positives = (tgt > 0).sum(dim=1).tolist()
+        lab = label.asnumpy()
+        boxes = (lab[..., 0] >= 0).sum(axis=1).tolist()
+        with torch.no_grad():
+            for k, v in ex.arg_dict.items():
+                if k not in ("data", "label"):
+                    v._data -= DET_LR * ex.grad_dict[k]._data
+        steps.append(dict(cross_entropy=ce, loc_loss=loc,
+                          positives=positives, boxes=boxes))
+        if not (np.isfinite(ce) and np.isfinite(loc)):
+            raise AssertionError("io (c): SSD losses %s" % steps[-1])
+        if any(pos < 1 for pos, n in zip(positives, boxes) if n):
+            raise AssertionError("io (c): an image with boxes got no "
+                                 "positive anchor: %s" % steps[-1])
+    log("io (c): %d detection records (%d-%d boxes, %dx%d) through "
+        "ImageDetRecordIter(rand_crop=1, rand_pad=1, rand_mirror) and %s "
+        "in %.2f s: %d batches, labels %s in [0, 1]; SSD-300 on %s, %d "
+        "steps (SGD %.0e): %s"
+        % (DET_N, min(counts), max(counts), DET_SIZE, DET_SIZE, reader,
+           read_s, len(batches), (DET_BATCH,) + it.label_shape, card,
+           DET_STEPS, DET_LR, "; ".join(
+               "ce %.4f loc %.4f positives %s of boxes %s"
+               % (s["cross_entropy"], s["loc_loss"], s["positives"],
+                  s["boxes"]) for s in steps)))
+    out["c"] = dict(records=DET_N, reader=reader, read_s=read_s,
+                    label_shape=list(it.label_shape), steps=steps)
+
+
+def io_phase(mx, card, results):
+    """Phase 19: data and IO on the card: bench_all.py --input-pipeline's
+    protocol, ResNet-50 trained from records, detection records into
+    SSD-300. The records live in a temporary directory removed at the
+    end."""
+    import shutil
+    import tempfile
+
+    import torch
+    from mxnet_tpu_torch import native
+
+    t0 = time.perf_counter()
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    try:
+        b0 = time.perf_counter()
+        rec, idx = io_build_rec(mx, os.path.join(tmp, "data"), IO_N, IO_SIZE)
+        out["build_rec_s"] = time.perf_counter() - b0
+        io_bench(mx, card, rec, idx, out)
+        torch.cuda.empty_cache()
+        io_resnet(mx, card, rec, idx, results, out)
+        torch.cuda.empty_cache()
+        io_detection(mx, card, os.path.join(tmp, "det"), out)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    libs = native.built()
+    if not (libs.get("recordio") and libs.get("prefetch")):
+        raise AssertionError("io: native readers %s" % libs)
+    out["native"] = libs
+    out["seconds"] = time.perf_counter() - t0
+    log("io: native readers %s; phase 19 took %.1f s (records built in "
+        "%.1f s)" % (json.dumps(libs), out["seconds"], out["build_rec_s"]))
+    results["io"] = out
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the detailed results here")
@@ -9098,6 +9740,8 @@ def main():
     model_zoo_phase(mx, card, results)
     amp = amp_control_phase(mx, sym, card, results["peaks"], results)
     quant = quantize_phase(mx, sym, card, results)
+    torch.cuda.empty_cache()
+    io = io_phase(mx, card, results)
 
     t8 = totals[8]
     kernels = {"kernels": [{
@@ -9114,6 +9758,9 @@ def main():
         "library_ms": t8["library_ms"],
         "train": dict(rn["kernel_per_step"], launches=rn["launches"],
                       launches_per_step=rn["launches_per_step"]),
+        # phase 19 (b): ResNet-50 trained from records, Module.fit
+        "records": {k: io["b"][k] for k in ("launches", "steps",
+                                            "launches_per_step")},
         # phase 17 (a): bf16 operands in the amp-served buckets' graphs
         "amp_serve": dict(
             amp["a"]["kernel"]["8"], replays=amp["a"]["replays"],

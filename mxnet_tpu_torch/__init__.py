@@ -11,8 +11,9 @@ training step (``mx.parallel``), and symbolic training: ``mx.nd``,
 ``mx.io``, ``mx.kv``, ``mx.callback``, ``mx.mon``; imperative autograd
 (``mx.autograd``), custom operators (``mx.operator``), runtime CUDA
 kernels compiled by NVRTC (``mx.rtc``), the random generators
-(``mx.random``), the symbolic RNN toolkit (``mx.rnn``) and Gluon
-(``mx.gluon``). Entry points run on the CUDA card
+(``mx.random``), the symbolic RNN toolkit (``mx.rnn``), Gluon
+(``mx.gluon``), and data and IO: RecordIO (``mx.recordio``), the image
+pipeline (``mx.image`` / ``mx.img``) and the record iterators. Entry points run on the CUDA card
 unless the caller passes ``mx.cpu()`` or opens ``with mx.cpu():``. The
 package imports torch and numpy, never jax and nothing of ``mxnet_tpu``.
 """
@@ -40,6 +41,7 @@ from . import optimizer
 from . import optimizer as opt
 from . import metric
 from . import io
+from . import recordio
 from . import kvstore
 from . import kvstore as kv
 from . import model
@@ -60,6 +62,8 @@ from . import rtc
 from . import test_utils
 from . import rnn
 from . import gluon
+from . import image
+from . import image as img
 from . import operator
 from .operator import _install_frontends as _iff
 from .convert import gluon_params_from_jax, params_from_jax

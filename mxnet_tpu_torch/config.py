@@ -76,6 +76,24 @@ forever), ``MXNET_GEN_DEADLINE_MS`` (0 = none), ``MXNET_GEN_PREFIX_CACHE``
     Replica autoscaling (serving/control/autoscale.py): the clamp bounds
     of every proposed replica count, and the least spacing between two
     actions.
+``MXNET_IO_STREAMING`` (default 0)
+    Backend switch of the ``ImageRecordIter`` factory: 1 returns the
+    streaming pipeline (runtime/pipeline.py ``StreamingIter``), 0 keeps
+    the synchronous shape (PrefetchingIter over ImageIter). An index-less
+    ``.rec`` degrades to the synchronous backend with a warning; an
+    explicit ``streaming=`` argument wins over the flag.
+``MXNET_IO_DECODE_WORKERS`` (default 0 = auto: host cores, capped at 8)
+    Decode worker count of the streaming pipeline. Resolution: explicit
+    ``decode_workers=`` > ``io.decode_workers`` tuning-cache entry > this
+    flag > auto. ``MXNET_IO_DECODE_BACKEND`` (``auto`` / ``process`` /
+    ``thread``) is a string read by the pipeline itself.
+``MXNET_IO_PREFETCH_DEPTH`` (default 2)
+    Bound of the streaming pipeline's finished-batch queue, in batches
+    (same resolution order, ``io.prefetch_depth``).
+``MXNET_IO_STAGE_DEPTH`` (default 2)
+    Batches the streaming pipeline keeps staged on the device ahead of
+    the consumer (pinned host buffers, ``non_blocking`` copies); 1
+    disables the overlap.
 """
 import os
 
@@ -121,6 +139,10 @@ _DEFAULTS = {
     "MXNET_AUTOSCALE_MIN": 1,
     "MXNET_AUTOSCALE_MAX": 8,
     "MXNET_AUTOSCALE_COOLDOWN_MS": 30000,
+    "MXNET_IO_STREAMING": 0,
+    "MXNET_IO_DECODE_WORKERS": 0,
+    "MXNET_IO_PREFETCH_DEPTH": 2,
+    "MXNET_IO_STAGE_DEPTH": 2,
 }
 
 

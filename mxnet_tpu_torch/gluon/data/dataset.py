@@ -1,15 +1,16 @@
 """Datasets (reference: gluon/data/dataset.py).
 
 Counterpart of ``mxnet_tpu/gluon/data/dataset.py``: Dataset with
-``transform`` / ``transform_first``, SimpleDataset and ArrayDataset.
-``RecordFileDataset`` waits for the RecordIO readers (ROADMAP.md Queue
-A12).
+``transform`` / ``transform_first``, SimpleDataset, ArrayDataset and
+RecordFileDataset (raw records of a ``.rec`` through its ``.idx``).
 """
 from __future__ import annotations
 
+import threading
+
 from ... import ndarray as nd
 
-__all__ = ["Dataset", "ArrayDataset", "SimpleDataset"]
+__all__ = ["Dataset", "ArrayDataset", "SimpleDataset", "RecordFileDataset"]
 
 
 class Dataset:
@@ -87,3 +88,41 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class RecordFileDataset(Dataset):
+    """Dataset over a RecordIO (.rec) file with its .idx sidecar
+    (reference: gluon/data/dataset.py:74): item ``i`` is the raw bytes of
+    the i-th indexed record. Safe to index from several threads (the
+    DataLoader's thread pool): one reader's seek and read go together
+    under a lock."""
+
+    def __init__(self, filename):
+        import os
+
+        from ... import recordio
+        from ...base import MXNetError
+
+        idx_file = os.path.splitext(filename)[0] + ".idx"
+        if not os.path.exists(idx_file):
+            raise MXNetError(
+                "RecordFileDataset needs the .idx sidecar for random "
+                "access; %r not found" % (idx_file,))
+        self._record = recordio.MXIndexedRecordIO(idx_file, filename, "r")
+        self._lock = threading.Lock()
+
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        d.pop("_lock")
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self._lock = threading.Lock()
+
+    def __getitem__(self, idx):
+        with self._lock:
+            return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

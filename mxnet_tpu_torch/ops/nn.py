@@ -97,7 +97,12 @@ def _float_convolution(attrs, data, weight, *rest):
     pad = attrs.pad or (0,) * nd
     bias = None if attrs.no_bias else rest[0]
     if _is_channels_last(attrs):
-        x = _to_channels_first(data, nd)
+        # cuDNN picks its algorithms by the operand's memory format: a
+        # channels-last operand that is a view of channels-first memory (a
+        # transpose of NCHW data) would run this convolution, and the
+        # graph after it, channels-first, in another summation order than
+        # the channels-last GEMMs of the graph's fused regions
+        x = _to_channels_first(data.contiguous(), nd)
         w = weight.permute(nd + 1, nd, *range(nd))   # (*k, I, O) -> OI*k
         out = _CONV[nd](x, w, bias, stride, pad, dilate, attrs.num_group)
         return _to_channels_last(out, nd)

@@ -3,9 +3,8 @@ bounded in-flight window behind a double-buffered dispatch path.
 
 Counterpart of ``mxnet_tpu/runtime/staging.py``. The serving dispatcher
 keeps batch N+1 staged and dispatched while batch N executes, and fetches
-to the host at the window boundary (:class:`PipelineWindow`); the JAX
-package's training input pipeline (``runtime/pipeline.py``, ROADMAP A12)
-uses the same pair.
+to the host at the window boundary (:class:`PipelineWindow`); the
+streaming input pipeline (``runtime/pipeline.py``) uses the same pair.
 
 On the card a transfer is asynchronous: :func:`stage_pytree` copies the
 host arrays into pinned buffers and enqueues the copies onto the device

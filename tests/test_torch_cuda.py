@@ -20,8 +20,9 @@ ops (linalg, CTC's neighbours, the fork's and the legacy ops; phase 16
 (c)), and int8: the exact integer route of the contractions at ResNet-50's
 shapes against the CPU bit for bit (also replayed from a CUDA graph),
 int8 paged attention against its plain version, and the sampler's draws
-against the exact distribution. Every test skips where there
-is no card.
+against the exact distribution, and the streaming input pipeline's
+batches staged on the card against the same iterator's on the CPU, bit
+for bit. Every test skips where there is no card.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 that has only PyTorch with CUDA:
@@ -1321,3 +1322,43 @@ def test_sampling_on_card_meets_the_distribution(card, temperature, top_k):
     mean = float((np.arange(V) * exact).sum())
     var = float(((np.arange(V) - mean) ** 2 * exact).sum())
     assert abs(draws.mean() - mean) <= 5 * np.sqrt(var / n)
+
+
+@pytest.mark.parametrize("backend", ["thread", "process"])
+def test_streaming_batches_staged_on_card_equal_the_cpu_iterators(
+        card, tmp_path, backend):
+    """StreamingIter stages each batch on the card (pinned buffers,
+    non_blocking copies): its batches equal the CPU iterator's to the bit,
+    trailing short batch and labels included, over two epochs."""
+    rng = np.random.RandomState(0)
+    rec, idx = str(tmp_path / "d.rec"), str(tmp_path / "d.idx")
+    w = mx.recordio.MXIndexedRecordIO(idx, rec, "w")
+    for i in range(21):
+        img = rng.randint(0, 255, (18, 20, 3)).astype(np.uint8)
+        w.write_idx(i, mx.recordio.pack_img(
+            mx.recordio.IRHeader(0, float(i), i, 0), img, quality=90))
+    w.close()
+    runs = {}
+    for dev in (mx.gpu(), mx.cpu()):
+        it = mx.io.StreamingIter(
+            path_imgrec=rec, path_imgidx=idx, data_shape=(3, 16, 16),
+            batch_size=4, shuffle=True, seed=2, decode_backend=backend,
+            decode_workers=2, device=dev, mean=np.array([120., 110., 100.]))
+        out = []
+        try:
+            for epoch in range(2):
+                if epoch:
+                    it.reset()
+                for b in it:
+                    assert b.data[0]._data.device.type == dev.device.type
+                    out.append((b.data[0].asnumpy(), b.label[0].asnumpy(),
+                                b.pad))
+        finally:
+            it.close()
+        runs[dev.device_type] = out
+    assert len(runs["gpu"]) == len(runs["cpu"]) == 12
+    for (gd, gl, gp), (cd, cl, cp) in zip(runs["gpu"], runs["cpu"]):
+        assert gp == cp
+        np.testing.assert_array_equal(gd, cd)
+        np.testing.assert_array_equal(gl, cl)
+    assert runs["gpu"][-1][2] == 3

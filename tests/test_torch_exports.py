@@ -21,8 +21,8 @@ import mxnet_tpu_torch as tmx
 # modules and classes of ``mx`` not ported yet
 MX_UNPORTED = frozenset({
     "NotImplementedForSymbol", "attribute", "contrib", "engine",
-    "executor_manager", "fluent", "image", "img", "kvstore_server",
-    "libinfo", "log", "name", "profiler", "recordio",
+    "executor_manager", "fluent", "kvstore_server",
+    "libinfo", "log", "name", "profiler",
     "registry", "storage", "visualization", "viz"
 })
 
