@@ -53,6 +53,7 @@ from . import monitor as mon
 from .monitor import Monitor
 from . import models
 from . import observability
+from . import profiler
 from . import resilience
 from . import runtime
 from . import autotune

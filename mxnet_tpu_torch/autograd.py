@@ -209,7 +209,25 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):  # py
     """Gradients of the heads into the marked variables' ``.grad`` per
     their ``grad_req`` (reference: autograd.py:243 → Imperative::Backward,
     imperative.cc:361). ``train_mode`` is accepted for API parity: torch's
-    backward re-runs no forward."""
+    backward re-runs no forward. Under ``MXNET_HEALTH`` the loss heads are
+    checked after the gradients are applied (observability.health;
+    backward cannot withhold an update, so ``skip_step`` is left to the
+    update site's own check)."""
+    from .observability import health
+    from .observability.tracing import trace_span
+
+    with trace_span("autograd.backward", "autograd"):
+        _backward_impl(heads, head_grads, retain_graph)
+    if health.active():
+        if not isinstance(heads, (list, tuple)):
+            heads = [heads]
+        health.guard_step(
+            "autograd.backward",
+            losses=[("head%d" % i, h) for i, h in enumerate(heads)],
+            step=health.next_step("autograd.backward"), can_skip=False)
+
+
+def _backward_impl(heads, head_grads, retain_graph):
     outs, seeds = _head_pairs(heads, head_grads)
     leaves = _marked_leaves(outs)
     if not outs or not leaves:

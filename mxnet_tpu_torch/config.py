@@ -94,6 +94,56 @@ forever), ``MXNET_GEN_DEADLINE_MS`` (0 = none), ``MXNET_GEN_PREFIX_CACHE``
     Batches the streaming pipeline keeps staged on the device ahead of
     the consumer (pinned host buffers, ``non_blocking`` copies); 1
     disables the overlap.
+``MXNET_TELEMETRY_MEMSTATS`` (default 1)
+    Under telemetry, sample the card's caching allocator
+    (``torch.cuda.memory_allocated`` / ``max_memory_allocated``) into the
+    ``hbm.live_bytes`` / ``hbm.peak_bytes`` gauges once per training step
+    (host RSS on the CPU). 0 skips the sampling.
+``MXNET_HEALTH`` (default ``off``)
+    Active training-health policy (observability/health.py): one
+    segmented non-finite reduction per step over loss/grads/params with
+    grad-norm and update-to-param-ratio gauges. ``off`` keeps every wired
+    call site on its no-op path; ``warn`` logs anomalies and dumps the
+    flight recorder one step late; ``raise`` raises TrainingHealthError
+    on the faulting step; ``skip_step`` additionally withholds the
+    parameter update (``compile_step`` then copies the graph's results
+    into the live tensors outside the graph, after the verdict) so
+    weights stay bit-identical. String-valued and read straight from the
+    environment (override at runtime with
+    ``observability.health.set_policy``).
+``MXNET_PERF`` (default 1)
+    Roofline attribution layer (observability/perf.py): analytic
+    FLOPs/HBM-bytes accounting per program, achieved-vs-roofline
+    ``perf.mfu_pct`` / ``perf.hbm_util_pct`` from CUDA-event device spans,
+    and the fit-loop step-time waterfall (data wait / host / blocked on
+    the device / kvstore segments that sum to the step wall exactly).
+    Cost walks run once per (program, shape signature); steady-state
+    steps pay dict probes and two event records per program.
+``MXNET_PERF_RING`` (default 64)
+    Capacity of the per-step waterfall ring surfaced by the flight
+    recorder's ``perf`` provider and ``/statusz``.
+``MXNET_PROFILER_RING`` (default 200000)
+    Bound of the profiler's in-memory event ring (profiler.py): beyond
+    it the OLDEST events are evicted and counted
+    (``profiler.dropped_events()``, the ``profiler.events_dropped``
+    metric, ``droppedEventsCount`` in the dump).
+``MXNET_PROFILER_MODE`` (default ``symbolic``)
+    Initial profiler mode (``symbolic`` / ``imperative`` / ``all``) so a
+    trace can be captured from an unmodified script via env alone.
+    String-valued, read by profiler.py straight from the environment.
+``MXNET_OBS_HTTP_PORT`` (default unset = off)
+    Opt-in live exposition plane (observability/exposition.py): a stdlib
+    HTTP daemon thread serving ``/metrics``, ``/statusz``, ``/healthz``,
+    ``/tracez`` and ``/varz``. Set to a port (0 = ephemeral) before
+    import, or call ``observability.exposition.start_http(port)``. Binds
+    127.0.0.1 unless ``MXNET_OBS_HTTP_HOST`` widens it. String-valued,
+    env-only (unset must mean "off", not port 0).
+``MXNET_OBS_FLEET_INTERVAL_MS`` (1000), ``MXNET_OBS_FLEET_STALE_SCRAPES``
+(3), ``MXNET_OBS_FLEET_DEAD_SCRAPES`` (10)
+    The FleetAggregator (observability/fleet.py): its scrape period, and
+    the consecutive failed scrapes before a worker is marked ``stale``
+    and ``dead`` (a dead worker's series stop being appended, so they go
+    stale in windowed queries).
 """
 import os
 
@@ -143,6 +193,13 @@ _DEFAULTS = {
     "MXNET_IO_DECODE_WORKERS": 0,
     "MXNET_IO_PREFETCH_DEPTH": 2,
     "MXNET_IO_STAGE_DEPTH": 2,
+    "MXNET_TELEMETRY_MEMSTATS": 1,
+    "MXNET_PERF": 1,
+    "MXNET_PERF_RING": 64,
+    "MXNET_PROFILER_RING": 200000,
+    "MXNET_OBS_FLEET_INTERVAL_MS": 1000,
+    "MXNET_OBS_FLEET_STALE_SCRAPES": 3,
+    "MXNET_OBS_FLEET_DEAD_SCRAPES": 10,
 }
 
 
@@ -172,8 +229,16 @@ def _apply_obs_sample(value):
     _rtrace._apply_sample_flag(value)
 
 
+def _apply_perf(value):
+    # keep perf's cached activity switch coherent with the flag
+    from .observability import perf as _perf
+
+    _perf._apply_perf_flag(value)
+
+
 _APPLIERS = {"MXNET_TELEMETRY": _apply_telemetry,
-             "MXNET_OBS_TRACE_SAMPLE": _apply_obs_sample}
+             "MXNET_OBS_TRACE_SAMPLE": _apply_obs_sample,
+             "MXNET_PERF": _apply_perf}
 
 
 def set_flag(name, value):

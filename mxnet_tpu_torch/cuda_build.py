@@ -106,7 +106,13 @@ def build_all(names):
             _info[name] = {"seconds": time.perf_counter() - t0,
                            "path": so_path, "log": log,
                            "built": proc is not None}
-        return {n: _libs[n] for n in names}
+        loaded = [(n, _info[n]["seconds"], _info[n]["built"]) for n in todo]
+        libs = {n: _libs[n] for n in names}
+    from .observability import instruments
+
+    for name, seconds, built in loaded:
+        instruments.note_kernel_build(name, seconds, built)
+    return libs
 
 
 def load_library(name):

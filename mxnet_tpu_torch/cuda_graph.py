@@ -11,6 +11,8 @@ graph: each replay draws new numbers.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
 __all__ = ["capture"]
@@ -18,7 +20,8 @@ __all__ = ["capture"]
 WARMUP_RUNS = 2   # eager runs on the capture's side stream before a capture
 
 
-def capture(body, device, write_back=None, reset=None, **graph_kw):
+def capture(body, device, write_back=None, reset=None, key=None,
+            **graph_kw):
     """(graph, what ``body`` returned in the capture). ``body`` first runs
     ``WARMUP_RUNS`` times on a side stream (cuBLAS, cuDNN and the autograd
     engine settle there) and its results are dropped, so a warm-up must
@@ -27,7 +30,10 @@ def capture(body, device, write_back=None, reset=None, **graph_kw):
     copies of its results into the live buffers. ``graph_kw`` goes to
     ``torch.cuda.graph``: e.g. ``pool`` (a memory pool several graphs
     share, as one serving replica's bucket graphs do) and
-    ``capture_error_mode``."""
+    ``capture_error_mode``. Each capture is counted by the instruments
+    (``observability.instruments.note_capture``) under ``key``, the
+    caller's signature of what the graph bakes in."""
+    t0 = time.perf_counter()
     side = torch.cuda.Stream(device=device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -43,4 +49,7 @@ def capture(body, device, write_back=None, reset=None, **graph_kw):
         out = body()
         if write_back is not None:
             write_back(out)
+    from .observability import instruments
+
+    instruments.note_capture(key, time.perf_counter() - t0)
     return graph, out

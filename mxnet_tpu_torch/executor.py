@@ -19,13 +19,23 @@ spy pass of the reference's ``ExecuteMonCallback``, which calibration of
 the ``quantize`` pass reads. The walk is eager anyway, so a monitored
 forward costs one walk, also in training.
 
-Not ported: model-parallel ``group2ctx`` binds and the health/perf hooks
-(``ROADMAP.md`` Queue A13); asking for them raises.
+Observability: inside a fit-step scope (``observability.perf``) a program
+run is timed on the card by two CUDA events on the current stream, one
+before the walk's first launch and one after the last launch of its
+backward (or of the inference walk); the step scope reads them at its end.
+The analytic cost is memoized per (mode, shape signature) on the
+``_GraphProgram``. While a profiler session runs each run records a
+``forward`` / ``forward_backward`` event; :meth:`Executor.health_check`
+runs the health layer's check over the outputs and gradients.
+
+Not ported: model-parallel ``group2ctx`` binds (``ROADMAP.md`` Queue
+A13); asking for one raises.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 
 import torch
 
@@ -75,7 +85,43 @@ class _GraphProgram:
             and 0 in tuple(n.parsed_attrs().get("shape", ()))]
         self._init_attrs = {}  # guarded-by: self._lock
         self._sel_topo = {}  # guarded-by: self._lock
+        self._perf_costs = {}  # (mode, shape sig) -> cost  # guarded-by: self._lock
         self._lock = threading.Lock()
+
+    def perf_cost(self, arg_d, aux_d, train=False, grad_names=()):
+        """Analytic FLOPs + HBM-bytes accounting of this program at the
+        given bound tensors (observability.perf), memoized per (mode,
+        shape signature, arguments that take a gradient): the walk runs
+        once per shape, steady-state runs pay one dict probe. None when
+        shape inference cannot cover the graph."""
+        key = (bool(train), tuple([v.shape for v in arg_d.values()]),
+               tuple([v.shape for v in aux_d.values()]), tuple(grad_names))
+        with self._lock:
+            if key in self._perf_costs:
+                return self._perf_costs[key]
+        from .observability import perf as _perf
+
+        var_shapes = {n: tuple(v.shape) for n, v in arg_d.items()}
+        var_shapes.update((n, tuple(v.shape)) for n, v in aux_d.items())
+        # the byte rule's dtype = the widest bound tensor's (bf16 params ->
+        # 2-byte traffic; fp32 -> 4); the compute dtype is the
+        # contractions' (perf.bound_cost)
+        db = 4
+        if arg_d:
+            db = max(arg_d.values(), key=lambda v: v.numel()).element_size()
+        names = self.symbol.list_outputs()
+        graph = names[0] if names else "program"
+        cost = _perf.program_cost(
+            self.symbol, self.topo, var_shapes,
+            dtype_bytes=db, train=train,
+            graph="%s/%dn" % (graph, len(self.topo)))
+        dtypes = {n: dtype_name(v.dtype) for n, v in arg_d.items()}
+        dtypes.update((n, dtype_name(v.dtype)) for n, v in aux_d.items())
+        cost = _perf.bound_cost(cost, self.symbol, self.topo, grad_names,
+                                dtypes)
+        with self._lock:
+            self._perf_costs[key] = cost
+        return cost
 
     def _resolve_init_attrs(self, arg_d):
         """{id(node): attrs with the inferred shape} for the deferred
@@ -206,6 +252,21 @@ class _GraphProgram:
         return outs, aux_upd, leaves
 
 
+_obs_modules = None
+
+
+def _observability():
+    """(profiler, metrics, perf), imported once: a per-run import costs
+    ~1 µs each on the measured path."""
+    global _obs_modules
+    if _obs_modules is None:
+        from . import profiler
+        from .observability import metrics, perf
+
+        _obs_modules = (profiler, metrics, perf)
+    return _obs_modules
+
+
 def _maybe_mirror(fn, random=False):
     """``fn`` under ``torch.utils.checkpoint`` when
     ``MXNET_BACKWARD_DO_MIRROR`` is set: the backward recomputes the
@@ -330,6 +391,9 @@ class Executor:
         # calibration feeds batches of any size through Module.forward
         self._monitor_callback = (shared_exec._monitor_callback
                                   if shared_exec is not None else None)
+        self._perf_run = None   # a measured train run awaiting backward
+        self._perf_cost = {}    # is_train -> the program's cost
+        self._health_steps = 0
 
     def _run_graph_passes(self, symbol, frozen_params):
         """The bind-time pass pipeline, run with ``for_training`` set when
@@ -426,11 +490,15 @@ class Executor:
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError("unknown argument %r in forward" % k)
+            if tuple(self.arg_dict[k].shape) != tuple(v.shape):
+                self._perf_cost.clear()
             self.arg_dict[k]._set_data(v._data)
             if k in self._fold_inputs:
                 self._param_version += 1
         self._recorded = None
         self._stashed_grads = None
+        self._perf_run = None
+        timing = self._timing_start(is_train)
         spy = self._spy()
         if not is_train and spy is not None:
             # the spy pass walks the whole graph; the output selection
@@ -453,7 +521,100 @@ class Executor:
                 self.aux_dict[n]._set_data(nv.detach())
             self._recorded = (outs, leaves)
         self.outputs = [_from_data(o.detach()) for o in outs]
+        if timing is not None:
+            if is_train:
+                # the program ends with its backward's last launch
+                self._perf_run = timing
+            else:
+                self._timing_end(timing)
         return self.outputs
+
+    # --- observability ----------------------------------------------------
+    def _timing_start(self, is_train):
+        """(is_train, host t0, start event or None) when this run is
+        measured: inside a perf step scope, a profiler session or under
+        telemetry; else None."""
+        _profiler, _metrics, _perf = _observability()
+        if not (_perf.step_active() or _profiler.symbolic_active()
+                or _metrics.enabled()):
+            return None
+        events = None
+        if self._ctx.type == "cuda" and _perf.step_active():
+            index = self._ctx.index
+            stream = _perf.current_stream(
+                torch.cuda.current_device() if index is None else index)
+            events = _perf.event_pair() + (stream,)
+            _perf.record(events[0], stream)
+        return is_train, time.perf_counter(), events
+
+    def _timing_end(self, timing):
+        """Close a measured run after its last launch: the profiler's
+        program event, the telemetry counters, and the perf note (CUDA
+        events read at the step's end; on the CPU the walk's wall, since
+        there the walk is the program)."""
+        _profiler, _metrics, _perf = _observability()
+        is_train, t0, events = timing
+        t1 = time.perf_counter()
+        if _profiler.symbolic_active():
+            _profiler.record("forward_backward" if is_train else "forward",
+                             "executor", (t0 - _profiler._t0) * 1e6,
+                             (t1 - t0) * 1e6)
+        if _metrics.enabled():
+            _metrics.counter("dispatch.graph").inc()
+            _metrics.histogram("executor.run_ms").observe((t1 - t0) * 1e3)
+        if not _perf.step_active():
+            return
+        cost = self.perf_program_cost(is_train)
+        if events is not None:
+            _perf.record(events[1], events[2])
+            _perf.note_program_events(cost, events[0], events[1], t1 - t0)
+        else:
+            _perf.note_program_run(cost, device_s=t1 - t0, host_s=0.0,
+                                   card=self._ctx.type == "cuda")
+
+    def perf_program_cost(self, is_train=False):
+        """Analytic cost of the program a forward(is_train=...) on this
+        executor runs, at its bound shapes: memoized on the program per
+        shape signature, and held here per mode once probed (a bound
+        executor's shapes are fixed; ``reshape`` binds a new one)."""
+        cost = self._perf_cost.get(is_train)
+        if cost is None:
+            prog = self._train_program() if is_train else self._prog
+            arg_d, aux_d = self._feeds(prog)
+            cost = self._perf_cost[is_train] = prog.perf_cost(
+                arg_d, aux_d, train=is_train,
+                grad_names=self._grad_names(prog) if is_train else ())
+        return cost
+
+    def named_health_arrays(self):
+        """``(kind, name, NDArray)`` triples for the health layer: every
+        output and every gradient buffer this executor exposes."""
+        out = [("loss", name, o)
+               for name, o in zip(self.current_output_names, self.outputs)]
+        out.extend(("grad", name, g)
+                   for name, g in sorted(self.grad_dict.items())
+                   if g is not None)
+        return out
+
+    def health_check(self, wall_s=None):
+        """Non-finite check over this executor's outputs and grads
+        (observability.health.guard_step) — the wiring point for code
+        that drives executors directly rather than through Module.fit.
+        Returns the Verdict, or None when MXNET_HEALTH is off."""
+        from .observability import health
+
+        if not health.active():
+            return None
+        named = self.named_health_arrays()
+        self._health_steps += 1
+        return health.guard_step(
+            "executor",
+            losses=[(n, a) for k, n, a in named if k == "loss"],
+            grads=[(n, a) for k, n, a in named if k == "grad"],
+            params=[(n, a) for n, a in sorted(self.arg_dict.items())
+                    if n in self.grad_dict],
+            step=self._health_steps, wall_s=wall_s, can_skip=False,
+            sync=True)  # one-shot diagnostic: the caller wants THIS step
 
     def backward(self, out_grads=None, is_train=True):
         """Apply the gradients into ``grad_dict`` per ``grad_req``."""
@@ -492,6 +653,9 @@ class Executor:
                     garr._data.add_(g.to(garr._data.dtype))
                 else:
                     garr._data.copy_(g)
+        if self._perf_run is not None:
+            timing, self._perf_run = self._perf_run, None
+            self._timing_end(timing)
         return [self.grad_dict.get(n) for n in self._arg_names]
 
     # --- utilities --------------------------------------------------------

@@ -22,6 +22,7 @@ from .. import autograd
 from .. import ndarray as nd
 from .. import symbol as sym_mod
 from ..executor import _GraphProgram
+from ..observability.tracing import trace_span
 from ..ndarray import NDArray
 from ..ndarray.ndarray import _from_data
 from ..symbol import Symbol
@@ -302,7 +303,8 @@ class HybridBlock(Block):
         aux_d = {name: p.data(ctx)._data
                  for name, p in zip(prog.aux_names, aux_params)}
         is_train = autograd.is_training()
-        with torch.set_grad_enabled(autograd.is_recording()):
+        with trace_span("cached_op", "gluon"), \
+                torch.set_grad_enabled(autograd.is_recording()):
             outs, aux_upd = prog._eval(arg_d, aux_d, is_train)
         if is_train:
             with torch.no_grad():

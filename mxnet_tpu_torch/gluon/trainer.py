@@ -29,8 +29,19 @@ per (input signature, optimizer signature); here, on a CUDA card, it is one
 
 ``compile_count`` counts the captures. On the CPU the same body runs
 eagerly each step, with the same semantics.
+
+Under ``MXNET_HEALTH`` (observability/health.py) ``step`` checks every
+live gradient and weight before the update and ``compile_step`` checks
+the loss and the updated weights after the replay. Under ``skip_step``
+and ``raise`` the captured graph holds no copy into the live tensors: the
+copies run after the verdict, outside the graph, and a skipped step
+leaves every parameter, optimizer state and moving statistic as it was
+(``off`` and ``warn`` capture the copies in the graph, as without the
+check).
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -86,6 +97,7 @@ class Trainer:
         self._kvstore = kvstore
         self._update_on_kvstore = False
         self._fuse_step = fuse_step
+        self._health_steps = 0
 
     def _common_contexts(self):
         """All parameters must live on one identical context list."""
@@ -148,12 +160,29 @@ class Trainer:
     def step(self, batch_size, ignore_stale_grad=False):
         """Push the gradients and pull the updated weights (kvstore), or
         update locally; ``batch_size`` normalizes the gradient."""
-        if not self._kv_initialized:
-            self._init_kvstore()
-        self._set_rescale(batch_size)
-        if self._kvstore is None and self._can_fuse():
-            self._fused_local_step()
-            return
+        from ..observability import health, record_step, trace_span
+
+        started = time.perf_counter()
+        with trace_span("trainer.step", "gluon"):
+            if not self._kv_initialized:
+                self._init_kvstore()
+            self._set_rescale(batch_size)
+            if health.active():
+                # gradient/weight check BEFORE any push or update, so
+                # skip_step drops the whole step and weights stay finite
+                verdict = self._health_check(time.perf_counter() - started)
+                if verdict is not None and verdict.skip:
+                    record_step(time.perf_counter() - started)
+                    return
+            if self._kvstore is None and self._can_fuse():
+                with trace_span("fused_update", "gluon"):
+                    self._fused_local_step()
+            else:
+                with trace_span("optimizer_update", "gluon"):
+                    self._update_all()
+        record_step(time.perf_counter() - started)
+
+    def _update_all(self):
         for i, p in self._live_params():
             if self._kvstore is not None:
                 self._kvstore.push(p.name, p.list_grad(), priority=-i)
@@ -164,6 +193,25 @@ class Trainer:
             for updater, weight, grad in zip(self._updaters, p.list_data(),
                                              p.list_grad()):
                 updater(i, grad, weight)
+
+    def _health_check(self, wall_s):
+        """Non-finite check over every live parameter's gradient (all
+        contexts) and its weight — one reduction, one host fetch
+        (observability.health.guard_step)."""
+        from ..observability import health
+
+        multi = len(self._contexts or ()) > 1
+        grads, params = [], []
+        for _i, p in self._live_params():
+            for k, g in enumerate(p.list_grad()):
+                grads.append(("%s@%d" % (p.name, k) if multi else p.name, g))
+            params.append((p.name, p.list_data()[0]))
+        self._health_steps += 1
+        return health.guard_step(
+            "gluon.trainer", grads=grads, params=params,
+            lr=getattr(self._optimizer, "lr", None),
+            step=self._health_steps, wall_s=wall_s,
+            can_skip=health.skip_allowed(self._kvstore))
 
     def allreduce_grads(self):
         """Sum each gradient across contexts through the kvstore (nothing
@@ -299,12 +347,13 @@ class _Captured:
     """One captured step: its graph, its batch input buffers, its loss
     output and the tensors whose addresses it holds."""
 
-    def __init__(self, graph, data, label, loss, ptrs):
+    def __init__(self, graph, data, label, loss, ptrs, new):
         self.graph = graph
         self.data = data
         self.label = label
         self.loss = loss
         self.ptrs = ptrs
+        self.new = new  # (new weights, states, aux) when the copies are gated
 
 
 class _FusedTrainStep:
@@ -436,10 +485,11 @@ class _FusedTrainStep:
         o = self._trainer._optimizer
         return lrs + [o.rescale_grad, o.clip_gradient or 0.0]
 
-    def _capture(self, tensors, data, label):
+    def _capture(self, tensors, data, label, gated):
         """Capture one step over the state tensors and new batch buffers;
         the warm-up runs on the capture's side stream and drops its
-        results."""
+        results. ``gated``: the copies into the live tensors stay out of
+        the graph (they run after the health verdict)."""
         dev = data.device
         static_data = data.detach().clone()
         static_label = label.detach().clone()
@@ -448,10 +498,30 @@ class _FusedTrainStep:
             return self._body(*tensors[:3], static_data, static_label,
                               tensors[3], self._scalars)
 
-        graph, (loss, *_new) = cuda_graph.capture(
-            body, dev, lambda out: self._write_back(tensors, *out[1:]))
+        write_back = None if gated else (
+            lambda out: self._write_back(tensors, *out[1:]))
+        graph, (loss, *new) = cuda_graph.capture(body, dev, write_back,
+                                                 key=self._key)
         return _Captured(graph, static_data, static_label, loss,
-                         _pointers(tensors))
+                         _pointers(tensors), new)
+
+    def _guard(self, loss, new_w):
+        """The health verdict of a step from its loss and updated live
+        weights (the gradients never leave the step: a non-finite
+        gradient surfaces as a non-finite updated weight); None when
+        health is off."""
+        from ..observability import health
+
+        if not health.active():
+            return None
+        trainer = self._trainer
+        trainer._health_steps += 1
+        return health.guard_step(
+            "gluon.compile_step", losses=[("loss", loss)],
+            params=[("%s(updated)" % p.name, w)
+                    for (_i, p), w in zip(self._built[2], new_w)],
+            lr=getattr(trainer._optimizer, "lr", None),
+            step=trainer._health_steps)
 
     def __call__(self, data, label):
         trainer = self._trainer
@@ -472,8 +542,12 @@ class _FusedTrainStep:
         lrs = trainer._host_prestep(live)
         ctx = data.context
         tensors = self._tensors(ctx)
+        from ..observability import health
+
+        gated = health.active() and health.policy() in ("skip_step",
+                                                        "raise")
         key = (tuple(data.shape), str(data.dtype), tuple(label.shape),
-               str(label.dtype), trainer._fused_signature())
+               str(label.dtype), trainer._fused_signature(), gated)
         if key != self._key:
             self._key = key
             self._captured = None
@@ -483,7 +557,9 @@ class _FusedTrainStep:
             self._scalars = values
             loss, new_w, new_s, new_aux = self._body(
                 *tensors[:3], data._data, label._data, tensors[3], values)
-            self._write_back(tensors, new_w, new_s, new_aux)
+            verdict = self._guard(loss, new_w)
+            if verdict is None or not verdict.skip:
+                self._write_back(tensors, new_w, new_s, new_aux)
             return _from_data(loss)
         if self._scalars is None or self._scalars.numel() != len(values) \
                 or self._scalars.device != data._data.device:
@@ -498,14 +574,18 @@ class _FusedTrainStep:
             self.compile_count += 1
         if cap is None:
             cap = self._captured = self._capture(tensors, data._data,
-                                                 label._data)
+                                                 label._data, gated)
         with torch.no_grad():
             if data._data is not cap.data:
                 cap.data.copy_(data._data)
             if label._data is not cap.label:
                 cap.label.copy_(label._data)
         cap.graph.replay()
-        return _from_data(cap.loss.clone())
+        loss = cap.loss.clone()
+        verdict = self._guard(loss, cap.new[0])
+        if gated and not verdict.skip:
+            self._write_back(tensors, *cap.new)
+        return _from_data(loss)
 
 
 def _pointers(tensors):

@@ -5,11 +5,15 @@ Counterpart of ``mxnet_tpu/module/base_module.py``: ``fit`` / ``score`` /
 family, built on a lookahead batch iterator (``prepare`` sees the next
 batch while the current one runs) and a shared inference-batch
 generator. ``fit(monitor=)`` installs a :class:`~..monitor.Monitor` on the
-bound executors and ticks it around every step. Not ported:
-``fit(resume=...)`` (preemption-safe checkpoints) and the health,
-flight-recorder and step-waterfall hooks of the JAX package's
-observability layer (``ROADMAP.md`` Queue A13): asking for ``resume``
-raises, and the hooks are off.
+bound executors and ticks it around every step.
+
+Each fit step runs inside a step-waterfall scope (``observability.perf``:
+data wait, time blocked on the card, kvstore and host time, summing to the
+step's wall) and a ``step`` span, and, under ``MXNET_HEALTH``, the health
+layer's check over the step's outputs, gradients and parameters before the
+update (``skip_step`` withholds the update). Not ported: ``fit(resume=...)``
+(preemption-safe checkpoints, ``ROADMAP.md`` Queue A13); asking for it
+raises.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ import time
 
 from .. import metric as metric_mod
 from ..base import MXNetError
+from ..observability import flight_recorder, health, perf, record_step
+from ..observability.tracing import trace_span
 from ..model import BatchEndParam
 from .. import ndarray as nd
 from ..context import cpu
@@ -63,18 +69,29 @@ def _check_input_names(symbol, names, typename, throw):
 
 def _lookahead(data_iter):
     """Yield (batch, is_last, next batch) triples, reading one batch
-    ahead."""
+    ahead.
+
+    Each ``next()`` is timed into the current perf step scope's
+    data-wait segment: the fit loop opens the scope BEFORE resuming this
+    generator, so the wait for batch N+1 lands in the step that stalls on
+    it."""
     it = iter(data_iter)
+    t0 = time.perf_counter()
     try:
         pending = next(it)
     except StopIteration:
         return
+    finally:
+        perf.note_data_wait(time.perf_counter() - t0)
     while True:
+        t0 = time.perf_counter()
         try:
             upcoming = next(it)
         except StopIteration:
+            perf.note_data_wait(time.perf_counter() - t0)
             yield pending, True, None
             return
+        perf.note_data_wait(time.perf_counter() - t0)
         yield pending, False, upcoming
         pending = upcoming
 
@@ -92,6 +109,8 @@ class BaseModule:
         self.optimizer_initialized = False
         self._symbol = None
         self._total_exec_bytes = 0
+        self._health_steps = 0  # monotonic across epochs (flight recorder)
+        self._fit_steps = 0     # completed fit steps (waterfall rows)
 
     # ------------------------------------------------------------------ fit
     def forward_backward(self, data_batch):
@@ -113,6 +132,10 @@ class BaseModule:
         if resume is not None:
             raise MXNetError("fit(resume=...) is not yet ported (ROADMAP.md "
                              "Queue A13)")
+        if health.active():
+            # arm the crash hooks so an OOM or a raise mid-fit still
+            # leaves the last-K step records on disk
+            flight_recorder.install()
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -148,27 +171,69 @@ class BaseModule:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
             train_data.reset()
+        if health.active():
+            # settle the warn-mode lag-1 stash so the final step's
+            # verdict is recorded before fit returns
+            health.flush()
 
     def _fit_epoch(self, train_data, train_metric, monitor,
                    batch_end_callback, epoch):
         """One pass over train_data; returns the batches consumed."""
         nbatch = 0
-        eval_metric = train_metric  # noqa: F841  (read via locals())
-        for data_batch, _is_last, upcoming in _lookahead(train_data):
-            if monitor is not None:
-                monitor.tic()
-            self.forward_backward(data_batch)
-            self.update()
-            if upcoming is not None:
-                self.prepare(upcoming)
-            self.update_metric(train_metric, data_batch.label)
-            if monitor is not None:
-                monitor.toc_print()
-            _fire(batch_end_callback,
-                  BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                eval_metric=train_metric, locals=locals()))
-            nbatch += 1
+        # step-time waterfall (observability.perf): the scope opens
+        # BEFORE the lookahead fetches each batch, so data wait, the
+        # wait for the card and kvstore time all land in the step that
+        # paid them; the segments sum to the step wall by construction
+        perf.step_begin()
+        try:
+            eval_metric = train_metric  # noqa: F841  (read via locals())
+            for data_batch, _is_last, upcoming in _lookahead(train_data):
+                step_started = time.perf_counter()
+                if monitor is not None:
+                    monitor.tic()
+                with trace_span("step", "module"):
+                    self.forward_backward(data_batch)
+                    skip_update = False
+                    if health.active():
+                        # check this step's loss/grads/params BEFORE the
+                        # update, so skip_step can withhold it
+                        verdict = self._health_check(
+                            time.perf_counter() - step_started)
+                        skip_update = verdict is not None and verdict.skip
+                    if not skip_update:
+                        with trace_span("update", "module"):
+                            self.update()
+                if upcoming is not None:
+                    self.prepare(upcoming)
+                if not skip_update:
+                    # a skipped step's outputs are the non-finite values
+                    # the skip protects against: kept out of the metric
+                    with trace_span("update_metric", "module"):
+                        self.update_metric(train_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
+                record_step(time.perf_counter() - step_started)
+                self._fit_steps += 1
+                perf.step_end(step=self._fit_steps)
+                perf.step_begin()
+                _fire(batch_end_callback,
+                      BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                    eval_metric=train_metric,
+                                    locals=locals()))
+                nbatch += 1
+        finally:
+            # the epoch end or an exception (a health raise) must not
+            # leave a dangling scope: step_active() would keep timing
+            # every later forward on this thread
+            perf.step_abandon()
         return nbatch
+
+    def _health_check(self, wall_s):
+        """Hook: run observability.health's per-step check over this
+        module's tensors; returns the Verdict (``verdict.skip`` withholds
+        the update) or None. Subclasses with bound executors override —
+        the base implementation watches nothing."""
+        return None
 
     # ---------------------------------------------------------- inference
     def _set_output_selection(self, sel):

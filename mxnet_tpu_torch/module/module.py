@@ -449,6 +449,29 @@ class Module(BaseModule):
                            updater=self._updater,
                            num_device=len(self._context))
 
+    def _health_check(self, wall_s):
+        """Per-step numerical health check (observability.health): the
+        outputs (the loss surrogate), the gradients and the parameters go
+        through ONE segmented reduction and ONE host fetch."""
+        from ..observability import health
+
+        grp = self._exec_group
+        ex = grp.execs[0]
+        losses = list(zip(self._output_names, ex.outputs))
+        bound = [n for n in grp.param_names if n in grp.arg_names]
+        grads = [(name, replicas[0])
+                 for name, replicas in zip(bound, grp.grad_arrays or [])
+                 if replicas[0] is not None]
+        params = [(name, replicas[0])
+                  for name, replicas in zip(bound, grp.param_arrays)]
+        self._health_steps += 1
+        lr = getattr(self._optimizer, "lr", None) \
+            if self._optimizer is not None else None
+        return health.guard_step(
+            "module.fit", losses=losses, grads=grads, params=params,
+            lr=lr, step=self._health_steps, wall_s=wall_s,
+            can_skip=health.skip_allowed(self._kvstore))
+
     def _set_output_selection(self, sel):
         """Thread ``predict(outputs=...)`` selection into the bound
         executors: the compiled inference program is pruned to the

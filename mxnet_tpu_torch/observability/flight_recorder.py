@@ -6,8 +6,7 @@ bundles
 
 * the last-K records (:func:`record`; anomaly flags mark the bad ones),
 * a metrics-registry snapshot (Prometheus text, when telemetry is on),
-* the tail of the profiler's span buffer — empty until the port's
-  ``profiler.py`` exists (ROADMAP A13),
+* the tail of the profiler's span buffer (profiler.py),
 * an env/config fingerprint (MXNET_* env, config overrides, the torch
   and CUDA versions and the card, argv),
 * provider sections (e.g. the serving engine's live ``get_stats()``,
@@ -159,8 +158,12 @@ def _metrics_snapshot():
 
 
 def _spans_tail(n=256):
-    # the profiler's span buffer: the port has no profiler.py yet
-    return []
+    try:
+        from .. import profiler
+
+        return profiler.events_tail(n)
+    except Exception:
+        return []
 
 
 def _provider_sections():
@@ -204,6 +207,15 @@ def _json_safe(obj):
 def dump(reason="on-demand", path=None):
     """Write the triage file atomically; returns its path."""
     global _dump_count, _dumped_seq, _last_dump
+    try:
+        # pull any warn-mode lag-1 health stash into the ring first, so
+        # the dump covers the very last guarded step (allow_dump=False:
+        # the flush must not recurse into a second dump)
+        from . import health
+
+        health.flush(allow_dump=False)
+    except Exception:
+        pass
     with _lock:
         records = list(_ring) if _ring is not None else []
         _dump_count += 1
@@ -327,6 +339,12 @@ def _atexit_flush():
     # safety net: an anomaly was recorded after the last dump and the
     # process is exiting without an uncaught exception (swallowed error,
     # orderly-but-broken shutdown) — flush the story before it is lost
+    try:
+        from . import health
+
+        health.flush(allow_dump=False)
+    except Exception:
+        pass
     with _lock:
         pending = _anomaly_seq > _dumped_seq
     if pending:

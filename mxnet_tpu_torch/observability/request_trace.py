@@ -20,11 +20,12 @@ vs device compute vs host fetch:
 * :func:`current` / :func:`activate` keep an ambient trace per
   thread/context.
 
-The JAX package also exports a finished trace into its profiler's
-chrome-trace buffer (its ``_get_profiler`` hook). The port has no
-``profiler.py`` yet (ROADMAP A13), so that export is left out; timestamps
-are reported relative to this module's import instead of the profiler's
-start.
+* **Chrome-trace stitching** — while a profiler session runs, a
+  finishing trace exports its phases as complete events (cat
+  ``request``, ``args.trace_id``) plus flow events into the SAME
+  profiler buffer as the framework's spans and the card's kernel
+  records, so one ``dump_profile()`` timeline shows a request flowing
+  across the submitter and dispatcher threads.
 """
 from __future__ import annotations
 
@@ -45,17 +46,27 @@ __all__ = ["RequestTrace", "TraceReservoir", "begin", "sample_every",
 _id_counter = itertools.count(1)
 _sample_counters = {}  # kind -> itertools.count (atomic appends via GIL)
 
+_profiler = None
 _pid = None
-_T0 = time.perf_counter()
+
+
+def _get_profiler():
+    # bound once: a per-call import costs ~1.5 µs of import machinery
+    global _profiler
+    if _profiler is None:
+        from .. import profiler
+
+        _profiler = profiler
+    return _profiler
 
 
 def _to_us(t_s):
-    """Raw perf_counter seconds -> microseconds since this module's import.
+    """Raw perf_counter seconds -> the profiler's microsecond timebase.
 
     Events store raw ``time.perf_counter()`` values: the conversion runs
-    at READ time (``tracez``, ``to_dict``), never on the per-event hot
-    path."""
-    return (t_s - _T0) * 1e6
+    at READ time (finish, ``tracez``, chrome export), never on the
+    per-event hot path."""
+    return (t_s - _get_profiler()._t0) * 1e6
 
 
 def _getpid():
@@ -253,6 +264,33 @@ class RequestTrace:
             else:
                 metrics.counter("request.failed", labels=labels).inc()
         reservoir().offer(self)
+        self._emit_chrome()
+
+    def _emit_chrome(self):
+        """Export the timeline into the profiler's event buffer as
+        complete events (cat ``request``) plus flow events binding the
+        phases across threads — no-op unless a session is running."""
+        profiler = _get_profiler()
+        if not profiler.spans_active():
+            return
+        args = {"trace_id": self.trace_id, "status": self.status}
+        if self.meta:
+            args.update({str(k): v for k, v in self.meta.items()})
+        for s in self.spans():
+            profiler.record("req.%s.%s" % (self.kind, s["phase"]),
+                            "request", s["ts_us"], s["dur_us"],
+                            args=args, tid=s["tid"])
+        # flow events: chrome draws an arrow from the submit thread's
+        # first phase to the completing thread's last one
+        flow_id = abs(hash(self.trace_id)) % (1 << 31)
+        first, last = self.events[0], self.events[-1]
+        base = {"name": "req.%s" % self.kind, "cat": "request",
+                "id": flow_id, "pid": os.getpid(),
+                "args": {"trace_id": self.trace_id}}
+        profiler.record_raw(dict(base, ph="s", ts=_to_us(first[1]),
+                                 tid=first[2] % (1 << 20)))
+        profiler.record_raw(dict(base, ph="f", bp="e", ts=_to_us(last[1]),
+                                 tid=last[2] % (1 << 20)))
 
 
 def begin(kind, sample=None):

@@ -1362,3 +1362,217 @@ def test_streaming_batches_staged_on_card_equal_the_cpu_iterators(
         np.testing.assert_array_equal(gd, cd)
         np.testing.assert_array_equal(gl, cl)
     assert runs["gpu"][-1][2] == 3
+
+
+# --------------------------------------------------------- observability
+def test_event_timed_device_span_against_a_known_kernel(card):
+    """A program's device time is the span between its two CUDA events,
+    read at the step's end: the host returns long before the card
+    finishes, and the span agrees with the same GEMMs timed alone."""
+    from mxnet_tpu_torch.observability import perf
+
+    n, reps = 4096, 8
+    a = torch.randn(n, n, device=card)
+    b = torch.randn(n, n, device=card)
+    for _ in range(2):
+        torch.matmul(a, b)
+    s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s0.record()
+    for _ in range(reps):
+        torch.matmul(a, b)
+    s1.record()
+    s1.synchronize()
+    alone_ms = s0.elapsed_time(s1)
+    cost = {"graph": "gemm", "mode": "infer", "flops": 2 * n ** 3 * reps,
+            "hbm_bytes": 3 * n * n * 4 * reps, "roofline_s": 1e-3,
+            "ridge_intensity": 17.6, "basis": "test",
+            "compute_dtype": "float32", "ops": [], "fusion_candidates": []}
+    perf.reset()
+    try:
+        for step in range(3):
+            perf.step_begin()
+            import time
+
+            t0 = time.perf_counter()
+            stream = perf.current_stream(torch.cuda.current_device())
+            start, end = perf.event_pair()
+            perf.record(start, stream)
+            for _ in range(reps):
+                torch.matmul(a, b)
+            perf.record(end, stream)
+            host_s = time.perf_counter() - t0
+            perf.note_program_events(cost, start, end, host_s)
+            rec = perf.step_end(step=step)
+        (entry,) = perf.program_table()
+        assert entry["runs"] == 2 and entry["warmup_runs"] == 1
+        device_ms = entry["device_ms_last"]
+        assert abs(device_ms - alone_ms) <= 0.1 * alone_ms
+        assert entry["host_ms_ema"] < 0.5 * device_ms   # launches return
+        assert rec["device_span_s"] * 1e3 == pytest.approx(device_ms)
+        assert rec["host_s"] == rec["wall_s"] - (
+            rec["data_wait_s"] + rec["device_s"] + rec["kvstore_s"])
+    finally:
+        perf.reset()
+
+
+@pytest.mark.parametrize("inputs_need_grad", [False, True])
+def test_module_gemm_program_mfu_under_100(card, inputs_need_grad):
+    """The executor's event-timed program of a GEMM-bound Module step:
+    MFU and HBM utilisation within (0, 100) on both bases, with the data
+    taking a gradient (the backward runs the dgrad and the wgrad GEMM) and
+    without (the wgrad alone: the program is not charged a data gradient
+    it never computes)."""
+    from mxnet_tpu_torch.observability import perf
+
+    bs, width = 2048, 4096
+    data = mx.sym.Variable("data")
+    net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        data, num_hidden=width, name="fc"), name="softmax")
+    mod = mx.mod.Module(net, context=mx.gpu())
+    mod.bind(data_shapes=[("data", (bs, width))],
+             label_shapes=[("softmax_label", (bs,))],
+             inputs_need_grad=inputs_need_grad)
+    mod.init_params()
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),))
+    rng = np.random.RandomState(0)
+    batch = mx.io.DataBatch(
+        data=[mx.nd.array(rng.rand(bs, width).astype(np.float32),
+                          ctx=mx.gpu())],
+        label=[mx.nd.array(rng.randint(0, width, bs).astype(np.float32),
+                           ctx=mx.gpu())])
+    perf.reset()
+    try:
+        for i in range(4):
+            perf.step_begin()
+            mod.forward_backward(batch)
+            mod.update()
+            rec = perf.step_end(step=i)
+            assert rec["programs"] == 1
+        (entry,) = perf.program_table()
+        for key in ("mfu_pct", "mfu_spec_pct", "hbm_util_pct",
+                    "hbm_util_spec_pct"):
+            assert 0.0 < entry[key] < 100.0, (key, entry[key])
+        assert entry["compute_dtype"] == "float32"
+        assert entry["mfu_spec_pct"] < entry["mfu_pct"]
+        assert 0.0 < rec["mfu_pct"] <= entry["mfu_pct"] * 1.001
+    finally:
+        perf.reset()
+
+
+def _guard_kernels(tensors):
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.observability import health
+
+    named = [("t%d" % i, t) for i, t in enumerate(tensors)]
+    health.check(params=named)   # plan built, kernels warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        v = health.check(params=named)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    names = [e.name for e in prof.events() if e.device_type == cuda]
+    kernels = [n for n in names if "memcpy" not in n.lower()
+               and "memset" not in n.lower()]
+    return len(kernels), v
+
+
+def test_health_reduction_launches_a_constant_per_guard(card):
+    """A guard is one launch of the health_stats kernel (and the copies of
+    its pointer table and result), whatever the number and the dtypes of
+    the watched tensors, and its stats name the planted NaN."""
+    gen = torch.Generator(device=card).manual_seed(0)
+
+    def tensors(n, dtype):
+        out = [torch.randn(1 + 997 * i % 5000, device=card, generator=gen)
+               .to(dtype) for i in range(n)]
+        out[n // 2].view(-1)[0] = float("nan")
+        return out
+
+    few, _ = _guard_kernels(tensors(20, torch.float32))
+    many, v = _guard_kernels(tensors(320, torch.float32))
+    mixed, _ = _guard_kernels(tensors(160, torch.float32)
+                              + tensors(160, torch.bfloat16))
+    assert few == many == mixed == 1, (few, many, mixed)
+    assert dict(v.bad) == {"param:t160": 1}
+
+
+def test_health_stats_kernel_equals_its_plain_version(card):
+    """The kernel's stats against observability.health.stats_plain on the
+    same tensors: fp32, bf16, fp16, fp64 and a float8 (read through a
+    float32 copy), strided views, an empty tensor, sizes on and across
+    the kernel's chunk edges, NaN and +-Inf planted; the bad counts
+    exactly, the sums within 1e-12 of each tensor's scale (both float64,
+    summed in different orders)."""
+    from mxnet_tpu_torch.cuda_build import launch_counts
+    from mxnet_tpu_torch.observability import health
+
+    gen = torch.Generator(device=card).manual_seed(1)
+    chunk = health._CHUNK
+    sizes = [1, 7, chunk - 1, chunk, chunk + 1, 3 * chunk + 5, 100003]
+    dtypes = [torch.float32, torch.bfloat16, torch.float16, torch.float64]
+    tensors = []
+    for i, n in enumerate(sizes):
+        t = torch.randn(n, device=card, generator=gen) * (i + 1)
+        t = t.to(dtypes[i % len(dtypes)])
+        if n > 10:
+            t[::97] = float("nan")
+            t[5] = float("inf")
+            t[-1] = -float("inf")
+        tensors.append(t)
+    tensors.append(torch.randn(64, 130, device=card, generator=gen)[:, ::2])
+    tensors.append(torch.empty(0, device=card))
+    if hasattr(torch, "float8_e4m3fn"):
+        tensors.append(torch.randn(4096, device=card, generator=gen)
+                       .to(torch.float8_e4m3fn))
+    before = launch_counts().get("health_stats", 0)
+    got = health._fused_stats(tensors)
+    assert launch_counts().get("health_stats", 0) == before + 1
+    want = health.stats_plain(tensors)
+    want[:, 0] = np.array([t.numel() for t in tensors]) - want[:, 0]
+    assert np.array_equal(got[:, 0], want[:, 0]), (got[:, 0], want[:, 0])
+    assert got[:, 0].sum() > 0
+    scale = np.sqrt(np.maximum(want[:, 1], 1.0))[:, None]
+    assert (np.abs(got[:, 1:] - want[:, 1:]) / scale).max() < 1e-12
+
+
+def test_compile_step_skip_step_bit_identical_on_card(card):
+    from mxnet_tpu_torch.observability import flight_recorder, health
+
+    health.set_policy("skip_step")
+    try:
+        net = mx.gluon.nn.Dense(16)
+        net.initialize(ctx=mx.gpu())
+        net.hybridize()
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.1, "momentum": 0.9},
+                                   kvstore=None)
+        step = trainer.compile_step(net, loss_fn)
+        rng = np.random.RandomState(0)
+        x = mx.nd.array(rng.rand(32, 64).astype(np.float32), ctx=mx.gpu())
+        y = mx.nd.array(rng.randint(0, 16, 32).astype(np.float32),
+                        ctx=mx.gpu())
+        step(x, y).asnumpy()
+        before = {k: p.data().asnumpy().copy()
+                  for k, p in net.collect_params().items()}
+        states = [a.asnumpy().copy()
+                  for s in trainer._updaters[0].states.values()
+                  for a in mx.optimizer.flat_state(s)]
+        bad = mx.nd.array(np.full((32, 64), np.nan, np.float32),
+                          ctx=mx.gpu())
+        step(bad, y).asnumpy()
+        for k, p in net.collect_params().items():
+            assert np.array_equal(p.data().asnumpy(), before[k]), k
+        now = [a.asnumpy() for s in trainer._updaters[0].states.values()
+               for a in mx.optimizer.flat_state(s)]
+        assert all(np.array_equal(a, b) for a, b in zip(now, states))
+        assert np.isfinite(step(x, y).asnumpy()).all()
+        assert step.compile_count == 1
+        assert [r["skipped"] for r in flight_recorder.snapshot()] == \
+            [False, True, False]
+    finally:
+        health.set_policy(None)
+        flight_recorder.reset()

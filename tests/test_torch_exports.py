@@ -22,7 +22,7 @@ import mxnet_tpu_torch as tmx
 MX_UNPORTED = frozenset({
     "NotImplementedForSymbol", "attribute", "contrib", "engine",
     "executor_manager", "fluent", "kvstore_server",
-    "libinfo", "log", "name", "profiler",
+    "libinfo", "log", "name",
     "registry", "storage", "visualization", "viz"
 })
 

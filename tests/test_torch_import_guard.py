@@ -35,6 +35,12 @@ import mxnet_tpu_torch.observability.request_trace
 import mxnet_tpu_torch.observability.flight_recorder
 import mxnet_tpu_torch.observability.stats_schema
 import mxnet_tpu_torch.observability.perf
+import mxnet_tpu_torch.profiler
+import mxnet_tpu_torch.observability.tracing
+import mxnet_tpu_torch.observability.instruments
+import mxnet_tpu_torch.observability.health
+import mxnet_tpu_torch.observability.exposition
+import mxnet_tpu_torch.observability.fleet
 import mxnet_tpu_torch.resilience.faults, mxnet_tpu_torch.runtime.staging
 import mxnet_tpu_torch.autotune.cache, mxnet_tpu_torch.autotune.registry
 import mxnet_tpu_torch.autotune.cost_model, mxnet_tpu_torch.serving.buckets

@@ -287,8 +287,15 @@ def test_every_serving_series_reaches_the_dump(telemetry, monkeypatch):
 
 # ------------------------------------------------------------ stats schema
 def test_stats_schema_sections_match():
+    from mxnet_tpu.observability import perf as jperf
+    from mxnet_tpu_torch.observability import perf as tperf
+
     assert tschema.SCHEMA_VERSION == jschema.SCHEMA_VERSION
     assert tschema.CORE_KEYS == jschema.CORE_KEYS
+    # the perf sections are live: fits run earlier in this process have
+    # filled both packages' program tables and waterfall rings
+    tperf.reset()
+    jperf.reset()
     stats = {}
     for name in PKGS:
         srv = _server(name, cooldown_ms=500)
@@ -307,9 +314,10 @@ def test_stats_schema_sections_match():
     assert set(stats["torch"]) == set(stats["jax"])
     assert tschema.summarize(stats["torch"]) == \
         jschema.summarize(stats["jax"])
-    # no measured program yet: the JAX package's "perf off" shape
-    assert stats["torch"]["perf"] == {
-        "enabled": False, "mfu_pct": None, "hbm_util_pct": None,
+    # the live attribution layer (MXNET_PERF on by default), no measured
+    # program yet: the JAX package's section
+    assert stats["torch"]["perf"] == stats["jax"]["perf"] == {
+        "enabled": True, "mfu_pct": None, "hbm_util_pct": None,
         "programs": 0, "waterfall": None}
     with pytest.raises(ValueError):
         tschema.validate({k: v for k, v in stats["torch"].items()
