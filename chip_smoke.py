@@ -519,7 +519,36 @@ Phases, each fatal on failure (exit code != 0, no result line):
    ``promparse``, ``/statusz`` with its ``perf`` section and the engine
    row, ``/healthz``, ``/tracez``, and a ``FleetAggregator`` over this
    endpoint and a second process's (stopped afterwards).
-21. Print the ``kernels`` JSON line (the flash forward's row also carries
+21. The autotuner, ``bench_all.py --autotune``'s protocol (:1613-1961)
+   on the port, in a cache file of its own: (a) every compiled tile of the
+   fused matmul (128 and 64) at the served ResNet-50's 32 bucket-8
+   regions, of the batched one at the attention block's scores and
+   context (B 8, T 2048, D 512), of the flash forward, dq and dk/dv passes
+   (64 and 128 rows a block) at (8, 8, 2048, 64) bf16 causal: each
+   bit-identical to the default tile (the max difference printed) and
+   held to its plain version, timed as CUDA-graph replays; (b)
+   ``tune_flash_attention`` at B 1, H 8, T 4096, D 64 bf16 causal and the
+   bench's train microbench at the default and the tuned rows; (c)
+   ``tune_fused_matmul`` at the served ResNet-50's distinct 1x1 shapes,
+   the tuned tile beside the default rule's; (c') the attention block's
+   ``Module`` at the default tiles, then with ``fusion.blocks`` entries
+   naming the other tile: the next bind launches it; (d)
+   ``tune_serving_buckets`` on the bench's MLP with its 240 skewed
+   requests (the head-to-head "kept default" rule); (e) ``tune_layout``
+   on ResNet-50 (batch 16, 224 px, 8 ``Module`` steps a candidate) with
+   the copy / transpose device ms and bytes per layout from
+   ``torch.profiler``; (f) ``tune_remat`` on the gate MLP
+   (64-512-512-16, batch 128) and the warm-cache gate: zero cache lookups
+   over the steady-state steps and one warm lookup < 1% of a step
+   (``MXNET_TUNE_GATE_PCT``), the A/B walls as information; (g)
+   ``tune_generation``, ``tune_generation_spec`` and ``tune_control`` on
+   phase 11's LM, ``tune_input_pipeline`` on phase 19's 512-JPEG record
+   file; (h) ``--ingest-ledger``'s protocol over the samples (b)-(g)
+   recorded. Every tuner's entries are resolved by a fresh object (the
+   server, the Generator, the ``StreamingIter``, a bind, the wrappers);
+   the launches of each tile on the tuning path ((b), (c), (c')) are the
+   variant rows' ``launches``.
+22. Print the ``kernels`` JSON line (the flash forward's row also carries
    phase 11's prefill launches, phase 17's and phase 18's int8 Generator's,
    ``fused_matmul``'s phase 3's captures, replays, and the profiled
    replays with the kernels the profiler saw run in them, phase 17
@@ -10568,6 +10597,798 @@ def obs_phase(mx, sym, card, results):
     return out
 
 
+
+# ------------------------------------------------- phase 21: the autotuner
+# bench_all.py:1613-1961 --autotune's protocol, on the port
+AT_FLASH = (1, 8, 4096, 64)        # (b): B, H, T, D, bf16, causal
+AT_FLASH_REPEATS = 5               # timed replays a median
+AT_SERVE_N = 240                   # (d): requests, the bench's skewed sizes
+AT_SERVE_SIZES = (1, 1, 1, 1, 2, 2, 3, 4, 6, 20)
+AT_LAYOUT = dict(layers=50, size=224, batch=16, steps=8)     # (e)
+AT_GATE_BATCH, AT_GATE_STEPS = 128, 60                       # (f)
+AT_GEN = dict(max_batch=4, max_seq=128)                      # (g)
+AT_PIPE_BATCHES = 8
+AT_BLOCK = "bench"                 # (c'): the attention block's Module
+AT_BLOCK_STEPS = 4
+
+
+def at_fused_variants(mx, sym, F, peaks, gen):
+    """(a) B1: every compiled tile at ResNet-50's served bucket-8 regions,
+    held to the default tile (bit for bit) and to the plain version,
+    timed per forward (the 32 regions' CUDA-graph times summed)."""
+    import torch
+
+    calls = record_region_calls(mx, sym, 8)
+    rows = {t: {"ms": 0.0, "max_abs_err": 0.0, "max_diff": 0.0}
+            for t in F.TILES}
+    plain = lib = bnd = t_ops = t_bytes = 0.0
+    for case in calls:
+        x, w, ex = make_case(case, torch.float32, gen)
+        ep, wt = case["epilogue"], case["wt"]
+        want = F.fused_matmul(x, w, ex, ep, wt)
+        ref = F.fused_matmul_reference(x, w, ex, ep, wt)
+        for t, row in rows.items():
+            got = F.fused_matmul(x, w, ex, ep, wt, block_m=t, block_n=t)
+            diff = (got - want).abs().max().item()
+            row["max_diff"] = max(row["max_diff"], diff)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    "fused_matmul tile %d is not bit-identical to the "
+                    "default tile at %s: max diff %.3g" % (t, case, diff))
+            err, rel = rel_err(got, ref, "fused_matmul tile %d" % t)
+            if rel > PATH_TOL:
+                raise AssertionError("fused_matmul tile %d vs plain at %s: "
+                                     "%.3g" % (t, case, rel))
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["ms"] += time_ms(lambda t=t: F.fused_matmul(
+                x, w, ex, ep, wt, block_m=t, block_n=t))
+        plain += time_ms(lambda: F.fused_matmul_reference(x, w, ex, ep, wt))
+        lib += time_ms(lambda: library_fn(x, w, ex, ep, wt))
+        b, by = bound_ms(case, 4, peaks)
+        bnd += b
+        t_ops, t_bytes = (t_ops + b, t_bytes) if by == "operations" \
+            else (t_ops, t_bytes + b)
+    for t, row in rows.items():
+        row.update(plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   regions=len(calls))
+        log("autotune (a) fused_matmul tile %d: %d regions of the bucket-8 "
+            "forward bit-identical to the default tile (max diff %.3g), "
+            "max abs err %.3g against plain; ms=%.4f plain_ms=%.4f "
+            "library_ms=%.4f bound_ms=%.4f a forward"
+            % (t, len(calls), row["max_diff"], row["max_abs_err"],
+               row["ms"], plain, lib, bnd))
+    return rows, calls
+
+
+def at_bmm_variants(F, peaks, gen):
+    """(a) B2: every compiled tile at the attention block's two batch_dot
+    regions (B 8, T 2048, D 512)."""
+    import torch
+
+    cfg = BLOCK_SIZES["wide"]
+    rows = {t: {"ms": 0.0, "max_abs_err": 0.0, "max_diff": 0.0}
+            for t in F.TILES}
+    plain = lib = bnd = t_ops = t_bytes = 0.0
+    for case in bmm_path_cases(cfg["B"], cfg["T"], cfg["D"], gen):
+        x, w, ex, ep = case["x"], case["w"], case["extras"], case["epilogue"]
+        want = F.fused_batch_matmul(x, w, ex, ep)
+        ref = F.fused_batch_matmul_reference(x, w, ex, ep)
+        for t, row in rows.items():
+            got = F.fused_batch_matmul(x, w, ex, ep, block_m=t, block_n=t)
+            diff = (got - want).abs().max().item()
+            row["max_diff"] = max(row["max_diff"], diff)
+            if not torch.equal(got, want):
+                raise AssertionError("fused_batch_matmul tile %d differs "
+                                     "from the default tile at %s: %.3g"
+                                     % (t, case["region"], diff))
+            err, rel = rel_err(got, ref, "fused_batch_matmul tile %d" % t)
+            if rel > PATH_TOL:
+                raise AssertionError("fused_batch_matmul tile %d vs plain "
+                                     "at %s: %.3g" % (t, case["region"], rel))
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["ms"] += time_ms(lambda t=t: F.fused_batch_matmul(
+                x, w, ex, ep, block_m=t, block_n=t))
+        plain += time_ms(lambda: F.fused_batch_matmul_reference(x, w, ex,
+                                                                ep))
+        lib += time_ms(lambda: bmm_library_fn(case))
+        b, by = bmm_bound_ms(case, peaks)
+        bnd += b
+        t_ops, t_bytes = (t_ops + b, t_bytes) if by == "operations" \
+            else (t_ops, t_bytes + b)
+    for t, row in rows.items():
+        row.update(plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        log("autotune (a) fused_batch_matmul tile %d at B %d T %d D %d "
+            "(scores + context): bit-identical to the default tile (max "
+            "diff %.3g), max abs err %.3g; ms=%.4f plain_ms=%.4f "
+            "library_ms=%.4f bound_ms=%.4f"
+            % (t, cfg["B"], cfg["T"], cfg["D"], row["max_diff"],
+               row["max_abs_err"], row["ms"], plain, lib, bnd))
+    return rows
+
+
+def at_flash_variants(FA, peaks, gen, results):
+    """(a) B3-B5: the forward at 64 and 128 q rows a block, the dq pass at
+    64 and 128 q rows, the dk/dv pass at 64 and 128 k rows, at
+    (8, 8, 2048, 64) bf16 causal: each held to the default rows (bit for
+    bit) and to its plain version (FLASH_TOL), timed as CUDA-graph
+    replays."""
+    import torch
+
+    q, k, v, do, dlse = flash_inputs(FLASH_SHAPE, torch.bfloat16, gen)
+    scale = FLASH_SHAPE[3] ** -0.5
+    o, lse = FA.flash_forward(q, k, v, True)
+    delta = ((do.float() * o.float()).sum(-1) - dlse).contiguous()
+    dq = FA.flash_backward_dq(q, k, v, do, lse, delta, True)
+    dk, dv = FA.flash_backward_dkv(q, k, v, do, lse, delta, True)
+    ro, _ = FA.flash_forward_reference(q, k, v, True, scale)
+    rdq = FA.flash_backward_dq_reference(q, k, v, do, lse, delta, True,
+                                         scale)
+    rdk, rdv = FA.flash_backward_dkv_reference(q, k, v, do, lse, delta, True,
+                                               scale)
+    prior = (results.get("flash") or {}).get("kernels") or {}
+    passes = {
+        FA.FWD: ("fwd", "block_q",
+                 lambda r: FA.flash_forward(q, k, v, True, block_q=r),
+                 (o, lse), (ro,),
+                 lambda: FA.flash_forward_reference(q, k, v, True, scale)),
+        FA.DQ: ("dq", "block_q",
+                lambda r: (FA.flash_backward_dq(q, k, v, do, lse, delta,
+                                                True, block_q=r),),
+                (dq,), (rdq,),
+                lambda: FA.flash_backward_dq_reference(
+                    q, k, v, do, lse, delta, True, scale)),
+        FA.DKV: ("dkv", "block_k",
+                 lambda r: FA.flash_backward_dkv(q, k, v, do, lse, delta,
+                                                 True, block_k=r),
+                 (dk, dv), (rdk, rdv),
+                 lambda: FA.flash_backward_dkv_reference(
+                     q, k, v, do, lse, delta, True, scale))}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if prior:
+        lib = {FA.FWD: prior[FA.FWD]["library_ms"],
+               FA.DQ: prior[FA.DQ]["library_ms"]}
+    else:
+        lib_fwd = time_ms(lambda: sdpa(q, k, v, is_causal=True))
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            sdpa(*leaves, is_causal=True), leaves, do)) - lib_fwd
+        lib = {FA.FWD: lib_fwd, FA.DQ: lib_bwd}
+    lib[FA.DKV] = lib[FA.DQ]
+    out = {}
+    for name, (kind, arg, run, want, refs, plain) in passes.items():
+        plain_ms = (prior[name]["plain_ms"] if prior
+                    else time_events_ms(plain))
+        bnd, by, _ops, _nb = flash_bound_ms(kind, FLASH_SHAPE, True, 2,
+                                            peaks["bf16_flops"],
+                                            peaks["bytes_per_s"])
+        for rows in FA.ROWS[kind][2]:
+            got = run(rows)
+            diff = max((g.float() - w.float()).abs().max().item()
+                       for g, w in zip(got, want))
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError("%s at %d rows differs from the default"
+                                     " rows: max diff %.3g"
+                                     % (name, rows, diff))
+            err = 0.0
+            for g, r in zip(got, refs):
+                e, rel = rel_err(g, r, "%s rows %d" % (name, rows))
+                if rel > FLASH_TOL["bfloat16"]:
+                    raise AssertionError("%s at %d rows vs plain: %.3g"
+                                         % (name, rows, rel))
+                err = max(err, e)
+            ms = time_ms(lambda rows=rows: run(rows))
+            out[(name, rows)] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib[name],
+                bound_ms=bnd, bound_by=by, max_abs_err=err, max_diff=diff,
+                default=rows == FA.ROWS[kind][2][0])
+            log("autotune (a) %s %s=%d %s bf16 causal: bit-identical to the "
+                "default rows (max diff %.3g), max abs err %.3g against "
+                "plain; ms=%.4f plain_ms=%.4f library_ms=%.4f bound_ms=%.4f"
+                % (name, arg, rows, FLASH_SHAPE, diff, err, ms, plain_ms,
+                   lib[name], bnd))
+    return out
+
+
+def at_flash_tune(mx, FA, card, out):
+    """(b): tune_flash_attention at B 1, H 8, T 4096, D 64, bf16, causal,
+    then bench_all.py's train microbench (grad of q, k, v) at the default
+    rows and at the tuned ones."""
+    import torch
+
+    from mxnet_tpu_torch.autotune import SearchConfig
+    from mxnet_tpu_torch.autotune.tuners import kernel_time
+
+    B, H, T, D = AT_FLASH
+    rng = np.random.RandomState(0)
+    leaves = [torch.tensor(rng.randn(B, H, T, D), dtype=torch.float32)
+              .to("cuda", torch.bfloat16).requires_grad_()
+              for _ in range(3)]
+
+    def flash_train_ms(bq, bk, bqb, bkb):
+        def run():
+            o = FA.flash_attention(*leaves, causal=True, block_q=bq,
+                                   block_k=bk, block_q_bwd=bqb,
+                                   block_k_bwd=bkb)
+            torch.autograd.grad(o.float().sum(), leaves)
+
+        # the tuner's own protocol: CUDA-graph replays of 20 steps
+        return kernel_time(run, SearchConfig(repeats=AT_FLASH_REPEATS,
+                                             warmup=1)) * 1e3
+
+    default = FA.resolve_rows(B, H, T, D, True, "bfloat16")
+    default_blocks = (default[0], 64, default[1], default[2])
+    default_ms = flash_train_ms(*default_blocks)
+    tuned = mx.autotune.tune_flash_attention(T=T, D=D, B=B, H=H,
+                                             dtype="bfloat16", causal=True,
+                                             repeats=AT_FLASH_REPEATS)
+    tf_, tb = tuned["flash_attention.fwd"], tuned["flash_attention.bwd"]
+    tuned_blocks = (tf_["block_q"], tf_["block_k"], tb["block_q"],
+                    tb["block_k"])
+    tuned_ms = flash_train_ms(*tuned_blocks)
+    resolved = FA.resolve_rows(B, H, T, D, True, "bfloat16")
+    if resolved != (tuned_blocks[0], tuned_blocks[2], tuned_blocks[3]):
+        raise AssertionError("a fresh resolution gives %s, the tuner "
+                             "recorded %s" % (resolved, tuned_blocks))
+    out["b"] = dict(default_blocks=default_blocks, tuned_blocks=tuned_blocks,
+                    default_ms=default_ms, tuned_ms=tuned_ms,
+                    speedup=default_ms / tuned_ms, resolved=resolved)
+    log("autotune (b) flash fwd+bwd grad(q, k, v) B %d H %d T %d D %d bf16 "
+        "causal: default blocks %s %.4f ms -> tuned %s %.4f ms (x%.3f); a "
+        "fresh resolution takes %s; on %s"
+        % (B, H, T, D, default_blocks, default_ms, tuned_blocks, tuned_ms,
+           default_ms / tuned_ms, resolved, card))
+
+
+def at_fused_tune(mx, F, calls, card, out):
+    """(c): tune_fused_matmul at the served ResNet-50's distinct 1x1
+    shapes; per shape the tuned tile and its time against the default
+    rule's choice (``F.tile_size``; CUDA-graph replays of the modal bias + relu region)."""
+    import torch
+
+    shapes = sorted({(c["M"], c["N"], c["K"], c["wt"]) for c in calls})
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = []
+    for M, N, K, wt in shapes:
+        best = mx.autotune.tune_fused_matmul(M, N, K, dtype="float32",
+                                             wt=wt)
+        case = {"M": M, "N": N, "K": K, "wt": wt,
+                "epilogue": (("bias",), ("act", "relu"))}
+        x, w, ex = make_case(case, torch.float32, gen)
+        ep = case["epilogue"]
+        rule = F.tile_size(1, M, N)
+        rule_ms = time_ms(lambda: F.fused_matmul(x, w, ex, ep, wt,
+                                                 block_m=rule, block_n=rule))
+        tuned_ms = time_ms(lambda: F.fused_matmul(
+            x, w, ex, ep, wt, block_m=best["block_m"],
+            block_n=best["block_n"]))
+        resolved = F.resolve_blocks(M, N, K)
+        if resolved[0] != best["block_m"]:
+            raise AssertionError("a fresh resolution at (%d, %d, %d) takes "
+                                 "%s, the tuner recorded %s"
+                                 % (M, N, K, resolved, best))
+        rows.append(dict(M=M, N=N, K=K, wt=wt, rule_tile=rule,
+                         rule_ms=rule_ms, tuned=best, tuned_ms=tuned_ms))
+        log("autotune (c) fused_matmul (%d, %d, %d) wt=%s: default %d "
+            "%.4f ms, tuned %s %.4f ms" % (M, N, K, wt, rule, rule_ms,
+                                            best, tuned_ms))
+    out["c"] = dict(shapes=rows, card=card)
+
+
+def at_block_module(mx, F):
+    """(c'): the attention block's Module (the bench size), fit steps at
+    the default tiles, then with ``fusion.blocks`` entries naming the
+    other tile for its two batch_dot shapes: a fresh bind launches that
+    tile. Returns the tiles launched per arm."""
+    import torch
+
+    from mxnet_tpu_torch import cuda_build
+
+    cfg = BLOCK_SIZES[AT_BLOCK]
+    B, T, D = cfg["B"], cfg["T"], cfg["D"]
+    x, y = block_data(B, T, D)
+    batch = mx.io.DataBatch(data=[mx.nd.array(x, ctx=mx.gpu())],
+                            label=[mx.nd.array(y, ctx=mx.gpu())])
+    shapes = ((T, T, D), (T, D, T))  # the scores and the context
+
+    def arm():
+        mod = bound_module(mx, attention_block(mx, T, D), (B, T, D), (B,))
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params=(("learning_rate", BLOCK_LR),))
+        before = cuda_build.variant_counts()
+        for _ in range(AT_BLOCK_STEPS):
+            mod.forward_backward(batch)
+            mod.update()
+        mod.get_outputs()[0].asnumpy()
+        after = cuda_build.variant_counts()
+        return {v: after.get((F.BMM_KERNEL, v), 0) -
+                before.get((F.BMM_KERNEL, v), 0)
+                for v in {k[1] for k in after if k[0] == F.BMM_KERNEL}}
+
+    default = arm()
+    rule = {F.resolve_blocks(M, N, K, batch=B)[0] for M, N, K in shapes}
+    for M, N, K in shapes:
+        other = [t for t in F.TILES if t != F.resolve_blocks(
+            M, N, K, batch=B)[0]][0]
+        mx.autotune.record("fusion.blocks", F.fused_shape_key(M, N, K),
+                           {"block_m": other, "block_n": other,
+                            "block_k": F.TILES[other][0]}, dtype="float32")
+    tuned = arm()
+    torch.cuda.synchronize()
+    log("autotune (c') attention block Module (B %d T %d D %d), %d fit steps "
+        "an arm: default tiles %s launched %s; with fusion.blocks entries "
+        "naming the other tile a fresh bind launched %s"
+        % (B, T, D, AT_BLOCK_STEPS, sorted(rule), default, tuned))
+    if set(tuned) & rule or not tuned:
+        raise AssertionError("the entries did not change the tile the next "
+                             "bind launched: %s" % tuned)
+    return {"default": default, "tuned": tuned}
+
+
+def at_serving(mx, card, out):
+    """(d): tune_serving_buckets on the bench's MLP (fc 32 over 24 inputs)
+    with its 240 skewed request sizes; the head-to-head "kept default"
+    rule; a fresh server resolves the recorded ladder."""
+    from mxnet_tpu_torch.autotune.tuners import (model_key,
+                                                 serving_replay_measurer)
+    from mxnet_tpu_torch.serving.buckets import (parse_buckets,
+                                                 traffic_signature)
+
+    rng = np.random.RandomState(0)
+    data = mx.sym.Variable("data")
+    net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        data, num_hidden=32, name="fc"), name="softmax")
+    arg_params = {"fc_weight": (rng.randn(32, 24) * 0.1).astype(np.float32),
+                  "fc_bias": np.zeros(32, np.float32)}
+    data_shapes = [("data", (1, 24))]
+    sizes = [int(s) for s in rng.choice(AT_SERVE_SIZES, size=AT_SERVE_N)]
+    measure = serving_replay_measurer(net, arg_params, data_shapes, sizes,
+                                      max_wait_ms=2)
+
+    def serving_ms(ladder):
+        return measure({"buckets": ladder}) * 1e3
+
+    default_ladder = list(parse_buckets(None))
+    default_ms = serving_ms(default_ladder)
+    tuned_ladder = mx.autotune.tune_serving_buckets(net, arg_params,
+                                                    data_shapes, sizes)
+    tuned_ms = serving_ms(tuned_ladder)
+    kept_default = False
+    if tuned_ms > default_ms and tuned_ladder != default_ladder:
+        # head-to-head: a pick that loses the re-measure keeps the
+        # incumbent in the cache
+        mkey = model_key(net)
+        for tk in ("default", traffic_signature(sizes)):
+            mx.autotune.record("serving.buckets", (mkey, tk),
+                               {"buckets": default_ladder}, ms=default_ms,
+                               extra={"note": "head-to-head kept default"})
+        tuned_ladder, tuned_ms = default_ladder, default_ms
+        kept_default = True
+    srv = mx.serving.InferenceServer(net, arg_params,
+                                     data_shapes=data_shapes, start=False)
+    resolved = list(srv._cfg.buckets)
+    srv.stop()
+    if resolved != list(tuned_ladder):
+        raise AssertionError("a fresh server resolves %s, the tuner "
+                             "recorded %s" % (resolved, tuned_ladder))
+    out["d"] = dict(default_ladder=default_ladder, tuned_ladder=tuned_ladder,
+                    default_ms=default_ms, tuned_ms=tuned_ms,
+                    kept_default=kept_default, resolved=resolved)
+    log("autotune (d) serving: %d requests (sizes p50 1, p95 6, max 20), "
+        "MLP fc32: default %s %.1f ms -> tuned %s %.1f ms%s; a fresh "
+        "server resolves %s; on %s"
+        % (AT_SERVE_N, default_ladder, default_ms, tuned_ladder, tuned_ms,
+           " (kept default)" if kept_default else "", resolved, card))
+
+
+def at_layout_profile(mx, mod, batch):
+    """Device ms and bytes of the layout-moving work of 2 training steps:
+    the copy / transpose / contiguous ops under torch.profiler, bytes as
+    each op's fp32 input read and written once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(2):
+            mod.forward_backward(batch)
+            mod.update()
+        torch.cuda.synchronize()
+    ms = nbytes = 0.0
+    n = 0
+    for evt in prof.events():
+        if evt.name not in ("aten::copy_", "aten::clone", "aten::contiguous",
+                            "aten::permute", "aten::transpose"):
+            continue
+        shapes = [s for s in (evt.input_shapes or []) if s]
+        if evt.name == "aten::copy_":
+            n += 1
+            nbytes += 2 * 4 * float(np.prod(shapes[0])) if shapes else 0.0
+        ms += evt.self_device_time_total / 1e3
+    return {"copy_ops": n, "device_ms": ms / 2, "bytes": nbytes / 2}
+
+
+def at_layout(mx, card, out):
+    """(e): tune_layout on ResNet-50 (batch 16, 224 px, 8 Module steps a
+    candidate); the copy / transpose device ms and bytes a step per
+    layout from torch.profiler; a fresh bind of the NHWC graph resolves
+    the recorded layout."""
+    from mxnet_tpu_torch.autotune import median_time
+
+    cfg = AT_LAYOUT
+    rng = np.random.RandomState(0)
+    bs, size, steps = cfg["batch"], cfg["size"], cfg["steps"]
+    per_layout, moved = {}, {}
+
+    def build(layout):
+        sym = mx.models.get_resnet(num_classes=1000,
+                                   num_layers=cfg["layers"],
+                                   image_shape=(3, size, size),
+                                   layout=layout)
+        shape = ((bs, 3, size, size) if layout == "NCHW"
+                 else (bs, size, size, 3))
+        mod = mx.mod.Module(sym, context=mx.gpu())
+        mod.bind(data_shapes=[("data", shape)],
+                 label_shapes=[("softmax_label", (bs,))])
+        mod.init_params()
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params=(("learning_rate", 0.1),))
+        batch = mx.io.DataBatch(
+            data=[mx.nd.array(rng.rand(*shape).astype(np.float32),
+                              ctx=mx.gpu())],
+            label=[mx.nd.array(rng.randint(0, 1000, bs).astype(np.float32),
+                               ctx=mx.gpu())])
+        return sym, mod, batch
+
+    def measure(c):
+        layout = c["layout"]
+        _sym, mod, batch = build(layout)
+
+        def run():
+            for _ in range(steps):
+                mod.forward_backward(batch)
+                mod.update()
+            mod.get_outputs()[0].asnumpy()
+
+        s = median_time(run, repeats=2, warmup=1) / steps
+        per_layout[layout] = s * 1e3
+        moved[layout] = at_layout_profile(mx, mod, batch)
+        return s
+
+    key = ("resnet%d" % cfg["layers"], "b%d" % bs, "s%d" % size)
+    winner = mx.autotune.tune_layout(measure, key=key, default="NHWC")
+    nhwc = mx.models.get_resnet(num_classes=1000, num_layers=cfg["layers"],
+                                image_shape=(3, size, size), layout="NHWC")
+    graph_key = mx.graph_pass.graph_fingerprint(nhwc)
+    mx.autotune.record("graph.layout", graph_key, {"layout": winner},
+                       ms=per_layout[winner])
+    opt = mx.graph_pass.optimize(nhwc, arg_shapes={"data": (bs, size, size,
+                                                            3)})
+    rewrites = sum(r.get("rewrites", 0) for r in (opt.reports if opt
+                                                  else ())
+                   if r["pass"] == "layout")
+    if (rewrites > 0) != (winner != "NHWC"):
+        raise AssertionError("a fresh bind of the NHWC graph made %d layout "
+                             "rewrites for a tuned %s" % (rewrites, winner))
+    out["e"] = dict(per_layout_ms=per_layout, moved=moved, tuned=winner,
+                    key=list(key), fresh_bind_rewrites=rewrites)
+    log("autotune (e) layout: ResNet-%d batch %d %d px, %d Module steps: "
+        "ms a step %s -> %s; copy/transpose a step (torch.profiler) %s; a "
+        "fresh NHWC bind makes %d layout rewrites; on %s"
+        % (cfg["layers"], bs, size, steps, per_layout, winner, moved,
+           rewrites, card))
+
+
+def at_gate_net(mx):
+    data = mx.sym.Variable("data")
+    fc1 = mx.sym.Activation(mx.sym.FullyConnected(
+        data, num_hidden=512, name="g1"), act_type="relu")
+    fc2 = mx.sym.Activation(mx.sym.FullyConnected(
+        fc1, num_hidden=512, name="g2"), act_type="relu")
+    return mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        fc2, num_hidden=16, name="g3"), name="softmax")
+
+
+def at_remat_gate(mx, card, out):
+    """(f): tune_remat on the gate MLP (64-512-512-16, batch 128), then
+    bench_all.py:1886-1958's warm-cache gate: the steady-state step makes
+    zero cache lookups, and one warm lookup costs < MXNET_TUNE_GATE_PCT of
+    a step; the A/B walls (MXNET_TUNE=0 with entries against -1) as
+    information."""
+    import torch
+
+    from mxnet_tpu_torch import config as mxconfig
+    from mxnet_tpu_torch.autotune import median_time
+    from mxnet_tpu_torch.executor import _GraphProgram
+
+    gate_pct = float(os.environ.get("MXNET_TUNE_GATE_PCT", "1.0"))
+    rng = np.random.RandomState(0)
+    net = at_gate_net(mx)
+    gbs = AT_GATE_BATCH
+    batch = mx.io.DataBatch(
+        data=[mx.nd.array(rng.rand(gbs, 64).astype(np.float32),
+                          ctx=mx.gpu())],
+        label=[mx.nd.array(rng.randint(0, 16, gbs).astype(np.float32),
+                           ctx=mx.gpu())])
+
+    def build():
+        mod = mx.mod.Module(net, context=mx.gpu(), data_names=("data",))
+        mod.bind(data_shapes=[("data", (gbs, 64))],
+                 label_shapes=[("softmax_label", (gbs,))])
+        mod.init_params()
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params=(("learning_rate", 0.1),))
+        for _ in range(3):
+            mod.forward_backward(batch)
+            mod.update()
+        mod.get_outputs()[0].asnumpy()
+        return mod
+
+    def steps(mod, n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            mod.forward_backward(batch)
+            mod.update()
+        mod.get_outputs()[0].asnumpy()
+        return (time.perf_counter() - t0) / n
+
+    def remat_measure(c):
+        mxconfig.set_flag("MXNET_BACKWARD_DO_MIRROR", int(c["mirror"]))
+        try:
+            mod = build()
+            return median_time(lambda: steps(mod, 10), repeats=3, warmup=1)
+        finally:
+            mxconfig.set_flag("MXNET_BACKWARD_DO_MIRROR", None)
+
+    gate_key = _GraphProgram(net).tuning_key()
+    mirror = mx.autotune.tune_remat(remat_measure, gate_key)
+    fresh = build()
+    resolved = int(fresh._exec_group.execs[0]._prog.remat_mirror())
+    if resolved != mirror:
+        raise AssertionError("a fresh Module resolves mirror=%s, the tuner "
+                             "recorded %d" % (resolved, mirror))
+    del fresh
+    try:
+        mxconfig.set_flag("MXNET_TUNE", -1)
+        mod_bypass = build()
+        mxconfig.set_flag("MXNET_TUNE", 0)
+        mod_consult = build()
+        bypass_s = consult_s = float("inf")
+        for _ in range(6):
+            mxconfig.set_flag("MXNET_TUNE", -1)
+            bypass_s = min(bypass_s, steps(mod_bypass, AT_GATE_STEPS))
+            mxconfig.set_flag("MXNET_TUNE", 0)
+            consult_s = min(consult_s, steps(mod_consult, AT_GATE_STEPS))
+        steps(mod_consult, 2)  # the token's first step after the flip
+        mx.autotune.reset_stats()
+        steps(mod_consult, AT_GATE_STEPS)
+        lk = mx.autotune.stats()
+        per_step_lookups = lk["hits"] + lk["misses"]
+        n_probe = 2000
+        t0 = time.perf_counter()
+        for _ in range(n_probe):
+            mx.autotune.lookup("exec.remat", gate_key)
+        lookup_s = (time.perf_counter() - t0) / n_probe
+    finally:
+        mxconfig.set_flag("MXNET_TUNE", None)
+    torch.cuda.synchronize()
+    pct = 100.0 * lookup_s / consult_s
+    out["f"] = dict(mirror=mirror, resolved=resolved,
+                    bypass_ms=bypass_s * 1e3, consult_ms=consult_s * 1e3,
+                    ab_delta_pct=100.0 * (consult_s - bypass_s) / bypass_s,
+                    per_step_lookups=per_step_lookups,
+                    warm_lookup_us=lookup_s * 1e6, overhead_pct=pct,
+                    threshold_pct=gate_pct)
+    log("autotune (f) remat on the gate MLP (64-512-512-16, batch %d): "
+        "tuned mirror=%d, a fresh Module resolves %s; warm-cache gate: %d "
+        "lookups over %d steady-state steps, one warm lookup %.2f us = "
+        "%.4f%% of a %.3f ms step (gate %.2f%%); A/B walls (information): "
+        "bypass %.3f ms, consult %.3f ms (%+.2f%%); on %s"
+        % (gbs, mirror, resolved, per_step_lookups, AT_GATE_STEPS,
+           lookup_s * 1e6, pct, consult_s * 1e3, gate_pct, bypass_s * 1e3,
+           consult_s * 1e3, out["f"]["ab_delta_pct"], card))
+    if per_step_lookups:
+        raise AssertionError("%d cache lookups on the steady-state step: "
+                             "consults must stay at program build"
+                             % per_step_lookups)
+    if pct > gate_pct:
+        raise AssertionError("a warm lookup costs %.4f%% of a step (> %.2f%%"
+                             " gate)" % (pct, gate_pct))
+
+
+def at_generation(mx, card, out):
+    """(g) first half: tune_generation, tune_generation_spec and
+    tune_control on phase 11's LM (the train width, bf16, seeded random
+    weights) at the tuners' own prompt samples; a fresh Generator
+    resolves every recorded knob."""
+    G = mx.serving.generation
+    model = mx.parallel.TransformerParallel(mx.parallel.make_mesh({"dp": 1}),
+                                            dtype="bfloat16", **TRAIN_CFG)
+    params = model.init(0)
+    t0 = time.perf_counter()
+    got = dict(mx.autotune.tune_generation(model, params, **AT_GEN))
+    got.update(mx.autotune.tune_generation_spec(model, params, **AT_GEN))
+    got.update(mx.autotune.tune_control(model, params, **AT_GEN))
+    seconds = time.perf_counter() - t0
+    gen = G.Generator(model, params, G.GenerationConfig(prefix_cache=True,
+                                                        **AT_GEN),
+                      start=False)
+    resolved = {"generation.page_size": {"page_size": gen.page_size},
+                "generation.decode_blocks": {
+                    "decode_blocks": gen.decode_blocks},
+                "generation.spec_k": {"spec_k": gen.spec_k},
+                "control.prefix_pages": {
+                    "prefix_pages": gen.prefix_cache.capacity_pages},
+                "control.slo_aging": {"aging_ms": gen._aging_ms}}
+    gen.stop()
+    out["g_generation"] = dict(tuned=got, resolved=resolved, seconds=seconds)
+    log("autotune (g) generation and control on the LM (bf16, max_batch %d, "
+        "max_seq %d): tuned %s in %.1f s; a fresh Generator resolves %s; on "
+        "%s" % (AT_GEN["max_batch"], AT_GEN["max_seq"], got, seconds,
+                resolved, card))
+    if resolved != {k: {f: int(v) for f, v in d.items()}
+                    for k, d in got.items()}:
+        raise AssertionError("a fresh Generator resolves %s, the tuners "
+                             "recorded %s" % (resolved, got))
+    del model, params
+
+
+def at_pipeline(mx, card, out):
+    """(g) second half: tune_input_pipeline on phase 19's 512-JPEG record
+    file (224 px, batch 32); a fresh StreamingIter resolves both
+    entries."""
+    import tempfile
+
+    from mxnet_tpu_torch.runtime.pipeline import io_pipeline_key
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        rec, idx = io_build_rec(mx, os.path.join(tmp, "at"), IO_N, IO_SIZE)
+        shape = (3, IO_SIZE, IO_SIZE)
+
+        def make_iter(decode_workers=None, prefetch_depth=None):
+            return mx.io.ImageRecordIter(
+                rec, shape, IO_BATCH, path_imgidx=idx, streaming=True,
+                preprocess_threads=decode_workers,
+                prefetch_buffer=prefetch_depth)
+
+        key = io_pipeline_key(IO_BATCH, shape)
+        t0 = time.perf_counter()
+        got = mx.autotune.tune_input_pipeline(make_iter, key,
+                                              batches=AT_PIPE_BATCHES)
+        seconds = time.perf_counter() - t0
+        it = make_iter()
+        try:
+            st = it.get_stats()
+            resolved = {"io.decode_workers": {
+                "workers": st["decode_workers"]},
+                "io.prefetch_depth": {"depth": st["prefetch_depth"]}}
+        finally:
+            it.close()
+    out["g_pipeline"] = dict(tuned=got, resolved=resolved, seconds=seconds)
+    log("autotune (g) input pipeline (%d JPEG records, %d px, batch %d, %d "
+        "batches a candidate): tuned %s in %.1f s; a fresh StreamingIter "
+        "resolves %s; on %s" % (IO_N, IO_SIZE, IO_BATCH, AT_PIPE_BATCHES,
+                                got, seconds, resolved, card))
+    if resolved != got:
+        raise AssertionError("a fresh StreamingIter resolves %s, the tuner "
+                             "recorded %s" % (resolved, got))
+
+
+def at_learned(mx, card, out):
+    """(h): bench_all.py --ingest-ledger's protocol over the samples (b)-(g)
+    recorded: a perf-ledger row of the programs the perf layer measured in
+    this process, the tuning cache's winners, then a training; the holdout
+    gate is reported, not gated (a thin dataset leaves it closed)."""
+    import tempfile
+
+    import torch
+
+    from mxnet_tpu_torch.autotune import learned
+    from mxnet_tpu_torch.observability import perf
+
+    before = learned.sample_count()
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        path = os.path.join(tmp, "perf_ledger.jsonl")
+        perf.append_ledger({"ts": time.strftime("%Y-%m-%dT%H:%M:%S"),
+                            "fingerprint": {
+                                "device": torch.cuda.get_device_name(0)},
+                            "programs": perf.program_table()}, path)
+        from_ledger = learned.ingest_ledger(path)
+    from_cache = learned.ingest_tune_cache()
+    model = learned.train()
+    meta = dict(model.meta) if model is not None else {}
+    out["h"] = dict(samples_before=before, ledger_rows=from_ledger,
+                    tune_cache_rows=from_cache,
+                    samples=learned.sample_count(),
+                    model_trained=model is not None,
+                    gate_ok=bool(meta.get("gate_ok")),
+                    holdout_groups=meta.get("n_holdout_groups"),
+                    spearman_learned=meta.get("spearman_learned"),
+                    spearman_analytic=meta.get("spearman_analytic"))
+    log("autotune (h) learned cost model: %d search samples from (b)-(g), "
+        "+%d ledger rows, +%d tune-cache rows -> %d samples; trained %s, "
+        "gate %s (learned Spearman %s vs analytic %s over %s holdout "
+        "groups); on %s"
+        % (before, from_ledger, from_cache, out["h"]["samples"],
+           out["h"]["model_trained"],
+           "OPEN" if out["h"]["gate_ok"] else "closed",
+           out["h"]["spearman_learned"], out["h"]["spearman_analytic"],
+           out["h"]["holdout_groups"], card))
+
+
+def autotune_phase(mx, sym, card, peaks, results):
+    """Phase 21 (see the module docstring). Returns (variant rows, launches
+    by (kernel, variant) on the phase's tuning path: (b), (c) and (c'))."""
+    import tempfile
+
+    import torch
+
+    from mxnet_tpu_torch import cuda_build
+    from mxnet_tpu_torch.parallel import fused as F
+
+    FA = flash_module()
+    t0 = time.perf_counter()
+    out = {}
+    keep = {k: os.environ.get(k) for k in ("MXNET_TUNE_CACHE",)}
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        # the phase's own cache file (and its samples and model beside it)
+        os.environ["MXNET_TUNE_CACHE"] = os.path.join(tmp, "tuning.json")
+        mx.autotune.reset()
+        mx.autotune.reset_stats()
+        mx.autotune.learned.reset()
+        try:
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            fused_rows, calls = at_fused_variants(mx, sym, F, peaks[0], gen)
+            bmm_rows = at_bmm_variants(F, peaks[0], gen)
+            flash_rows = at_flash_variants(FA, peaks[1], gen, results)
+            torch.cuda.empty_cache()
+            # the tuning path: launches per variant from here to (c')
+            cuda_build.reset_launch_counts()
+            at_flash_tune(mx, FA, card, out)
+            at_fused_tune(mx, F, calls, card, out)
+            out["c_block"] = at_block_module(mx, F)
+            launches = cuda_build.variant_counts()
+            torch.cuda.empty_cache()
+            at_serving(mx, card, out)
+            at_layout(mx, card, out)
+            torch.cuda.empty_cache()
+            at_remat_gate(mx, card, out)
+            at_generation(mx, card, out)
+            torch.cuda.empty_cache()
+            at_pipeline(mx, card, out)
+            at_learned(mx, card, out)
+        finally:
+            for k, v in keep.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            mx.autotune.reset()
+    variants = {}
+    for t, row in fused_rows.items():
+        variants[(F.KERNEL, str(t))] = row
+    for t, row in bmm_rows.items():
+        variants[(F.BMM_KERNEL, str(t))] = row
+    for (name, rows), row in flash_rows.items():
+        variants[(name, str(rows))] = row
+    for key in variants:
+        if launches.get(key, 0) == 0:
+            raise AssertionError("%s at tile %s was launched no time on the "
+                                 "tuning path" % key)
+    out["launches"] = {"%s@%s" % k: n for k, n in launches.items()}
+    out["seconds"] = time.perf_counter() - t0
+    log("autotune: phase 21 took %.1f s; launches by kernel@tile on the "
+        "tuning path %s" % (out["seconds"], out["launches"]))
+    results["autotune"] = dict(
+        out, variants={"%s@%s" % k: v for k, v in variants.items()})
+    return variants, launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the detailed results here")
@@ -10608,31 +11429,66 @@ def main():
                 log("ptxas:", line.strip())
 
     sym = mx.models.get_resnet(num_layers=50, layout="NHWC")
+    clock = [time.perf_counter()]
+    results["phase_s"] = {}
+
+    def tick(name):
+        now = time.perf_counter()
+        results["phase_s"][name] = now - clock[0]
+        clock[0] = now
+
     path_err, totals = kernel_phase(mx, sym, peaks, results)
     results["kernel_totals"] = totals
+    tick("2 kernel")
     launches = serve_phase(mx, sym, card, results)
+    tick("3 serve")
     timing = flash_phase(card, results["peaks"], results)
+    tick("4 flash")
     flash_launches, trained = train_phase(mx, card, results, timing)
+    tick("5 train")
     bmm_err, bmm_totals = bmm_phase(peaks, results)
+    tick("6 bmm")
     bmm_launches = module_phase(mx, card, results)
+    tick("7 module")
     rtc = rtc_phase(mx, card, peaks, results)
+    tick("8 rtc")
     rn = resnet_train_phase(mx, sym, card, peaks, results)
+    tick("9 resnet train")
     trainer_phase(mx, mx.models.get_resnet(num_classes=1000, num_layers=50,
                                            layout="NHWC"),
                   card, results["peaks"], results)
+    tick("10 trainer")
     gen_launches = generation_phase(mx, card, trained, results)
+    tick("11 generation")
     gluon_phase(mx, card, results)
+    tick("12 gluon")
     rnn_phase(mx, card, results)
+    tick("13 rnn")
     serving_phase(mx, sym, card, results)
+    tick("14 serving")
     ssd_phase(mx, card, results)
+    tick("15 ssd")
     model_zoo_phase(mx, card, results)
+    tick("16 zoo")
     amp = amp_control_phase(mx, sym, card, results["peaks"], results)
+    tick("17 amp and control")
     quant = quantize_phase(mx, sym, card, results)
+    tick("18 quantize")
     torch.cuda.empty_cache()
     io = io_phase(mx, card, results)
+    tick("19 io")
     torch.cuda.empty_cache()
     obs = obs_phase(mx, sym, card, results)
+    tick("20 observability")
+    torch.cuda.empty_cache()
+    variants, variant_launches = autotune_phase(mx, sym, card,
+                                                (peaks, results["peaks"]),
+                                                results)
+    tick("21 autotune")
+    log("seconds by phase: %s" % json.dumps(
+        {k: round(v, 1) for k, v in results["phase_s"].items()}))
 
+    F_KERNEL, F_BMM = "fused_matmul", "fused_batch_matmul"
     t8 = totals[8]
     kernels = {"kernels": [{
         "name": "fused_matmul", "route": "cuda",
@@ -10741,6 +11597,26 @@ def main():
         "bwd_ms": wide_sm["bwd_ms"], "bwd_plain_ms": wide_sm["bwd_plain_ms"],
         "bwd_library_ms": wide_sm["bwd_library_ms"],
         "launch_host_us": rtc["softmax"]["launch_host_us"]})
+    # phase 21 (a): one row per compiled tile of B1-B5, its launches from
+    # the phase's tuning path (b), (c) and (c')
+    sources = {
+        F_KERNEL: ("fused_matmul.cu", "mxnet_tpu/parallel/fused.py:168"),
+        F_BMM: ("fused_matmul.cu", "mxnet_tpu/parallel/fused.py:292")}
+    sources.update({name: ("flash_attention.cu",
+                           "mxnet_tpu/parallel/flash_attention.py:%d" % line)
+                    for name, line in replaces.items()})
+    for (name, tile), row in sorted(variants.items()):
+        src, rep = sources[name]
+        kernels["kernels"].append({
+            "name": "%s@%s" % (name, tile), "route": "cuda",
+            "tile": int(tile),
+            "source": "mxnet_tpu_torch/csrc/" + src, "replaces": rep,
+            "launches": variant_launches[(name, tile)],
+            "max_abs_err": row["max_abs_err"],
+            "max_diff_vs_default": row["max_diff"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     if opts.out:
         if os.path.dirname(opts.out):
             os.makedirs(os.path.dirname(opts.out), exist_ok=True)

@@ -4,10 +4,16 @@ half of the autotuner.
 Counterpart of ``mxnet_tpu/autotune/cache.py`` with the same JSON format
 and key scheme. One JSON file maps ``(device fingerprint, op,
 shape-bucket, dtype)`` to the winning candidate of a measured search.
-Consumers (``serving.InferenceServer``'s bucket ladder) call
-:func:`lookup`: a hit costs one dict probe, a miss falls back to the
-hand-picked default. The tuners of :mod:`.tuners` write entries after a
-measured arbitration; :func:`record` writes one by hand.
+Consumers (the kernel wrappers' tile resolution, the executor's remat
+decision, the layout pass, ``serving.InferenceServer``'s bucket ladder,
+the Generator, the streaming input pipeline) call :func:`lookup` when
+they build their program, region or object: a hit costs one dict probe, a
+miss falls back to the hand-picked default. What a kernel wrapper or a
+program resolves it keeps in a :class:`Carry`, which the cache empties
+when its entries change (a record, save, reload, reset or scrub) or a
+tuning flag is set (``config.set_flag``), so a new entry takes effect at
+the next resolution. The tuners of :mod:`.tuners` write
+entries after a measured search; :func:`record` writes one by hand.
 
 File protocol:
 
@@ -20,10 +26,14 @@ File protocol:
   key.
 * The device fingerprint is part of the key (``cuda:<card name>`` or
   ``cpu:cpu``), so an entry measured on another chip — a TPU entry of the
-  JAX package included — never resolves here.
+  JAX package included — never resolves here; :func:`scrub_stale`
+  physically drops foreign entries. A file written by either package
+  loads in the other.
 
 Counters (:func:`stats`): ``hits`` / ``misses`` / ``measurements`` /
-``records``.
+``searches`` / ``records`` — the regression surface for "a warm cache
+performs zero search measurements" and for "a steady-state step performs
+zero lookups".
 """
 from __future__ import annotations
 
@@ -32,17 +42,20 @@ import json
 import os
 import threading
 import time
+import weakref
 
 __all__ = ["cache_path", "device_fingerprint", "lookup", "lookup_entry",
-           "record", "save", "entries", "reload", "reset", "stats",
-           "reset_stats", "note_measurements"]
+           "record", "save", "entries", "reload", "reset", "scrub_stale",
+           "stats", "reset_stats", "note_measurements", "note_search",
+           "Carry", "drop_carried"]
 
 _lock = threading.RLock()
 _entries = None          # key -> entry dict; None = not loaded  # guarded-by: _lock
 _loaded_path = None      # path _entries came from  # guarded-by: _lock
-_stats = {"hits": 0, "misses": 0, "measurements": 0,
+_stats = {"hits": 0, "misses": 0, "measurements": 0, "searches": 0,
           "records": 0}  # guarded-by: _lock
 _fp_probe = None         # memoized backend probe  # guarded-by: _lock
+_carries = weakref.WeakSet()  # every live Carry  # guarded-by: _lock
 
 _VERSION = 1
 
@@ -113,7 +126,7 @@ def _load_file(path):
     if not isinstance(ent, dict):
         return {}
     # drop non-dict entry bodies at the boundary: a hand-edited entry
-    # must read as a miss everywhere (lookup, save), not crash
+    # must read as a miss everywhere (lookup, scrub, save), not crash
     return {k: v for k, v in ent.items() if isinstance(v, dict)}
 
 
@@ -123,6 +136,8 @@ def _ensure_loaded():
     with _lock:
         path = cache_path()
         if _entries is None or _loaded_path != path:
+            if _loaded_path not in (None, path):
+                drop_carried()  # another file: what was carried is stale
             _entries = _load_file(path)
             _loaded_path = path
         return _entries
@@ -170,6 +185,7 @@ def record(op, key, value, dtype=None, ms=None, trials=None, extra=None,
         ent = _ensure_loaded()
         ent[k] = entry
         _stats["records"] += 1
+        drop_carried()
     if persist:
         save()
     return entry
@@ -230,6 +246,7 @@ def save():
             _write_file(path, merged)
         _entries = merged
         _loaded_path = path
+        drop_carried()
     return path
 
 
@@ -245,6 +262,7 @@ def reload():
     global _entries
     with _lock:
         _entries = None
+        drop_carried()
         return dict(_ensure_loaded())
 
 
@@ -256,10 +274,83 @@ def reset():
         _entries = None
         _loaded_path = None
         _fp_probe = None
+        drop_carried()
 
 
+class Carry:
+    """Values a consumer resolved through the cache at its first use (a
+    kernel wrapper's tile at a shape, a program's remat decision), kept
+    with no cache lookup and no lock until :func:`drop_carried` empties
+    every carry: a steady-state launch pays one dict probe. ``key`` must
+    hold every input ``resolve`` reads besides the cache and the tuning
+    flags (shape, dtype, explicit arguments)."""
+
+    __slots__ = ("values", "__weakref__")
+
+    def __init__(self):
+        self.values = {}
+        with _lock:
+            _carries.add(self)
+
+    def get(self, key, resolve):
+        values = self.values  # a drop during resolve() leaves this dict
+        try:
+            return values[key]
+        except KeyError:
+            value = values[key] = resolve()
+            return value
+
+
+def drop_carried():
+    """Empty every :class:`Carry`: the entries or a tuning flag changed,
+    so the next use resolves again (the next launch at a shape, the next
+    training walk); a CUDA graph keeps what it was captured with."""
+    with _lock:
+        for carry in list(_carries):
+            carry.values = {}
+
+
+def scrub_stale(persist=True):
+    """Drop entries recorded under a different device fingerprint than the
+    current one. Returns the number dropped. (The fingerprint is part of
+    the key, so stale entries can never match; scrubbing reclaims the
+    file.)
+
+    With ``persist`` the write is a merge-then-scrub under the file lock:
+    entries another process saved since we loaded survive (only
+    foreign-fingerprint keys are dropped, from the merged map), the same
+    lost-update discipline as :func:`save`."""
+    global _entries, _loaded_path
+    fp = device_fingerprint()
+
+    def _is_stale(k, v):
+        return v.get("fingerprint", k.split("|", 1)[0]) != fp
+
+    with _lock:
+        drop_carried()
+        ent = _ensure_loaded()
+        if not persist:
+            stale = [k for k, v in ent.items() if _is_stale(k, v)]
+            for k in stale:
+                del ent[k]
+            return len(stale)
+        path = cache_path()
+        with _file_lock(path):
+            merged = _load_file(path)
+            merged.update(ent)
+            stale = [k for k, v in merged.items() if _is_stale(k, v)]
+            for k in stale:
+                del merged[k]
+            _write_file(path, merged)
+        _entries = merged
+        _loaded_path = path
+    return len(stale)
+
+
+# ------------------------------------------------------------- accounting
 def note_measurements(n=1):
-    """Called by a tuner once per measured candidate."""
+    """Called by the search loop once per measured candidate — the
+    counter the zero-measurement-on-warm-cache checks read."""
     with _lock:
         _stats["measurements"] += n
     from ..observability import metrics
@@ -267,8 +358,13 @@ def note_measurements(n=1):
     metrics.counter("autotune.measurements").inc(n)
 
 
+def note_search():
+    with _lock:
+        _stats["searches"] += 1
+
+
 def stats():
-    """Copy of {hits, misses, measurements, records}."""
+    """Copy of {hits, misses, measurements, searches, records}."""
     with _lock:
         return dict(_stats)
 

@@ -1,9 +1,10 @@
-"""The roofline calibration table of the card, and the analytic cost of a
-serving bucket ladder.
+"""The roofline calibration table of the card, and the analytic costs the
+autotuner's search prunes and ranks with.
 
 Counterpart of ``mxnet_tpu/autotune/cost_model.py``: its calibration table
-(``CEILINGS``, :func:`ridge_intensity`, :func:`roofline_seconds`) and the
-part the ladder's tunable declaration (serving/buckets.py) uses. The JAX
+(``CEILINGS``, :func:`ridge_intensity`, :func:`roofline_seconds`), the
+serving ladder's cost, and the flash-attention and fused-matmul costs
+rebuilt for this card (see "Kernel tiles" below). The JAX
 package has one matmul ceiling, its chip's bf16 rate. An H100 needs one per
 compute dtype: the port's fp32 paths run with TF32 off on the CUDA cores,
 its bf16 paths on the tensor cores. So every ceiling here is keyed by the
@@ -20,17 +21,32 @@ Two bases, as ``bench_all.py``'s ``mfu`` / ``mfu_spec`` fields:
 
 ``CARD`` is the fingerprint the measured side was taken on, as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints it.
-The flash and fused cost models of the JAX package's autotuner wait for the
-port's autotune slice.
+
+Kernel tiles. The tiles the hand-written kernels compile are tables here,
+the one source the tunables' spaces, the kernel wrappers' resolution
+(parallel/fused.py, parallel/flash_attention.py) and these costs read
+(the card tests hold them to the kernels' own tables): ``FUSED_TILES``
+(csrc/fused_matmul.cu ``TILES``) and ``FLASH_ROWS``
+(csrc/flash_attention.cu ``compiled_rows``). A candidate outside them
+costs ``inf``, and so does one whose shared memory a block cannot hold
+(:data:`SMEM_BYTES`, from each kernel's own per-block formula). Where the
+TPU model charged a fixed cost per grid step, these charge wave
+quantisation: a grid of ``blocks`` at ``per_sm`` resident blocks an SM
+runs in ``ceil(blocks / (SMS * per_sm))`` waves, and the roofline time is
+divided by the share of those waves' slots the grid fills.
 """
 from __future__ import annotations
 
 import math
 
 __all__ = ["MEASURED_MATMUL_TF", "MEASURED_HBM_GBPS", "SPEC_MATMUL_TF",
-           "SPEC_HBM_GBPS", "CARD", "CEILINGS", "compute_dtype",
-           "ridge_intensity", "roofline_seconds", "measure_ceilings",
-           "pow2_at_least", "expected_padding", "ladder_cost"]
+           "SPEC_HBM_GBPS", "CARD", "CEILINGS", "SMS", "SMEM_BYTES",
+           "FUSED_TILES", "FLASH_ROWS", "compute_dtype", "ridge_intensity",
+           "roofline_seconds", "measure_ceilings", "pow2_at_least",
+           "expected_padding", "ladder_cost", "wave_efficiency",
+           "flash_smem_bytes", "flash_fwd_cost", "flash_bwd_cost",
+           "fused_smem_bytes", "fused_default_tile",
+           "fused_matmul_cost"]
 
 #: the card the measured ceilings come from (``nvidia-smi``); each figure
 #: is the best of two runs of ``chip_smoke.py`` phase 20 (c), which calls
@@ -163,3 +179,159 @@ def ladder_cost(candidate, ctx):
     if not ladder:
         return math.inf
     return expected_padding(ladder, sizes) + 0.02 * len(ladder)
+
+
+# ------------------------------------------------------------ kernel tiles
+#: streaming multiprocessors of the card (H100 SXM)
+SMS = 132
+#: shared memory one block may use (sm_90: 227 KB of the SM's 228)
+SMEM_BYTES = 227 * 1024
+
+#: csrc/fused_matmul.cu's compiled tiles (its TILES): output tile edge ->
+#: K-slice depth of the fp32 route (16-byte runs of fp32 operands) and of
+#: every other route
+FUSED_TILES = {128: (16, 8), 64: (32, 16)}
+
+#: csrc/flash_attention.cu's compiled rows a block owns (its
+#: compiled_rows), per pass and element width (4: the fp32 CUDA-core
+#: kernels, 2: the bf16 / fp16 tensor-core kernels), the default first
+FLASH_ROWS = {"fwd": {4: (64,), 2: (64, 128)},
+              "dq": {4: (64,), 2: (128, 64)},
+              "dkv": {4: (64,), 2: (128, 64)}}
+
+# the streamed tile of every flash pass (k tiles of the forward and the dq
+# pass; the dk/dv pass streams q tiles of 32 on the tensor cores)
+_FLASH_TILE = 64
+
+
+def wave_efficiency(blocks, per_sm):
+    """The share of the slots of its waves a grid of ``blocks`` fills, at
+    ``per_sm`` resident blocks an SM."""
+    slots = SMS * max(1, int(per_sm))
+    blocks = max(1, int(blocks))
+    return blocks / (-(-blocks // slots) * slots)
+
+
+def _flash_width(D):
+    return 64 if int(D) <= 64 else 128
+
+
+def flash_smem_bytes(rows, D, dtype_bytes, which):
+    """Shared memory of one block of flash pass ``which`` ("fwd", "dq",
+    "dkv") at ``rows`` rows a block: the kernels' fwd_smem / dq_smem /
+    dkv_smem (fp32) and fwd_tc_smem / dq_tc_smem / dkv_tc_smem (16-bit)."""
+    DP = _flash_width(D)
+    if int(dtype_bytes) == 4:
+        LD, LP = DP + 4, 64 + 16
+        floats = {"fwd": (64 + 128) * LD + 64 * LP,
+                  "dq": (128 + 128) * LD + 64 * LP,
+                  "dkv": (128 + 128) * LD + 2 * 64 * LP + 128}[which]
+        return 4 * floats
+    if which == "fwd":
+        stages = 4 if DP == 64 else 3
+        return rows * DP * 2 + 2 * stages * 64 * DP * 2 + 1024
+    if which == "dq":
+        return 2 * rows * DP * 2 + 2 * 2 * 64 * DP * 2 + 1024
+    return 2 * rows * DP * 2 + 2 * 2 * 32 * DP * 2 + 2 * 2 * 32 * 4 + 1024
+
+
+def _flash_per_sm(rows, D, dtype_bytes, which):
+    """Resident blocks an SM the kernel's launch bounds are cut for."""
+    if int(dtype_bytes) == 4:
+        return 2 if _flash_width(D) == 64 else 1
+    nwg = int(rows) // 64
+    if which == "fwd":
+        return (3 if _flash_width(D) == 64 else 2) if nwg == 1 else 1
+    return (2 if _flash_width(D) == 64 else 1) * 2 // nwg
+
+
+def _flash_pass_cost(ctx, rows, which):
+    T = int(ctx["T"])
+    D = int(ctx.get("D", 64))
+    BH = int(ctx.get("B", 1)) * int(ctx.get("H", 1))
+    causal = bool(ctx.get("causal", False))
+    db = int(ctx.get("dtype_bytes", 2))
+    rows = int(rows)
+    if rows not in FLASH_ROWS[which][4 if db == 4 else 2]:
+        return math.inf
+    if flash_smem_bytes(rows, D, db, which) > SMEM_BYTES:
+        return math.inf
+    live = (T * (T + 1) / 2.0) if causal else float(T * T)
+    # operations per live (q, k) pair: QK^T and PV; S, dP, dS.K; S, dP,
+    # P^T.dO, dS^T.Q
+    flops = BH * live * D * {"fwd": 4, "dq": 6, "dkv": 8}[which]
+    n_blocks = -(-T // rows)
+    frac = live / float(T * T)
+    # each block streams the two tensors of the other side it sees once;
+    # its own rows and its outputs move once
+    own = {"fwd": 2, "dq": 3, "dkv": 4}[which]
+    traffic = BH * (n_blocks * frac * 2 * T * D * db
+                    + own * T * D * db + 2 * T * 4)
+    roof = roofline_seconds(flops, traffic, compute_dtype(db))
+    per_sm = _flash_per_sm(rows, D, db, which)
+    return roof / wave_efficiency(BH * n_blocks, per_sm)
+
+
+def flash_fwd_cost(candidate, ctx):
+    """Estimated seconds of one flash-attention forward with
+    ``candidate["block_q"]`` q rows a block; ``block_k`` is the streamed
+    k tile, which the kernels compile at 64 only. ``inf`` for a tile the
+    kernel does not compile or whose shared memory a block cannot hold."""
+    if int(candidate.get("block_k", _FLASH_TILE)) != _FLASH_TILE:
+        return math.inf
+    return _flash_pass_cost(ctx, candidate["block_q"], "fwd")
+
+
+def flash_bwd_cost(candidate, ctx):
+    """Estimated seconds of the two backward passes: the dq pass at
+    ``block_q`` q rows a block and the dk/dv pass at ``block_k`` k rows a
+    block."""
+    return (_flash_pass_cost(ctx, candidate["block_q"], "dq")
+            + _flash_pass_cost(ctx, candidate["block_k"], "dkv"))
+
+
+def fused_default_tile(B, M, N, sms=SMS, bound=None):
+    """The tile a fused-matmul launch takes when nothing names one (the
+    wrapper always tells the kernel its tile): 128 where that grid of B
+    (M, N) outputs fills every SM at least once, else 64, capped at the
+    largest compiled edge within ``bound`` (the smallest edge where none
+    fits)."""
+    blocks = -(-int(M) // 128) * -(-int(N) // 128) * int(B)
+    tile = 128 if blocks >= int(sms) else 64
+    if bound is not None:
+        fits = [e for e in FUSED_TILES if e <= int(bound)]
+        tile = min(tile, max(fits)) if fits else min(FUSED_TILES)
+    return tile
+
+
+def fused_smem_bytes(tile, depth):
+    """Shared memory of one fused-matmul block: two buffers of X and W
+    slices, ``4 * depth * (tile + 4)`` floats (fused_matmul.cu)."""
+    return 4 * 4 * int(depth) * (int(tile) + 4)
+
+
+def fused_matmul_cost(candidate, ctx):
+    """Estimated seconds of one fused (M, K) x (K, N) region (times
+    ``ctx["B"]`` when batched) at this tile; ``inf`` unless ``block_m ==
+    block_n`` is a compiled tile edge and ``block_k`` its recorded depth,
+    the deepest it compiles (the kernel's route picks the depth it runs,
+    so each tile is one candidate). The product runs in fp32 on the CUDA cores
+    whatever the operand type; the traffic charges X once per column of
+    tiles and W once per row of tiles, as the tiles stream them."""
+    M = int(ctx.get("M", 1024))
+    N = int(ctx.get("N", 1024))
+    K = int(ctx.get("K", 1024))
+    B = int(ctx.get("B", 1))
+    db = int(ctx.get("dtype_bytes", 4))
+    bm, bn, bk = (int(candidate["block_m"]), int(candidate["block_n"]),
+                  int(candidate["block_k"]))
+    if bm != bn or bm not in FUSED_TILES or bk != FUSED_TILES[bm][0]:
+        return math.inf
+    if fused_smem_bytes(bm, bk) > SMEM_BYTES:
+        return math.inf
+    n_m, n_n = -(-M // bm), -(-N // bn)
+    flops = 2.0 * B * M * N * K
+    traffic = B * (M * K * n_n + K * N * n_m + M * N) * db
+    roof = roofline_seconds(flops, traffic, "float32")
+    # 256 threads of 128 registers: two blocks an SM
+    return roof / wave_efficiency(B * n_m * n_n, 2)

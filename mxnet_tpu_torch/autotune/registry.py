@@ -2,13 +2,15 @@
 search space.
 
 Counterpart of ``mxnet_tpu/autotune/registry.py``, whole. A
-:class:`Tunable` names one knob family (``serving.buckets``), its
-candidate space, the hand-picked default (so a cache miss costs nothing),
-and an optional analytic cost function a search driver ranks candidates
-with (autotune/cost_model.py). Declarations live at the call site —
-``serving/buckets.py`` registers its knob at import — so the tuner's
+:class:`Tunable` names one knob family (``flash_attention.fwd``,
+``serving.buckets``, ``exec.remat``, ...), its candidate space, the
+hand-picked default (so a cache miss costs nothing), and an optional
+analytic cost function the search loop (autotune/search.py) prunes and
+ranks candidates with (autotune/cost_model.py). Declarations live at the
+call site — ``parallel/flash_attention.py``, ``serving/buckets.py``,
+``executor.py`` each register their own knob at import — so the tuner's
 view of the space and the consumer's view of the knob cannot drift
-apart. The search itself waits for ROADMAP A13.
+apart.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ class Tunable:
 
     ``space``: dict ``param -> sequence of candidate values``, or a
     callable ``ctx -> such a dict`` when the space depends on the shape
-    being tuned (e.g. a ladder is topped by the largest request).
+    being tuned (e.g. a ladder is topped by the largest request, the
+    flash kernels compile other rows in fp32 than in bf16).
     ``default``: callable ``ctx -> value dict`` returning the hand-picked
     fallback (usually read from config.py flags).
     ``cost``: callable ``(candidate, ctx) -> estimated seconds`` (lower

@@ -33,9 +33,38 @@ the flags the ported slice reads:
     Capacity of the flight recorder's ring of records
     (observability/flight_recorder.py).
 ``MXNET_TUNE`` (default 0)
-    Tuning-cache mode (autotune/cache.py): 0 consults the cache, -1
-    bypasses every lookup. The search of mode 1 is not ported (ROADMAP
-    A13).
+    Autotuner mode (autotune/): 0 consults the tuning cache where a
+    program, region or object is built (kernel tiles, remat, layout,
+    bucket ladders, generation and pipeline knobs), a miss taking the
+    default; 1 also runs the measured search on a miss at the shape-local
+    call sites (the fused matmul and flash tiles), never while a stream is
+    capturing a CUDA graph; -1 bypasses every lookup (the A/B baseline).
+``MXNET_TUNE_TRIALS`` (default 12)
+    Measurement budget of one search: candidates timed (median of k each)
+    after the cost model's pruning.
+``MXNET_TUNE_CACHE`` (default ``~/.cache/mxnet_tpu_torch/tuning.json``)
+    Tuning-cache file. String-valued, env-only; ``MXNET_TUNE_FINGERPRINT``
+    (env-only) overrides the device half of every cache key.
+``MXNET_COST_MODEL`` (default 1), ``MXNET_COST_MODEL_MIN_SAMPLES`` (48),
+``MXNET_COST_MODEL_RETRAIN`` (32)
+    The learned cost model (autotune/learned.py): 1 records every measured
+    search sample beside the tuning cache and lets a trained model re-rank
+    candidates once its holdout Spearman is at least the analytic cost's;
+    the samples needed before the first training, and the new samples
+    that trigger a retrain. ``MXNET_COST_MODEL_PATH`` (env-only) is the
+    model file (default ``<tuning cache>.model.json``).
+``MXNET_FUSION_BLOCK_M`` / ``MXNET_FUSION_BLOCK_N`` (128 / 128)
+    Upper bounds of the fused matmul's tile (parallel/fused.py) where no
+    explicit argument and no ``fusion.blocks`` entry names one: the launch
+    takes the default rule's tile (128 where that grid fills the card,
+    else 64) capped at the largest compiled tile within both bounds. The
+    JAX package's ``MXNET_FUSION_BLOCK_K`` has no counterpart: the
+    kernel's K-slice depth follows its route, not a choice. Setting
+    either flag (``set_flag``) drops the carried tiles.
+``MXNET_DIST_BUCKET_BYTES`` (default 4194304)
+    Read for parity of the flag surface: the default of the
+    ``dist.bucket_bytes`` tunable, whose consumer (the mesh kvstore's
+    gradient buckets) is not ported.
 ``MXNET_CONV_SPACE_TO_DEPTH`` (default 1)
     Read for parity of the flag surface. Its space-to-depth stem rewrite
     is a TPU lane-utilisation device and is not ported: the port's
@@ -51,10 +80,11 @@ the flags the ported slice reads:
     mirroring, as ``jax.checkpoint`` is in the JAX package.
 ``MXNET_FLASH_BLOCK_Q`` / ``MXNET_FLASH_BLOCK_K`` (1024),
 ``MXNET_FLASH_BWD_BLOCK_Q`` / ``MXNET_FLASH_BWD_BLOCK_K`` (512)
-    Read for parity of the flag surface. They bound the TPU kernels' VMEM
-    blocks; the CUDA kernels pick their own tiles (64 x 64, sized for
-    shared memory and registers) and mask ragged T, so they have no use
-    for them.
+    Upper bounds of the flash kernels' rows a block (parallel/
+    flash_attention.py) where no explicit argument and no
+    ``flash_attention.fwd`` / ``.bwd`` entry names them: a pass takes its
+    default rows (64 forward, 128 backward; 64 in fp32) capped at the
+    largest compiled count within the bound. The defaults bound nothing.
 ``MXNET_GEN_PAGE_SIZE`` (16), ``MXNET_GEN_DECODE_BLOCKS`` (128),
 ``MXNET_GEN_MAX_BATCH`` (8), ``MXNET_GEN_MAX_SEQ`` (256),
 ``MXNET_GEN_POOL_PAGES`` (0 = max_batch x pages of max_seq + the trash
@@ -164,6 +194,13 @@ _DEFAULTS = {
     "MXNET_OBS_RESERVOIR": 32,
     "MXNET_HEALTH_RING": 256,
     "MXNET_TUNE": 0,
+    "MXNET_TUNE_TRIALS": 12,
+    "MXNET_COST_MODEL": 1,
+    "MXNET_COST_MODEL_MIN_SAMPLES": 48,
+    "MXNET_COST_MODEL_RETRAIN": 32,
+    "MXNET_FUSION_BLOCK_M": 128,
+    "MXNET_FUSION_BLOCK_N": 128,
+    "MXNET_DIST_BUCKET_BYTES": 4 << 20,
     "MXNET_FUSION_KERNEL": 1,
     "MXNET_FUSION_MIN_BYTES": 0,
     "MXNET_FLASH_ATTENTION_BWD": 1,
@@ -236,9 +273,21 @@ def _apply_perf(value):
     _perf._apply_perf_flag(value)
 
 
+def _apply_tuning(value):
+    # the kernel wrappers and programs carry what they resolved under the
+    # tuning flags; a new value takes effect at their next resolution
+    from .autotune import cache as _tune_cache
+
+    _tune_cache.drop_carried()
+
+
 _APPLIERS = {"MXNET_TELEMETRY": _apply_telemetry,
              "MXNET_OBS_TRACE_SAMPLE": _apply_obs_sample,
              "MXNET_PERF": _apply_perf}
+_APPLIERS.update(dict.fromkeys(
+    ("MXNET_TUNE", "MXNET_FUSION_BLOCK_M", "MXNET_FUSION_BLOCK_N",
+     "MXNET_FLASH_BLOCK_Q", "MXNET_FLASH_BWD_BLOCK_Q",
+     "MXNET_FLASH_BWD_BLOCK_K"), _apply_tuning))
 
 
 def set_flag(name, value):

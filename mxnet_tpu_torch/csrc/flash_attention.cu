@@ -55,8 +55,13 @@
 // columns 64g + 4tx + (0..3).
 //
 // The bf16/fp16 kernels run on the tensor cores (warpgroup wgmma,
-// m64nNk16, fp32 accumulators). In the forward a block is one warpgroup
-// and its 64 q rows (Q loaded once), and 64-row K and V tiles stream
+// m64nNk16, fp32 accumulators). Each of the three is a template over the
+// warpgroups of a block, NWG = 1 or 2 (64 or 128 rows a block: the tile
+// autotune's flash_attention.fwd / .bwd entries choose, the launch's `rows`);
+// a row's operations and their order are the same at either width. By
+// default the forward runs one warpgroup and the backward passes two. In
+// the forward a block is one warpgroup and its 64 q rows (Q loaded once),
+// and 64-row K and V tiles stream
 // through a ring of four stages (three at DP = 128); per tile S = Q.K^T
 // with both operands in shared memory, the online softmax in registers (a
 // row's max and sum over its four lanes by two shuffles, in log2 units: one
@@ -71,12 +76,15 @@
 // DP = 64). On the H100 this beat the dq pass's geometry (two warpgroups,
 // a 128-row q tile, each tile's products waited for before its softmax)
 // at (8, 8, 2048, 64) causal; a two-warpgroup block pipelined the same way
-// needs 157 registers, so one block per SM, and was slower. The dq pass
+// needs 157 registers, so one block per SM, and was slower; the
+// two-warpgroup form kept here (both warpgroups on one ring of K and V
+// tiles, a barrier before each refill) is that geometry. The dq pass
 // mirrors the TPU's grid over q tiles with k sequential, the dk/dv pass its
 // grid over k tiles with q sequential: both recompute S and dP, which is
 // the price of a dq without atomics, so two launches on the same inputs
 // give the same bits (no kernel here uses atomics). A block
-// is two warpgroups; each owns 64 rows (wgmma's M): q rows in the dq pass
+// is two warpgroups by default (one in the other form); each owns 64 rows
+// (wgmma's M): q rows in the dq pass
 // (a 128-row q tile per block, k tiles of 64), k rows in the dk/dv pass (a
 // 128-row k tile, q tiles of 32, so that a warpgroup's four accumulators
 // fit in registers). Per tile the dq pass computes S = Q.K^T and
@@ -681,7 +689,6 @@ FLASH_WGMMA_OPS("f16", __half)
 #undef FLASH_WGMMA_OPS
 
 constexpr int WG = 128;        // threads of a warpgroup
-constexpr int NTC = 2 * WG;    // threads of a tensor-core block
 constexpr int ROWS = 64;       // rows a warpgroup owns (wgmma's M)
 // depth of the ring of streamed tiles: the next tile loads under the
 // current one's products
@@ -722,7 +729,7 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int p, int kk) {
 // rows r0.. of a (T, D) matrix into a tile, by 16-byte cp.async into the
 // swizzled layout, by the NTHR threads of the block; chunks past T or D are
 // filled with zeros
-template <typename E, int R, int DP, int NTHR = NTC>
+template <typename E, int R, int DP, int NTHR>
 __device__ __forceinline__ void load_tile(uint32_t tile, const E* src,
                                           int r0, int T, int D) {
   constexpr int CPR = DP / 8;  // 16-byte chunks per row
@@ -836,29 +843,34 @@ __device__ __forceinline__ void store_acc(E* dst, const float (&acc)[32],
   }
 }
 
-// blocks per SM the dq pass's registers are cut for: two at DP = 64 (128
-// registers a thread), one at DP = 128
-template <int DP>
+// blocks per SM the dq pass's registers are cut for, at NWG warpgroups a
+// block: 128 registers a thread at DP = 64 (two blocks of two warpgroups),
+// up to 255 at DP = 128 (one block of two)
+template <int DP, int NWG>
 constexpr int dq_tc_min_blocks() {
-  return DP == 64 ? 2 : 1;
+  return (DP == 64 ? 2 : 1) * 2 / NWG;
 }
 
-template <int DP>
+template <int DP, int NWG>
 constexpr uint32_t dq_tc_smem() {
-  // Q and dO tiles of 128 rows, a ring of K and V tiles of 64 rows, and
-  // 1024 bytes to align the swizzle atoms
-  return 2 * (2 * ROWS) * DP * 2 + 2 * STAGES * 64 * DP * 2 + 1024;
+  // Q and dO tiles of NWG * 64 rows, a ring of K and V tiles of 64 rows,
+  // and 1024 bytes to align the swizzle atoms
+  return 2 * (NWG * ROWS) * DP * 2 + 2 * STAGES * 64 * DP * 2 + 1024;
 }
 
-template <typename E, int DP>
-__global__ void __launch_bounds__(NTC, dq_tc_min_blocks<DP>())
+// NWG warpgroups a block (1 or 2: 64 or 128 q rows); each warpgroup's rows
+// see the same k tiles in the same order at either width, so both widths
+// give the same bits
+template <typename E, int DP, int NWG>
+__global__ void __launch_bounds__(NWG * WG, dq_tc_min_blocks<DP, NWG>())
 flash_bwd_dq_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
                        const E* __restrict__ v, const E* __restrict__ dout,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta, E* __restrict__ dq,
                        int T, int D, float scale, int causal) {
-  constexpr int BQ2 = 2 * ROWS;  // q rows per block, 64 per warpgroup
-  constexpr int BK2 = 64;        // k rows per tile
+  constexpr int NTH = NWG * WG;    // threads of the block
+  constexpr int BQ2 = NWG * ROWS;  // q rows per block, 64 per warpgroup
+  constexpr int BK2 = 64;          // k rows per tile
   constexpr uint32_t QT = BQ2 * DP * 2;  // bytes of a q-side tile
   constexpr uint32_t KT = BK2 * DP * 2;  // bytes of a k-side tile
   constexpr int NP = DP / 64;            // 64-column panels of dQ
@@ -868,8 +880,8 @@ flash_bwd_dq_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
   const uint32_t Ks = dOs + QT;             // STAGES tiles
   const uint32_t Vs = Ks + STAGES * KT;     // STAGES tiles
 
-  const int wg = threadIdx.x / WG;
-  const int t = threadIdx.x % WG;
+  const int wg = NWG == 1 ? 0 : threadIdx.x / WG;
+  const int t = NWG == 1 ? threadIdx.x : threadIdx.x % WG;
   const int nq = (T + BQ2 - 1) / BQ2;
   const int64_t bh = blockIdx.x / nq;
   // heaviest causal tiles (the last q rows) are scheduled first
@@ -885,15 +897,15 @@ flash_bwd_dq_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
 
   const int k_end = causal ? min(T, q0 + BQ2) : T;
   const int n_tiles = (k_end + BK2 - 1) / BK2;
-  load_tile<E, BQ2, DP>(Qs, q, q0, T, D);
-  load_tile<E, BQ2, DP>(dOs, dout, q0, T, D);
+  load_tile<E, BQ2, DP, NTH>(Qs, q, q0, T, D);
+  load_tile<E, BQ2, DP, NTH>(dOs, dout, q0, T, D);
   // the ring: tile i in stage i % STAGES, STAGES - 1 tiles in flight ahead
   // of the one in use, one commit group per tile (empty past the last)
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (i < n_tiles) {
-      load_tile<E, BK2, DP>(Ks + i * KT, k, i * BK2, T, D);
-      load_tile<E, BK2, DP>(Vs + i * KT, v, i * BK2, T, D);
+      load_tile<E, BK2, DP, NTH>(Ks + i * KT, k, i * BK2, T, D);
+      load_tile<E, BK2, DP, NTH>(Vs + i * KT, v, i * BK2, T, D);
     }
     cp_commit();
   }
@@ -927,8 +939,10 @@ flash_bwd_dq_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
     {  // later tiles load under this one's products
       const int nt = it + STAGES - 1;
       if (nt < n_tiles) {
-        load_tile<E, BK2, DP>(Ks + (nt % STAGES) * KT, k, nt * BK2, T, D);
-        load_tile<E, BK2, DP>(Vs + (nt % STAGES) * KT, v, nt * BK2, T, D);
+        load_tile<E, BK2, DP, NTH>(Ks + (nt % STAGES) * KT, k, nt * BK2, T,
+                                   D);
+        load_tile<E, BK2, DP, NTH>(Vs + (nt % STAGES) * KT, v, nt * BK2, T,
+                                   D);
       }
       cp_commit();
       cp_wait<STAGES - 1>();  // tile it has landed
@@ -1001,28 +1015,33 @@ flash_bwd_dq_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
 // block per SM)
 constexpr int DKV_BQ = 32;
 
-template <int DP>
+template <int DP, int NWG>
 constexpr int dkv_tc_min_blocks() {
-  return DP == 64 ? 2 : 1;
+  return (DP == 64 ? 2 : 1) * 2 / NWG;
 }
 
-template <int DP>
+template <int DP, int NWG>
 constexpr uint32_t dkv_tc_smem() {
-  // K and V tiles of 128 rows, a ring of Q, dO, lse and delta tiles, and
-  // 1024 bytes to align the swizzle atoms
-  return 2 * (2 * ROWS) * DP * 2 + 2 * STAGES * DKV_BQ * DP * 2 +
+  // K and V tiles of NWG * 64 rows, a ring of Q, dO, lse and delta tiles,
+  // and 1024 bytes to align the swizzle atoms
+  return 2 * (NWG * ROWS) * DP * 2 + 2 * STAGES * DKV_BQ * DP * 2 +
          2 * STAGES * DKV_BQ * 4 + 1024;
 }
 
-template <typename E, int DP>
-__global__ void __launch_bounds__(NTC, dkv_tc_min_blocks<DP>())
+// NWG warpgroups a block (1 or 2: 64 or 128 k rows); each warpgroup's rows
+// see the same q tiles in the same order at either width (the causal walk
+// starts at the block's first k row, and the tiles before a warpgroup's
+// own first row are skipped as dead), so both widths give the same bits
+template <typename E, int DP, int NWG>
+__global__ void __launch_bounds__(NWG * WG, dkv_tc_min_blocks<DP, NWG>())
 flash_bwd_dkv_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
                         const E* __restrict__ v, const E* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, E* __restrict__ dk,
                         E* __restrict__ dv, int T, int D, float scale,
                         int causal) {
-  constexpr int BK2 = 2 * ROWS;      // k rows per block, 64 per warpgroup
+  constexpr int NTH = NWG * WG;      // threads of the block
+  constexpr int BK2 = NWG * ROWS;    // k rows per block, 64 per warpgroup
   constexpr int BQ2 = DKV_BQ;        // q rows per tile
   constexpr int NS = BQ2 / 2;        // registers of an m64 x BQ2 accumulator
   constexpr uint32_t KT = BK2 * DP * 2;
@@ -1038,8 +1057,8 @@ flash_bwd_dkv_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
   const uint32_t Dl = Ls + STAGES * BQ2 * 4;  // STAGES rows of BQ2 delta
   const unsigned char* generic = smem_raw + (Ks - raw);
 
-  const int wg = threadIdx.x / WG;
-  const int t = threadIdx.x % WG;
+  const int wg = NWG == 1 ? 0 : threadIdx.x / WG;
+  const int t = NWG == 1 ? threadIdx.x : threadIdx.x % WG;
   const int nk = (T + BK2 - 1) / BK2;
   const int64_t bh = blockIdx.x / nk;
   // heaviest causal tiles (the first k rows) are scheduled first
@@ -1057,16 +1076,16 @@ flash_bwd_dkv_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
   // causal: q rows before k0 see none of these keys (k0 is a multiple of BQ2)
   const int q_begin = causal ? k0 : 0;
   const int n_tiles = (T - q_begin + BQ2 - 1) / BQ2;
-  load_tile<E, BK2, DP>(Ks, k, k0, T, D);
-  load_tile<E, BK2, DP>(Vs, v, k0, T, D);
+  load_tile<E, BK2, DP, NTH>(Ks, k, k0, T, D);
+  load_tile<E, BK2, DP, NTH>(Vs, v, k0, T, D);
   // the ring: tile i in stage i % STAGES, STAGES - 1 tiles in flight ahead
   // of the one in use, one commit group per tile (empty past the last)
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (i < n_tiles) {
       const int r0 = q_begin + i * BQ2;
-      load_tile<E, BQ2, DP>(Qs + i * QT, q, r0, T, D);
-      load_tile<E, BQ2, DP>(dOs + i * QT, dout, r0, T, D);
+      load_tile<E, BQ2, DP, NTH>(Qs + i * QT, q, r0, T, D);
+      load_tile<E, BQ2, DP, NTH>(dOs + i * QT, dout, r0, T, D);
       load_vec(Ls + i * BQ2 * 4, lse, r0, T, BQ2);
       load_vec(Dl + i * BQ2 * 4, delta, r0, T, BQ2);
     }
@@ -1095,8 +1114,8 @@ flash_bwd_dkv_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
       if (nt < n_tiles) {
         const int ns = nt % STAGES;
         const int r0 = q_begin + nt * BQ2;
-        load_tile<E, BQ2, DP>(Qs + ns * QT, q, r0, T, D);
-        load_tile<E, BQ2, DP>(dOs + ns * QT, dout, r0, T, D);
+        load_tile<E, BQ2, DP, NTH>(Qs + ns * QT, q, r0, T, D);
+        load_tile<E, BQ2, DP, NTH>(dOs + ns * QT, dout, r0, T, D);
         load_vec(Ls + ns * BQ2 * 4, lse, r0, T, BQ2);
         load_vec(Dl + ns * BQ2 * 4, delta, r0, T, BQ2);
       }
@@ -1200,16 +1219,18 @@ __host__ __device__ constexpr int fwd_stages() {
   return DP == 64 ? 4 : 3;
 }
 
-template <int DP>
+// The two-warpgroup form is cut for one block per SM (its registers as the
+// one-warpgroup form's would allow only one anyway).
+template <int DP, int NWG>
 constexpr int fwd_tc_min_blocks() {
-  return DP == 64 ? 3 : 2;
+  return NWG == 1 ? (DP == 64 ? 3 : 2) : 1;
 }
 
-template <int DP>
+template <int DP, int NWG>
 constexpr uint32_t fwd_tc_smem() {
-  // a Q tile of 64 rows, the ring of K and V tiles of 64 rows, and 1024
-  // bytes to align the swizzle atoms
-  return ROWS * DP * 2 + 2 * fwd_stages<DP>() * 64 * DP * 2 + 1024;
+  // a Q tile of NWG * 64 rows, the ring of K and V tiles of 64 rows, and
+  // 1024 bytes to align the swizzle atoms
+  return NWG * ROWS * DP * 2 + 2 * fwd_stages<DP>() * 64 * DP * 2 + 1024;
 }
 
 constexpr float LN2 = 0.6931471805599453f;
@@ -1223,35 +1244,44 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// o, lse <- attention(q, k, v) on the tensor cores. A block is one
-// warpgroup and its 64 q rows. Per k tile, S = Q.K^T by wgmma from shared
+// o, lse <- attention(q, k, v) on the tensor cores. A block is NWG
+// warpgroups (1 or 2), each with its 64 q rows; they share one ring of K
+// and V tiles. Per k tile, S = Q.K^T by wgmma from shared
 // memory; the online softmax in registers, in log2 units (m is the running
 // max of S * scale * log2(e), p = exp2(that - m)); P packed in place to the
 // register A operand of O += P.V, V read MN-major. The products are
 // software-pipelined against the softmax: S of the next tile and P.V of
 // the previous one run on the tensor cores while this tile's softmax runs
-// on the CUDA cores (two S accumulators, used in turn).
-template <typename E, int DP>
-__global__ void __launch_bounds__(WG, fwd_tc_min_blocks<DP>())
+// on the CUDA cores (two S accumulators, used in turn). In the causal
+// case the last warpgroup of a block sees one tile more than the first:
+// a warpgroup past its own tiles still takes part in the block's loads and
+// barriers, and a stage is refilled only after a barrier that every
+// warpgroup reaches once its P.V of that stage is done. Each row sees the
+// same tiles in the same order at either width, so both give the same bits.
+template <typename E, int DP, int NWG>
+__global__ void __launch_bounds__(NWG * WG, fwd_tc_min_blocks<DP, NWG>())
 flash_fwd_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
                     const E* __restrict__ v, E* __restrict__ o,
                     float* __restrict__ lse, int T, int D, float scale,
                     int causal) {
+  constexpr int NTH = NWG * WG;          // threads of the block
+  constexpr int BQ2 = NWG * ROWS;        // q rows per block
   constexpr int BK2 = 64;                // k rows per tile
   constexpr int NS = fwd_stages<DP>();   // stages of the ring
-  constexpr uint32_t QT = ROWS * DP * 2;  // bytes of the q tile
-  constexpr uint32_t KT = BK2 * DP * 2;   // bytes of a k-side tile
-  constexpr int NP = DP / 64;             // 64-column panels of O
+  constexpr uint32_t QT = BQ2 * DP * 2;  // bytes of the q tile
+  constexpr uint32_t KT = BK2 * DP * 2;  // bytes of a k-side tile
+  constexpr int NP = DP / 64;            // 64-column panels of O
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t Qs = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t Ks = Qs + QT;          // NS tiles
   const uint32_t Vs = Ks + NS * KT;     // NS tiles
 
-  const int t = threadIdx.x;
-  const int nq = (T + ROWS - 1) / ROWS;
+  const int wg = NWG == 1 ? 0 : threadIdx.x / WG;
+  const int t = NWG == 1 ? threadIdx.x : threadIdx.x % WG;
+  const int nq = (T + BQ2 - 1) / BQ2;
   const int64_t bh = blockIdx.x / nq;
   // heaviest causal tiles (the last q rows) are scheduled first
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x % nq)) * ROWS;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x % nq)) * BQ2;
   const int64_t base = bh * static_cast<int64_t>(T) * D;
   q += base;
   k += base;
@@ -1259,22 +1289,28 @@ flash_fwd_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
   o += base;
   lse += bh * T;
 
-  const int k_end = causal ? min(T, q0 + ROWS) : T;
+  // the block's tiles, and this warpgroup's (its first q row is wq0)
+  const int wq0 = q0 + ROWS * wg;
+  const int k_end = causal ? min(T, q0 + BQ2) : T;
   const int n_tiles = (k_end + BK2 - 1) / BK2;
+  const int wk_end =
+      NWG == 1 ? k_end : wq0 >= T ? 0 : causal ? min(T, wq0 + ROWS) : T;
+  const int n_mine = NWG == 1 ? n_tiles : (wk_end + BK2 - 1) / BK2;
   auto load_kv = [&](int i) {  // tile i into stage i % NS, one commit group
     if (i < n_tiles) {
-      load_tile<E, BK2, DP, WG>(Ks + (i % NS) * KT, k, i * BK2, T, D);
-      load_tile<E, BK2, DP, WG>(Vs + (i % NS) * KT, v, i * BK2, T, D);
+      load_tile<E, BK2, DP, NTH>(Ks + (i % NS) * KT, k, i * BK2, T, D);
+      load_tile<E, BK2, DP, NTH>(Vs + (i % NS) * KT, v, i * BK2, T, D);
     }
     cp_commit();
   };
-  load_tile<E, ROWS, DP, WG>(Qs, q, q0, T, D);
+  load_tile<E, BQ2, DP, NTH>(Qs, q, q0, T, D);
   // NS - 1 tiles in flight before the first product (Q in tile 0's group)
 #pragma unroll
   for (int i = 0; i < NS - 1; ++i) load_kv(i);
 
-  // the two rows of the block's q rows this thread holds
-  const int ra = q0 + 16 * (t >> 5) + ((t & 31) >> 2);
+  // the two rows of this warpgroup's q rows this thread holds
+  const int ra = wq0 + 16 * (t >> 5) + ((t & 31) >> 2);
+  const uint32_t qa = Qs + wg * ROWS * 128;  // this warpgroup's Q rows
   const float scale_log2 = scale * LOG2E;
 
   // m: the running row max in log2 units; l: this thread's share of the
@@ -1294,87 +1330,99 @@ flash_fwd_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss_n64(s, desc_k<ROWS>(Qs, kk), desc_k<BK2>(kt, kk), kk, E());
+      wgmma_ss_n64(s, desc_k<BQ2>(qa, kk), desc_k<BK2>(kt, kk), kk, E());
     wg_commit();
   };
 
   cp_wait<NS - 2>();  // tile 0 (and Q) has landed
   tiles_ready();
-  if (n_tiles > 0) {
+  if (n_mine > 0) {
     issue_s(s0, 0);
     wg_wait<0>();
     reg_fence(s0);
   }
 
-  // One tile: sc holds its S; S of the next tile goes into sn.
+  // One tile: sc holds its S; S of the next tile goes into sn. `more` is
+  // the block's (its loads and barriers), `mine` / `more_mine` this
+  // warpgroup's (its products and softmax).
   auto step = [&](float (&sc)[32], float (&sn)[32], int it) {
     const int k0 = it * BK2;
     const bool more = it + 1 < n_tiles;
+    const bool mine = NWG == 1 || it < n_mine;
+    const bool more_mine = NWG == 1 ? more : it + 1 < n_mine;
     if (more) {  // the next tile's S runs under this tile's softmax
       cp_wait<NS - 3>();  // tile it + 1 has landed
       tiles_ready();
-      issue_s(sn, it + 1);
+      if (more_mine) issue_s(sn, it + 1);
     }
-    // only the diagonal and the ragged tiles are masked (s = -inf)
-    const bool edge = k0 + BK2 > T || (causal && k0 + BK2 - 1 > q0);
-    float mt[2] = {NEG_INF, NEG_INF};
+    float corr[2] = {1.f, 1.f};
+    if (mine) {
+      // only the diagonal and the ragged tiles are masked (s = -inf)
+      const bool edge = k0 + BK2 > T || (causal && k0 + BK2 - 1 > wq0);
+      float mt[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int h = (i >> 1) & 1;
-      const int col = k0 + 8 * (i >> 2) + 2 * (t & 3) + (i & 1);
-      const bool live = !edge || (col < T && (!causal || col <= ra + 8 * h));
-      sc[i] = live ? sc[i] * scale_log2 : NEG_INF;
-      mt[h] = fmaxf(mt[h], sc[i]);
-    }
-    float corr[2], m_safe[2];
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        const int col = k0 + 8 * (i >> 2) + 2 * (t & 3) + (i & 1);
+        const bool live =
+            !edge || (col < T && (!causal || col <= ra + 8 * h));
+        sc[i] = live ? sc[i] * scale_log2 : NEG_INF;
+        mt[h] = fmaxf(mt[h], sc[i]);
+      }
+      float m_safe[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      // a row's 64 columns are spread over the four lanes t % 4
-      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
-      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
-      const float m_new = fmaxf(m[h], mt[h]);
-      // the TPU kernel's guards: a row with no live key yet keeps
-      // m = -inf, its p are exp2(-inf) = 0 and its corr is 0
-      m_safe[h] = m_new == NEG_INF ? 0.f : m_new;
-      corr[h] = m[h] == NEG_INF ? 0.f : exp2_ftz(m[h] - m_safe[h]);
-      m[h] = m_new;
-      l[h] *= corr[h];
-    }
+      for (int h = 0; h < 2; ++h) {
+        // a row's 64 columns are spread over the four lanes t % 4
+        mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
+        mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
+        const float m_new = fmaxf(m[h], mt[h]);
+        // the TPU kernel's guards: a row with no live key yet keeps
+        // m = -inf, its p are exp2(-inf) = 0 and its corr is 0
+        m_safe[h] = m_new == NEG_INF ? 0.f : m_new;
+        corr[h] = m[h] == NEG_INF ? 0.f : exp2_ftz(m[h] - m_safe[h]);
+        m[h] = m_new;
+        l[h] *= corr[h];
+      }
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int h = (i >> 1) & 1;
-      sc[i] = exp2_ftz(sc[i] - m_safe[h]);
-      l[h] += sc[i];  // the unrounded p
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        sc[i] = exp2_ftz(sc[i] - m_safe[h]);
+        l[h] += sc[i];  // the unrounded p
+      }
     }
     // the previous tile's P.V is done (S of the next may still run) ...
-    if (more) {
+    if (more_mine) {
       wg_wait<1>();
     } else {
       wg_wait<0>();
     }
 #pragma unroll
     for (int p = 0; p < NP; ++p) reg_fence(acc[p]);
-    // ... so its stage refills, and O takes this tile's correction
+    // ... in every warpgroup, so its stage refills, and O takes this
+    // tile's correction
+    if constexpr (NWG > 1) __syncthreads();
     load_kv(it + NS - 1);
-    uint32_t a[BK2 / 16][4];
+    if (mine) {
+      uint32_t a[BK2 / 16][4];
 #pragma unroll
-    for (int i = 0; i < 32; i += 2)
-      // the accumulator's (row, column) pairs are the A fragment's
-      a[i >> 3][(i >> 1) & 3] = pack2(sc[i], sc[i + 1], E());
+      for (int i = 0; i < 32; i += 2)
+        // the accumulator's (row, column) pairs are the A fragment's
+        a[i >> 3][(i >> 1) & 3] = pack2(sc[i], sc[i + 1], E());
 #pragma unroll
-    for (int p = 0; p < NP; ++p) {
+      for (int p = 0; p < NP; ++p) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[p][i] *= corr[(i >> 1) & 1];
+        for (int i = 0; i < 32; ++i) acc[p][i] *= corr[(i >> 1) & 1];
+      }
+      const uint32_t vt = Vs + (it % NS) * KT;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK2 / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          wgmma_rs_n64(acc[p], a[kk], desc_mn<BK2>(vt, p, kk), 1, E());
+      wg_commit();
     }
-    const uint32_t vt = Vs + (it % NS) * KT;
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK2 / 16; ++kk)
-#pragma unroll
-      for (int p = 0; p < NP; ++p)
-        wgmma_rs_n64(acc[p], a[kk], desc_mn<BK2>(vt, p, kk), 1, E());
-    wg_commit();
-    if (more) {  // the next tile's S is in (P.V may still run)
+    if (more_mine) {  // the next tile's S is in (P.V may still run)
       wg_wait<1>();
       reg_fence(sn);
     }
@@ -1402,7 +1450,7 @@ flash_fwd_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
   for (int p = 0; p < NP; ++p) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[p][i] *= inv[(i >> 1) & 1];
-    store_acc<E>(o, acc[p], q0, 64 * p, T, D, 1.f, t);
+    store_acc<E>(o, acc[p], wq0, 64 * p, T, D, 1.f, t);
   }
 }
 
@@ -1441,13 +1489,53 @@ struct Args {
   int BH, T, D;
   float scale;
   int causal;
+  int rows;       // rows a block owns: 64 or 128
   cudaStream_t stream;
 };
 
+// The rows a block owns that each pass compiles, per element type: the
+// fp32 kernels one 64-row form, the tensor-core kernels 64 (one warpgroup)
+// and 128 (two). Row 0 of each list is the pass's default, which the
+// caller resolves (parallel/flash_attention.py reads this table through
+// flash_attention_rows) and always names.
+template <typename E>
+constexpr int compiled_rows(int which, int i) {
+  if constexpr (std::is_same<E, float>::value) return i == 0 ? 64 : -1;
+  // the forward defaults to one warpgroup, the backward passes to two
+  const int first = which == 0 ? 64 : 128;
+  return i == 0 ? first : i == 1 ? 192 - first : -1;
+}
+
+// ``rows`` where pass ``which`` compiles them at E, else -1
+template <typename E>
+int checked_rows(int which, int rows) {
+  for (int i = 0; compiled_rows<E>(which, i) > 0; ++i)
+    if (compiled_rows<E>(which, i) == rows) return rows;
+  return -1;
+}
+
+template <typename E, int DP, int NWG>
+cudaError_t launch_fwd_tc(const Args& a) {
+  static bool ready = false;
+  auto kernel = flash_fwd_tc_kernel<E, DP, NWG>;
+  cudaError_t err = allow_smem(kernel, fwd_tc_smem<DP, NWG>(), &ready);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks =
+      static_cast<int64_t>(a.BH) * ((a.T + NWG * ROWS - 1) / (NWG * ROWS));
+  kernel<<<static_cast<unsigned>(blocks), NWG * WG, fwd_tc_smem<DP, NWG>(),
+           a.stream>>>(
+      static_cast<const E*>(a.q), static_cast<const E*>(a.k),
+      static_cast<const E*>(a.v), static_cast<E*>(a.o), a.lse_out, a.T, a.D,
+      a.scale, a.causal);
+  return cudaGetLastError();
+}
+
 template <typename E, int DP>
 cudaError_t launch_fwd(const Args& a) {
-  static bool ready = false;
+  const int rows = checked_rows<E>(0, a.rows);
+  if (rows < 0) return cudaErrorInvalidValue;
   if constexpr (std::is_same<E, float>::value) {
+    static bool ready = false;
     auto kernel = flash_fwd_kernel<E, DP>;
     cudaError_t err = allow_smem(kernel, fwd_smem<DP>(), &ready);
     if (err != cudaSuccess) return err;
@@ -1456,25 +1544,35 @@ cudaError_t launch_fwd(const Args& a) {
         static_cast<const E*>(a.q), static_cast<const E*>(a.k),
         static_cast<const E*>(a.v), static_cast<E*>(a.o), a.lse_out, a.T,
         a.D, a.scale, a.causal);
+    return cudaGetLastError();
   } else {
-    auto kernel = flash_fwd_tc_kernel<E, DP>;
-    cudaError_t err = allow_smem(kernel, fwd_tc_smem<DP>(), &ready);
-    if (err != cudaSuccess) return err;
-    const int64_t blocks =
-        static_cast<int64_t>(a.BH) * ((a.T + ROWS - 1) / ROWS);
-    kernel<<<static_cast<unsigned>(blocks), WG, fwd_tc_smem<DP>(),
-             a.stream>>>(
-        static_cast<const E*>(a.q), static_cast<const E*>(a.k),
-        static_cast<const E*>(a.v), static_cast<E*>(a.o), a.lse_out, a.T,
-        a.D, a.scale, a.causal);
+    return rows == 64 ? launch_fwd_tc<E, DP, 1>(a)
+                      : launch_fwd_tc<E, DP, 2>(a);
   }
+}
+
+template <typename E, int DP, int NWG>
+cudaError_t launch_dq_tc(const Args& a) {
+  static bool ready = false;
+  auto kernel = flash_bwd_dq_tc_kernel<E, DP, NWG>;
+  cudaError_t err = allow_smem(kernel, dq_tc_smem<DP, NWG>(), &ready);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks =
+      static_cast<int64_t>(a.BH) * ((a.T + NWG * ROWS - 1) / (NWG * ROWS));
+  kernel<<<static_cast<unsigned>(blocks), NWG * WG, dq_tc_smem<DP, NWG>(),
+           a.stream>>>(
+      static_cast<const E*>(a.q), static_cast<const E*>(a.k),
+      static_cast<const E*>(a.v), static_cast<const E*>(a.dout), a.lse,
+      a.delta, static_cast<E*>(a.o), a.T, a.D, a.scale, a.causal);
   return cudaGetLastError();
 }
 
 template <typename E, int DP>
 cudaError_t launch_dq(const Args& a) {
-  static bool ready = false;
+  const int rows = checked_rows<E>(1, a.rows);
+  if (rows < 0) return cudaErrorInvalidValue;
   if constexpr (std::is_same<E, float>::value) {
+    static bool ready = false;
     auto kernel = flash_bwd_dq_kernel<E, DP>;
     cudaError_t err = allow_smem(kernel, dq_smem<DP>(), &ready);
     if (err != cudaSuccess) return err;
@@ -1483,25 +1581,35 @@ cudaError_t launch_dq(const Args& a) {
         static_cast<const E*>(a.q), static_cast<const E*>(a.k),
         static_cast<const E*>(a.v), static_cast<const E*>(a.dout), a.lse,
         a.delta, static_cast<E*>(a.o), a.T, a.D, a.scale, a.causal);
+    return cudaGetLastError();
   } else {
-    auto kernel = flash_bwd_dq_tc_kernel<E, DP>;
-    cudaError_t err = allow_smem(kernel, dq_tc_smem<DP>(), &ready);
-    if (err != cudaSuccess) return err;
-    const int64_t blocks =
-        static_cast<int64_t>(a.BH) * ((a.T + 2 * ROWS - 1) / (2 * ROWS));
-    kernel<<<static_cast<unsigned>(blocks), NTC, dq_tc_smem<DP>(),
-             a.stream>>>(
-        static_cast<const E*>(a.q), static_cast<const E*>(a.k),
-        static_cast<const E*>(a.v), static_cast<const E*>(a.dout), a.lse,
-        a.delta, static_cast<E*>(a.o), a.T, a.D, a.scale, a.causal);
+    return rows == 64 ? launch_dq_tc<E, DP, 1>(a) : launch_dq_tc<E, DP, 2>(a);
   }
+}
+
+template <typename E, int DP, int NWG>
+cudaError_t launch_dkv_tc(const Args& a) {
+  static bool ready = false;
+  auto kernel = flash_bwd_dkv_tc_kernel<E, DP, NWG>;
+  cudaError_t err = allow_smem(kernel, dkv_tc_smem<DP, NWG>(), &ready);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks =
+      static_cast<int64_t>(a.BH) * ((a.T + NWG * ROWS - 1) / (NWG * ROWS));
+  kernel<<<static_cast<unsigned>(blocks), NWG * WG, dkv_tc_smem<DP, NWG>(),
+           a.stream>>>(
+      static_cast<const E*>(a.q), static_cast<const E*>(a.k),
+      static_cast<const E*>(a.v), static_cast<const E*>(a.dout), a.lse,
+      a.delta, static_cast<E*>(a.o), static_cast<E*>(a.o2), a.T, a.D,
+      a.scale, a.causal);
   return cudaGetLastError();
 }
 
 template <typename E, int DP>
 cudaError_t launch_dkv(const Args& a) {
-  static bool ready = false;
+  const int rows = checked_rows<E>(2, a.rows);
+  if (rows < 0) return cudaErrorInvalidValue;
   if constexpr (std::is_same<E, float>::value) {
+    static bool ready = false;
     auto kernel = flash_bwd_dkv_kernel<E, DP>;
     cudaError_t err = allow_smem(kernel, dkv_smem<DP>(), &ready);
     if (err != cudaSuccess) return err;
@@ -1511,20 +1619,11 @@ cudaError_t launch_dkv(const Args& a) {
         static_cast<const E*>(a.v), static_cast<const E*>(a.dout), a.lse,
         a.delta, static_cast<E*>(a.o), static_cast<E*>(a.o2), a.T, a.D,
         a.scale, a.causal);
+    return cudaGetLastError();
   } else {
-    auto kernel = flash_bwd_dkv_tc_kernel<E, DP>;
-    cudaError_t err = allow_smem(kernel, dkv_tc_smem<DP>(), &ready);
-    if (err != cudaSuccess) return err;
-    const int64_t blocks =
-        static_cast<int64_t>(a.BH) * ((a.T + 2 * ROWS - 1) / (2 * ROWS));
-    kernel<<<static_cast<unsigned>(blocks), NTC, dkv_tc_smem<DP>(),
-             a.stream>>>(
-        static_cast<const E*>(a.q), static_cast<const E*>(a.k),
-        static_cast<const E*>(a.v), static_cast<const E*>(a.dout), a.lse,
-        a.delta, static_cast<E*>(a.o), static_cast<E*>(a.o2), a.T, a.D,
-        a.scale, a.causal);
+    return rows == 64 ? launch_dkv_tc<E, DP, 1>(a)
+                      : launch_dkv_tc<E, DP, 2>(a);
   }
-  return cudaGetLastError();
 }
 
 template <typename E>
@@ -1555,17 +1654,20 @@ bool bad_args(int BH, int T, int D, int dt) {
 
 extern "C" {
 
-// Pointers must be 16-byte aligned (the wrapper checks). Each launch
-// returns its cudaError_t.
+// Pointers must be 16-byte aligned (the wrapper checks). `rows` is the
+// rows a block owns (flash_attention_rows lists the compiled ones). Each
+// launch returns its cudaError_t, cudaErrorInvalidValue for rows that are
+// not compiled.
 
 // o, lse <- attention(q, k, v).
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* o, float* lse, int BH, int T, int D,
-                               float scale, int causal, int dtype,
+                               float scale, int causal, int dtype, int rows,
                                void* stream) {
   if (bad_args(BH, T, D, dtype)) return cudaErrorInvalidValue;
   Args a = {q, k, v, nullptr, nullptr, nullptr, o, nullptr, lse,
-            BH, T, D, scale, causal, static_cast<cudaStream_t>(stream)};
+            BH, T, D, scale, causal, rows,
+            static_cast<cudaStream_t>(stream)};
   return dispatch(0, dtype, a);
 }
 
@@ -1574,10 +1676,12 @@ int flash_attention_bwd_dq_launch(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const float* lse, const float* delta,
                                   void* dq, int BH, int T, int D, float scale,
-                                  int causal, int dtype, void* stream) {
+                                  int causal, int dtype, int rows,
+                                  void* stream) {
   if (bad_args(BH, T, D, dtype)) return cudaErrorInvalidValue;
   Args a = {q, k, v, dout, lse, delta, dq, nullptr, nullptr,
-            BH, T, D, scale, causal, static_cast<cudaStream_t>(stream)};
+            BH, T, D, scale, causal, rows,
+            static_cast<cudaStream_t>(stream)};
   return dispatch(1, dtype, a);
 }
 
@@ -1587,11 +1691,22 @@ int flash_attention_bwd_dkv_launch(const void* q, const void* k,
                                    const float* lse, const float* delta,
                                    void* dk, void* dv, int BH, int T, int D,
                                    float scale, int causal, int dtype,
-                                   void* stream) {
+                                   int rows, void* stream) {
   if (bad_args(BH, T, D, dtype)) return cudaErrorInvalidValue;
   Args a = {q, k, v, dout, lse, delta, dk, dv, nullptr,
-            BH, T, D, scale, causal, static_cast<cudaStream_t>(stream)};
+            BH, T, D, scale, causal, rows,
+            static_cast<cudaStream_t>(stream)};
   return dispatch(2, dtype, a);
+}
+
+// The i-th compiled row count of pass `which` (0 forward, 1 dq, 2 dk/dv)
+// at element type `dtype`, entry 0 the default; -1 past the last.
+int flash_attention_rows(int which, int dtype, int i) {
+  if (which < 0 || which > 2 || i < 0) return -1;
+  if (dtype == DT_F32) return compiled_rows<float>(which, i);
+  if (dtype == DT_BF16) return compiled_rows<__nv_bfloat16>(which, i);
+  if (dtype == DT_F16) return compiled_rows<__half>(which, i);
+  return -1;
 }
 
 const char* flash_attention_error_string(int err) {

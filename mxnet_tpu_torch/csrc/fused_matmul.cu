@@ -47,10 +47,12 @@
 // stores are coalesced 16-byte accesses where the rows allow, and the
 // epilogue's code is one loop rather than one copy per accumulator (64
 // unrolled copies of its switch, activations included, cost more in
-// instruction fetch than the product's K loop at K 512). BT is chosen per
-// launch: 128 where its grid fills every SM at
-// least once, else 64 (a small grid, such as ResNet-50's 7x7 stage, keeps
-// four times the blocks). Ragged M, N and K edges are masked: zero fill on
+// instruction fetch than the product's K loop at K 512). BT is a launch
+// parameter: the caller names 128 or 64 (a tuned tile, autotune's
+// ``fusion.blocks``), or 0 for the rule 128 where its grid fills every SM
+// at least once, else 64 (a small grid, such as ResNet-50's 7x7 stage,
+// keeps four times the blocks). Each output is the same fp32 FMA chain at
+// either tile, so the tile changes the time and never a bit of the result. Ragged M, N and K edges are masked: zero fill on
 // load, no store outside the output. Element types (fp32, bf16, fp16) are
 // runtime codes, uniform across the grid. The batched form offsets X, W,
 // out and the residual extras by per-batch element strides; the 2-d form
@@ -419,18 +421,6 @@ fused_matmul_kernel(const void* __restrict__ x, const void* __restrict__ w,
   }
 }
 
-// The large tile, unless its grid would leave SMs idle.
-int pick_tile(int B, int M, int N) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    cudaGetLastError();  // keep the default; clear the error
-  const int64_t blocks =
-      (int64_t)((M + 127) / 128) * ((N + 127) / 128) * B;
-  return blocks >= sms ? 128 : 64;
-}
-
 // a 16-byte (fp32) or 8-byte (16-bit) vector of 4 elements at every element
 // offset that is a multiple of 4 from ``p``: ``row`` and ``batch`` strides
 // multiples of 4, ``p`` aligned to 4 elements
@@ -440,9 +430,18 @@ bool vec_ok(const void* p, int dt, int64_t row, int64_t batch) {
          reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// The compiled tiles, one row each: the output tile edge BT and the K-slice
+// depth of each route (fp32 operands in 16-byte runs / any other). Python
+// reads the same table (fused_matmul_tiles), so the tuner's space and the
+// kernel's instantiations cannot drift apart.
+constexpr int TILES[][3] = {{128, 16, 8}, {64, 32, 16}};
+constexpr int N_TILES = sizeof(TILES) / sizeof(TILES[0]);
+
 int launch(const void* x, const void* w, void* out, int B, int M, int N,
            int K, int64_t x_bs, int64_t w_bs, int x_dt, int w_dt, int out_dt,
-           int wt, const FmEpilogue* ep, cudaStream_t stream) {
+           int wt, int tile, const FmEpilogue* ep, cudaStream_t stream) {
+  // the caller names the edge (parallel/fused.py resolves it): one of TILES
+  if (tile != 128 && tile != 64) return (int)cudaErrorInvalidValue;
   const int vx = vec_ok(x, x_dt, K, x_bs);
   const int vw = vec_ok(w, w_dt, wt ? K : N, w_bs);
   // the output and every extra read in runs of 4 (vectors by column,
@@ -452,7 +451,7 @@ int launch(const void* x, const void* w, void* out, int B, int M, int N,
     if (ep->code[s] <= ST_RES_MUL)
       vo = vo && vec_ok(ep->ptr[s], ep->dtype[s], N, (int64_t)M * N);
   const bool f32v = x_dt == DT_F32 && w_dt == DT_F32 && vx && vw;
-  const bool big = pick_tile(B, M, N) == 128;
+  const bool big = tile == 128;
   const int bt = big ? 128 : 64;
   const dim3 grid((M + bt - 1) / bt, (N + bt - 1) / bt, B);
   auto kernel = big ? (f32v ? fused_matmul_kernel<128, 16, true>
@@ -476,15 +475,17 @@ extern "C" const char* fused_matmul_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Enqueues one launch on ``stream``; returns cudaGetLastError() (0 when the
-// launch was accepted). Does not synchronise and allocates nothing.
+// Enqueues one launch on ``stream`` at output tile ``tile`` (128 or 64);
+// returns cudaGetLastError() (0 when the launch was accepted),
+// cudaErrorInvalidValue for a tile that is not compiled. Does not
+// synchronise and allocates nothing.
 extern "C" int fused_matmul_launch(const void* x, const void* w, void* out,
                                    int M, int N, int K, int x_dt, int w_dt,
-                                   int out_dt, int wt, const FmEpilogue* ep,
-                                   void* stream) {
+                                   int out_dt, int wt, int tile,
+                                   const FmEpilogue* ep, void* stream) {
   if (M <= 0 || N <= 0) return (int)cudaSuccess;
-  return launch(x, w, out, 1, M, N, K, 0, 0, x_dt, w_dt, out_dt, wt, ep,
-                (cudaStream_t)stream);
+  return launch(x, w, out, 1, M, N, K, 0, 0, x_dt, w_dt, out_dt, wt, tile,
+                ep, (cudaStream_t)stream);
 }
 
 // The batched form: out[b] = epilogue(X[b] . W[b]) for b < B (W[b]^T when
@@ -495,15 +496,16 @@ extern "C" int fused_batch_matmul_launch(const void* x, const void* w,
                                          void* out, int B, int M, int N,
                                          int K, long long x_bs,
                                          long long w_bs, int x_dt, int w_dt,
-                                         int out_dt, int wt,
+                                         int out_dt, int wt, int tile,
                                          const FmEpilogue* ep, void* stream) {
   if (B <= 0 || M <= 0 || N <= 0) return (int)cudaSuccess;
   return launch(x, w, out, B, M, N, K, (int64_t)x_bs, (int64_t)w_bs, x_dt,
-                w_dt, out_dt, wt, ep, (cudaStream_t)stream);
+                w_dt, out_dt, wt, tile, ep, (cudaStream_t)stream);
 }
 
-// The output tile edge (64 or 128) a launch of this shape takes on the
-// current device.
-extern "C" int fused_matmul_tile(int B, int M, int N) {
-  return pick_tile(B, M, N);
+// The compiled tiles: row i of TILES as (edge, K-slice depth of the fp32
+// 16-byte route, K-slice depth of the other route); -1 past the last row.
+extern "C" int fused_matmul_tiles(int i, int col) {
+  if (i < 0 || i >= N_TILES || col < 0 || col > 2) return -1;
+  return TILES[i][col];
 }

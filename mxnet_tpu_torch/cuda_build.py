@@ -11,6 +11,10 @@ each, all started together.
 
 The per-kernel launch counters live here too: each wrapper adds one where
 it launches its kernel, so a run can show that its path went through it.
+A wrapper whose kernel has several compiled tiles names the tile it
+launched (``variant``): :func:`variant_counts` counts launches per (kernel,
+tile) and :func:`last_variant` is the tile of a kernel's latest launch,
+the wrapper's launch record.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from .base import MXNetError
 
 __all__ = ["kernel_names", "build_all", "load_library", "build_info",
            "count_launch", "launch_counts", "reset_launch_counts",
-           "SOURCE_DIR", "BUILD_DIR"]
+           "variant_counts", "last_variant", "SOURCE_DIR", "BUILD_DIR"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -39,7 +43,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs = {}    # guarded-by: _lock
 _info = {}    # name -> {"seconds", "path", "log", "built"}  # guarded-by: _lock
+# (name, variant) -> launches; variant None for a kernel of one form
 _launches = collections.Counter()  # guarded-by: _lock
+_last_variant = {}  # name -> variant of its latest launch  # guarded-by: _lock
 
 
 def kernel_names():
@@ -126,16 +132,41 @@ def build_info(name):
         return dict(_info.get(name, {}))
 
 
-def count_launch(name):
+def count_launch(name, variant=None):
+    """One launch of kernel ``name``; ``variant`` names its tile (such as
+    128 or 64) where the kernel has several."""
     with _lock:
-        _launches[name] += 1
+        _launches[name, variant] += 1
+        if variant is not None:
+            _last_variant[name] = variant
 
 
 def launch_counts():
+    """{kernel: launches} since the last reset, every variant summed."""
+    out = collections.Counter()
     with _lock:
-        return dict(_launches)
+        for (name, _), n in _launches.items():
+            out[name] += n
+    return dict(out)
+
+
+def variant_counts():
+    """{(kernel, variant as a string): launches} of the kernels with
+    several variants, since the last reset."""
+    with _lock:
+        return {(name, str(v)): n for (name, v), n in _launches.items()
+                if v is not None}
+
+
+def last_variant(name):
+    """The variant of kernel ``name``'s latest launch as a string, or
+    None."""
+    with _lock:
+        v = _last_variant.get(name)
+    return None if v is None else str(v)
 
 
 def reset_launch_counts():
     with _lock:
         _launches.clear()
+        _last_variant.clear()

@@ -8,9 +8,17 @@ the caller copies new inputs into them and the graph's writes land in
 them, so a replay reads no host value. The random ops inside draw from the
 card's default generator, which ``torch.cuda.graph`` registers with the
 graph: each replay draws new numbers.
+
+Python's cyclic garbage collector is off for the capture's duration (and
+runs once just before it): a collection in the middle of a capture would
+run the destructors of unreachable objects on the capturing thread, and a
+dropped ``torch.cuda.CUDAGraph`` (a stopped Generator's steps, say)
+destroys its graph there, a call CUDA refuses while the stream captures,
+which invalidates the capture.
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -45,10 +53,17 @@ def capture(body, device, write_back=None, reset=None, key=None,
             reset()
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side, **graph_kw):
-        out = body()
-        if write_back is not None:
-            write_back(out)
+    collecting = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, stream=side, **graph_kw):
+            out = body()
+            if write_back is not None:
+                write_back(out)
+    finally:
+        if collecting:
+            gc.enable()
     from .observability import instruments
 
     instruments.note_capture(key, time.perf_counter() - t0)

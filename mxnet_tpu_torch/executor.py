@@ -39,11 +39,39 @@ import time
 
 import torch
 
+from .autotune import cache as _tune_cache
+from .autotune.registry import declare as _declare_tunable
 from .base import MXNetError, dtype_name
 from .context import Context, as_device
 from .ops.registry import OpAttrs
 
 __all__ = ["Executor", "resolve_output_indices"]
+
+
+def _remat_default(ctx):
+    from .config import get_flag
+
+    return {"mirror": int(bool(get_flag("MXNET_BACKWARD_DO_MIRROR")))}
+
+
+# the executor's program-build knob: store activations vs recompute the
+# forward in the backward (torch.utils.checkpoint), a measured
+# memory/backward-work tradeoff, keyed per graph fingerprint
+# (autotune.tune_remat drives the measurement)
+_declare_tunable(
+    "exec.remat",
+    space={"mirror": (0, 1)},
+    default=_remat_default,
+    doc="Training walk remat policy: 0 = store activations, 1 = recompute "
+        "the forward in the backward (torch.utils.checkpoint).")
+
+# each graph fingerprint's tuned exec.remat decision (None: no entry)
+_REMAT_CARRY = _tune_cache.Carry()
+
+
+def _tuned_remat(key):
+    tuned = _tune_cache.lookup("exec.remat", key=key)
+    return bool(tuned.get("mirror", 0)) if isinstance(tuned, dict) else None
 
 
 def resolve_output_indices(names, outputs):
@@ -69,8 +97,13 @@ def resolve_output_indices(names, outputs):
 class _GraphProgram:
     """Evaluation plan for one Symbol."""
 
-    def __init__(self, symbol):
+    def __init__(self, symbol, tuning_key=None):
+        # ``tuning_key`` pins the fingerprint when ``symbol`` is a
+        # pass-rewritten graph: autotune entries (exec.remat) are keyed by
+        # the original graph, so tuned decisions resolve under any pass
+        # config
         self.symbol = symbol
+        self._tuning_key = tuning_key
         self.topo = [n for n in symbol.topo_nodes() if not n.is_variable]
         args, aux = symbol._classify_vars()
         self.arg_names = [n.name for n in args]
@@ -87,6 +120,30 @@ class _GraphProgram:
         self._sel_topo = {}  # guarded-by: self._lock
         self._perf_costs = {}  # (mode, shape sig) -> cost  # guarded-by: self._lock
         self._lock = threading.Lock()
+
+    def tuning_key(self):
+        """Stable graph fingerprint for tuning-cache keys (node count and a
+        hash of the op sequence with each node's params; the JAX package's
+        ``graph_fingerprint``). Bound input shapes are not part of it."""
+        if self._tuning_key is None:
+            from .graph_pass import graph_fingerprint
+
+            self._tuning_key = graph_fingerprint(self.symbol)
+        return self._tuning_key
+
+    def remat_mirror(self):
+        """Remat decision for this graph's training walk: a tuned
+        ``exec.remat`` cache entry (autotune.tune_remat) wins over the
+        MXNET_BACKWARD_DO_MIRROR flag. Looked up at the program's first
+        training walk and carried until the tuning cache or a tuning flag
+        changes, so a steady-state step performs no lookup."""
+        key = self.tuning_key()
+        tuned = _REMAT_CARRY.get(key, lambda: _tuned_remat(key))
+        if tuned is not None:
+            return tuned
+        from .config import get_flag
+
+        return bool(get_flag("MXNET_BACKWARD_DO_MIRROR"))
 
     def perf_cost(self, arg_d, aux_d, train=False, grad_names=()):
         """Analytic FLOPs + HBM-bytes accounting of this program at the
@@ -235,9 +292,10 @@ class _GraphProgram:
         """The training forward under autograd: (outputs, aux updates,
         {name: leaf}) where each name in ``grad_names`` enters the walk
         as a leaf that requires grad (sharing its argument's storage).
-        Under ``MXNET_BACKWARD_DO_MIRROR`` the backward recomputes the
-        walk (:func:`_maybe_mirror`); a ``callback`` (the monitor) sees
-        the first walk only."""
+        When mirroring (:meth:`remat_mirror`: a tuned ``exec.remat`` entry,
+        else ``MXNET_BACKWARD_DO_MIRROR``) the backward recomputes the walk
+        (:func:`_maybe_mirror`); a ``callback`` (the monitor) sees the
+        first walk only."""
         leaves = {n: arg_d[n].detach().requires_grad_(True)
                   for n in grad_names}
         merged = dict(arg_d)
@@ -247,7 +305,8 @@ class _GraphProgram:
                 outs, aux_upd = self._eval(merged, aux_d, True,
                                            callback=callback)
             else:
-                outs, aux_upd = _maybe_mirror(self._eval, self.random)(
+                outs, aux_upd = _maybe_mirror(
+                    self._eval, self.random, self.remat_mirror())(
                     merged, aux_d, True)
         return outs, aux_upd, leaves
 
@@ -267,12 +326,14 @@ def _observability():
     return _obs_modules
 
 
-def _maybe_mirror(fn, random=False):
-    """``fn`` under ``torch.utils.checkpoint`` when
-    ``MXNET_BACKWARD_DO_MIRROR`` is set: the backward recomputes the
-    forward instead of reading stored activations, the reference's memory
-    mirroring as the JAX package's ``jax.checkpoint``. The aux updates are
-    those of the first forward; the recompute's are dropped.
+def _maybe_mirror(fn, random=False, mirror=None):
+    """``fn`` under ``torch.utils.checkpoint`` when mirroring is on:
+    the backward recomputes the forward instead of reading stored
+    activations, the reference's memory mirroring as the JAX package's
+    ``jax.checkpoint``. ``mirror=None`` reads ``MXNET_BACKWARD_DO_MIRROR``;
+    a caller with a tuned per-graph decision
+    (``_GraphProgram.remat_mirror``) passes it. The aux updates are those
+    of the first forward; the recompute's are dropped.
 
     A walk with a random op (``random``) must draw the same bits in its
     recompute: torch replays the cards' default generators and the host
@@ -280,9 +341,11 @@ def _maybe_mirror(fn, random=False):
     card's generator can be neither read nor rewound (a recompute there
     would draw other bits), so such a walk is not mirrored while
     capturing: it keeps its activations."""
-    from .config import get_flag
+    if mirror is None:
+        from .config import get_flag
 
-    if not get_flag("MXNET_BACKWARD_DO_MIRROR"):
+        mirror = get_flag("MXNET_BACKWARD_DO_MIRROR")
+    if not mirror:
         return fn
     from torch.utils.checkpoint import checkpoint
 
@@ -367,8 +430,10 @@ class Executor:
             self._train_prog = shared_exec._train_prog
         else:
             self._opt = self._run_graph_passes(symbol, frozen_params)
-            self._prog = _GraphProgram(self._opt.symbol
-                                       if self._opt is not None else symbol)
+            self._prog = (_GraphProgram(self._opt.symbol,
+                                        tuning_key=self._opt.graph_key)
+                          if self._opt is not None
+                          else _GraphProgram(symbol))
             # inference-only rewrites (pruned loss heads, folded BN) must
             # not leak into forward(is_train=True): that walk gets a
             # program over the original graph, built when first asked for

@@ -166,13 +166,23 @@ def _as_transpose(entry):
 
 
 def run_layout(ctx):
-    """Graph-wide layout rewrite to a forced target (``layout=NHWC`` in
-    MXNET_GRAPH_PASSES): conv/pool nodes in the other layout get their
-    ``layout`` attr rewritten and transposes at their boundaries, then a
-    sink-and-cancel fixpoint moves transposes through pointwise ops and
-    BatchNorm. Without a forced target the pass is a no-op: the JAX
-    package's tuned-layout consult has no tuning cache to read here."""
+    """Graph-wide layout rewrite hook (consults the autotuner).
+
+    When an explicit ``layout=NHWC`` token in MXNET_GRAPH_PASSES — or a
+    tuned ``graph.layout`` cache entry (autotune.tune_layout) under the
+    graph's fingerprint — names a layout different from a conv/pool
+    node's current one, the node's ``layout`` attr is rewritten and
+    transposes are inserted at its boundaries. A sink-and-cancel fixpoint
+    then moves transposes through pointwise ops and BatchNorm (axis
+    remapped) so chains of rewritten ops share one boundary pair. The
+    consult is one lookup a bind."""
     target = ctx.config.layout_force
+    if target is None:
+        from .. import autotune
+
+        tuned = autotune.lookup("graph.layout", key=ctx.graph_key)
+        if isinstance(tuned, dict):
+            target = tuned.get("layout")
     if target not in ("NHWC", "NCHW"):
         return 0
     count = 0

@@ -21,12 +21,26 @@ memory in training either.
   version (``*_reference``) beside it.
 
 The CUDA kernels mask ragged T themselves, so every T has a kernel form on
-the card: the JAX package's prime-T dense fallback and its block lookup
-through the tuning cache have no counterpart here. The block arguments are
-accepted for API parity and unused: the kernels choose their own tiles.
+the card: the JAX package's prime-T dense fallback has no counterpart
+here. The rows a block owns resolve as the JAX package resolves its
+blocks: the call's ``block_q`` / ``block_k`` (forward) and
+``block_q_bwd`` / ``block_k_bwd`` (the dq and the dk/dv pass), else the
+``flash_attention.fwd`` / ``.bwd`` tuning-cache entries under
+:func:`~..autotune.tuners.flash_shape_key`, else each pass's default
+within the ``MXNET_FLASH_*BLOCK*`` bounds. The compiled rows
+(``cost_model.FLASH_ROWS``) are 64 for the fp32 kernels and 64 or 128 for
+the tensor-core kernels; the streamed tile (``block_k`` of the forward)
+is 64. Rows the kernels do not compile raise. A row sees the same
+operations in the same order at either width, so the rows change the
+time, not the result. The resolution is made at the first call at a
+shape and carried in a :class:`~..autotune.cache.Carry` (one dict probe
+a call, no lookup) until the tuning cache or a tuning flag changes; a
+CUDA graph keeps the rows it was captured with, and an entry written
+after a capture takes effect at the next capture.
 The fp32 kernels run on the CUDA cores in fp32 (64 x 64 tiles); the bf16
-and fp16 kernels run on the tensor cores (wgmma; the forward in 64-row
-blocks of one warpgroup, the backward in 128-row blocks of two), rounding
+and fp16 kernels run on the tensor cores (wgmma; by default the forward
+in 64-row blocks of one warpgroup, the backward in 128-row blocks of
+two), rounding
 p (and in the backward ds) once to the input type as the A operands of
 their second products, where SDPA's flash kernels round them too (``round_to`` of the plain versions repeats that: the
 forward's walks the key axis in the kernel's 64-key tiles with its running
@@ -47,7 +61,10 @@ import math
 import torch
 
 from .. import cuda_build
-from ..base import MXNetError
+from ..autotune import cache as _tune_cache
+from ..autotune import cost_model as _tune_cost
+from ..autotune.registry import declare as _declare_tunable
+from ..base import MXNetError, dtype_name
 from ..config import get_flag
 
 __all__ = ["flash_attention", "flash_attention_reference", "flash_forward",
@@ -64,6 +81,62 @@ KERNELS = (FWD, DQ, DKV)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _NEG_INF = float("-inf")
+
+#: the compiled rows a block owns, per pass and element width, default
+#: first (csrc/flash_attention.cu compiled_rows)
+ROWS = _tune_cost.FLASH_ROWS
+_TILE = 64  # the streamed tile: the forward's block_k
+
+# each call's rows, per shape, causality, dtype, block arguments and card
+_ROWS_CARRY = _tune_cache.Carry()
+
+
+def _width(ctx):
+    return 4 if int(ctx.get("dtype_bytes", 2)) == 4 else 2
+
+
+def _bounded(rows, bound):
+    """The largest of ``rows`` within ``bound`` (the default, the first,
+    when it fits), else the smallest: flag values are upper bounds."""
+    if rows[0] <= bound:
+        return rows[0]
+    fits = [r for r in rows if r <= bound]
+    return max(fits) if fits else min(rows)
+
+
+def _fwd_default(ctx):
+    return {"block_q": _bounded(ROWS["fwd"][_width(ctx)],
+                                get_flag("MXNET_FLASH_BLOCK_Q")),
+            "block_k": _TILE}
+
+
+def _bwd_default(ctx):
+    w = _width(ctx)
+    return {"block_q": _bounded(ROWS["dq"][w],
+                                get_flag("MXNET_FLASH_BWD_BLOCK_Q")),
+            "block_k": _bounded(ROWS["dkv"][w],
+                                get_flag("MXNET_FLASH_BWD_BLOCK_K"))}
+
+
+# the knob + search-space declarations live at the call site, as in the
+# JAX package: each space is the set of rows this card's kernels compile
+# for the dtype (one candidate in fp32)
+_declare_tunable(
+    "flash_attention.fwd",
+    space=lambda ctx: {"block_q": tuple(sorted(ROWS["fwd"][_width(ctx)])),
+                       "block_k": (_TILE,)},
+    default=_fwd_default,
+    cost=_tune_cost.flash_fwd_cost,
+    doc="Forward kernel: q rows a block owns (64 = one warpgroup, 128 = "
+        "two on the tensor cores) and the streamed k tile (64).")
+_declare_tunable(
+    "flash_attention.bwd",
+    space=lambda ctx: {"block_q": tuple(sorted(ROWS["dq"][_width(ctx)])),
+                       "block_k": tuple(sorted(ROWS["dkv"][_width(ctx)]))},
+    default=_bwd_default,
+    cost=_tune_cost.flash_bwd_cost,
+    doc="Backward: q rows a block owns in the dq pass (block_q) and k rows "
+        "a block owns in the dk/dv pass (block_k).")
 
 
 def _scale(D, scale):
@@ -93,13 +166,16 @@ def flash_attention_reference(q, k, v, causal=False, scale=None):
 
 
 def flash_forward_reference(q, k, v, causal, scale, round_to=None,
-                            block_k=64):
+                            block_k=64, block_q=None):
     """Plain version of the forward kernel (no autograd). With ``round_to``
     (a torch dtype) it walks the key axis in the tensor-core kernel's
     ``block_k``-key tiles with its running max, and rounds each p =
     exp(s - m_running) once to ``round_to`` where that kernel does (the A
     operand of its P.V product), l summed from the unrounded p; without,
-    it is the dense fp32 formula of :func:`flash_attention_reference`."""
+    it is the dense fp32 formula of :func:`flash_attention_reference`.
+    ``block_q`` (the rows a block owns) is accepted and unused: a row's
+    result does not depend on it; the key tile stays 64 at every
+    ``block_q``."""
     with torch.no_grad():
         if round_to is None:
             return flash_attention_reference(q, k, v, causal, scale)
@@ -155,9 +231,9 @@ def _bwd_tiles(q, k, v, do, lse, delta, causal, scale, round_to=None):
 
 
 def flash_backward_dq_reference(q, k, v, do, lse, delta, causal, scale,
-                                round_to=None):
+                                round_to=None, block_q=None):
     """Plain version of the dq kernel: dq = scale * ds . k (``round_to``:
-    see :func:`_bwd_tiles`)."""
+    see :func:`_bwd_tiles`; ``block_q`` accepted and unused)."""
     with torch.no_grad():
         _, _, ds = _bwd_tiles(q, k, v, do, lse, delta, causal, scale,
                               round_to)
@@ -166,9 +242,10 @@ def flash_backward_dq_reference(q, k, v, do, lse, delta, causal, scale,
 
 
 def flash_backward_dkv_reference(q, k, v, do, lse, delta, causal, scale,
-                                 round_to=None):
+                                 round_to=None, block_k=None):
     """Plain version of the dk/dv kernel: dv = p^T . do, dk = ds^T . qs
-    (``round_to``: see :func:`_bwd_tiles`)."""
+    (``round_to``: see :func:`_bwd_tiles`; ``block_k`` accepted and
+    unused)."""
     with torch.no_grad():
         qs, p, ds = _bwd_tiles(q, k, v, do, lse, delta, causal, scale,
                                round_to)
@@ -185,11 +262,13 @@ def _library():
     lib = cuda_build.load_library(SOURCE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, f, i,
-                                               i, p]
+                                               i, i, p]
     lib.flash_attention_bwd_dq_launch.argtypes = [p, p, p, p, p, p, p, i, i,
-                                                  i, f, i, i, p]
+                                                  i, f, i, i, i, p]
     lib.flash_attention_bwd_dkv_launch.argtypes = [p, p, p, p, p, p, p, p, i,
-                                                   i, i, f, i, i, p]
+                                                   i, i, f, i, i, i, p]
+    lib.flash_attention_rows.argtypes = [i, i, i]
+    lib.flash_attention_rows.restype = ctypes.c_int
     for fn in (lib.flash_attention_fwd_launch,
                lib.flash_attention_bwd_dq_launch,
                lib.flash_attention_bwd_dkv_launch):
@@ -237,25 +316,59 @@ def _check(name, q, tensors, rows):
     return B * H, T, D, code
 
 
-def _launched(kernel, lib, rc):
+def compiled_rows():
+    """The built library's table of rows a block owns, {pass: {width:
+    rows}} in the layout of :data:`ROWS` (the card tests hold the two
+    equal)."""
+    lib = _library()
+    out = {}
+    for which, name in enumerate(("fwd", "dq", "dkv")):
+        out[name] = {}
+        for width, code in ((4, 0), (2, 1)):
+            rows, i = [], 0
+            while lib.flash_attention_rows(which, code, i) > 0:
+                rows.append(lib.flash_attention_rows(which, code, i))
+                i += 1
+            out[name][width] = tuple(rows)
+    return out
+
+
+def _rows(name, which, q, rows):
+    """``rows`` as a count the pass compiles at q's dtype (None: the
+    pass's default), or raise."""
+    compiled = ROWS[which][4 if q.dtype == torch.float32 else 2]
+    if rows is None:
+        return compiled[0]
+    rows = int(rows)
+    if rows not in compiled:
+        raise MXNetError("%s: %d rows a block is not compiled for %s "
+                         "(compiled: %s)" % (name, rows, q.dtype,
+                                             sorted(compiled)))
+    return rows
+
+
+def _launched(kernel, lib, rc, rows):
     if rc != 0:
         raise MXNetError("%s launch failed: CUDA error %d (%s)"
                          % (kernel, rc,
                             lib.flash_attention_error_string(rc).decode()))
-    cuda_build.count_launch(kernel)
+    cuda_build.count_launch(kernel, rows)
 
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def flash_forward(q, k, v, causal=False, scale=None):
-    """``(o, lse)``: the forward kernel on a CUDA tensor, its plain version
-    on a CPU tensor."""
+def flash_forward(q, k, v, causal=False, scale=None, block_q=None):
+    """``(o, lse)``: the forward kernel on a CUDA tensor, in blocks of
+    ``block_q`` q rows (None: the pass's default), its plain version on a
+    CPU tensor."""
     scale = _scale(q.shape[-1], scale)
     if q.device.type == "cpu":
-        return flash_forward_reference(q, k, v, causal, scale)
+        return flash_forward_reference(q, k, v, causal, scale,
+                                       block_q=block_q)
     BH, T, D, code = _check(FWD, q, (k, v), ())
+    rows = _rows(FWD, "fwd", q, block_q)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     if q.numel() == 0:
@@ -263,21 +376,23 @@ def flash_forward(q, k, v, causal=False, scale=None):
     lib = _library()
     rc = lib.flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), BH, T, D, scale, int(bool(causal)), code,
+        lse.data_ptr(), BH, T, D, scale, int(bool(causal)), code, rows,
         _stream(q))
-    _launched(FWD, lib, rc)
+    _launched(FWD, lib, rc, rows)
     return o, lse
 
 
-def flash_backward_dq(q, k, v, do, lse, delta, causal=False, scale=None):
+def flash_backward_dq(q, k, v, do, lse, delta, causal=False, scale=None,
+                      block_q=None):
     """dq from the forward's residuals; ``delta = rowsum(do * o) - dlse``
-    in fp32. The dq kernel on a CUDA tensor, its plain version on a CPU
-    tensor."""
+    in fp32. The dq kernel on a CUDA tensor, in blocks of ``block_q`` q
+    rows (None: the pass's default), its plain version on a CPU tensor."""
     scale = _scale(q.shape[-1], scale)
     if q.device.type == "cpu":
         return flash_backward_dq_reference(q, k, v, do, lse, delta, causal,
-                                           scale)
+                                           scale, block_q=block_q)
     BH, T, D, code = _check(DQ, q, (k, v, do), (lse, delta))
+    rows = _rows(DQ, "dq", q, block_q)
     dq = torch.empty_like(q)
     if q.numel() == 0:
         return dq
@@ -285,19 +400,22 @@ def flash_backward_dq(q, k, v, do, lse, delta, causal=False, scale=None):
     rc = lib.flash_attention_bwd_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, T, D, scale,
-        int(bool(causal)), code, _stream(q))
-    _launched(DQ, lib, rc)
+        int(bool(causal)), code, rows, _stream(q))
+    _launched(DQ, lib, rc, rows)
     return dq
 
 
-def flash_backward_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
+def flash_backward_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
+                       block_k=None):
     """``(dk, dv)`` from the same residuals: the dk/dv kernel on a CUDA
-    tensor, its plain version on a CPU tensor."""
+    tensor, in blocks of ``block_k`` k rows (None: the pass's default),
+    its plain version on a CPU tensor."""
     scale = _scale(q.shape[-1], scale)
     if q.device.type == "cpu":
         return flash_backward_dkv_reference(q, k, v, do, lse, delta, causal,
-                                            scale)
+                                            scale, block_k=block_k)
     BH, T, D, code = _check(DKV, q, (k, v, do), (lse, delta))
+    rows = _rows(DKV, "dkv", q, block_k)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if q.numel() == 0:
@@ -306,8 +424,8 @@ def flash_backward_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
     rc = lib.flash_attention_bwd_dkv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
-        T, D, scale, int(bool(causal)), code, _stream(q))
-    _launched(DKV, lib, rc)
+        T, D, scale, int(bool(causal)), code, rows, _stream(q))
+    _launched(DKV, lib, rc, rows)
     return dk, dv
 
 
@@ -318,11 +436,11 @@ class _FlashAttention(torch.autograd.Function):
     dense autodiff of the plain formula under MXNET_FLASH_ATTENTION_BWD=0."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = flash_forward(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, causal, scale, rows):
+        o, lse = flash_forward(q, k, v, causal, scale, block_q=rows[0])
         # O(T)-per-head residuals: no T x T tensor survives the forward
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.rows = causal, scale, rows
         ctx.set_materialize_grads(False)
         return o, lse
 
@@ -341,7 +459,7 @@ class _FlashAttention(torch.autograd.Function):
                     outs.append(lse2)
                     cots.append(dlse)
                 dq, dk, dv = torch.autograd.grad(outs, leaves, cots)
-            return dq, dk, dv, None, None
+            return dq, dk, dv, None, None, None
         do = do.contiguous()
         # delta_i = rowsum(do_i * o_i); an lse cotangent adds dlse_i * p_ij
         # to ds_ij, which folds in as delta - dlse
@@ -350,10 +468,79 @@ class _FlashAttention(torch.autograd.Function):
             delta = delta - dlse.float()
         delta = delta.contiguous()
         dq = flash_backward_dq(q, k, v, do, lse, delta, ctx.causal,
-                               ctx.scale)
+                               ctx.scale, block_q=ctx.rows[1])
         dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, ctx.causal,
-                                    ctx.scale)
-        return dq, dk, dv, None, None
+                                    ctx.scale, block_k=ctx.rows[2])
+        return dq, dk, dv, None, None, None
+
+
+def _tuned_block(value):
+    try:
+        value = int(value)
+    except (TypeError, ValueError):
+        return None
+    return value if value > 0 else None
+
+
+def resolve_rows(B, H, T, D, causal, dtype, block_q=None, block_k=None,
+                 block_q_bwd=None, block_k_bwd=None, device=None):
+    """``(forward rows, dq rows, dk/dv rows)`` of a call: each explicit
+    argument > the ``flash_attention.fwd`` / ``.bwd`` cache entry of this
+    (shape bucket, dtype), consulted where an argument of that pass is
+    missing > the pass's default within the flag bounds. Raises on rows
+    the kernels do not compile (from an argument or an entry) and on a
+    streamed tile other than 64. ``device`` is where a search under
+    ``MXNET_TUNE=1`` measures (default the current card)."""
+    from .. import autotune
+
+    db = 4 if str(dtype) == "float32" else 2
+    ctx = {"T": int(T), "D": int(D), "B": int(B), "H": int(H),
+           "causal": bool(causal), "dtype": str(dtype), "dtype_bytes": db}
+    if device is not None:
+        ctx["device"] = str(device)
+    key = autotune.flash_shape_key(T, D, causal)
+    out = []
+    for op, given, default in (
+            ("flash_attention.fwd", (block_q, block_k), _fwd_default),
+            ("flash_attention.bwd", (block_q_bwd, block_k_bwd),
+             _bwd_default)):
+        tuned = {}
+        if None in given:
+            tuned = autotune.lookup_or_tune(op, key, dtype=str(dtype),
+                                            ctx=ctx)
+            # a non-dict or non-integer entry reads as a miss
+            tuned = tuned if isinstance(tuned, dict) else {}
+        dflt = default(ctx)
+        value, where = {}, {}
+        for field, v in zip(("block_q", "block_k"), given):
+            where[field] = "explicit"
+            if v is None:
+                v = _tuned_block(tuned.get(field))
+                where[field] = "the %s cache entry's" % op
+            if v is None:
+                v, where[field] = dflt[field], "default"
+            value[field] = int(v)
+        space = autotune.get_tunable(op).resolve_space(ctx)
+        for field, v in value.items():
+            if v not in space[field]:
+                raise MXNetError(
+                    "flash_attention: %s %s=%d is not compiled for %s "
+                    "(%s: %s)" % (where[field], field, v, dtype, op,
+                                  {f: list(c) for f, c in space.items()}))
+        out.append(value)
+    return out[0]["block_q"], out[1]["block_q"], out[1]["block_k"]
+
+
+def _call_rows(q, causal, blocks):
+    """The rows of a call: resolved at a shape's first call and carried
+    until the tuning cache or a tuning flag changes."""
+    key = (q.shape, causal, q.dtype, blocks, q.device)
+    rows = _ROWS_CARRY.values.get(key)
+    if rows is None:
+        rows = _ROWS_CARRY.get(key, lambda: resolve_rows(
+            *q.shape, causal, dtype_name(q.dtype), *blocks,
+            device=q.device))
+    return rows
 
 
 def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
@@ -363,12 +550,15 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
 
     Returns ``out`` (the input dtype), or ``(out, lse)`` with
     ``return_lse`` (lse (batch, heads, T) fp32, the streaming-combine hook
-    of ring attention); gradients flow through both. The block arguments
-    are accepted for parity with the JAX package and unused: the CUDA
-    kernels choose their own tiles."""
-    del block_q, block_k, block_q_bwd, block_k_bwd
+    of ring attention); gradients flow through both. ``block_q`` /
+    ``block_k`` name the forward's rows a block and streamed tile,
+    ``block_q_bwd`` / ``block_k_bwd`` the dq and dk/dv passes' rows
+    (:func:`resolve_rows`); on the CPU they are accepted and unused."""
     scale = _scale(q.shape[-1], scale)
-    out, lse = _FlashAttention.apply(q, k, v, bool(causal), scale)
+    blocks = (block_q, block_k, block_q_bwd, block_k_bwd)
+    rows = (_call_rows(q, causal, blocks) if q.device.type == "cuda"
+            else blocks[:1] + blocks[2:])
+    out, lse = _FlashAttention.apply(q, k, v, bool(causal), scale, rows)
     return (out, lse) if return_lse else out
 
 

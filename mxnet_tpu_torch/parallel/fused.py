@@ -5,9 +5,8 @@ Counterpart of ``mxnet_tpu/parallel/fused.py`` ``fused_matmul`` and
 FullyConnected / dot / batch_dot + epilogue chains into ``_FusedRegion``
 nodes (ops/fused.py); the kernel-form regions run here, on the
 hand-written CUDA kernel ``csrc/fused_matmul.cu``: a register-tiled fp32
-SGEMM (128 x 128 or 64 x 64 output tiles, chosen per launch by
-:func:`tile_size`) with the whole epilogue applied in registers before one
-store.
+SGEMM (128 x 128 or 64 x 64 output tiles, :data:`TILES`) with the whole
+epilogue applied in registers before one store.
 
 * :func:`fused_matmul` — ``epilogue(x @ w.T)`` when ``wt`` (w is (N, K)),
   else ``epilogue(x @ w)`` (w is (K, N)). A CUDA tensor launches the
@@ -25,8 +24,23 @@ store.
 
 Unlike the TPU kernel, this one masks ragged M/N/K edges itself, so every
 shape has a kernel form: the JAX package's tiling decline (``pick_blocks``
-returning None) and its block resolution through the tuning cache
-(``resolve_blocks``) have no counterpart here.
+returning None) has no counterpart here. The tile resolves as in the JAX
+package (:func:`resolve_blocks`): an explicit ``block_m`` / ``block_n``
+argument, else the ``fusion.blocks`` tuning-cache entry under
+:func:`fused_shape_key`, else the default rule (128 where that grid fills
+every SM, else 64; :func:`tile_size`) within the
+``MXNET_FUSION_BLOCK_M`` / ``_N`` bounds; the kernel is always told its
+tile. A tile the kernel does not compile raises. ``block_k`` is the
+JAX package's field, recorded and checked against the depths the edge
+compiles but not passed on: the kernel takes its K-slice depth from its
+route (the deeper one where the operands run in 16-byte fp32 vectors).
+Every output is the same fp32 FMA chain at either tile, so the tile
+changes the time, never a bit of the result. The resolution is made at
+the first launch of a shape and carried in a
+:class:`~..autotune.cache.Carry` (one dict probe a launch, no lookup)
+until the tuning cache or a tuning flag changes; a CUDA graph keeps the
+tile it was captured with, and an entry written after a capture takes
+effect at the next capture.
 
 Epilogue step grammar (static tuples, produced by ops/fused.py):
 
@@ -45,11 +59,15 @@ import functools
 import torch
 
 from .. import cuda_build
-from ..base import MXNetError, torch_dtype
+from ..autotune import cache as _tune_cache
+from ..autotune import cost_model as _cost_model
+from ..base import MXNetError, dtype_name, torch_dtype
+from ..config import get_flag
 from ..ops.elemwise import softrelu, softsign
 
 __all__ = ["fused_matmul", "fused_matmul_reference", "fused_batch_matmul",
            "fused_batch_matmul_reference", "supported_act", "tile_size",
+           "fused_shape_key", "resolve_blocks", "compiled_tiles", "TILES",
            "MAX_STEPS"]
 
 KERNEL = "fused_matmul"          # the source and the 2-d launch counter
@@ -61,6 +79,14 @@ _BMM_STEPS = ("res", "act", "scalar", "cast")
 _ACTS = ("relu", "sigmoid", "tanh", "softrelu", "softsign")
 
 MAX_STEPS = 8
+
+#: the compiled tiles: output tile edge -> K-slice depth of the fp32 route
+#: and of the other routes (csrc/fused_matmul.cu TILES); the tunable's
+#: space and its cost read the same table
+TILES = _cost_model.FUSED_TILES
+
+# each launch's tile edge, per shape, dtype, tile arguments and card
+_TILE_CARRY = _tune_cache.Carry()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -124,9 +150,11 @@ def _check_extras(epilogue, extras):
 
 
 def fused_matmul_reference(x, w, extras=(), epilogue=(), wt=True,
-                           out_dtype=None):
+                           out_dtype=None, block_m=None, block_n=None,
+                           block_k=None):
     """The plain PyTorch version: the same arithmetic in fp32 as separate
-    ops, cast once at the end."""
+    ops, cast once at the end. The tile arguments are accepted and unused:
+    the result does not depend on the tile."""
     _check_extras(epilogue, extras)
     out_dtype = torch_dtype(out_dtype) or x.dtype
     wf = w.float()
@@ -171,9 +199,11 @@ def _check_bmm_epilogue(epilogue, extras):
 
 
 def fused_batch_matmul_reference(x, w, extras=(), epilogue=(),
-                                 out_dtype=None):
+                                 out_dtype=None, block_m=None, block_n=None,
+                                 block_k=None):
     """The plain PyTorch version of :func:`fused_batch_matmul`: a batched
-    fp32 product and the epilogue as separate ops, cast once at the end."""
+    fp32 product and the epilogue as separate ops, cast once at the end.
+    The tile arguments are accepted and unused."""
     _check_bmm_epilogue(epilogue, extras)
     out_dtype = torch_dtype(out_dtype) or x.dtype
     y = torch.matmul(x.float(), w.float())
@@ -195,18 +225,18 @@ def _library():
     lib.fused_matmul_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(_Epilogue), ctypes.c_void_p]
     lib.fused_matmul_launch.restype = ctypes.c_int
     lib.fused_batch_matmul_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(_Epilogue), ctypes.c_void_p]
     lib.fused_batch_matmul_launch.restype = ctypes.c_int
-    lib.fused_matmul_tile.argtypes = [ctypes.c_int] * 3
-    lib.fused_matmul_tile.restype = ctypes.c_int
+    lib.fused_matmul_tiles.argtypes = [ctypes.c_int] * 2
+    lib.fused_matmul_tiles.restype = ctypes.c_int
     lib.fused_matmul_error_string.argtypes = [ctypes.c_int]
     lib.fused_matmul_error_string.restype = ctypes.c_char_p
     for probe in (lib.fused_matmul_epilogue_size, lib.fused_matmul_max_steps):
@@ -220,10 +250,126 @@ def _library():
 
 
 def tile_size(B, M, N):
-    """The output tile edge (128 or 64) that the kernel takes for a launch
-    of B (M, N) outputs on the current card: 128 where that grid fills
-    every SM, else 64."""
-    return _library().fused_matmul_tile(int(B), int(M), int(N))
+    """The output tile edge (128 or 64) a launch of B (M, N) outputs takes
+    on the current card when nothing names one and the flags bound
+    nothing: 128 where that grid fills every SM, else 64
+    (``cost_model.fused_default_tile``, the one home of the rule)."""
+    return _cost_model.fused_default_tile(
+        B, M, N, sms=_sm_count(torch.cuda.current_device()))
+
+
+def compiled_tiles():
+    """The built library's tile table, {edge: (fp32 depth, other depth)}
+    (the card tests hold :data:`TILES` to it)."""
+    lib = _library()
+    out = {}
+    i = 0
+    while lib.fused_matmul_tiles(i, 0) > 0:
+        out[lib.fused_matmul_tiles(i, 0)] = (lib.fused_matmul_tiles(i, 1),
+                                             lib.fused_matmul_tiles(i, 2))
+        i += 1
+    return out
+
+
+def fused_shape_key(M, N, K):
+    """Shape-bucket key of ``fusion.blocks`` cache entries: every dim
+    rounds up to a power of two (one tuning per bucket, not per exact
+    shape); the JAX package's key."""
+    p2 = _cost_model.pow2_at_least
+    return ("M%d" % p2(int(M)), "N%d" % p2(int(N)), "K%d" % p2(int(K)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_tile(blocks, where):
+    """``blocks`` (block_m, block_n, block_k) as the edge the kernel
+    compiles, with one of the K-slice depths it compiles there, or
+    raise."""
+    bm, bn, bk = blocks
+    if bm != bn or bm not in TILES or bk not in TILES[bm]:
+        raise MXNetError(
+            "fused_matmul: %s tile (block_m=%s, block_n=%s, block_k=%s) is "
+            "not one the kernel compiles (%s)"
+            % (where, bm, bn, bk,
+               ", ".join("%d x %d with K slices of %s" % (e, e, d)
+                         for e, d in sorted(TILES.items()))))
+    return bm
+
+
+def _tuned_int(value):
+    try:
+        value = int(value)
+    except (TypeError, ValueError):
+        return None
+    return value if value > 0 else None
+
+
+def resolve_blocks(M, N, K, dtype="float32", dtype_bytes=4, block_m=None,
+                   block_n=None, block_k=None, batch=1, sms=None,
+                   device=None):
+    """The tile ``(block_m, block_n, block_k)`` a launch of ``batch`` (M, N,
+    K) products takes: explicit per-call arguments > the tuning cache's
+    ``fusion.blocks`` entry for this (shape bucket, dtype) > the default
+    rule within the MXNET_FUSION_BLOCK_M/N bounds. A missing explicit
+    argument is filled from the same tile; a missing ``block_k`` is the
+    deepest slice the edge compiles (the kernel's route decides the depth
+    it runs, :data:`TILES`). Raises on a tile the kernel does not compile,
+    whether named by an argument or by a cache entry.
+    ``sms`` is the card's SM count (the current card's, else the H100's
+    132); ``device`` is where a search under ``MXNET_TUNE=1`` measures
+    (default the current card)."""
+    where = "explicit"
+    given = (block_m, block_n, block_k)
+    if given == (None, None, None):
+        from .. import autotune
+
+        ctx = {"M": int(M), "N": int(N), "K": int(K), "B": int(batch),
+               "dtype_bytes": int(dtype_bytes)}
+        if device is not None:
+            ctx["device"] = str(device)
+        tuned = autotune.lookup_or_tune(
+            "fusion.blocks", fused_shape_key(M, N, K), dtype=str(dtype),
+            ctx=ctx)
+        if isinstance(tuned, dict):
+            given = tuple(_tuned_int(tuned.get(k))
+                          for k in ("block_m", "block_n", "block_k"))
+            where = "the fusion.blocks cache entry's"
+    if given == (None, None, None):
+        if sms is None:
+            sms = (_sm_count(torch.cuda.current_device())
+                   if torch.cuda.is_available() else _cost_model.SMS)
+        tile = _cost_model.fused_default_tile(
+            batch, M, N, sms=sms,
+            bound=min(get_flag("MXNET_FUSION_BLOCK_M"),
+                      get_flag("MXNET_FUSION_BLOCK_N")))
+        return tile, tile, TILES[tile][0]
+    bm, bn, bk = given
+    edge = bm or bn
+    if edge is None:  # block_k alone: the largest edge that compiles it
+        edge = next((e for e in sorted(TILES, reverse=True)
+                     if bk in TILES[e]), bk)
+    bm = bm or edge
+    bn = bn or edge
+    if bk is None:
+        bk = TILES[edge][0] if edge in TILES else None
+    _check_tile((bm, bn, bk), where)
+    return bm, bn, bk
+
+
+def _launch_tile(B, M, N, K, dtype, block_m, block_n, block_k, device):
+    """The tile edge of a launch: resolved at a shape's first launch and
+    carried until the tuning cache or a tuning flag changes."""
+    key = (B, M, N, K, dtype, block_m, block_n, block_k, device)
+    tile = _TILE_CARRY.values.get(key)
+    if tile is None:
+        tile = _TILE_CARRY.get(key, lambda: resolve_blocks(
+            M, N, K, dtype=dtype_name(dtype), dtype_bytes=dtype.itemsize,
+            block_m=block_m, block_n=block_n, block_k=block_k, batch=B,
+            sms=_sm_count(device.index), device=device)[0])
+    return tile
 
 
 def _encode_epilogue(epilogue, extras, M, N, device, res_shape=None):
@@ -277,15 +423,19 @@ def _encode_epilogue(epilogue, extras, M, N, device, res_shape=None):
     return ep
 
 
-def fused_matmul(x, w, extras=(), epilogue=(), wt=True, out_dtype=None):
+def fused_matmul(x, w, extras=(), epilogue=(), wt=True, out_dtype=None,
+                 block_m=None, block_n=None, block_k=None):
     """``epilogue(x @ w.T)`` (``wt``; w is (N, K)) or ``epilogue(x @ w)``
     (w is (K, N)) in one kernel; x is (M, K). ``extras`` holds one tensor
     per extra-consuming step in order: (N,) for bias/vmul/vadd, (M, N) for
-    res. On a CUDA tensor this launches csrc/fused_matmul.cu or raises; on
-    a CPU tensor it is :func:`fused_matmul_reference`."""
+    res. ``block_m`` / ``block_n`` / ``block_k`` name the tile
+    (:func:`resolve_blocks`). On a CUDA tensor this launches
+    csrc/fused_matmul.cu or raises; on a CPU tensor it is
+    :func:`fused_matmul_reference`."""
     _check_extras(epilogue, extras)
     if x.device.type == "cpu":
-        return fused_matmul_reference(x, w, extras, epilogue, wt, out_dtype)
+        return fused_matmul_reference(x, w, extras, epilogue, wt, out_dtype,
+                                      block_m, block_n, block_k)
     if x.device.type != "cuda":
         raise MXNetError("fused_matmul: unsupported device %s" % x.device)
     out_dtype = torch_dtype(out_dtype) or x.dtype
@@ -311,23 +461,27 @@ def fused_matmul(x, w, extras=(), epilogue=(), wt=True, out_dtype=None):
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0 or N == 0:
         return out
+    tile = _launch_tile(1, M, N, K, x.dtype, block_m, block_n, block_k,
+                        x.device)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.fused_matmul_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                                  M, N, K, x_dt, w_dt, o_dt, int(bool(wt)),
-                                 ctypes.byref(ep), stream)
+                                 tile, ctypes.byref(ep), stream)
     if rc != 0:
         raise MXNetError("fused_matmul launch failed: CUDA error %d (%s)"
                          % (rc, lib.fused_matmul_error_string(rc).decode()))
-    cuda_build.count_launch(KERNEL)
+    cuda_build.count_launch(KERNEL, tile)
     return out
 
 
-def fused_batch_matmul(x, w, extras=(), epilogue=(), out_dtype=None):
+def fused_batch_matmul(x, w, extras=(), epilogue=(), out_dtype=None,
+                       block_m=None, block_n=None, block_k=None):
     """``epilogue(x[b] @ w[b])`` for x (B, M, K) and w (B, K, N) in one
-    kernel; ``extras`` holds one (B, M, N) tensor per ``res`` step. On a
-    CUDA tensor this launches csrc/fused_matmul.cu's batched entry or
-    raises; on a CPU tensor it is :func:`fused_batch_matmul_reference`.
+    kernel; ``extras`` holds one (B, M, N) tensor per ``res`` step; the
+    tile arguments as in :func:`fused_matmul`. On a CUDA tensor this
+    launches csrc/fused_matmul.cu's batched entry or raises; on a CPU
+    tensor it is :func:`fused_batch_matmul_reference`.
 
     x must have unit stride along K and M-major rows (each x[b]
     contiguous; the batch stride is free). w is either contiguous or the
@@ -336,7 +490,8 @@ def fused_batch_matmul(x, w, extras=(), epilogue=(), out_dtype=None):
     _check_bmm_epilogue(epilogue, extras)
     if x.device.type == "cpu":
         return fused_batch_matmul_reference(x, w, extras, epilogue,
-                                            out_dtype)
+                                            out_dtype, block_m, block_n,
+                                            block_k)
     if x.device.type != "cuda":
         raise MXNetError("fused_batch_matmul: unsupported device %s"
                          % x.device)
@@ -373,15 +528,17 @@ def fused_batch_matmul(x, w, extras=(), epilogue=(), out_dtype=None):
     out = torch.empty((B, M, N), dtype=out_dtype, device=x.device)
     if B == 0 or M == 0 or N == 0:
         return out
+    tile = _launch_tile(B, M, N, K, x.dtype, block_m, block_n, block_k,
+                        x.device)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.fused_batch_matmul_launch(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), B, M, N, K,
-        x.stride(0), w.stride(0), x_dt, w_dt, o_dt, wt, ctypes.byref(ep),
-        stream)
+        x.stride(0), w.stride(0), x_dt, w_dt, o_dt, wt, tile,
+        ctypes.byref(ep), stream)
     if rc != 0:
         raise MXNetError("fused_batch_matmul launch failed: CUDA error %d "
                          "(%s)" % (rc,
                                    lib.fused_matmul_error_string(rc).decode()))
-    cuda_build.count_launch(BMM_KERNEL)
+    cuda_build.count_launch(BMM_KERNEL, tile)
     return out

@@ -103,9 +103,8 @@ def _tuned(op, key, field):
 
 def resolve_decode_workers(explicit, batch_size, data_shape):
     """Worker-count resolution: explicit arg > ``io.decode_workers``
-    tuning-cache entry > ``MXNET_IO_DECODE_WORKERS`` > auto (host cores,
-    capped at 8). The tuner that writes the entry waits for ROADMAP.md
-    Queue A13's search."""
+    tuning-cache entry (written by ``autotune.tune_input_pipeline``) >
+    ``MXNET_IO_DECODE_WORKERS`` > auto (host cores, capped at 8)."""
     import os
 
     from ..config import get_flag

@@ -66,9 +66,9 @@ def traffic_signature(sizes):
 
 
 # the ladder's knob declaration: candidates are whole ladders, ranked
-# analytically by expected pad-waste + a per-bucket program penalty (the
-# JAX package then measures them on a live server,
-# autotune.tune_serving_buckets; not ported yet, ROADMAP A13)
+# analytically by expected pad-waste + a per-bucket program penalty, then
+# measured on a live server (autotune.tune_serving_buckets, which records
+# under the (graph fingerprint, traffic key) that InferenceServer consults)
 _declare_tunable(
     "serving.buckets",
     space=lambda ctx: {"buckets": tuple(ladder_candidates(

@@ -1576,3 +1576,183 @@ def test_compile_step_skip_step_bit_identical_on_card(card):
     finally:
         health.set_policy(None)
         flight_recorder.reset()
+
+
+# ------------------------------------------------ tiles: the autotuner's
+def test_tile_tables_match_the_kernels(card):
+    """The tile tables the tunables' spaces, the wrappers' resolution and
+    the cost model read are the built kernels' own."""
+    assert F.compiled_tiles() == F.TILES
+    assert FA.compiled_rows() == FA.ROWS
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_fused_tiles_are_bit_identical(card, dtype):
+    """Every output is one fp32 FMA chain over k in ascending order at
+    either tile, so every compiled tile gives the default tile's bits:
+    ragged M, N, K, both weight layouts, the batched form too."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    dt = getattr(torch, dtype)
+    for M, N, K in ((49, 96, 80), (130, 64, 64), (7, 3, 1), (200, 257, 33),
+                    (3136, 256, 64)):
+        for wt in (True, False):
+            for ep in _EPILOGUES[:3]:
+                x, w, extras = _case(M, N, K, wt, ep, dt, gen)
+                want = F.fused_matmul(x, w, extras, ep, wt)
+                for edge in F.TILES:
+                    got = F.fused_matmul(x, w, extras, ep, wt,
+                                         block_m=edge, block_n=edge)
+                    assert cuda_build.last_variant(F.KERNEL) == str(edge)
+                    assert torch.equal(got, want), (M, N, K, wt, ep, edge)
+    for B, M, N, K in ((3, 65, 129, 70), (8, 64, 64, 128), (2, 1, 7, 5)):
+        x = torch.randn(B, M, K, device="cuda", generator=gen).to(dt)
+        w = torch.randn(B, K, N, device="cuda", generator=gen).to(dt)
+        want = F.fused_batch_matmul(x, w)
+        for edge in F.TILES:
+            got = F.fused_batch_matmul(x, w, block_m=edge, block_n=edge)
+            assert cuda_build.last_variant(F.BMM_KERNEL) == str(edge)
+            assert torch.equal(got, want), (B, M, N, K, edge)
+
+
+def test_fused_tile_outside_the_compiled_set_raises(card, tmp_path,
+                                                    monkeypatch):
+    x = torch.randn(64, 32, device="cuda")
+    w = torch.randn(48, 32, device="cuda")
+    for kw in ({"block_m": 256}, {"block_m": 64, "block_n": 128},
+               {"block_m": 64, "block_k": 64}):
+        with pytest.raises(MXNetError, match="not one the kernel compiles"):
+            F.fused_matmul(x, w, **kw)
+    monkeypatch.setenv("MXNET_TUNE_CACHE", str(tmp_path / "tuning.json"))
+    mx.autotune.reset()
+    mx.autotune.record("fusion.blocks", F.fused_shape_key(64, 48, 32),
+                       {"block_m": 96, "block_n": 96, "block_k": 16},
+                       dtype="float32")
+    with pytest.raises(MXNetError, match="cache entry"):
+        F.fused_matmul(x, w)
+    mx.autotune.reset()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_rows_are_bit_identical(card, dtype):
+    """One and two warpgroups a block: a row sees the same tiles in the
+    same order, so the forward (o and lse), the dq pass and the dk/dv pass
+    give the default rows' bits at every compiled rows, ragged T and D,
+    causal and not."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for B, H, T, D in _FLASH_FWD_SHAPES + [(2, 2, 191, 64), (1, 3, 64, 16),
+                                           (1, 1, 128, 128)]:
+        for causal in (False, True):
+            what = (B, H, T, D, causal)
+            q, k, v, do, _ = _flash_inputs(B, H, T, D, getattr(torch, dtype),
+                                           gen)
+            o, lse = FA.flash_forward(q, k, v, causal)
+            delta = (do.float() * o.float()).sum(-1).contiguous()
+            dq = FA.flash_backward_dq(q, k, v, do, lse, delta, causal)
+            dk, dv = FA.flash_backward_dkv(q, k, v, do, lse, delta, causal)
+            for rows in FA.ROWS["fwd"][2]:
+                o2, lse2 = FA.flash_forward(q, k, v, causal, block_q=rows)
+                assert cuda_build.last_variant(FA.FWD) == str(rows)
+                assert torch.equal(o2, o) and torch.equal(lse2, lse), \
+                    what + (rows,)
+            for rows in FA.ROWS["dq"][2]:
+                got = FA.flash_backward_dq(q, k, v, do, lse, delta, causal,
+                                           block_q=rows)
+                assert torch.equal(got, dq), what + ("dq", rows)
+            for rows in FA.ROWS["dkv"][2]:
+                gk, gv = FA.flash_backward_dkv(q, k, v, do, lse, delta,
+                                               causal, block_k=rows)
+                assert torch.equal(gk, dk) and torch.equal(gv, dv), \
+                    what + ("dkv", rows)
+
+
+def test_flash_rows_outside_the_compiled_set_raise(card):
+    q = torch.randn(1, 2, 70, 64, device="cuda")
+    with pytest.raises(MXNetError, match="not compiled"):
+        FA.flash_forward(q, q, q, block_q=128)  # fp32: 64 rows only
+    hq = q.to(torch.bfloat16)
+    for kw in ({"block_q": 256}, {"block_k": 128}, {"block_q_bwd": 32}):
+        with pytest.raises(MXNetError, match="not compiled"):
+            FA.flash_attention(hq, hq, hq, causal=True, **kw)
+
+
+def test_cache_entry_changes_the_next_launch_and_capture(card, tmp_path,
+                                                         monkeypatch):
+    """A ``fusion.blocks`` / ``flash_attention.fwd`` entry recorded in the
+    process takes effect at the next launch and at the next capture (the
+    wrapper's launch record names the tile); a graph captured before the
+    entry keeps its tile."""
+    monkeypatch.setenv("MXNET_TUNE_CACHE", str(tmp_path / "tuning.json"))
+    mx.autotune.reset()
+    try:
+        M, N, K = 3136, 256, 64
+        x = torch.randn(M, K, device="cuda")
+        w = torch.randn(N, K, device="cuda")
+        default = F.resolve_blocks(M, N, K)[0]
+        other = [e for e in F.TILES if e != default][0]
+        F.fused_matmul(x, w)
+        assert cuda_build.last_variant(F.KERNEL) == str(default)
+
+        def capture():
+            g = torch.cuda.CUDAGraph()
+            s = torch.cuda.Stream()
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                F.fused_matmul(x, w)  # warm on the side stream
+                torch.cuda.synchronize()
+                with torch.cuda.graph(g, stream=s):
+                    out = F.fused_matmul(x, w)
+            torch.cuda.current_stream().wait_stream(s)
+            return g, out
+
+        g0, _ = capture()
+        assert cuda_build.last_variant(F.KERNEL) == str(default)
+        mx.autotune.record(
+            "fusion.blocks", F.fused_shape_key(M, N, K),
+            {"block_m": other, "block_n": other,
+             "block_k": F.TILES[other][0]}, dtype="float32")
+        F.fused_matmul(x, w)
+        assert cuda_build.last_variant(F.KERNEL) == str(other)
+        g1, out1 = capture()
+        assert cuda_build.last_variant(F.KERNEL) == str(other)
+        g1.replay()
+        g0.replay()
+        torch.testing.assert_close(out1, F.fused_matmul_reference(x, w),
+                                   rtol=1e-4, atol=1e-3)
+        q = torch.randn(1, 2, 300, 64, device="cuda", dtype=torch.bfloat16)
+        FA.flash_attention(q, q, q, causal=True)
+        assert cuda_build.last_variant(FA.FWD) == "64"
+        mx.autotune.record("flash_attention.fwd",
+                           mx.autotune.flash_shape_key(300, 64, True),
+                           {"block_q": 128, "block_k": 64},
+                           dtype="bfloat16")
+        FA.flash_attention(q, q, q, causal=True)
+        assert cuda_build.last_variant(FA.FWD) == "128"
+    finally:
+        mx.autotune.reset()
+
+
+def test_capture_runs_with_the_collector_off(card):
+    """A dropped Generator's CUDA graphs, collected on the capturing
+    thread in the middle of another capture, destroy their graphs there,
+    a call CUDA refuses while the stream captures (the five ``reset``
+    warnings of a failed prefill capture in phase 21's first runs): the
+    capture collects first and keeps the collector off while the body is
+    captured, and turns it back on after."""
+    import gc
+
+    from mxnet_tpu_torch import cuda_graph
+
+    x = torch.zeros(8, device="cuda")
+    seen = []
+
+    def body():
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        return x + 1
+
+    assert gc.isenabled()
+    graph, out = cuda_graph.capture(body, x.device)
+    assert seen == [False] and gc.isenabled()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert out.tolist() == [1.0] * 8

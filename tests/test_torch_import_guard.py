@@ -44,6 +44,9 @@ import mxnet_tpu_torch.observability.fleet
 import mxnet_tpu_torch.resilience.faults, mxnet_tpu_torch.runtime.staging
 import mxnet_tpu_torch.autotune.cache, mxnet_tpu_torch.autotune.registry
 import mxnet_tpu_torch.autotune.cost_model, mxnet_tpu_torch.serving.buckets
+import mxnet_tpu_torch.autotune.search, mxnet_tpu_torch.autotune.learned
+import mxnet_tpu_torch.autotune.tuners, mxnet_tpu_torch.parallel.fused
+import mxnet_tpu_torch.executor, mxnet_tpu_torch.runtime.pipeline
 import mxnet_tpu_torch.serving.engine, mxnet_tpu_torch.parallel.mesh
 bad = sorted(m for m in sys.modules
              if m in ("jax", "mxnet_tpu") or m.startswith("jax.")
