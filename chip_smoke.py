@@ -67,7 +67,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    version and ``torch.bmm`` / ``torch.baddbmm`` with the same epilogue (a
    yardstick, never used by the port), all as CUDA-graph replays, and
    computes the bound (fp32 CUDA-core peak against bytes at the memory
-   rate).
+   rate). The two regions again with bf16 operands (the amp bind's): each
+   one launch on the tensor-core route, held to the plain version at the
+   bf16 bar and timed beside ``torch.bmm`` / ``baddbmm`` in bf16, bound at
+   the bf16 tensor-core peak.
 7. Module train phase: the attention block of ``bench_all.py``'s fusion
    bench (16 classes, fp32, ``mx.init.Uniform(0.05)``, SGD lr 0.01,
    ``kvstore="local"``) through ``mx.mod.Module`` on the card. The
@@ -75,7 +78,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    ``forward_backward``'s outputs and all 10 parameter gradients with the
    kernels match ``MXNET_FUSION_KERNEL=0`` within 1e-5 of each one's own
    max |value| and are non-zero (but k_bias's, which the softmax makes
-   0), and so do an MLP's (``fc1 + relu`` on ``fused_matmul``). Then
+   0), and so do an MLP's (``fc1 + relu`` on ``fused_matmul``), and the
+   same block bound under ``default,amp`` matches its plain composition
+   within 2e-2, both of its launches on the tensor-core route. Then
    ``fit`` for 2 epochs of 8 batches with launch counts reset just
    before: exactly 2 ``fused_batch_matmul`` launches per step, finite
    losses, accuracy, ms/step and samples/s; and 3 warm + 10 timed steps
@@ -383,11 +388,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
    and the same in float64 (the network's own amplification of one bf16
    rounding) where that is wider; under cuDNN's deterministic algorithms each
    bucket's replay equal to its eager walk to the bit; p50 latency at
-   buckets 1 and 8, img/s at 8; the launches as replays x the eager walk's
-   33 (the wrapper counts none outside the captures); ``fused_matmul`` in
-   bf16 at each region's shape of one forward per bucket beside its plain
-   version, ``torch.addmm`` in bf16 plus the epilogue and the bound (bf16
-   tensor-core peak, memory rate). (b) ``GenerationConfig(amp=True)`` over
+   buckets 1 and 8, img/s at 8, and the same protocol on the fp32 server;
+   the launches as replays x the eager walk's 33 (the wrapper counts none
+   outside the captures), every captured and eager launch of both
+   buckets on the tensor-core route; ``fused_matmul`` in bf16 at each
+   region's shape of one forward per bucket beside its plain version,
+   ``torch.addmm`` in bf16 plus the epilogue and the bound (bf16
+   tensor-core peak, memory rate), and every compiled tile of the route
+   held to the default tile bit for bit and timed. (b) ``GenerationConfig(amp=True)`` over
    phase 11 (a)'s fp32 LM: bf16 parameters, the ``graph_pass`` stats flag
    and recent report, buckets + 1 captures, 8 flash forward launches (the
    wgmma kernel) per prefill replay and per request, first-token logits of
@@ -611,6 +619,9 @@ MODULE_WARM, MODULE_TIMED = 3, 10
 # kernel vs MXNET_FUSION_KERNEL=0 on the first step, relative to max |value|:
 # both sides compute fp32 products of the same inputs in another order
 MODULE_TOL = 1e-5
+# the amp bind's first step (bf16 operands) against its plain composition:
+# the bf16 bar
+AMP_MODULE_TOL = 2e-2
 # a parameter whose gradient is 0 up to rounding -> the one whose max
 # |gradient| scales its error
 ZERO_GRAD_SCALE = {"k_bias": "k_weight"}
@@ -1603,16 +1614,18 @@ def train_phase(mx, card, results, timing):
 
 # ------------------------------------------------ batched matmul phase
 
-def bmm_path_cases(B, T, D, gen):
+def bmm_path_cases(B, T, D, gen, dtype=None):
     """The two fused_batch_matmul calls of one attention-block step, as
     the fuse pass hands them over: the scores q . k^T / sqrt(D), with k^T
-    the (0, 2, 1) view of k, and the context attn . v + x."""
+    the (0, 2, 1) view of k, and the context attn . v + x; in fp32, or
+    every operand in ``dtype``."""
     import torch
 
+    dtype = dtype or torch.float32
     q, k, v, x = (torch.randn(B, T, D, device="cuda", generator=gen)
-                  for _ in range(4))
+                  .to(dtype) for _ in range(4))
     attn = torch.softmax(torch.randn(B, T, T, device="cuda", generator=gen),
-                         -1)
+                         -1).to(dtype)
     return [
         dict(region="scores", x=q, w=k.permute(0, 2, 1), extras=[],
              epilogue=(("scalar", "_div_scalar", float(np.sqrt(D))),)),
@@ -1629,6 +1642,67 @@ def bmm_library_fn(case):
     if case["extras"]:
         return torch.baddbmm(case["extras"][0], case["x"], case["w"])
     return torch.bmm(case["x"], case["w"]).div_(case["epilogue"][0][2])
+
+
+def bmm_bf16_rows(F, peaks, gen, results):
+    """The attention block's two regions with bf16 operands (the amp
+    bind's): each launch on the tensor-core route (the transposed k read
+    in place: one launch), held to the plain version at the bf16 grid's
+    bar, timed beside it and beside torch.bmm / baddbmm in bf16, with its
+    bound at the bf16 peak. Per-step sums by size."""
+    import torch
+    from mxnet_tpu_torch import cuda_build
+
+    worst, totals = 0.0, {}
+    for size, cfg in BLOCK_SIZES.items():
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bound_ms": 0.0, "t_ops": 0.0, "t_bytes": 0.0, "variants": {}}
+        for case in bmm_path_cases(cfg["B"], cfg["T"], cfg["D"], gen,
+                                   torch.bfloat16):
+            x, w, ex, ep = case["x"], case["w"], case["extras"], \
+                case["epilogue"]
+            what = "bf16 %s %s %s x %s" % (size, case["region"],
+                                           tuple(x.shape), tuple(w.shape))
+            cuda_build.reset_launch_counts()
+            err = bmm_check(F, x, w, ex, ep, GRID_TOL["bfloat16"], what)
+            variants = fused_variants(F.BMM_KERNEL)
+            if not all_tc(variants) or sum(variants.values()) != 1:
+                raise AssertionError("%s: launches %s, want one on the "
+                                     "tensor-core route" % (what, variants))
+            worst = max(worst, err)
+            ms = time_ms(lambda: F.fused_batch_matmul(x, w, ex, ep))
+            plain = time_ms(lambda: F.fused_batch_matmul_reference(x, w, ex,
+                                                                   ep))
+            lib = time_ms(lambda: bmm_library_fn(case))
+            bnd, by = bmm_bound_ms(case, peaks)
+            row = dict(size=size, region=case["region"], dtype="bfloat16",
+                       x=tuple(x.shape), w=tuple(w.shape),
+                       w_transposed=not w.is_contiguous(),
+                       variant=next(iter(variants)), max_abs_err=err, ms=ms,
+                       plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                       bound_by=by)
+            results["bmm_cases"].append(row)
+            log("bmm bf16 %s %s x%s w%s%s %s err=%.3g ms=%.4f plain_ms=%.4f "
+                "library_ms=%.4f (torch.%s bf16) bound_ms=%.4f (%s) %.2f "
+                "TFLOP/s" % (size, case["region"], tuple(x.shape),
+                             tuple(w.shape),
+                             " (transposed view)" if row["w_transposed"]
+                             else "", row["variant"], err, ms, plain, lib,
+                             "baddbmm" if ex else "bmm", bnd, by,
+                             2.0 * x.numel() * w.shape[2] / ms / 1e9))
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                tot[key] += row[key]
+            tot["t_ops" if by == "operations" else "t_bytes"] += bnd
+            tot["variants"][case["region"]] = row["variant"]
+        tot["bound_by"] = ("operations" if tot["t_ops"] >= tot["t_bytes"]
+                           else "bytes")
+        totals[size] = tot
+        log("bmm bf16 per step %s (2 launches): ms=%.4f plain_ms=%.4f "
+            "library_ms=%.4f bound_ms=%.4f (%s)"
+            % (size, tot["ms"], tot["plain_ms"], tot["library_ms"],
+               tot["bound_ms"], tot["bound_by"]))
+    results["bmm_bf16_totals"] = totals
+    return worst, totals
 
 
 def bmm_bound_ms(case, peaks):
@@ -1701,6 +1775,8 @@ def bmm_phase(peaks, results):
             % (size, tot["ms"], tot["plain_ms"], tot["library_ms"],
                tot["bound_ms"], tot["bound_by"]))
         del case, x, w, ex
+    bf16_err, _ = bmm_bf16_rows(
+        F, (results["peaks"]["bf16_flops"], peaks[1]), gen, results)
     n = 0
     for dtype in ("float32", "bfloat16"):
         td = getattr(torch, dtype)
@@ -1755,6 +1831,7 @@ def bmm_phase(peaks, results):
     n += n_large
     results["bmm_totals"] = totals
     results["bmm_grid_cases"] = n
+    results["bmm_bf16_max_abs_err"] = bf16_err
     return path_err, totals
 
 
@@ -1804,13 +1881,15 @@ def bound_module(mx, sym, dshape, lshape, seed=0):
     return mod
 
 
-def first_step_vs_plain(mx, mod, batch, kernel, what):
+def first_step_vs_plain(mx, mod, batch, kernel, what, tol=MODULE_TOL,
+                        variants=None):
     """The first forward_backward with the kernels and with
     MXNET_FUSION_KERNEL=0 (no update between): the outputs and every
-    parameter gradient within MODULE_TOL of their own max |value| (k_bias,
+    parameter gradient within ``tol`` of their own max |value| (k_bias,
     whose gradient is 0 up to rounding, at k_weight's), and every gradient
     with the kernels but k_bias's non-zero, so that a dropped gradient
-    fails. Returns (worst, launches)."""
+    fails. Returns (worst, launches); the kernel's launches by variant
+    with the kernels go into ``variants`` where given."""
     import torch
     from mxnet_tpu_torch import cuda_build
 
@@ -1824,6 +1903,8 @@ def first_step_vs_plain(mx, mod, batch, kernel, what):
             torch.cuda.synchronize()
             if flag:
                 launches = cuda_build.launch_counts().get(kernel, 0)
+                if variants is not None:
+                    variants.update(fused_variants(kernel))
             elif cuda_build.launch_counts().get(kernel, 0):
                 raise AssertionError("MXNET_FUSION_KERNEL=0 still launched "
                                      "%s" % kernel)
@@ -1846,10 +1927,10 @@ def first_step_vs_plain(mx, mod, batch, kernel, what):
         rel = err / max(scale, 1e-30)
         if rel > worst:
             worst, worst_name = rel, name
-    if worst > MODULE_TOL:
+    if worst > tol:
         raise AssertionError("%s: first-step %s with the kernels disagrees "
                              "with MXNET_FUSION_KERNEL=0: %.3g of max |value| "
-                             "> %.1g" % (what, worst_name, worst, MODULE_TOL))
+                             "> %.1g" % (what, worst_name, worst, tol))
     log("%s: first step through %s (%d launches) vs MXNET_FUSION_KERNEL=0: "
         "outputs and %d gradients agree, worst %s at %.3g of its max |value|"
         % (what, kernel, launches, len(sides[0]) - 1, worst_name, worst))
@@ -1946,6 +2027,27 @@ def module_phase(mx, card, results):
         raise AssertionError("want 10 parameters, got %s"
                              % mod._exec_group.param_names)
     out["block_first_step_worst"] = worst
+
+    # the same block bound under default,amp: both batch_dot regions in
+    # bf16 on the tensor-core route, against the amp bind's plain
+    # composition within the bf16 bar
+    mx.graph_pass.set_passes("default,amp")
+    try:
+        amod = bound_module(mx, sym, (B, T, D), (B,))
+    finally:
+        mx.graph_pass.set_passes(None)
+    amp_variants = {}
+    worst, launches = first_step_vs_plain(
+        mx, amod, batch, "fused_batch_matmul", "amp attention block %s"
+        % (cfg,), tol=AMP_MODULE_TOL, variants=amp_variants)
+    if launches != 2 or not all_tc(amp_variants):
+        raise AssertionError("amp attention step launched "
+                             "fused_batch_matmul %d times (%s), want 2 on "
+                             "the tensor-core route"
+                             % (launches, amp_variants))
+    out["amp_block_first_step_worst"] = worst
+    out["amp_block_variants"] = amp_variants
+    del amod
 
     # the main path: Module.fit, 2 epochs of 8 batches, on the card
     fmod = mx.mod.Module(sym, context=mx.gpu())
@@ -7813,12 +7915,30 @@ def amp_bound_ms(case, bf16_peak, bytes_per_s):
                                  else "operations")
 
 
+def fused_variants(kernel):
+    """{variant: launches} of ``kernel`` since the last reset."""
+    from mxnet_tpu_torch import cuda_build
+
+    return {v: n for (k, v), n in cuda_build.variant_counts().items()
+            if k == kernel}
+
+
+def all_tc(variants):
+    """True when every launch counted in ``variants`` took the tensor-core
+    route."""
+    return bool(variants) and all(v.startswith("tc") for v in variants)
+
+
 def amp_kernel_timing(mx, served, peaks):
     """(a): fused_matmul at each amp region's shape of one forward at
-    buckets 1 and 8, bf16 inputs: held to its plain version (the bf16
-    grid's bar), timed beside it and beside torch.addmm in bf16 plus the
-    epilogue as CUDA-graph replays, with its bound. Per-forward sums."""
+    buckets 1 and 8, bf16 inputs: every region on the tensor-core route,
+    held to its plain version (the bf16 grid's bar), every compiled tile
+    of the route held to the default tile bit for bit, timed beside the
+    plain version and beside torch.addmm in bf16 plus the epilogue as
+    CUDA-graph replays, with its bound. Per-forward sums, each tile's
+    too."""
     import torch
+    from mxnet_tpu_torch import cuda_build
     from mxnet_tpu_torch.parallel import fused as F
 
     gen = torch.Generator(device="cuda").manual_seed(17)
@@ -7832,24 +7952,62 @@ def amp_kernel_timing(mx, served, peaks):
                                  % (bucket, len(calls), AMP_REGIONS))
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                    t_ops=0.0, t_bytes=0.0)
+        tiles = {"%dx%d" % t: dict(ms=0.0, max_diff=0.0)
+                 for t in F.TC_TILES}
+        cases = []
+        cuda_build.reset_launch_counts()
         for case in calls:
             err, (x, w, extras) = check_case(F, case, torch.bfloat16, gen,
                                              GRID_TOL["bfloat16"])
             worst = max(worst, err)
             ep, wt, od = case["epilogue"], case["wt"], case["out_dtype"]
+            want = F.fused_matmul(x, w, extras, ep, wt, out_dtype=od)
+            default_variant = cuda_build.last_variant(F.KERNEL)
+            for bm, bn in F.TC_TILES:
+                got = F.fused_matmul(x, w, extras, ep, wt, out_dtype=od,
+                                     block_m=bm, block_n=bn)
+                row = tiles["%dx%d" % (bm, bn)]
+                row["max_diff"] = max(row["max_diff"], (
+                    got.float() - want.float()).abs().max().item())
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        "fused_matmul tensor-core tile %d x %d is not "
+                        "bit-identical to the default tile at %s: max diff "
+                        "%.3g" % (bm, bn, case, row["max_diff"]))
+                row["ms"] += time_ms(lambda bm=bm, bn=bn: F.fused_matmul(
+                    x, w, extras, ep, wt, out_dtype=od, block_m=bm,
+                    block_n=bn))
             bnd, by = amp_bound_ms(case, peaks["bf16_flops"],
                                    peaks["bytes_per_s"])
-            tot["ms"] += time_ms(lambda: F.fused_matmul(
-                x, w, extras, ep, wt, out_dtype=od))
-            tot["plain_ms"] += time_ms(lambda: F.fused_matmul_reference(
-                x, w, extras, ep, wt, out_dtype=od))
-            tot["library_ms"] += time_ms(lambda: library_fn(
-                x, w, extras, ep, wt, native=True, out_dtype=od))
-            tot["bound_ms"] += bnd
+            row = dict(
+                M=case["M"], N=case["N"], K=case["K"], wt=wt,
+                variant=default_variant,
+                ms=time_ms(lambda: F.fused_matmul(
+                    x, w, extras, ep, wt, out_dtype=od)),
+                plain_ms=time_ms(lambda: F.fused_matmul_reference(
+                    x, w, extras, ep, wt, out_dtype=od)),
+                library_ms=time_ms(lambda: library_fn(
+                    x, w, extras, ep, wt, native=True, out_dtype=od)),
+                bound_ms=bnd)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                tot[key] += row[key]
             tot["t_ops" if by == "operations" else "t_bytes"] += bnd
+            cases.append(row)
+        # the checks' launches: one default launch per region, then each
+        # tile's (timing launches are captured, not counted)
+        variants = fused_variants(F.KERNEL)
+        if not all_tc(variants):
+            raise AssertionError("amp bucket %d: fused_matmul launches off "
+                                 "the tensor-core route: %s"
+                                 % (bucket, variants))
         tot["bound_by"] = ("operations" if tot["t_ops"] >= tot["t_bytes"]
                            else "bytes")
         tot["launches"] = len(calls)
+        tot["route"] = "tc"
+        tot["check_launches"] = variants
+        tot["tiles"] = tiles
+        tot["cases"] = cases
+        tot["factor_vs_library"] = tot["ms"] / tot["library_ms"]
         totals[bucket] = tot
     return totals, worst
 
@@ -7866,6 +8024,26 @@ def amp_server(mx, served, args, aux, spec="default,amp", **cfg):
                                             max_wait_ms=0, **cfg))
     finally:
         mx.graph_pass.set_passes(None)
+
+
+def amp_latency(srv, rng, batch):
+    """p50 ms of AMP_LATENCY_N sequential requests at each bucket, and
+    img/s of AMP_BATCHES back-to-back 8-row requests."""
+    lat = {}
+    for b in AMP_BUCKETS:
+        x = rng.standard_normal((b,) + ROW, dtype=np.float32)
+        srv.predict(x, timeout=600)
+        ts = []
+        for _ in range(AMP_LATENCY_N):
+            t0 = time.perf_counter()
+            srv.predict(x, timeout=600)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        lat[b] = float(np.percentile(ts, 50))
+    t0 = time.perf_counter()
+    futs = [srv.submit(batch) for _ in range(AMP_BATCHES)]
+    for f in futs:
+        f.result(timeout=600)
+    return lat, AMP_BATCHES * batch.shape[0] / (time.perf_counter() - t0)
 
 
 def amp_answers(srv, images, batch):
@@ -8025,6 +8203,14 @@ def amp_serve(mx, sym, card, peaks, out):
     try:
         warmed = srv.warmup()
         captured = cuda_build.launch_counts().get("fused_matmul", 0)
+        captured_variants = fused_variants("fused_matmul")
+        # each bucket's eager walk: every region on the tensor-core route
+        eager_variants = {}
+        for b in AMP_BUCKETS:
+            cuda_build.reset_launch_counts()
+            eager_outputs(srv, 0, batch[:b])
+            torch.cuda.synchronize()
+            eager_variants[b] = fused_variants("fused_matmul")
         cuda_build.reset_launch_counts()
         eager_outputs(srv, 0, batch)
         torch.cuda.synchronize()
@@ -8032,23 +8218,17 @@ def amp_serve(mx, sym, card, peaks, out):
         cuda_build.reset_launch_counts()
         stats0 = srv.get_stats()
         answers = amp_answers(srv, images, batch)
-        lat = {}
-        for b in AMP_BUCKETS:
-            x = rng.standard_normal((b,) + ROW, dtype=np.float32)
-            srv.predict(x, timeout=600)
-            ts = []
-            for _ in range(AMP_LATENCY_N):
-                t0 = time.perf_counter()
-                srv.predict(x, timeout=600)
-                ts.append((time.perf_counter() - t0) * 1e3)
-            lat[b] = float(np.percentile(ts, 50))
-        t0 = time.perf_counter()
-        futs = [srv.submit(batch) for _ in range(AMP_BATCHES)]
-        for f in futs:
-            f.result(timeout=600)
-        img_s = AMP_BATCHES * batch.shape[0] / (time.perf_counter() - t0)
+        lat, img_s = amp_latency(srv, rng, batch)
         stats = srv.get_stats()
         traffic_wrapper = cuda_build.launch_counts().get("fused_matmul", 0)
+    finally:
+        srv.stop()
+    # the same protocol on the fp32 server (default passes, the CUDA-core
+    # route), in this process and on this card
+    srv = amp_server(mx, served, args, aux, spec="default")
+    try:
+        srv.warmup()
+        fp32_lat, fp32_img_s = amp_latency(srv, rng, batch)
     finally:
         srv.stop()
     report = stats["graph_pass"]
@@ -8066,8 +8246,12 @@ def amp_serve(mx, sym, card, peaks, out):
         capture_launches_per_body_run=captured / max(1, warmed * (
             1 + cuda_graph.WARMUP_RUNS)),
         replay_equals_eager=same, replays=replays,
+        captured_variants=captured_variants,
+        eager_variants={str(b): v for b, v in eager_variants.items()},
         launches=replays * per_body, traffic_wrapper_launches=traffic_wrapper,
         p50_ms={str(b): lat[b] for b in AMP_BUCKETS}, img_per_s_bucket8=img_s,
+        fp32_p50_ms={str(b): fp32_lat[b] for b in AMP_BUCKETS},
+        fp32_img_per_s_bucket8=fp32_img_s,
         kernel={str(b): t for b, t in timing.items()}, kernel_max_err=kerr,
         output_dtypes=sorted(dtypes))
     p14 = res["phase14_weights"]
@@ -8099,15 +8283,29 @@ def amp_serve(mx, sym, card, peaks, out):
            gaps["plain_vs_fp64"], sorted(dtypes),
            {b: round(v, 3) for b, v in lat.items()}, img_s, replays,
            per_body, res["launches"], traffic_wrapper, card))
+    log("amp (a): fused_matmul variants of the captures %s, of the eager "
+        "walks by bucket %s" % (captured_variants, eager_variants))
+    log("amp (a): the same protocol on the fp32 server (default passes, one "
+        "replica): p50 %s ms, %.1f img/s at bucket 8; amp p50 %s ms, %.1f "
+        "img/s (%.2fx); on %s"
+        % ({b: round(v, 3) for b, v in fp32_lat.items()}, fp32_img_s,
+           {b: round(v, 3) for b, v in lat.items()}, img_s,
+           img_s / fp32_img_s, card))
     for b, t in timing.items():
-        log("amp (a): fused_matmul bf16, bucket %d forward: %d launches "
-            "ms=%.4f plain_ms=%.4f library_ms (torch.addmm bf16 + "
-            "epilogue)=%.4f bound_ms=%.4f (%s, bf16 peak %.0f TFLOP/s, "
-            "%.2f TB/s); worst kernel-vs-plain %.3g; on %s"
+        log("amp (a): fused_matmul bf16 on the tensor-core route, bucket %d "
+            "forward: %d launches ms=%.4f plain_ms=%.4f library_ms "
+            "(torch.addmm bf16 + epilogue)=%.4f (kernel / library %.2fx) "
+            "bound_ms=%.4f (%s, bf16 peak %.0f TFLOP/s, %.2f TB/s); worst "
+            "kernel-vs-plain %.3g; every tile bit-identical to the default, "
+            "ms a forward by tile %s; on %s"
             % (b, t["launches"], t["ms"], t["plain_ms"], t["library_ms"],
-               t["bound_ms"], t["bound_by"], peaks["bf16_flops"] / 1e12,
-               peaks["bytes_per_s"] / 1e12, kerr, card))
+               t["factor_vs_library"], t["bound_ms"], t["bound_by"],
+               peaks["bf16_flops"] / 1e12, peaks["bytes_per_s"] / 1e12, kerr,
+               {k: round(v["ms"], 4) for k, v in t["tiles"].items()}, card))
     if not (all(same.values()) and per_body == AMP_REGIONS
+            and all_tc(captured_variants)
+            and all(all_tc(v) and sum(v.values()) == AMP_REGIONS
+                    for v in eager_variants.values())
             and warmed == len(AMP_BUCKETS)
             and stats["bucket_programs"] == len(AMP_BUCKETS)
             and captured == AMP_REGIONS * warmed * (
@@ -11241,7 +11439,9 @@ def at_pipeline(mx, card, out):
     entries."""
     import tempfile
 
-    from mxnet_tpu_torch.runtime.pipeline import io_pipeline_key
+    from mxnet_tpu_torch.runtime.pipeline import (io_pipeline_key,
+                                                  resolve_decode_workers,
+                                                  resolve_prefetch_depth)
 
     with tempfile.TemporaryDirectory(dir=os.path.dirname(
             os.path.abspath(__file__))) as tmp:
@@ -11267,12 +11467,21 @@ def at_pipeline(mx, card, out):
                 "io.prefetch_depth": {"depth": st["prefetch_depth"]}}
         finally:
             it.close()
+        # a recorded 0 is the knob's default, the flag's "auto" (the
+        # search's default candidate): the iterator then resolves what it
+        # resolves without an entry
+        want = {"io.decode_workers": {"workers": int(
+            got["io.decode_workers"]["workers"]) or resolve_decode_workers(
+                None, IO_BATCH, shape)},
+            "io.prefetch_depth": {"depth": int(
+                got["io.prefetch_depth"]["depth"]) or resolve_prefetch_depth(
+                    None, IO_BATCH, shape)}}
     out["g_pipeline"] = dict(tuned=got, resolved=resolved, seconds=seconds)
     log("autotune (g) input pipeline (%d JPEG records, %d px, batch %d, %d "
         "batches a candidate): tuned %s in %.1f s; a fresh StreamingIter "
         "resolves %s; on %s" % (IO_N, IO_SIZE, IO_BATCH, AT_PIPE_BATCHES,
                                 got, seconds, resolved, card))
-    if resolved != got:
+    if resolved != want:
         raise AssertionError("a fresh StreamingIter resolves %s, the tuner "
                              "recorded %s" % (resolved, got))
 
@@ -11492,7 +11701,9 @@ def main():
     t8 = totals[8]
     kernels = {"kernels": [{
         "name": "fused_matmul", "route": "cuda",
-        "cores": "CUDA cores, fp32 FMA (register-tiled, 128 or 64 tiles)",
+        "cores": "CUDA cores, fp32 FMA (register-tiled, 128 or 64 tiles); "
+                 "tensor cores (wgmma, cp.async ring) for bf16/fp16 "
+                 "operands, the amp path's",
         "source": "mxnet_tpu_torch/csrc/fused_matmul.cu",
         "replaces": "mxnet_tpu/parallel/fused.py:168",
         "launches": launches, "max_abs_err": path_err,
@@ -11515,12 +11726,18 @@ def main():
             profiled=obs["c"]["profiled"],
             served_replays=obs["d"]["replays"],
             served_records=obs["d"]["fused_matmul_records"]),
-        # phase 17 (a): bf16 operands in the amp-served buckets' graphs
+        # phase 17 (a): bf16 operands in the amp-served buckets' graphs,
+        # on the tensor-core route (bucket 8 at the top level, bucket 1
+        # beside it)
         "amp_serve": dict(
-            amp["a"]["kernel"]["8"], replays=amp["a"]["replays"],
+            {k: v for k, v in amp["a"]["kernel"]["8"].items()
+             if k != "cases"}, replays=amp["a"]["replays"],
             launches=amp["a"]["launches"],
             launches_per_replay=amp["a"]["kernel_regions"],
-            max_abs_err=amp["a"]["kernel_max_err"])}]}
+            captured_variants=amp["a"]["captured_variants"],
+            max_abs_err=amp["a"]["kernel_max_err"],
+            bucket1={k: v for k, v in amp["a"]["kernel"]["1"].items()
+                     if k != "cases"})}]}
     replaces = {"flash_attention_fwd": 106, "flash_attention_bwd_dq": 202,
                 "flash_attention_bwd_dkv": 236}
     for name, line in replaces.items():
@@ -11560,13 +11777,22 @@ def main():
     wide = bmm_totals["wide"]
     kernels["kernels"].append({
         "name": "fused_batch_matmul", "route": "cuda",
-        "cores": "CUDA cores, fp32 FMA (register-tiled, 128 or 64 tiles)",
+        "cores": "CUDA cores, fp32 FMA (register-tiled, 128 or 64 tiles); "
+                 "tensor cores (wgmma, cp.async ring) for bf16/fp16 "
+                 "operands",
         "source": "mxnet_tpu_torch/csrc/fused_matmul.cu",
         "replaces": "mxnet_tpu/parallel/fused.py:292",
         "launches": bmm_launches, "max_abs_err": bmm_err,
         "ms": wide["ms"], "plain_ms": wide["plain_ms"],
         "bound_ms": wide["bound_ms"], "bound_by": wide["bound_by"],
-        "library_ms": wide["library_ms"]})
+        "library_ms": wide["library_ms"],
+        # phase 6: the same two regions with bf16 operands on the
+        # tensor-core route (the amp bind's), per step at the wide size;
+        # phase 7: the amp bind's first step, 2 launches on that route
+        "bf16": dict(results["bmm_bf16_totals"]["wide"],
+                     max_abs_err=results["bmm_bf16_max_abs_err"],
+                     amp_module_variants=results["module"][
+                         "amp_block_variants"])})
     hk = obs["c"]["health_kernel"]
     kernels["kernels"].append({
         "name": "health_stats", "route": "cuda",

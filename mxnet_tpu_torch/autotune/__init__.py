@@ -182,25 +182,35 @@ declare(
 
 
 # fused-matmul tiles: consulted by parallel/fused.py resolve_blocks
-# (explicit call arg > tuning cache under the pow2 shape-bucket key > the
-# launch's rule within the MXNET_FUSION_BLOCK_* bounds), measured by
-# tuners.tune_fused_matmul. The space is the kernel's compiled tiles
-# (cost_model.FUSED_TILES); every other combination costs inf
+# (explicit call arg > tuning cache under the pow2 shape-bucket key, with
+# "tc" appended on the tensor-core route > the launch's rule within the
+# MXNET_FUSION_BLOCK_* bounds), measured by tuners.tune_fused_matmul. The
+# space is the compiled tiles of the launch's route (ctx["route"],
+# cost_model.FUSED_TILES); every other combination costs inf
 def _fusion_default(ctx):
     from ..config import get_flag
 
+    route = ctx.get("route", "simt")
     tile = cost_model.fused_default_tile(
         int(ctx.get("B", 1)), int(ctx.get("M", 1024)),
         int(ctx.get("N", 1024)),
         bound=min(get_flag("MXNET_FUSION_BLOCK_M"),
-                  get_flag("MXNET_FUSION_BLOCK_N")))
+                  get_flag("MXNET_FUSION_BLOCK_N")), route=route)
+    if route == "tc":
+        return {"block_m": tile[0], "block_n": tile[1],
+                "block_k": cost_model.FUSED_TILES["tc"][tile][0]}
     return {"block_m": tile, "block_n": tile,
-            "block_k": cost_model.FUSED_TILES[tile][0]}
+            "block_k": cost_model.FUSED_TILES["simt"][tile][0]}
 
 
 def _fusion_space(ctx):
-    edges = tuple(sorted(cost_model.FUSED_TILES))
-    depths = tuple(sorted(cost_model.FUSED_TILES[e][0] for e in edges))
+    tiles = cost_model.FUSED_TILES[ctx.get("route", "simt")]
+    if ctx.get("route", "simt") == "tc":
+        return {"block_m": tuple(sorted({t[0] for t in tiles})),
+                "block_n": tuple(sorted({t[1] for t in tiles})),
+                "block_k": tuple(sorted({d[0] for d in tiles.values()}))}
+    edges = tuple(sorted(tiles))
+    depths = tuple(sorted(tiles[e][0] for e in edges))
     return {"block_m": edges, "block_n": edges, "block_k": depths}
 
 
@@ -209,10 +219,13 @@ declare(
     space=_fusion_space,
     default=_fusion_default,
     cost=cost_model.fused_matmul_cost,
-    doc="Fused matmul+epilogue output tile (parallel/fused.py): the tile "
-        "edge (block_m = block_n, 128 or 64), with block_k the deepest "
-        "K slice the edge compiles (recorded; the kernel's route picks "
-        "the depth it runs), keyed per pow2 (M, N, K) shape bucket.")
+    doc="Fused matmul+epilogue output tile (parallel/fused.py) on the "
+        "launch's route: on the CUDA-core route the tile edge (block_m = "
+        "block_n, 128 or 64), with block_k the deepest K slice the edge "
+        "compiles (recorded; the kernel's form picks the depth it runs); "
+        "on the tensor-core route of 16-bit operands (block_m, block_n) "
+        "of 128 or 64 each, block_k 64 (a stage). Keyed per pow2 (M, N, "
+        "K) shape bucket, the tensor-core route's key ending in \"tc\".")
 
 
 def mode():

@@ -26,7 +26,8 @@ Kernel tiles. The tiles the hand-written kernels compile are tables here,
 the one source the tunables' spaces, the kernel wrappers' resolution
 (parallel/fused.py, parallel/flash_attention.py) and these costs read
 (the card tests hold them to the kernels' own tables): ``FUSED_TILES``
-(csrc/fused_matmul.cu ``TILES``) and ``FLASH_ROWS``
+(csrc/fused_matmul.cu ``TILES`` and ``TC_TILES``, one table per route)
+and ``FLASH_ROWS``
 (csrc/flash_attention.cu ``compiled_rows``). A candidate outside them
 costs ``inf``, and so does one whose shared memory a block cannot hold
 (:data:`SMEM_BYTES`, from each kernel's own per-block formula). Where the
@@ -45,7 +46,7 @@ __all__ = ["MEASURED_MATMUL_TF", "MEASURED_HBM_GBPS", "SPEC_MATMUL_TF",
            "roofline_seconds", "measure_ceilings", "pow2_at_least",
            "expected_padding", "ladder_cost", "wave_efficiency",
            "flash_smem_bytes", "flash_fwd_cost", "flash_bwd_cost",
-           "fused_smem_bytes", "fused_default_tile",
+           "fused_smem_bytes", "fused_tc_smem_bytes", "fused_default_tile",
            "fused_matmul_cost"]
 
 #: the card the measured ceilings come from (``nvidia-smi``); each figure
@@ -187,10 +188,19 @@ SMS = 132
 #: shared memory one block may use (sm_90: 227 KB of the SM's 228)
 SMEM_BYTES = 227 * 1024
 
-#: csrc/fused_matmul.cu's compiled tiles (its TILES): output tile edge ->
-#: K-slice depth of the fp32 route (16-byte runs of fp32 operands) and of
-#: every other route
-FUSED_TILES = {128: (16, 8), 64: (32, 16)}
+#: csrc/fused_matmul.cu's compiled tiles, per route (parallel/fused.py
+#: ``route``). "simt", the CUDA-core route (its TILES): output tile edge
+#: (block_m = block_n) -> K-slice depth of the fp32 form (16-byte runs of
+#: fp32 operands) and of every other form. "tc", the tensor-core route of
+#: 16-bit operands (its TC_TILES): (block_m, block_n) -> the K depth of a
+#: stage of its ring, the largest tile first
+FUSED_TILES = {"simt": {128: (16, 8), 64: (32, 16)},
+               "tc": {(128, 128): (64,), (128, 64): (64,), (64, 128): (64,),
+                      (64, 64): (64,)}}
+#: shared memory of one SM (the blocks resident on it share it), and the
+#: share the runtime reserves per block
+SM_SMEM_BYTES = 228 * 1024
+BLOCK_RESERVED_SMEM = 1024
 
 #: csrc/flash_attention.cu's compiled rows a block owns (its
 #: compiled_rows), per pass and element width (4: the fp32 CUDA-core
@@ -290,34 +300,85 @@ def flash_bwd_cost(candidate, ctx):
             + _flash_pass_cost(ctx, candidate["block_k"], "dkv"))
 
 
-def fused_default_tile(B, M, N, sms=SMS, bound=None):
-    """The tile a fused-matmul launch takes when nothing names one (the
-    wrapper always tells the kernel its tile): 128 where that grid of B
-    (M, N) outputs fills every SM at least once, else 64, capped at the
-    largest compiled edge within ``bound`` (the smallest edge where none
-    fits)."""
+def _up64(v):
+    return max(64, -(-int(v) // 64) * 64)
+
+
+def fused_default_tile(B, M, N, sms=SMS, bound=None, route="simt"):
+    """The tile a fused-matmul launch on ``route`` takes when nothing names
+    one (the wrapper always tells the kernel its tile).
+
+    "simt": the edge 128 where that grid of B (M, N) outputs fills every SM
+    at least once, else 64, capped at the largest compiled edge within
+    ``bound`` (the smallest edge where none fits).
+
+    "tc": ``(block_m, block_n)``, the first of the route's tiles, largest
+    first, whose edges do not pass M and N rounded up to 64 and whose grid
+    fills every SM at least once; where none does, 64 x 64 (a small grid,
+    such as the served ResNet-50's 7 x 7 and 14 x 14 stages at bucket 1,
+    keeps the most blocks). Both edges at most ``bound``."""
+    if route == "tc":
+        cap = math.inf if bound is None else max(64, int(bound))
+        for bm, bn in FUSED_TILES["tc"]:
+            if bm > _up64(M) or bn > _up64(N) or max(bm, bn) > cap:
+                continue
+            if -(-int(M) // bm) * -(-int(N) // bn) * int(B) >= int(sms):
+                return bm, bn
+        return 64, 64
     blocks = -(-int(M) // 128) * -(-int(N) // 128) * int(B)
     tile = 128 if blocks >= int(sms) else 64
     if bound is not None:
-        fits = [e for e in FUSED_TILES if e <= int(bound)]
-        tile = min(tile, max(fits)) if fits else min(FUSED_TILES)
+        fits = [e for e in FUSED_TILES["simt"] if e <= int(bound)]
+        tile = min(tile, max(fits)) if fits else min(FUSED_TILES["simt"])
     return tile
 
 
 def fused_smem_bytes(tile, depth):
-    """Shared memory of one fused-matmul block: two buffers of X and W
-    slices, ``4 * depth * (tile + 4)`` floats (fused_matmul.cu)."""
+    """Shared memory of one CUDA-core fused-matmul block: two buffers of X
+    and W slices, ``4 * depth * (tile + 4)`` floats (fused_matmul.cu)."""
     return 4 * 4 * int(depth) * (int(tile) + 4)
+
+
+def fused_tc_smem_bytes(block_m, block_n):
+    """Dynamic shared memory of one tensor-core fused-matmul block
+    (fused_matmul.cu ``tc_smem``): a ring of 3 stages at 128 x 128, else 4,
+    each a (block_m + block_n) x 64 tile pair of 16-bit elements, and 1024
+    bytes to align the swizzle atoms."""
+    bm, bn = int(block_m), int(block_n)
+    stages = 3 if bm * bn >= 128 * 128 else 4
+    return stages * (bm + bn) * 128 + 1024
+
+
+def _fused_tc_cost(bm, bn, bk, M, N, K, B, db):
+    """The tensor-core route: the bf16 ceiling, the padded tiles' products
+    (the tensor cores multiply whole tiles), the blocks the shared memory
+    lets an SM hold."""
+    if (bm, bn) not in FUSED_TILES["tc"] or \
+            bk != FUSED_TILES["tc"][bm, bn][0]:
+        return math.inf
+    smem = fused_tc_smem_bytes(bm, bn)
+    if smem > SMEM_BYTES:
+        return math.inf
+    n_m, n_n = -(-M // bm), -(-N // bn)
+    flops = 2.0 * B * n_m * bm * n_n * bn * K
+    traffic = B * (M * K * n_n + K * N * n_m + M * N) * db
+    roof = roofline_seconds(flops, traffic, "bfloat16")
+    per_sm = SM_SMEM_BYTES // (smem + BLOCK_RESERVED_SMEM)
+    return roof / wave_efficiency(B * n_m * n_n, per_sm)
 
 
 def fused_matmul_cost(candidate, ctx):
     """Estimated seconds of one fused (M, K) x (K, N) region (times
-    ``ctx["B"]`` when batched) at this tile; ``inf`` unless ``block_m ==
-    block_n`` is a compiled tile edge and ``block_k`` its recorded depth,
-    the deepest it compiles (the kernel's route picks the depth it runs,
-    so each tile is one candidate). The product runs in fp32 on the CUDA cores
-    whatever the operand type; the traffic charges X once per column of
-    tiles and W once per row of tiles, as the tiles stream them."""
+    ``ctx["B"]`` when batched) at this tile on ``ctx["route"]`` (default
+    the CUDA-core route, "simt"); ``inf`` for a tile the route does not
+    compile. On the CUDA-core route ``block_m == block_n`` is a compiled
+    edge and ``block_k`` its recorded depth, the deepest it compiles (the
+    kernel's form picks the depth it runs, so each tile is one candidate);
+    the product runs in fp32 on the CUDA cores whatever the operand type.
+    On the tensor-core route ``(block_m, block_n)`` is one of its tiles and
+    ``block_k`` the stage depth; the product is charged at the bf16
+    ceiling. The traffic charges X once per column of tiles and W once per
+    row of tiles, as the tiles stream them."""
     M = int(ctx.get("M", 1024))
     N = int(ctx.get("N", 1024))
     K = int(ctx.get("K", 1024))
@@ -325,7 +386,10 @@ def fused_matmul_cost(candidate, ctx):
     db = int(ctx.get("dtype_bytes", 4))
     bm, bn, bk = (int(candidate["block_m"]), int(candidate["block_n"]),
                   int(candidate["block_k"]))
-    if bm != bn or bm not in FUSED_TILES or bk != FUSED_TILES[bm][0]:
+    if ctx.get("route", "simt") == "tc":
+        return _fused_tc_cost(bm, bn, bk, M, N, K, B, db)
+    tiles = FUSED_TILES["simt"]
+    if bm != bn or bm not in tiles or bk != tiles[bm][0]:
         return math.inf
     if fused_smem_bytes(bm, bk) > SMEM_BYTES:
         return math.inf

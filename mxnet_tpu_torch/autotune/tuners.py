@@ -178,8 +178,11 @@ def tune_fused_matmul(M, N, K, dtype="float32", epilogue=(("bias",),
                                                           ("act", "relu")),
                       wt=True, trials=None, repeats=3, device=None):
     """Measured search over the fused matmul+epilogue kernel's tile at one
-    (M, N, K) shape (parallel/fused.py); records a ``fusion.blocks`` entry
-    under the pow2 shape-bucket key and returns the winning value dict.
+    (M, N, K) shape (parallel/fused.py), among the tiles of the route the
+    shape takes at ``dtype`` in the ``wt`` form (the tensor-core route's
+    for aligned bf16 / fp16 operands); records a ``fusion.blocks`` entry
+    under that route's key (``fused_tile_key``) and returns the winning
+    value dict.
 
     The default epilogue — bias + relu — is the modal carved region; the
     tile choice is dominated by the product, not the epilogue arithmetic,
@@ -188,7 +191,7 @@ def tune_fused_matmul(M, N, K, dtype="float32", epilogue=(("bias",),
     import torch
 
     from ..base import dtype_name, torch_dtype
-    from ..parallel.fused import fused_matmul, fused_shape_key
+    from ..parallel.fused import fused_matmul, fused_tile_key, route
 
     dev = _device(device)
     dt = torch_dtype(dtype)
@@ -208,9 +211,10 @@ def tune_fused_matmul(M, N, K, dtype="float32", epilogue=(("bias",),
             extras.append(arr(N))
         elif s[0] == "res":
             extras.append(arr(M, N))
-    key = fused_shape_key(M, N, K)
+    path = route(x.dtype, w.dtype, N, K, wt, x.data_ptr(), w.data_ptr())
+    key = fused_tile_key(M, N, K, path)
     ctx = {"M": int(M), "N": int(N), "K": int(K),
-           "dtype_bytes": x.element_size()}
+           "dtype_bytes": x.element_size(), "route": path}
     cfg = SearchConfig(trials=trials, repeats=repeats, warmup=1)
 
     def measure(c):
@@ -854,9 +858,11 @@ def auto_tune(op, key, ctx):
         if not all(k in ctx for k in ("M", "N", "K")):
             return None
         db = int(ctx.get("dtype_bytes", 4))
-        dtype = {2: "bfloat16", 4: "float32"}.get(db, "float32")
+        dtype = ctx.get("dtype") or {2: "bfloat16", 4: "float32"}.get(
+            db, "float32")
         return tune_fused_matmul(int(ctx["M"]), int(ctx["N"]),
                                  int(ctx["K"]), dtype=dtype,
+                                 wt=bool(ctx.get("wt", True)),
                                  device=ctx.get("device"))
     if op not in ("flash_attention.fwd", "flash_attention.bwd"):
         return None

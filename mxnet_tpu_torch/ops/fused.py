@@ -33,7 +33,7 @@ import json
 
 import torch
 
-from ..base import MXNetError, dtype_name
+from ..base import MXNetError, dtype_name, torch_dtype
 from ..config import get_flag
 from .param import Int, Str
 from .registry import get_op, register_op
@@ -258,15 +258,34 @@ def _region_forward(attrs, inputs):
     if get_flag("MXNET_FUSION_KERNEL"):
         shapes = _fused_infer_shape(attrs, [tuple(t.shape) for t in inputs],
                                     [])
-        dtypes = _fused_infer_dtype(attrs, [dtype_name(t.dtype)
-                                            for t in inputs], [])
         if shapes is not None and shapes[1][0] is not None:
             out = _try_kernel(base, battrs, _kernel_epilogue_of(attrs),
                               base_inputs, extras, shapes[1][0],
-                              dtypes[1][0])
+                              _composed_dtype(base, battrs, steps,
+                                              base_inputs, extras))
             if out is not None:
                 return out
     return _apply_reference(base, battrs, steps, base_inputs, extras)
+
+
+def _composed_dtype(base, battrs, steps, base_inputs, extras):
+    """The dtype the reference composition yields, which the kernel's one
+    store takes (the JAX package reads it off ``jax.eval_shape`` of the
+    composition): the base op's, promoted by each vec / res extra as the
+    elementwise op promotes (an amp graph's fp32 residual into a bf16
+    product gives fp32), set by each cast step."""
+    res = base.run_infer_dtype(battrs, [dtype_name(t.dtype)
+                                        for t in base_inputs], [])
+    d = torch_dtype(res[1][0] if res is not None else None) or \
+        base_inputs[0].dtype
+    ei = 0
+    for step in steps:
+        if step["kind"] in ("vec", "res"):
+            d = torch.promote_types(d, extras[ei].dtype)
+            ei += 1
+        elif step["kind"] == "cast":
+            d = torch_dtype(step["dtype"])
+    return d
 
 
 class _FusedRegionFn(torch.autograd.Function):

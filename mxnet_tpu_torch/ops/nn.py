@@ -46,6 +46,14 @@ def _fully_connected(attrs, data, weight, *rest):
     bias = None if attrs.no_bias else rest[0]
     if is_integer(x, weight):
         return integer_contraction(F.linear, x, weight, bias)
+    if x.dtype != weight.dtype or (bias is not None
+                                   and bias.dtype != x.dtype):
+        # mixed float types (an amp graph's fp32 value into a bf16 weight)
+        # promote as the JAX package's jnp.dot(x, w.T) + b does: the
+        # product in the pair's common type, then the bias add
+        ct = torch.promote_types(x.dtype, weight.dtype)
+        y = F.linear(x.to(ct), weight.to(ct))
+        return y if bias is None else y + bias
     return F.linear(x, weight, bias)
 
 

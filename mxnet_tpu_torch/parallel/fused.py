@@ -4,9 +4,14 @@ Counterpart of ``mxnet_tpu/parallel/fused.py`` ``fused_matmul`` and
 ``fused_batch_matmul``. The fuse graph pass carves Convolution /
 FullyConnected / dot / batch_dot + epilogue chains into ``_FusedRegion``
 nodes (ops/fused.py); the kernel-form regions run here, on the
-hand-written CUDA kernel ``csrc/fused_matmul.cu``: a register-tiled fp32
-SGEMM (128 x 128 or 64 x 64 output tiles, :data:`TILES`) with the whole
-epilogue applied in registers before one store.
+hand-written CUDA kernel ``csrc/fused_matmul.cu``, by one of two routes
+(:func:`route`, a function of the operands' dtypes, the shape and the
+alignment alone): the tensor-core route (``"tc"``: wgmma on 16-bit
+operands fed by a cp.async ring, output tiles of 128 or 64 by 128 or 64,
+:data:`TC_TILES`) where x and w are both bf16 or both fp16 with 16-byte
+rows and bases, else the CUDA-core route (``"simt"``: a register-tiled
+fp32 SGEMM, 128 x 128 or 64 x 64 output tiles, :data:`TILES`). Either
+applies the whole epilogue on the fp32 accumulators before one store.
 
 * :func:`fused_matmul` — ``epilogue(x @ w.T)`` when ``wt`` (w is (N, K)),
   else ``epilogue(x @ w)`` (w is (K, N)). A CUDA tensor launches the
@@ -24,23 +29,29 @@ epilogue applied in registers before one store.
 
 Unlike the TPU kernel, this one masks ragged M/N/K edges itself, so every
 shape has a kernel form: the JAX package's tiling decline (``pick_blocks``
-returning None) has no counterpart here. The tile resolves as in the JAX
-package (:func:`resolve_blocks`): an explicit ``block_m`` / ``block_n``
-argument, else the ``fusion.blocks`` tuning-cache entry under
-:func:`fused_shape_key`, else the default rule (128 where that grid fills
-every SM, else 64; :func:`tile_size`) within the
+returning None) has no counterpart here. The tile resolves per route as
+in the JAX package (:func:`resolve_blocks`): an explicit ``block_m`` /
+``block_n`` argument, else the ``fusion.blocks`` tuning-cache entry under
+:func:`fused_tile_key`, else the route's default rule
+(``cost_model.fused_default_tile``; :func:`tile_size`) within the
 ``MXNET_FUSION_BLOCK_M`` / ``_N`` bounds; the kernel is always told its
-tile. A tile the kernel does not compile raises. ``block_k`` is the
-JAX package's field, recorded and checked against the depths the edge
-compiles but not passed on: the kernel takes its K-slice depth from its
-route (the deeper one where the operands run in 16-byte fp32 vectors).
-Every output is the same fp32 FMA chain at either tile, so the tile
-changes the time, never a bit of the result. The resolution is made at
-the first launch of a shape and carried in a
-:class:`~..autotune.cache.Carry` (one dict probe a launch, no lookup)
-until the tuning cache or a tuning flag changes; a CUDA graph keeps the
-tile it was captured with, and an entry written after a capture takes
-effect at the next capture.
+route and its tile. A tile the route does not compile raises, and so
+does a launch the route refuses: no route stands in for another. On the
+CUDA-core route ``block_k`` is the JAX package's field, recorded and
+checked against the depths the edge compiles but not passed on (the
+kernel takes its K-slice depth from its form); on the tensor-core route
+it is the stage depth, 64. On either route each output is summed over k
+in ascending order by the same instructions at every tile, so the tile
+changes the time, never a bit of the result; the route does change the
+bits (tensor-core products against fp32 FMA chains), and it is never
+chosen by a tile or a flag. The resolution is made at the first launch
+of a shape and carried in a :class:`~..autotune.cache.Carry` (one dict
+probe a launch, no lookup) until the tuning cache or a tuning flag
+changes; a CUDA graph keeps the tile it was captured with, and an entry
+written after a capture takes effect at the next capture. Each launch
+counts under its kernel and a variant naming its tile: the edge (128,
+64) on the CUDA-core route, ``tc<block_m>x<block_n>`` on the tensor-core
+route (:func:`variant`).
 
 Epilogue step grammar (static tuples, produced by ops/fused.py):
 
@@ -66,8 +77,9 @@ from ..config import get_flag
 from ..ops.elemwise import softrelu, softsign
 
 __all__ = ["fused_matmul", "fused_matmul_reference", "fused_batch_matmul",
-           "fused_batch_matmul_reference", "supported_act", "tile_size",
-           "fused_shape_key", "resolve_blocks", "compiled_tiles", "TILES",
+           "fused_batch_matmul_reference", "supported_act", "route",
+           "variant", "tile_size", "fused_shape_key", "fused_tile_key",
+           "resolve_blocks", "compiled_tiles", "TILES", "TC_TILES",
            "MAX_STEPS"]
 
 KERNEL = "fused_matmul"          # the source and the 2-d launch counter
@@ -80,12 +92,17 @@ _ACTS = ("relu", "sigmoid", "tanh", "softrelu", "softsign")
 
 MAX_STEPS = 8
 
-#: the compiled tiles: output tile edge -> K-slice depth of the fp32 route
-#: and of the other routes (csrc/fused_matmul.cu TILES); the tunable's
-#: space and its cost read the same table
-TILES = _cost_model.FUSED_TILES
+#: the CUDA-core route's compiled tiles: output tile edge -> K-slice depth
+#: of its fp32 form and of its other form (csrc/fused_matmul.cu TILES)
+TILES = _cost_model.FUSED_TILES["simt"]
+#: the tensor-core route's: (block_m, block_n) -> the K depth of a stage
+#: (csrc/fused_matmul.cu TC_TILES); the tunable's space and its cost read
+#: the same tables
+TC_TILES = _cost_model.FUSED_TILES["tc"]
 
-# each launch's tile edge, per shape, dtype, tile arguments and card
+_ROUTE_CODES = {"simt": 0, "tc": 1}
+
+# each launch's tile, per shape, dtype, route, tile arguments and card
 _TILE_CARRY = _tune_cache.Carry()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -225,18 +242,22 @@ def _library():
     lib.fused_matmul_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(_Epilogue), ctypes.c_void_p]
     lib.fused_matmul_launch.restype = ctypes.c_int
     lib.fused_batch_matmul_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(_Epilogue), ctypes.c_void_p]
     lib.fused_batch_matmul_launch.restype = ctypes.c_int
-    lib.fused_matmul_tiles.argtypes = [ctypes.c_int] * 2
+    lib.fused_matmul_tiles.argtypes = [ctypes.c_int] * 3
     lib.fused_matmul_tiles.restype = ctypes.c_int
+    lib.fused_matmul_tc_smem.argtypes = [ctypes.c_int]
+    lib.fused_matmul_tc_smem.restype = ctypes.c_int
     lib.fused_matmul_error_string.argtypes = [ctypes.c_int]
     lib.fused_matmul_error_string.restype = ctypes.c_char_p
     for probe in (lib.fused_matmul_epilogue_size, lib.fused_matmul_max_steps):
@@ -249,26 +270,68 @@ def _library():
     return lib
 
 
-def tile_size(B, M, N):
-    """The output tile edge (128 or 64) a launch of B (M, N) outputs takes
-    on the current card when nothing names one and the flags bound
-    nothing: 128 where that grid fills every SM, else 64
-    (``cost_model.fused_default_tile``, the one home of the rule)."""
+def route(x_dtype, w_dtype, N, K, wt, x_ptr=0, w_ptr=0, x_bs=0, w_bs=0):
+    """The route a launch takes: ``"tc"`` (the tensor cores) where x and
+    w are both bfloat16 or both float16, K is a multiple of 8 (and N too
+    when w is (K, N), ``wt`` False), the bases ``x_ptr`` / ``w_ptr`` are
+    16-byte aligned and the batch strides ``x_bs`` / ``w_bs`` (elements)
+    are multiples of 8; else ``"simt"`` (the CUDA cores). Dtypes, shape
+    and alignment only: no tile, tuning entry or flag moves a launch from
+    one route to the other."""
+    half = (torch.bfloat16, torch.float16)
+    if x_dtype != w_dtype or x_dtype not in half:
+        return "simt"
+    if int(K) % 8 or (not wt and int(N) % 8):
+        return "simt"
+    if int(x_ptr) % 16 or int(w_ptr) % 16 or int(x_bs) % 8 or \
+            int(w_bs) % 8:
+        return "simt"
+    return "tc"
+
+
+def variant(route_name, block_m, block_n):
+    """The launch counter's variant of a launch: its edge on the CUDA-core
+    route, ``"tc<block_m>x<block_n>"`` on the tensor-core route."""
+    if route_name == "tc":
+        return "tc%dx%d" % (block_m, block_n)
+    return block_m
+
+
+def tile_size(B, M, N, route="simt"):
+    """The tile a launch of B (M, N) outputs on ``route`` takes on the
+    current card when nothing names one and the flags bound nothing: the
+    edge (128 or 64) on the CUDA-core route, (block_m, block_n) on the
+    tensor-core route (``cost_model.fused_default_tile``, the one home of
+    the rule)."""
     return _cost_model.fused_default_tile(
-        B, M, N, sms=_sm_count(torch.cuda.current_device()))
+        B, M, N, sms=_sm_count(torch.cuda.current_device()), route=route)
 
 
 def compiled_tiles():
-    """The built library's tile table, {edge: (fp32 depth, other depth)}
-    (the card tests hold :data:`TILES` to it)."""
+    """The built library's tile tables, {"simt": {edge: (fp32 depth, other
+    depth)}, "tc": {(block_m, block_n): (stage depth,)}} (the card tests
+    hold ``cost_model.FUSED_TILES`` to it)."""
     lib = _library()
-    out = {}
-    i = 0
-    while lib.fused_matmul_tiles(i, 0) > 0:
-        out[lib.fused_matmul_tiles(i, 0)] = (lib.fused_matmul_tiles(i, 1),
-                                             lib.fused_matmul_tiles(i, 2))
-        i += 1
+    out = {"simt": {}, "tc": {}}
+    for name, code in _ROUTE_CODES.items():
+        i = 0
+        while lib.fused_matmul_tiles(code, i, 0) > 0:
+            row = [lib.fused_matmul_tiles(code, i, c) for c in range(3)]
+            if name == "simt":
+                out[name][row[0]] = (row[1], row[2])
+            else:
+                out[name][row[0], row[1]] = (row[2],)
+            i += 1
     return out
+
+
+def compiled_tc_smem():
+    """{(block_m, block_n): dynamic shared memory bytes} of the built
+    library's tensor-core tiles (``cost_model.fused_tc_smem_bytes``'s
+    counterpart)."""
+    lib = _library()
+    return {(lib.fused_matmul_tiles(1, i, 0), lib.fused_matmul_tiles(1, i, 1)):
+            lib.fused_matmul_tc_smem(i) for i in range(len(TC_TILES))}
 
 
 def fused_shape_key(M, N, K):
@@ -279,16 +342,32 @@ def fused_shape_key(M, N, K):
     return ("M%d" % p2(int(M)), "N%d" % p2(int(N)), "K%d" % p2(int(K)))
 
 
+def fused_tile_key(M, N, K, route="simt"):
+    """The ``fusion.blocks`` key of a launch on ``route``: the shape
+    bucket, with ``"tc"`` appended on the tensor-core route (its tiles are
+    another table)."""
+    key = fused_shape_key(M, N, K)
+    return key + ("tc",) if route == "tc" else key
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check_tile(blocks, where):
-    """``blocks`` (block_m, block_n, block_k) as the edge the kernel
-    compiles, with one of the K-slice depths it compiles there, or
-    raise."""
+def _check_tile(blocks, where, route="simt"):
+    """``blocks`` (block_m, block_n, block_k) as a tile ``route``
+    compiles, with one of the K depths it compiles there, or raise."""
     bm, bn, bk = blocks
+    if route == "tc":
+        if (bm, bn) in TC_TILES and bk in TC_TILES[bm, bn]:
+            return
+        raise MXNetError(
+            "fused_matmul: %s tile (block_m=%s, block_n=%s, block_k=%s) is "
+            "not one the kernel compiles on the tensor-core route (%s)"
+            % (where, bm, bn, bk,
+               ", ".join("%d x %d with K stages of %s" % (m, n, d)
+                         for (m, n), d in sorted(TC_TILES.items()))))
     if bm != bn or bm not in TILES or bk not in TILES[bm]:
         raise MXNetError(
             "fused_matmul: %s tile (block_m=%s, block_n=%s, block_k=%s) is "
@@ -296,7 +375,6 @@ def _check_tile(blocks, where):
             % (where, bm, bn, bk,
                ", ".join("%d x %d with K slices of %s" % (e, e, d)
                          for e, d in sorted(TILES.items()))))
-    return bm
 
 
 def _tuned_int(value):
@@ -309,34 +387,37 @@ def _tuned_int(value):
 
 def resolve_blocks(M, N, K, dtype="float32", dtype_bytes=4, block_m=None,
                    block_n=None, block_k=None, batch=1, sms=None,
-                   device=None):
+                   device=None, route="simt", wt=True):
     """The tile ``(block_m, block_n, block_k)`` a launch of ``batch`` (M, N,
-    K) products takes: explicit per-call arguments > the tuning cache's
-    ``fusion.blocks`` entry for this (shape bucket, dtype) > the default
-    rule within the MXNET_FUSION_BLOCK_M/N bounds. A missing explicit
-    argument is filled from the same tile; a missing ``block_k`` is the
-    deepest slice the edge compiles (the kernel's route decides the depth
-    it runs, :data:`TILES`). Raises on a tile the kernel does not compile,
-    whether named by an argument or by a cache entry.
-    ``sms`` is the card's SM count (the current card's, else the H100's
-    132); ``device`` is where a search under ``MXNET_TUNE=1`` measures
-    (default the current card)."""
+    K) products on ``route`` takes: explicit per-call arguments > the
+    tuning cache's ``fusion.blocks`` entry for this (route's shape key,
+    dtype) > the route's default rule within the MXNET_FUSION_BLOCK_M/N
+    bounds. A missing explicit edge is filled from the other (a square
+    tile); a missing ``block_k`` is the route's recorded depth at that
+    tile (on the CUDA-core route the deepest slice the edge compiles: the
+    kernel's form decides the depth it runs, :data:`TILES`). Raises on a
+    tile the route does not compile, whether named by an argument or by a
+    cache entry. ``sms`` is the card's SM count (the current card's, else
+    the H100's 132); ``device`` is where a search under ``MXNET_TUNE=1``
+    measures (default the current card), in the ``wt`` form."""
     where = "explicit"
     given = (block_m, block_n, block_k)
     if given == (None, None, None):
         from .. import autotune
 
         ctx = {"M": int(M), "N": int(N), "K": int(K), "B": int(batch),
-               "dtype_bytes": int(dtype_bytes)}
+               "dtype_bytes": int(dtype_bytes), "dtype": str(dtype),
+               "route": route, "wt": bool(wt)}
         if device is not None:
             ctx["device"] = str(device)
         tuned = autotune.lookup_or_tune(
-            "fusion.blocks", fused_shape_key(M, N, K), dtype=str(dtype),
-            ctx=ctx)
+            "fusion.blocks", fused_tile_key(M, N, K, route),
+            dtype=str(dtype), ctx=ctx)
         if isinstance(tuned, dict):
             given = tuple(_tuned_int(tuned.get(k))
                           for k in ("block_m", "block_n", "block_k"))
             where = "the fusion.blocks cache entry's"
+    tiles = TC_TILES if route == "tc" else TILES
     if given == (None, None, None):
         if sms is None:
             sms = (_sm_count(torch.cuda.current_device())
@@ -344,31 +425,38 @@ def resolve_blocks(M, N, K, dtype="float32", dtype_bytes=4, block_m=None,
         tile = _cost_model.fused_default_tile(
             batch, M, N, sms=sms,
             bound=min(get_flag("MXNET_FUSION_BLOCK_M"),
-                      get_flag("MXNET_FUSION_BLOCK_N")))
-        return tile, tile, TILES[tile][0]
+                      get_flag("MXNET_FUSION_BLOCK_N")), route=route)
+        if route == "tc":
+            return tile + (tiles[tile][0],)
+        return tile, tile, tiles[tile][0]
     bm, bn, bk = given
     edge = bm or bn
     if edge is None:  # block_k alone: the largest edge that compiles it
         edge = next((e for e in sorted(TILES, reverse=True)
-                     if bk in TILES[e]), bk)
+                     if bk in TILES[e]), bk) if route == "simt" else \
+            max(TC_TILES)[0]
     bm = bm or edge
     bn = bn or edge
     if bk is None:
-        bk = TILES[edge][0] if edge in TILES else None
-    _check_tile((bm, bn, bk), where)
+        key = (bm, bn) if route == "tc" else edge
+        bk = tiles[key][0] if key in tiles else None
+    _check_tile((bm, bn, bk), where, route)
     return bm, bn, bk
 
 
-def _launch_tile(B, M, N, K, dtype, block_m, block_n, block_k, device):
-    """The tile edge of a launch: resolved at a shape's first launch and
-    carried until the tuning cache or a tuning flag changes."""
-    key = (B, M, N, K, dtype, block_m, block_n, block_k, device)
+def _launch_tile(B, M, N, K, dtype, route_name, wt, block_m, block_n,
+                 block_k, device):
+    """The (block_m, block_n) of a launch: resolved at a shape's first
+    launch and carried until the tuning cache or a tuning flag changes."""
+    key = (B, M, N, K, dtype, route_name, wt, block_m, block_n, block_k,
+           device)
     tile = _TILE_CARRY.values.get(key)
     if tile is None:
         tile = _TILE_CARRY.get(key, lambda: resolve_blocks(
             M, N, K, dtype=dtype_name(dtype), dtype_bytes=dtype.itemsize,
             block_m=block_m, block_n=block_n, block_k=block_k, batch=B,
-            sms=_sm_count(device.index), device=device)[0])
+            sms=_sm_count(device.index), device=device, route=route_name,
+            wt=wt)[:2])
     return tile
 
 
@@ -461,17 +549,22 @@ def fused_matmul(x, w, extras=(), epilogue=(), wt=True, out_dtype=None,
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0 or N == 0:
         return out
-    tile = _launch_tile(1, M, N, K, x.dtype, block_m, block_n, block_k,
-                        x.device)
+    wt = bool(wt)
+    path = route(x.dtype, w.dtype, N, K, wt, x.data_ptr(), w.data_ptr())
+    bm, bn = _launch_tile(1, M, N, K, x.dtype, path, wt, block_m, block_n,
+                          block_k, x.device)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.fused_matmul_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                 M, N, K, x_dt, w_dt, o_dt, int(bool(wt)),
-                                 tile, ctypes.byref(ep), stream)
+                                 M, N, K, x_dt, w_dt, o_dt, int(wt),
+                                 _ROUTE_CODES[path], bm, bn,
+                                 ctypes.byref(ep), stream)
     if rc != 0:
-        raise MXNetError("fused_matmul launch failed: CUDA error %d (%s)"
-                         % (rc, lib.fused_matmul_error_string(rc).decode()))
-    cuda_build.count_launch(KERNEL, tile)
+        raise MXNetError("fused_matmul launch failed on the %s route at "
+                         "tile %d x %d: CUDA error %d (%s)"
+                         % (path, bm, bn, rc,
+                            lib.fused_matmul_error_string(rc).decode()))
+    cuda_build.count_launch(KERNEL, variant(path, bm, bn))
     return out
 
 
@@ -528,17 +621,20 @@ def fused_batch_matmul(x, w, extras=(), epilogue=(), out_dtype=None,
     out = torch.empty((B, M, N), dtype=out_dtype, device=x.device)
     if B == 0 or M == 0 or N == 0:
         return out
-    tile = _launch_tile(B, M, N, K, x.dtype, block_m, block_n, block_k,
-                        x.device)
+    path = route(x.dtype, w.dtype, N, K, wt, x.data_ptr(), w.data_ptr(),
+                 x.stride(0), w.stride(0))
+    bm, bn = _launch_tile(B, M, N, K, x.dtype, path, bool(wt), block_m,
+                          block_n, block_k, x.device)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.fused_batch_matmul_launch(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), B, M, N, K,
-        x.stride(0), w.stride(0), x_dt, w_dt, o_dt, wt, tile,
-        ctypes.byref(ep), stream)
+        x.stride(0), w.stride(0), x_dt, w_dt, o_dt, wt, _ROUTE_CODES[path],
+        bm, bn, ctypes.byref(ep), stream)
     if rc != 0:
-        raise MXNetError("fused_batch_matmul launch failed: CUDA error %d "
-                         "(%s)" % (rc,
-                                   lib.fused_matmul_error_string(rc).decode()))
-    cuda_build.count_launch(BMM_KERNEL, tile)
+        raise MXNetError("fused_batch_matmul launch failed on the %s route "
+                         "at tile %d x %d: CUDA error %d (%s)"
+                         % (path, bm, bn, rc,
+                            lib.fused_matmul_error_string(rc).decode()))
+    cuda_build.count_launch(BMM_KERNEL, variant(path, bm, bn))
     return out

@@ -297,6 +297,52 @@ def test_module_train_step_under_amp():
             np.array_equal(want, args[k]), k
 
 
+def _attention_block(mx):
+    """The attention block of chip_smoke.py's Module phase at toy width:
+    under amp both batch_dot regions take bf16 operands, and the context
+    region adds the fp32 data as its residual."""
+    T, D = 8, 16
+    data = mx.sym.var("data")
+    q = mx.sym.FullyConnected(data, num_hidden=D, flatten=False, name="q")
+    k = mx.sym.FullyConnected(data, num_hidden=D, flatten=False, name="k")
+    v = mx.sym.FullyConnected(data, num_hidden=D, flatten=False, name="v")
+    scores = mx.sym.batch_dot(q, mx.sym.transpose(k, axes=(0, 2, 1)))
+    attn = mx.sym.softmax(scores / float(np.sqrt(D)), axis=-1)
+    ctx = mx.sym.batch_dot(attn, v)
+    out = mx.sym.FullyConnected(ctx + data, num_hidden=D, flatten=False,
+                                name="proj")
+    return mx.sym.SoftmaxOutput(
+        mx.sym.FullyConnected(mx.sym.Flatten(out), num_hidden=5,
+                              name="head"), name="softmax"), (4, T, D)
+
+
+@pytest.mark.parametrize("kernel", [1, 0])
+def test_attention_block_step_under_amp(kernel):
+    """One Module step of the attention block under amp, with the fused
+    regions on the kernel's form and on their plain composition
+    (MXNET_FUSION_KERNEL=0), against the JAX package's step: the context
+    region's bf16 product plus the fp32 residual is fp32 in both packages
+    (the kernel's store takes the composition's promoted type), and
+    ``proj`` multiplies that fp32 value into its bf16 weight as jnp.dot
+    does (it used to raise there on the plain composition)."""
+    js, ts, shape = _built(_attention_block)
+    args, auxs, x = _materialize(js, shape)
+    y = np.array([0, 1, 2, 3], np.float32)
+    jout, jparams, _ = _train_step(jmx, js, shape, args, auxs, x, y)
+    tmx.config.set_flag("MXNET_FUSION_KERNEL", kernel)
+    try:
+        tout, tparams, topt = _train_step(tmx, ts, shape, args, auxs, x, y)
+    finally:
+        tmx.config.set_flag("MXNET_FUSION_KERNEL", None)
+    regions = [r for r in topt.reports if r["pass"] == "fuse"][0]
+    assert regions["rewrites"] >= 2
+    assert tout.dtype == np.float32
+    np.testing.assert_allclose(tout, jout, rtol=0, atol=PORT_TOL)
+    for k, want in jparams.items():
+        scale = max(1.0, float(np.abs(want).max()))
+        assert np.abs(tparams[k] - want).max() <= PORT_TOL * scale, k
+
+
 # ------------------------------------------------------------- serving
 
 def test_inference_server_under_amp():

@@ -33,6 +33,7 @@ from mxnet_tpu_torch.observability import slo_monitor as tslo
 from mxnet_tpu_torch.observability import timeseries as tts
 from mxnet_tpu_torch.resilience import faults as tfaults
 from mxnet_tpu_torch.serving import control as tcontrol
+from time_limit import time_limit  # noqa: F401
 
 PKGS = {"jax": (jmx, jmetrics, jts, jslo, jcontrol, jfaults),
         "torch": (tmx, tmetrics, tts, tslo, tcontrol, tfaults)}

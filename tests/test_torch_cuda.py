@@ -1581,8 +1581,14 @@ def test_compile_step_skip_step_bit_identical_on_card(card):
 # ------------------------------------------------ tiles: the autotuner's
 def test_tile_tables_match_the_kernels(card):
     """The tile tables the tunables' spaces, the wrappers' resolution and
-    the cost model read are the built kernels' own."""
-    assert F.compiled_tiles() == F.TILES
+    the cost model read are the built kernels' own, per route, and so is
+    the tensor-core route's shared memory per tile."""
+    from mxnet_tpu_torch.autotune import cost_model
+
+    assert F.compiled_tiles() == cost_model.FUSED_TILES == \
+        {"simt": F.TILES, "tc": F.TC_TILES}
+    assert F.compiled_tc_smem() == {
+        t: cost_model.fused_tc_smem_bytes(*t) for t in F.TC_TILES}
     assert FA.compiled_rows() == FA.ROWS
 
 
@@ -1598,19 +1604,23 @@ def test_fused_tiles_are_bit_identical(card, dtype):
         for wt in (True, False):
             for ep in _EPILOGUES[:3]:
                 x, w, extras = _case(M, N, K, wt, ep, dt, gen)
+                path = _route(x, w, wt)
                 want = F.fused_matmul(x, w, extras, ep, wt)
                 for edge in F.TILES:
                     got = F.fused_matmul(x, w, extras, ep, wt,
                                          block_m=edge, block_n=edge)
-                    assert cuda_build.last_variant(F.KERNEL) == str(edge)
+                    assert cuda_build.last_variant(F.KERNEL) == str(
+                        F.variant(path, edge, edge))
                     assert torch.equal(got, want), (M, N, K, wt, ep, edge)
     for B, M, N, K in ((3, 65, 129, 70), (8, 64, 64, 128), (2, 1, 7, 5)):
         x = torch.randn(B, M, K, device="cuda", generator=gen).to(dt)
         w = torch.randn(B, K, N, device="cuda", generator=gen).to(dt)
+        path = _route(x, w, False)
         want = F.fused_batch_matmul(x, w)
         for edge in F.TILES:
             got = F.fused_batch_matmul(x, w, block_m=edge, block_n=edge)
-            assert cuda_build.last_variant(F.BMM_KERNEL) == str(edge)
+            assert cuda_build.last_variant(F.BMM_KERNEL) == str(
+                F.variant(path, edge, edge))
             assert torch.equal(got, want), (B, M, N, K, edge)
 
 
@@ -1630,6 +1640,188 @@ def test_fused_tile_outside_the_compiled_set_raises(card, tmp_path,
     with pytest.raises(MXNetError, match="cache entry"):
         F.fused_matmul(x, w)
     mx.autotune.reset()
+
+
+# ------------------------------------ fused matmul: the tensor-core route
+def _route(x, w, wt):
+    """The route a launch of these operands takes (2-d or batched)."""
+    if x.dim() == 3:
+        return F.route(x.dtype, w.dtype, w.shape[2], x.shape[2], wt,
+                       x.data_ptr(), w.data_ptr(), x.stride(0), w.stride(0))
+    return F.route(x.dtype, w.dtype, w.shape[0] if wt else w.shape[1],
+                   x.shape[1], wt, x.data_ptr(), w.data_ptr())
+
+
+def _tc_counts(kernel):
+    return {v: n for (k, v), n in cuda_build.variant_counts().items()
+            if k == kernel}
+
+
+# (M, N, K): aligned and ragged M, N and K (K and N multiples of 8), the
+# served ResNet-50's amp region shapes at bucket 1 (M 49, 196, 784, 3136)
+# and fc1's (M 8, N 1000, K 2048)
+_TC_SHAPES = ((49, 96, 80), (130, 64, 64), (200, 264, 40), (3136, 256, 64),
+              (196, 1024, 256), (49, 2048, 512), (8, 1000, 2048),
+              (784, 128, 512), (1, 8, 8))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_tc_route_matches_plain(card, dtype):
+    """The tensor-core route against its plain version at the 16-bit bar,
+    both weight layouts, every epilogue, the output in the operands' type
+    and in fp32; every launch on the route."""
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    dt = getattr(torch, dtype)
+    cuda_build.reset_launch_counts()
+    n = 0
+    for M, N, K in _TC_SHAPES:
+        for wt in (True, False):
+            for ep in _EPILOGUES:
+                for od in (None, "float32"):
+                    x, w, extras = _case(M, N, K, wt, ep, dt, gen)
+                    assert _route(x, w, wt) == "tc"
+                    out = F.fused_matmul(x, w, extras, ep, wt, out_dtype=od)
+                    ref = F.fused_matmul_reference(x, w, extras, ep, wt,
+                                                   out_dtype=od)
+                    assert out.dtype == ref.dtype
+                    _near(out, ref, _TOL[dtype], (M, N, K, wt, ep, od))
+                    n += 1
+    counts = _tc_counts(F.KERNEL)
+    assert sum(counts.values()) == n
+    assert all(v.startswith("tc") for v in counts), counts
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_tc_batch_route_matches_plain(card, dtype):
+    """The batched entry on the tensor-core route: ragged M and N, the
+    transposed (0, 2, 1) view of k read in place (one launch, no copy) and
+    a contiguous w read MN-major, every batched epilogue."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    dt = getattr(torch, dtype)
+    for B in (1, 3):
+        for M in (1, 17, 129):
+            for N in (8, 136):
+                for K in (8, 104):
+                    for i, ep in enumerate(_BMM_EPILOGUES):
+                        transposed = (M + N + i) % 2 == 0
+                        x, w, ex = _bmm_case(B, M, N, K, ep, dt, gen,
+                                             transposed=transposed)
+                        assert _route(x, w, transposed) == "tc"
+                        cuda_build.reset_launch_counts()
+                        out = F.fused_batch_matmul(x, w, ex, ep)
+                        assert cuda_build.launch_counts() == \
+                            {F.BMM_KERNEL: 1}
+                        assert cuda_build.last_variant(
+                            F.BMM_KERNEL).startswith("tc")
+                        ref = F.fused_batch_matmul_reference(x, w, ex, ep)
+                        _near(out, ref, _TOL[dtype],
+                              (B, M, N, K, ep, transposed))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_tc_tiles_are_bit_identical(card, dtype):
+    """Every compiled tile of the tensor-core route gives the default
+    tile's bits (max difference 0): each output is the same m64n64k16
+    products over k in the same order at every tile."""
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    dt = getattr(torch, dtype)
+    for M, N, K in _TC_SHAPES + ((25088, 64, 64), (6272, 512, 128)):
+        for wt in (True, False):
+            for ep in _EPILOGUES[:3]:
+                x, w, extras = _case(M, N, K, wt, ep, dt, gen)
+                want = F.fused_matmul(x, w, extras, ep, wt)
+                default = cuda_build.last_variant(F.KERNEL)
+                assert default == F.variant("tc", *F.tile_size(1, M, N,
+                                                               route="tc"))
+                for bm, bn in F.TC_TILES:
+                    got = F.fused_matmul(x, w, extras, ep, wt, block_m=bm,
+                                         block_n=bn)
+                    assert cuda_build.last_variant(F.KERNEL) == \
+                        F.variant("tc", bm, bn)
+                    assert torch.equal(got, want), (M, N, K, wt, ep, bm, bn)
+    for B, M, N, K, transposed in ((3, 65, 136, 72, False),
+                                   (8, 64, 64, 128, True),
+                                   (2, 130, 200, 8, True)):
+        x, w, _ = _bmm_case(B, M, N, K, (), dt, gen, transposed=transposed)
+        want = F.fused_batch_matmul(x, w)
+        for bm, bn in F.TC_TILES:
+            got = F.fused_batch_matmul(x, w, block_m=bm, block_n=bn)
+            assert cuda_build.last_variant(F.BMM_KERNEL) == \
+                F.variant("tc", bm, bn)
+            assert torch.equal(got, want), (B, M, N, K, bm, bn)
+
+
+def test_tc_route_refuses_without_a_fallback(card, monkeypatch):
+    """A tile the route does not compile raises; a launch the tensor-core
+    route refuses (here: operands it cannot take, sent to it by a patched
+    route rule) raises too, and nothing else runs in its place."""
+    x = torch.randn(64, 32, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(48, 32, device="cuda", dtype=torch.bfloat16)
+    assert _route(x, w, True) == "tc"
+    for kw in ({"block_m": 256}, {"block_m": 128, "block_n": 32},
+               {"block_m": 64, "block_k": 32}):
+        with pytest.raises(MXNetError, match="not one the kernel compiles"):
+            F.fused_matmul(x, w, **kw)
+    # a base that is not 16-byte aligned, an fp32 pair, mixed types, a K
+    # that is not a multiple of 8: each the CUDA-core route's by the rule
+    flat = torch.randn(64 * 32 + 1, device="cuda", dtype=torch.bfloat16)
+    odd = flat[1:].view(64, 32)
+    cases = [(odd, w), (x.float(), w.float()), (x, w.half()),
+             (torch.randn(64, 36, device="cuda", dtype=torch.bfloat16),
+              torch.randn(48, 36, device="cuda", dtype=torch.bfloat16))]
+    for a, b in cases:
+        assert _route(a, b, True) == "simt"
+    monkeypatch.setattr(F, "route", lambda *a, **k: "tc")
+    for a, b in cases:
+        cuda_build.reset_launch_counts()
+        with pytest.raises(MXNetError, match="launch failed on the tc"):
+            F.fused_matmul(a, b, block_m=64, block_n=64)
+        assert cuda_build.launch_counts().get(F.KERNEL, 0) == 0
+    xb = odd.view(1, 64, 32)
+    with pytest.raises(MXNetError, match="launch failed on the tc"):
+        F.fused_batch_matmul(xb, w.t()[None], block_m=64, block_n=64)
+
+
+def test_amp_module_step_takes_the_tc_route(card):
+    """The attention block bound under default,amp: its two batch_dot
+    regions launch fused_batch_matmul on the tensor-core route, and the
+    first step's outputs and gradients match the same bind with
+    MXNET_FUSION_KERNEL=0 within the bf16 bar."""
+    B, T, D = 4, 40, 64
+    sym = _attention_block(T, D, 5)
+    rng = np.random.RandomState(2)
+    x = rng.rand(B, T, D).astype(np.float32)
+    y = (np.arange(B) % 5).astype(np.float32)
+    batch = mx.io.DataBatch(data=[mx.nd.array(x, ctx=mx.cpu())],
+                            label=[mx.nd.array(y, ctx=mx.cpu())])
+    results = []
+    for flag in (1, 0):
+        mx.config.set_flag("MXNET_FUSION_KERNEL", flag)
+        mx.graph_pass.set_passes("default,amp")
+        try:
+            mod = mx.mod.Module(sym, context=mx.gpu())
+            mod.bind(data_shapes=[("data", x.shape)],
+                     label_shapes=[("softmax_label", y.shape)])
+            np.random.seed(1)
+            mod.init_params(mx.init.Uniform(0.05))
+            cuda_build.reset_launch_counts()
+            mod.forward_backward(batch)
+            torch.cuda.synchronize()
+            counts = _tc_counts(F.BMM_KERNEL)
+            assert sum(counts.values()) == (2 if flag else 0)
+            assert all(v.startswith("tc") for v in counts), counts
+            grp = mod._exec_group
+            results.append(dict([("output", mod.get_outputs()[0].asnumpy())]
+                                + [(n, g[0].asnumpy()) for n, g in
+                                   zip(grp.param_names, grp.grad_arrays)]))
+        finally:
+            mx.graph_pass.set_passes(None)
+            mx.config.set_flag("MXNET_FUSION_KERNEL", None)
+    kern, plain = results
+    for name in plain:
+        scale = np.abs(plain["k_weight" if name == "k_bias" else name]).max()
+        assert np.abs(kern[name] - plain[name]).max() <= \
+            _TOL["bfloat16"] * max(scale, 1e-30), name
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])

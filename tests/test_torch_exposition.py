@@ -29,6 +29,7 @@ from mxnet_tpu.observability import metrics as JM
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.observability import exposition, fleet, perf, promparse
 from mxnet_tpu_torch.observability import metrics as M
+from time_limit import time_limit  # noqa: F401
 
 _REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 

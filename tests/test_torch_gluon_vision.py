@@ -14,6 +14,7 @@ import pytest
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
+from time_limit import time_limit  # noqa: F401
 
 
 def np_of(x):

@@ -27,6 +27,7 @@ from mxnet_tpu.config import set_flag as jset_flag
 from mxnet_tpu.parallel import fused as jfused
 from mxnet_tpu_torch.ndarray.ndarray import _from_data
 from mxnet_tpu_torch.parallel import fused as tfused
+from time_limit import time_limit  # noqa: F401
 
 BATCH, CLASSES, SIZE = 4, 10, 32
 STEP_TOL, FIT_TOL = 1e-5, 1e-2

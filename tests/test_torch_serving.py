@@ -21,6 +21,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.executor import _GraphProgram as TorchProgram
 from mxnet_tpu_torch.parallel import fused as tfused
 from mxnet_tpu_torch.serving import InferenceServer, ServingConfig
+from time_limit import time_limit  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 ROW = (32, 32, 3)

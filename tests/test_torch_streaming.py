@@ -25,6 +25,7 @@ import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.runtime import (RecordFileSource, StreamingIter,
                                      shard_partition)
 from mxnet_tpu_torch.runtime import pipeline as tpipe
+from time_limit import time_limit  # noqa: F401
 
 LIMIT_S = 60.0
 
