@@ -556,13 +556,36 @@ Phases, each fatal on failure (exit code != 0, no result line):
    server, the Generator, the ``StreamingIter``, a bind, the wrappers);
    the launches of each tile on the tuning path ((b), (c), (c')) are the
    variant rows' ``launches``.
-22. Print the ``kernels`` JSON line (the flash forward's row also carries
+22. Resume phase: preemption-safe training on the card, under cuDNN's
+   deterministic algorithms (this phase only; restored after). ResNet-50
+   v2 NHWC fp32 at batch 32, phase 9's Xavier init and SGD 0.1 / 0.9 /
+   1e-4, ``NDArrayIter`` with ``shuffle=True`` over 256 seeded 224 px
+   images, 2 epochs of 8 steps. (a) The unbroken ``fit``; the same fit
+   with ``fit(resume=dir)`` and SIGTERM from the 11th batch-end callback:
+   ``PreemptedError``, and ``load_latest`` gives (epoch, batch, step) =
+   (1, 3, 11); the resume in the same process ends on the unbroken run's
+   parameters and aux states bit for bit. Every run launches
+   ``fused_matmul`` exactly 16 times a step. (b) The kill -TERM drill: a
+   child process trains the same program and gets SIGTERM once its marker
+   file reads step 5, exits with ``PreemptedError``; a second child
+   resumes to the end, bit for bit (a)'s unbroken parameters, 16 launches
+   a step in each. (c) On the checkpoint the card wrote: a corrupt
+   manifest, a tampered ``params.ndarray`` and a ``checkpoint.write``
+   fault each fall back to the checkpoint before; ``save_resumable`` and
+   ``load_latest`` timed (ms) with the checkpoint's bytes. (d) The Module
+   family on the card: a ``SequentialModule`` (an NHWC conv feature
+   module, an FC + relu on ``fused_matmul``, the loss head), the same
+   chain ending in a ``PythonLossModule``, and ``FeedForward(ctx=None)``
+   fit and predict (its parameters on ``cuda``), each 4 steps against
+   ``MXNET_FUSION_KERNEL=0`` within 1e-5 of each tensor's max |value|,
+   one launch a step.
+23. Print the ``kernels`` JSON line (the flash forward's row also carries
    phase 11's prefill launches, phase 17's and phase 18's int8 Generator's,
    ``fused_matmul``'s phase 3's captures, replays, and the profiled
    replays with the kernels the profiler saw run in them, phase 17
-   (a)'s bf16 figures and phase 19 (b)'s launches; the ``health_stats``
-   row phase 20's), then the result line ``{"ok": true, "device":
-   {...}}`` last.
+   (a)'s bf16 figures, phase 19 (b)'s and phase 22's launches; the
+   ``health_stats`` row phase 20's), then the result line ``{"ok": true,
+   "device": {...}}`` last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
 not beside the script.
@@ -11598,6 +11621,609 @@ def autotune_phase(mx, sym, card, peaks, results):
     return variants, launches
 
 
+# ------------------------------------------------- phase 22: resume on the card
+
+# fit(resume=) on ResNet-50 v2 NHWC fp32 at batch 32 (phase 9's optimizer and
+# Xavier init): RS_IMAGES seeded images shuffled by NDArrayIter, RS_EPOCHS
+# epochs of RS_IMAGES / RN_BATCH steps. (a) SIGTERM from the RS_KILL_AT-th
+# batch-end callback (epoch 1, nbatch 2) checkpoints at RS_EXPECT =
+# (epoch, batch, step); (b) a child process is sent SIGTERM once its marker
+# file reads RS_DRILL_AT steps
+RS_IMAGES, RS_EPOCHS, RS_SEED = 256, 2, 22
+RS_KILL_AT, RS_EXPECT = 11, (1, 3, 11)
+RS_DRILL_AT = 5
+RS_PREEMPTED = 43        # a child's exit code after PreemptedError
+RS_CHILD_TIMEOUT_S = 600
+RS_CHILD_CODE = ("import sys, chip_smoke as c; "
+                 "sys.exit(c.resume_child(*sys.argv[1:]))")
+# (d): the Module-family programs, each RS_FAMILY_STEPS fit steps at batch
+# RS_FAMILY_BATCH of RS_FAMILY_ROW images, against MXNET_FUSION_KERNEL=0
+RS_FAMILY_STEPS, RS_FAMILY_BATCH, RS_FAMILY_ROW = 4, 32, (32, 32, 3)
+RS_FAMILY_CLASSES = 10
+
+
+def resume_setup(mx):
+    """The phase's program, the same in the parent and in each child:
+    ResNet-50 v2 NHWC, phase 9's Xavier init (gaussian, in, magnitude 2)
+    from numpy seed 0 as host arrays, and RS_IMAGES seeded images with
+    random labels."""
+    sym = mx.models.get_resnet(num_classes=1000, num_layers=50,
+                               image_shape=(ROW[2],) + ROW[:2],
+                               layout="NHWC")
+    rng = np.random.RandomState(RS_SEED)
+    x = rng.uniform(0, 1, (RS_IMAGES,) + ROW).astype(np.float32)
+    y = rng.randint(0, 1000, RS_IMAGES).astype(np.float32)
+    init = mx.mod.Module(sym, context=mx.gpu())
+    init.bind(data_shapes=[("data", (RN_BATCH,) + ROW)],
+              label_shapes=[("softmax_label", (RN_BATCH,))])
+    np.random.seed(0)
+    init.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                    magnitude=2))
+    arg0, aux0 = ({k: v.asnumpy() for k, v in d.items()}
+                  for d in init.get_params())
+    return sym, x, y, arg0, aux0
+
+
+def resume_fit(mx, sym, x, y, arg0, aux0, resume=None, callback=None):
+    """One ``Module.fit`` of the phase's program on the card: RS_EPOCHS
+    epochs over an NDArrayIter shuffled from numpy seed RS_SEED (a resumed
+    run restores the checkpoint's order, whatever the seed draws); returns
+    the module."""
+    np.random.seed(RS_SEED)
+    it = mx.io.NDArrayIter(x, y, batch_size=RN_BATCH, shuffle=True,
+                           label_name="softmax_label")
+    mod = mx.mod.Module(sym, context=mx.gpu())
+    mod.fit(it, num_epoch=RS_EPOCHS, optimizer="sgd",
+            optimizer_params={"learning_rate": RN_LR,
+                              "momentum": RN_MOMENTUM, "wd": RN_WD},
+            kvstore="local", batch_end_callback=callback,
+            arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                        for k, v in arg0.items()},
+            aux_params={k: mx.nd.array(v, ctx=mx.cpu())
+                        for k, v in aux0.items()},
+            force_init=True, resume=resume)
+    return mod
+
+
+def resume_child(ckpt_dir, marker, out_path):
+    """(b)'s training process: the phase's program from ``fit(resume=
+    ckpt_dir)`` on the card, TF32 off and cuDNN's deterministic
+    algorithms, writing its count of finished steps to ``marker`` after
+    each one. Writes its parameters (``out_path`` + ``.npz``) and its
+    steps and launches (``out_path``); returns RS_PREEMPTED after a
+    PreemptedError, else 0."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cuda_build
+    from mxnet_tpu_torch.resilience import PreemptedError
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    sym, x, y, arg0, aux0 = resume_setup(mx)
+    steps = [0]
+
+    def note_step(_param):
+        steps[0] += 1
+        with open(marker + ".tmp", "w") as f:
+            f.write(str(steps[0]))
+        os.replace(marker + ".tmp", marker)
+
+    cuda_build.reset_launch_counts()
+    rc = 0
+    try:
+        mod = resume_fit(mx, sym, x, y, arg0, aux0, resume=ckpt_dir,
+                         callback=note_step)
+        np.savez(out_path + ".npz", **host_params(*mod.get_params()))
+    except PreemptedError:
+        rc = RS_PREEMPTED
+    torch.cuda.synchronize()
+    with open(out_path, "w") as f:
+        json.dump({"steps": steps[0], "rc": rc,
+                   "launches": cuda_build.launch_counts().get(
+                       "fused_matmul", 0),
+                   "variants": {"%s@%s" % k: n for k, n in
+                                cuda_build.variant_counts().items()}}, f)
+    return rc
+
+
+def run_resume_child(ckpt_dir, marker, out_path, preempt_at=None):
+    """Run :func:`resume_child` in a new process from this checkout; with
+    ``preempt_at``, send it SIGTERM once its marker reads that many
+    steps. Returns (exit code, its JSON record)."""
+    import signal
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    proc = subprocess.Popen([sys.executable, "-c", RS_CHILD_CODE, ckpt_dir,
+                             marker, out_path], cwd=here, env=env)
+    try:
+        if preempt_at is not None:
+            deadline = time.monotonic() + RS_CHILD_TIMEOUT_S
+            while proc.poll() is None and time.monotonic() < deadline:
+                try:
+                    with open(marker) as f:
+                        done = int(f.read() or 0)
+                except (OSError, ValueError):
+                    done = 0
+                if done >= preempt_at:
+                    proc.send_signal(signal.SIGTERM)
+                    break
+                time.sleep(0.05)
+        rc = proc.wait(timeout=RS_CHILD_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(out_path) as f:
+        return rc, json.load(f)
+
+
+def equal_bits(got, want, what):
+    """Raise unless two {name: numpy} dicts are equal to the bit."""
+    if sorted(got) != sorted(want):
+        raise AssertionError("%s: other tensors (%s)" % (what, sorted(
+            set(got) ^ set(want))[:4]))
+    differ = [k for k, v in want.items()
+              if got[k].dtype != v.dtype or got[k].shape != v.shape
+              or got[k].tobytes() != v.tobytes()]
+    if differ:
+        worst = max_rel_err({k: got[k] for k in differ},
+                            {k: want[k] for k in differ})
+        raise AssertionError("%s: %d of %d tensors differ from the unbroken "
+                             "run, worst %s at %.3g of its max |value|"
+                             % (what, len(differ), len(want), worst[1],
+                                worst[0]))
+
+
+def resume_in_process(mx, setup, card, out):
+    """(a) the unbroken fit, the fit stopped by SIGTERM from the
+    RS_KILL_AT-th batch-end callback, and the resume, in this process;
+    RN_REGIONS fused_matmul launches a step expected. A step's time is
+    the median gap between batch-end callbacks (the metric's copy off the
+    card waits for each step), so a resumed run's restore and bind are
+    not in it. Returns the unbroken run's parameters and the checkpoint
+    directory."""
+    import signal
+    import tempfile
+
+    import torch
+
+    from mxnet_tpu_torch import cuda_build
+    from mxnet_tpu_torch.resilience import PreemptedError, load_latest
+
+    sym, x, y, arg0, aux0 = setup
+    runs = {}
+
+    def run(name, resume=None, callback=None):
+        ends = []
+
+        def count(param):
+            ends.append(time.perf_counter())
+            if callback is not None:
+                callback(param)
+
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        mod = None
+        try:
+            mod = resume_fit(mx, sym, x, y, arg0, aux0, resume=resume,
+                             callback=count)
+        finally:
+            torch.cuda.synchronize()
+            launches = cuda_build.launch_counts().get("fused_matmul", 0)
+            runs[name] = dict(steps=len(ends), launches=launches,
+                              seconds=time.perf_counter() - t0,
+                              step_ms=float(np.median(np.diff(ends)) * 1e3)
+                              if len(ends) > 1 else None,
+                              variants={"%s@%s" % k: n for k, n in
+                                        cuda_build.variant_counts().items()})
+        if launches != RN_REGIONS * len(ends):
+            raise AssertionError("%s: fused_matmul launched %d times over %d "
+                                 "steps, want %d a step" % (
+                                     name, launches, len(ends), RN_REGIONS))
+        return mod
+
+    mod = run("unbroken")
+    unbroken = host_params(*mod.get_params())
+    del mod
+    gc.collect()
+    ckpt_dir = tempfile.mkdtemp(prefix="resume_", dir=out["tmp"])
+
+    calls = []
+
+    def preempt(param):
+        calls.append(param.nbatch)
+        if len(calls) == RS_KILL_AT:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    previous = signal.getsignal(signal.SIGTERM)
+    try:
+        run("preempted", resume=ckpt_dir, callback=preempt)
+        raise AssertionError("SIGTERM at callback %d raised no "
+                             "PreemptedError" % RS_KILL_AT)
+    except PreemptedError as err:
+        path = err.checkpoint_path
+    if signal.getsignal(signal.SIGTERM) is not previous:
+        raise AssertionError("the guard left its SIGTERM handler installed")
+    gc.collect()
+    t0 = time.perf_counter()
+    state = load_latest(ckpt_dir)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    where = (state.epoch, state.batch, state.step)
+    if state.path != path or where != RS_EXPECT:
+        raise AssertionError("load_latest gives %s at %s, want %s at %s"
+                             % (where, state.path, RS_EXPECT, path))
+    ckpt_bytes = {name: os.path.getsize(os.path.join(path, name))
+                  for name in state.meta["files"]}
+    mod = run("resumed", resume=ckpt_dir)
+    resumed = host_params(*mod.get_params())
+    del mod
+    gc.collect()
+    equal_bits(resumed, unbroken, "(a) the resumed run")
+    total = runs["unbroken"]["steps"]
+    if runs["preempted"]["steps"] + runs["resumed"]["steps"] != total or \
+            runs["preempted"]["steps"] != RS_KILL_AT:
+        raise AssertionError("steps %s" % runs)
+    if total != RS_EPOCHS * (RS_IMAGES // RN_BATCH):
+        raise AssertionError("the unbroken run took %d steps" % total)
+    out["a"] = dict(runs,
+                    checkpoint=dict(epoch=state.epoch, batch=state.batch,
+                                    step=state.step, bytes=ckpt_bytes,
+                                    load_ms=load_ms),
+                    tensors=len(unbroken))
+    log("resume (a): unbroken %d steps, SIGTERM at callback %d -> "
+        "PreemptedError, checkpoint (epoch, batch, step) = %s, resumed %d "
+        "steps: all %d parameters and aux states equal the unbroken run's "
+        "to the bit; fused_matmul launches %d / %d / %d (%d a step); "
+        "median step %.2f / %.2f / %.2f ms; load_latest %.1f ms for %d "
+        "bytes, on %s"
+        % (total, RS_KILL_AT, where, runs["resumed"]["steps"],
+           len(unbroken), runs["unbroken"]["launches"],
+           runs["preempted"]["launches"], runs["resumed"]["launches"],
+           runs["resumed"]["launches"] // runs["resumed"]["steps"],
+           runs["unbroken"]["step_ms"], runs["preempted"]["step_ms"],
+           runs["resumed"]["step_ms"], load_ms, sum(ckpt_bytes.values()),
+           card))
+    return unbroken, ckpt_dir
+
+
+def resume_drill(unbroken, card, out):
+    """(b) the kill -TERM drill: a child trains the same program, gets
+    SIGTERM once its marker file reads RS_DRILL_AT steps, exits with
+    PreemptedError; a second child resumes to the end. Its parameters
+    equal (a)'s unbroken run to the bit."""
+    import tempfile
+
+    from mxnet_tpu_torch.resilience import load_latest
+
+    ckpt_dir = tempfile.mkdtemp(prefix="drill_", dir=out["tmp"])
+    marker = os.path.join(ckpt_dir, "steps")
+    rc1, first = run_resume_child(ckpt_dir, marker,
+                                  os.path.join(out["tmp"], "drill1.json"),
+                                  preempt_at=RS_DRILL_AT)
+    if rc1 != RS_PREEMPTED:
+        raise AssertionError("the first child exited %d, want %d "
+                             "(PreemptedError)" % (rc1, RS_PREEMPTED))
+    state = load_latest(ckpt_dir)
+    if state is None or state.step < RS_DRILL_AT or \
+            state.step != first["steps"]:
+        raise AssertionError("the first child's checkpoint %s after %d "
+                             "steps" % (state and state.step,
+                                        first["steps"]))
+    os.remove(marker)
+    out_path = os.path.join(out["tmp"], "drill2.json")
+    rc2, second = run_resume_child(ckpt_dir, marker, out_path)
+    if rc2 != 0:
+        raise AssertionError("the resuming child exited %d" % rc2)
+    total = RS_EPOCHS * (RS_IMAGES // RN_BATCH)
+    if first["steps"] + second["steps"] != total:
+        raise AssertionError("the children took %d + %d steps, want %d"
+                             % (first["steps"], second["steps"], total))
+    for rec in (first, second):
+        if rec["launches"] != RN_REGIONS * rec["steps"]:
+            raise AssertionError("a child launched fused_matmul %d times "
+                                 "over %d steps" % (rec["launches"],
+                                                    rec["steps"]))
+    with np.load(out_path + ".npz") as npz:
+        final = {k: npz[k] for k in npz.files}
+    equal_bits(final, unbroken, "(b) the resumed child")
+    out["b"] = dict(first=first, second=second,
+                    checkpoint_step=state.step)
+    log("resume (b): kill -TERM at the child's step %d marker: exit %d "
+        "(PreemptedError) after %d steps, checkpoint at step %d; the "
+        "second child resumed %d steps to the unbroken run's parameters "
+        "bit for bit; fused_matmul %d + %d launches (%s / %s), on %s"
+        % (RS_DRILL_AT, rc1, first["steps"], state.step, second["steps"],
+           first["launches"], second["launches"], first["variants"],
+           second["variants"], card))
+
+
+def resume_bad_checkpoints(mx, ckpt_dir, card, out):
+    """(c) on the card-written checkpoint of (a): a corrupt manifest, a
+    tampered ``params.ndarray`` and a ``checkpoint.write`` fault each
+    leave ``load_latest`` on the checkpoint before; save_resumable is
+    timed on the resumed module's state (loaded back from (a))."""
+    import shutil
+    import tempfile
+
+    from mxnet_tpu_torch.resilience import InjectedFault, checkpoint, faults
+
+    good = checkpoint.load_latest(ckpt_dir)
+    src = good.path
+    results = {}
+    for case in ("manifest", "checksum", "fault"):
+        d = tempfile.mkdtemp(prefix="bad_%s_" % case, dir=out["tmp"])
+        base = os.path.join(d, os.path.basename(src))
+        shutil.copytree(src, base)
+        later = os.path.join(d, "ckpt-%08d" % (good.step + 1))
+        if case == "fault":
+            faults.configure("checkpoint.write:raise@call=1")
+            try:
+                checkpoint.write_resumable(
+                    d, good.arg_params, good.aux_params, epoch=good.epoch,
+                    batch=good.batch + 1, step=good.step + 1)
+                raise AssertionError("the checkpoint.write fault did not "
+                                     "fire")
+            except InjectedFault:
+                pass
+            finally:
+                faults.reset()
+        else:
+            shutil.copytree(src, later)
+            if case == "manifest":
+                with open(os.path.join(later, "MANIFEST.json"), "w") as f:
+                    f.write("{not json")
+            else:
+                with open(os.path.join(later, "params.ndarray"), "ab") as f:
+                    f.write(b"garbage")
+        got = checkpoint.load_latest(d)
+        if got is None or got.path != base:
+            raise AssertionError("(c) %s: load_latest gave %s, want %s"
+                                 % (case, got and got.path, base))
+        results[case] = os.path.basename(got.path)
+    # the write's cost: parameters, momentum and the rest of a ResNet-50
+    # checkpoint from a module on the card
+    mod = out["write_module"]
+    d = tempfile.mkdtemp(prefix="write_", dir=out["tmp"])
+    t0 = time.perf_counter()
+    path = mod.save_resumable(d, epoch=good.epoch, batch=good.batch,
+                              step=good.step)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    size = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    t0 = time.perf_counter()
+    back = checkpoint.load_latest(d)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    equal_bits(host_params(back.arg_params, back.aux_params),
+               host_params(*mod.get_params()), "(c) the written checkpoint")
+    out["c"] = dict(fallback=results, write_ms=write_ms, load_ms=load_ms,
+                    bytes=size)
+    log("resume (c): corrupt manifest, tampered params.ndarray and a "
+        "checkpoint.write fault each fall back to %s; save_resumable %.1f "
+        "ms and load_latest %.1f ms for %d bytes (ResNet-50 parameters, aux "
+        "states, momentum, generators, order), on %s"
+        % (results["manifest"], write_ms, load_ms, size, card))
+
+
+def family_convnet(mx):
+    """(d)'s feature module: an NHWC conv stem (3x3 conv, relu, 2x2 max
+    pool, flatten), no labels. No BatchNorm: over several steps its
+    E[x^2] - E[x]^2 turns the summation order's last bits into ~1e-5
+    moves of the conv weights (the ground rules' BatchNorm-behind-ReLU
+    exception), which would hide what the comparison is for."""
+    x = mx.sym.Convolution(mx.sym.var("data"), kernel=(3, 3), pad=(1, 1),
+                           num_filter=16, layout="NHWC", name="c1")
+    x = mx.sym.Pooling(mx.sym.Activation(x, act_type="relu"), kernel=(2, 2),
+                       stride=(2, 2), pool_type="max", layout="NHWC")
+    return mx.sym.Flatten(x)
+
+
+def family_programs(mx):
+    """(d)'s two chains on the card: {name: build()}, each build returning
+    a SequentialModule."""
+    ctx = mx.gpu()
+
+    def feature():
+        return mx.mod.Module(family_convnet(mx), label_names=None,
+                             context=ctx)
+
+    def hidden(name):
+        # the FC + relu whose region the fuse pass lowers onto fused_matmul
+        return mx.mod.Module(mx.sym.Activation(mx.sym.FullyConnected(
+            mx.sym.var(name), num_hidden=256, name="fc1"), act_type="relu"),
+            data_names=[name], label_names=None, context=ctx)
+
+    def sequential():
+        seq = mx.mod.SequentialModule()
+        seq.add(feature())
+        seq.add(hidden("feat"), auto_wiring=True)
+        seq.add(mx.mod.Module(mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+            mx.sym.var("h"), num_hidden=RS_FAMILY_CLASSES, name="fc2"),
+            name="softmax"), data_names=["h"], context=ctx),
+            take_labels=True, auto_wiring=True)
+        return seq
+
+    def python_loss():
+        def softmax_ce_grad(scores, labels):
+            p = mx.nd.softmax(scores, axis=1)
+            return p - mx.nd.one_hot(labels, depth=RS_FAMILY_CLASSES)
+
+        seq = mx.mod.SequentialModule()
+        seq.add(feature())
+        seq.add(hidden("feat"), auto_wiring=True)
+        seq.add(mx.mod.Module(mx.sym.FullyConnected(
+            mx.sym.var("h"), num_hidden=RS_FAMILY_CLASSES, name="fc2"),
+            data_names=["h"], label_names=None, context=ctx),
+            auto_wiring=True)
+        seq.add(mx.mod.PythonLossModule(grad_func=softmax_ce_grad),
+                take_labels=True, auto_wiring=True)
+        return seq
+
+    return {"sequential": sequential, "python_loss": python_loss}
+
+
+def family_data(n):
+    rng = np.random.RandomState(RS_SEED + 1)
+    x = rng.uniform(0, 1, (n,) + RS_FAMILY_ROW).astype(np.float32)
+    y = rng.randint(0, RS_FAMILY_CLASSES, n).astype(np.float32)
+    return x, y
+
+
+def family_fit(mx, name, x, y):
+    """One (d) program fit on the card from numpy seed 0's Xavier init;
+    returns (host parameters, fused_matmul launches, FeedForward
+    predictions or None, the device of the trained parameters)."""
+    from mxnet_tpu_torch import cuda_build
+
+    cuda_build.reset_launch_counts()
+    np.random.seed(0)
+    opt = {"learning_rate": 0.05, "momentum": 0.9}
+    if name == "feedforward":
+        sym = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+            mx.sym.Activation(mx.sym.FullyConnected(
+                mx.sym.Flatten(mx.sym.var("data")), num_hidden=256,
+                name="fc1"), act_type="relu"),
+            num_hidden=RS_FAMILY_CLASSES, name="fc2"), name="softmax")
+        model = mx.model.FeedForward(
+            sym, ctx=None, num_epoch=1, numpy_batch_size=RS_FAMILY_BATCH,
+            initializer=mx.init.Xavier(), **opt)
+        model.fit(x, y)
+        dev = model._module._exec_group.param_arrays[0][0].context
+        launches = cuda_build.launch_counts().get("fused_matmul", 0)
+        preds = model.predict(x)
+        return (host_params(model.arg_params, model.aux_params or {}),
+                launches, preds, dev)
+    trainable = family_programs(mx)[name]()
+    trainable.fit(mx.io.NDArrayIter(x, y, batch_size=RS_FAMILY_BATCH),
+                  num_epoch=1, optimizer="sgd", optimizer_params=opt,
+                  initializer=mx.init.Xavier())
+    dev = trainable._chain[1][0]._exec_group.param_arrays[0][0].context
+    launches = cuda_build.launch_counts().get("fused_matmul", 0)
+    return (host_params(*trainable.get_params()), launches, None, dev)
+
+
+def resume_family(mx, card, out):
+    """(d) SequentialModule (conv feature module, FC + relu on
+    fused_matmul, the loss head), the same chain ending in a
+    PythonLossModule, and FeedForward(ctx=None) fit and predict: on the
+    card with the kernel (one launch a step) and with
+    MXNET_FUSION_KERNEL=0, every parameter within MODULE_TOL of its max
+    |value|."""
+    x, y = family_data(RS_FAMILY_STEPS * RS_FAMILY_BATCH)
+    rows = {}
+    for name in ("sequential", "python_loss", "feedforward"):
+        kern, launches, preds, dev = family_fit(mx, name, x, y)
+        mx.config.set_flag("MXNET_FUSION_KERNEL", 0)
+        try:
+            plain, plain_launches, plain_preds, _ = family_fit(
+                mx, name, x, y)
+        finally:
+            mx.config.set_flag("MXNET_FUSION_KERNEL", None)
+        if dev.device_type != "gpu":
+            raise AssertionError("(d) %s trained on %s" % (name, dev))
+        if launches != RS_FAMILY_STEPS or plain_launches:
+            raise AssertionError("(d) %s: fused_matmul %d launches over %d "
+                                 "steps (want 1 a step), %d with the "
+                                 "kernel off" % (name, launches,
+                                                 RS_FAMILY_STEPS,
+                                                 plain_launches))
+        worst, worst_name, identical = max_rel_err(kern, plain)
+        if not all(np.isfinite(v).all() for v in kern.values()) or \
+                worst > MODULE_TOL:
+            raise AssertionError("(d) %s disagrees with "
+                                 "MXNET_FUSION_KERNEL=0: %s at %.3g"
+                                 % (name, worst_name, worst))
+        row = dict(worst=worst, worst_name=worst_name, identical=identical,
+                   tensors=len(kern), launches=launches, device=str(dev))
+        if preds is not None:
+            perr = float(np.abs(preds - plain_preds).max())
+            if preds.shape != (len(x), RS_FAMILY_CLASSES) or perr > \
+                    MODULE_TOL:
+                raise AssertionError("(d) FeedForward.predict %s, %.3g off "
+                                     "the plain run" % (preds.shape, perr))
+            row["predict_err"] = perr
+        rows[name] = row
+        log("resume (d): %s on %s: %d fit steps, fused_matmul %d launches; "
+            "against MXNET_FUSION_KERNEL=0 %d of %d tensors bit-identical, "
+            "worst %s at %.3g of its max |value|%s, on %s"
+            % (name, dev, RS_FAMILY_STEPS, launches, identical, len(kern),
+               worst_name, worst,
+               ("; predict within %.3g" % row["predict_err"]
+                if preds is not None else ""), card))
+    out["d"] = rows
+
+
+def resume_phase(mx, card, results):
+    """Phase 22 (see the module docstring), under cuDNN's deterministic
+    algorithms (restored after): (a) in-process preemption and resume,
+    (b) the kill -TERM drill across processes, (c) bad checkpoints, (d)
+    the Module family."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(
+                os.path.abspath(__file__))) as tmp:
+            out["tmp"] = tmp
+            setup = resume_setup(mx)
+            unbroken, ckpt_dir = resume_in_process(mx, setup, card, out)
+            resume_drill(unbroken, card, out)
+            sym, x, y, arg0, aux0 = setup
+            mod = mx.mod.Module(sym, context=mx.gpu())
+            mod.bind(data_shapes=[("data", (RN_BATCH,) + ROW)],
+                     label_shapes=[("softmax_label", (RN_BATCH,))])
+            state = mx.resilience.load_latest(ckpt_dir)
+            mod.init_params(arg_params=state.arg_params,
+                            aux_params=state.aux_params)
+            mod.init_optimizer(optimizer="sgd", optimizer_params={
+                "learning_rate": RN_LR, "momentum": RN_MOMENTUM,
+                "wd": RN_WD})
+            mod.load_optimizer_states(state.optimizer_states)
+            out["write_module"] = mod
+            resume_bad_checkpoints(mx, ckpt_dir, card, out)
+            del out["write_module"], mod
+            gc.collect()
+            resume_family(mx, card, out)
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+        out.pop("tmp", None)
+    out["seconds"] = time.perf_counter() - t0
+    log("resume: phase 22 took %.1f s; checkpoint write %.1f ms, load %.1f "
+        "ms, %d bytes; on %s" % (out["seconds"], out["c"]["write_ms"],
+                                 out["c"]["load_ms"], out["c"]["bytes"],
+                                 card))
+    results["resume"] = out
+    return out
+
+
+def resume_row(resume):
+    """The kernels line's phase 22 entry of B1: steps and launches of (a)'s
+    three fits and (b)'s two children, their totals and the launches a
+    step they give, and (d)'s launches by program."""
+    fits = [resume["a"][n] for n in ("unbroken", "preempted", "resumed")]
+    drill = [resume["b"][c] for c in ("first", "second")]
+    launches = sum(r["launches"] for r in fits + drill)
+    steps = sum(r["steps"] for r in fits + drill)
+    return dict(
+        {n: {k: resume["a"][n][k] for k in ("steps", "launches", "step_ms")}
+         for n in ("unbroken", "preempted", "resumed")},
+        drill=[{k: r[k] for k in ("steps", "launches")} for r in drill],
+        launches=launches, steps=steps,
+        launches_per_step=launches // steps,
+        module_family={n: r["launches"] for n, r in resume["d"].items()})
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the detailed results here")
@@ -11694,6 +12320,9 @@ def main():
                                                 (peaks, results["peaks"]),
                                                 results)
     tick("21 autotune")
+    torch.cuda.empty_cache()
+    resume = resume_phase(mx, card, results)
+    tick("22 resume")
     log("seconds by phase: %s" % json.dumps(
         {k: round(v, 1) for k, v in results["phase_s"].items()}))
 
@@ -11718,6 +12347,9 @@ def main():
         # phase 19 (b): ResNet-50 trained from records, Module.fit
         "records": {k: io["b"][k] for k in ("launches", "steps",
                                             "launches_per_step")},
+        # phase 22: the fits of the resume phase, in this process ((a):
+        # unbroken, preempted, resumed) and in the drill's two children
+        "resume": resume_row(resume),
         # phase 20 (c): Module.fit with perf and health on, 2 steps
         # profiled; (d): the served model's replays under the profiler
         "observability": dict(

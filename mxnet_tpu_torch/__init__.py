@@ -13,7 +13,13 @@ training step (``mx.parallel``), and symbolic training: ``mx.nd``,
 kernels compiled by NVRTC (``mx.rtc``), the random generators
 (``mx.random``), the symbolic RNN toolkit (``mx.rnn``), Gluon
 (``mx.gluon``), and data and IO: RecordIO (``mx.recordio``), the image
-pipeline (``mx.image`` / ``mx.img``) and the record iterators. Entry points run on the CUDA card
+pipeline (``mx.image`` / ``mx.img``) and the record iterators, with
+resumable training (``fit(resume=)``, ``mx.resilience``), the legacy
+``mx.model.FeedForward``, ``mx.visualization`` / ``mx.viz``,
+``mx.contrib`` and the reference's small facades (``mx.attribute``,
+``mx.name``, ``mx.registry``, ``mx.engine``, ``mx.storage``, ``mx.log``,
+``mx.libinfo``, ``mx.executor_manager``, fluent methods on NDArray and
+Symbol). Entry points run on the CUDA card
 unless the caller passes ``mx.cpu()`` or opens ``with mx.cpu():``. The
 package imports torch and numpy, never jax and nothing of ``mxnet_tpu``.
 """
@@ -65,11 +71,28 @@ from . import rnn
 from . import gluon
 from . import image
 from . import image as img
+from . import storage
+from . import attribute
+from . import name
+from . import log
+from . import libinfo
+from . import engine
+from . import executor_manager
+from . import registry
+from . import contrib
+from . import visualization
+from . import visualization as viz
 from . import operator
 from .operator import _install_frontends as _iff
 from .convert import gluon_params_from_jax, params_from_jax
 
 _iff()
 del _iff
+
+from .fluent import install as _install_fluent  # noqa: E402
+from .fluent import NotImplementedForSymbol  # noqa: E402,F401
+
+_install_fluent()
+del _install_fluent
 
 __version__ = "0.1.0"

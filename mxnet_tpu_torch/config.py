@@ -174,6 +174,11 @@ forever), ``MXNET_GEN_DEADLINE_MS`` (0 = none), ``MXNET_GEN_PREFIX_CACHE``
     the consecutive failed scrapes before a worker is marked ``stale``
     and ``dead`` (a dead worker's series stop being appended, so they go
     stale in windowed queries).
+``MXNET_RETRY_MAX`` (3), ``MXNET_RETRY_BASE_MS`` / ``MXNET_RETRY_MAX_MS``
+(10 / 2000), ``MXNET_RETRY_DEADLINE_MS`` (30000; 0 = unbounded)
+    The shared retry primitive (resilience/retry.py): attempts including
+    the first, the first backoff and its doubling cap, and the wall-clock
+    cap across all attempts, in milliseconds.
 """
 import os
 
@@ -237,6 +242,10 @@ _DEFAULTS = {
     "MXNET_OBS_FLEET_INTERVAL_MS": 1000,
     "MXNET_OBS_FLEET_STALE_SCRAPES": 3,
     "MXNET_OBS_FLEET_DEAD_SCRAPES": 10,
+    "MXNET_RETRY_MAX": 3,
+    "MXNET_RETRY_BASE_MS": 10,
+    "MXNET_RETRY_MAX_MS": 2000,
+    "MXNET_RETRY_DEADLINE_MS": 30000,
 }
 
 

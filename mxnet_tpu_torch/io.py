@@ -149,9 +149,8 @@ class DataIter:
     """Base iterator (reference: io.py:177), with the JAX package's
     position protocol: ``get_state()`` returns a JSON-safe snapshot of the
     stream position (or None when unsupported), ``set_state()`` restores
-    it and ``skip_batches(n)`` fast-forwards. The record iterators
-    implement it; ``fit(resume=...)``, which rides it, waits for ROADMAP.md
-    Queue A13."""
+    it and ``skip_batches(n)`` fast-forwards. ``NDArrayIter`` and the
+    record iterators implement it; ``fit(resume=...)`` rides it."""
 
     def __init__(self, batch_size=0):
         self.batch_size = batch_size
@@ -627,6 +626,46 @@ class NDArrayIter(DataIter):
                 self.cursor + self.batch_size > self.num_data:
             return self.cursor + self.batch_size - self.num_data
         return 0
+
+    def skip_batches(self, n):
+        self.cursor += int(n) * self.batch_size
+
+    def get_state(self):
+        """Cursor + the construction-time shuffle permutation (the data
+        order is fixed for the iterator's lifetime, so the permutation
+        plus the cursor pin the stream position exactly)."""
+        return {"cursor": int(self.cursor),
+                "idx": np.asarray(self.idx).tolist()}
+
+    def set_state(self, state):
+        """Restore a snapshot — possibly from another process whose
+        construction-time shuffle differed: the data is re-gathered into
+        the saved permutation's order first."""
+        if state is None:
+            return
+        saved = np.asarray(state["idx"], dtype=np.int64)
+        current = np.asarray(self.idx, dtype=np.int64)
+        if saved.shape != current.shape:
+            raise MXNetError(
+                "iterator state does not match this dataset "
+                "(%d vs %d indexed rows)" % (saved.size, current.size))
+        if not np.array_equal(saved, current):
+            if len(current) != self.data_list[0].shape[0]:
+                raise MXNetError(
+                    "cannot restore a shuffled-state snapshot onto a "
+                    "truncated (last_batch_handle='discard') iterator "
+                    "with a different permutation")
+            inverse = np.empty_like(current)
+            inverse[current] = np.arange(len(current))
+            take = inverse[saved]
+            self.data = [(k, nd.array(v.asnumpy()[take], ctx=v.context))
+                         for k, v in self.data]
+            self.label = [(k, nd.array(v.asnumpy()[take], ctx=v.context))
+                          for k, v in self.label]
+            self.data_list = [x[1] for x in self.data] + \
+                [x[1] for x in self.label]
+            self.idx = saved
+        self.cursor = int(state["cursor"])
 
 
 def _read_idx_ubyte(path):

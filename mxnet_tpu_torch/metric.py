@@ -5,11 +5,9 @@ nothing of the JAX package): the registry (``mx.metric.create``), the
 class names, the ``update(labels, preds)`` / ``get_name_value()`` protocol
 and the ``sum_metric`` / ``num_inst`` accumulators. Metric math is numpy
 on the host, outside the train step, as in the JAX package: each update
-copies its outputs off the card (``NDArray.asnumpy``). The metrics are
-those ``Module.fit`` and ``score`` need, ImageNet's top-k accuracy and
-the language models' perplexity; the rest of the JAX package's (F1, the
-regression errors, NLL, Pearson, Loss and custom metrics) wait for a
-later slice (``ROADMAP.md`` Queue A4).
+copies its outputs off the card (``NDArray.asnumpy``). ``Loss`` (and its
+``Torch`` / ``Caffe`` aliases) is the exception: it sums on the outputs'
+device and reads the total once, in :meth:`Loss.get`.
 """
 from __future__ import annotations
 
@@ -20,8 +18,12 @@ import numpy
 from .base import MXNetError
 from .ndarray import NDArray
 
-__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "Perplexity", "CrossEntropy", "create"]
+__all__ = [
+    "EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy", "F1",
+    "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy",
+    "NegativeLogLikelihood", "PearsonCorrelation", "Loss", "Torch", "Caffe",
+    "CustomMetric", "np", "create",
+]
 
 _REGISTRY = {}
 
@@ -34,7 +36,9 @@ def register(klass, *names):
 
 
 def create(metric, *args, **kwargs):
-    """Resolve a metric from a name, instance, or list thereof."""
+    """Resolve a metric from a name, callable, instance, or list thereof."""
+    if callable(metric):
+        return CustomMetric(metric, *args, **kwargs)
     if isinstance(metric, EvalMetric):
         return metric
     if isinstance(metric, list):
@@ -48,10 +52,7 @@ def create(metric, *args, **kwargs):
         except KeyError:
             raise MXNetError("Metric must be either callable or in registry; "
                              "got %r" % metric)
-    if callable(metric):
-        raise MXNetError("custom metrics are not yet ported (ROADMAP.md "
-                         "Queue A4)")
-    raise TypeError("metric should be string, EvalMetric or list")
+    raise TypeError("metric should be string, callable, EvalMetric or list")
 
 
 def _fwd(local_vars, *extra):
@@ -248,6 +249,30 @@ register(TopKAccuracy, "top_k_accuracy", "top_k_acc")
 
 
 @register
+class F1(_PairwiseMetric):
+    """Binary F1 from vectorized confusion counts, averaged per batch."""
+
+    def __init__(self, name="f1", output_names=None, label_names=None):
+        super().__init__(name, **_fwd(locals()))
+
+    def _accumulate(self, label, pred):
+        label = label.astype("int32")
+        decided = numpy.argmax(pred, axis=1)
+        check_label_shapes(label, pred)
+        if numpy.unique(label).size > 2:
+            raise ValueError(
+                "F1 currently only supports binary classification.")
+        tp = float(((decided == 1) & (label == 1)).sum())
+        fp = float(((decided == 1) & (label == 0)).sum())
+        fn = float(((decided == 0) & (label == 1)).sum())
+        precision = tp / (tp + fp) if tp + fp else 0.0
+        recall = tp / (tp + fn) if tp + fn else 0.0
+        score = (2 * precision * recall / (precision + recall)
+                 if precision + recall else 0.0)
+        return score, 1
+
+
+@register
 class Perplexity(EvalMetric):
     """exp(mean negative log prob of the target tokens), with an optional
     ignored padding label."""
@@ -285,11 +310,48 @@ class Perplexity(EvalMetric):
         return (self.name, math.exp(self.sum_metric / self.num_inst))
 
 
-class CrossEntropy(_PairwiseMetric):
-    """Cross entropy against one-hot labels given class probabilities:
-    the summed -log(prob of the true class) over samples."""
+def _column(arr):
+    """Regression inputs as 2-D column matrices."""
+    return arr.reshape(arr.shape[0], 1) if arr.ndim == 1 else arr
 
-    def __init__(self, eps=1e-12, name="cross-entropy", output_names=None,
+
+class _ErrorStat(_PairwiseMetric):
+    """Shared body for the per-batch mean-error family; subclasses set
+    ``_reduce`` to map a difference matrix to a scalar."""
+
+    _reduce = None
+
+    def __init__(self, name=None, output_names=None, label_names=None):
+        super().__init__(name or type(self).__name__.lower(),
+                         **_fwd(locals()))
+
+    def _accumulate(self, label, pred):
+        diff = _column(label) - _column(pred)
+        return type(self)._reduce(diff), 1
+
+
+@register
+class MAE(_ErrorStat):
+    """Mean absolute error."""
+    _reduce = staticmethod(lambda diff: numpy.abs(diff).mean())
+
+
+@register
+class MSE(_ErrorStat):
+    """Mean squared error."""
+    _reduce = staticmethod(lambda diff: (diff ** 2.0).mean())
+
+
+@register
+class RMSE(_ErrorStat):
+    """Root mean squared error."""
+    _reduce = staticmethod(lambda diff: numpy.sqrt((diff ** 2.0).mean()))
+
+
+class _TargetNLL(_PairwiseMetric):
+    """Summed -log(prob of true class) over samples (base for CE / NLL)."""
+
+    def __init__(self, eps=1e-12, name=None, output_names=None,
                  label_names=None):
         super().__init__(name, **_fwd(locals(), "eps"))
         self.eps = eps
@@ -304,4 +366,124 @@ class CrossEntropy(_PairwiseMetric):
         return -numpy.log(chosen + self.eps).sum(), count
 
 
+class CrossEntropy(_TargetNLL):
+    """Cross entropy against one-hot labels given class probabilities:
+    the summed -log(prob of the true class) over samples."""
+
+    def __init__(self, eps=1e-12, name="cross-entropy", **kwargs):
+        super().__init__(eps=eps, name=name, **kwargs)
+
+
 register(CrossEntropy, "cross-entropy", "ce")
+
+
+class NegativeLogLikelihood(_TargetNLL):
+    """Negative log likelihood of the labels under predicted probabilities."""
+
+    def __init__(self, eps=1e-12, name="nll-loss", **kwargs):
+        super().__init__(eps=eps, name=name, **kwargs)
+
+
+register(NegativeLogLikelihood, "nll-loss", "nll_loss")
+
+
+@register
+class PearsonCorrelation(_PairwiseMetric):
+    """Mean per-batch Pearson correlation coefficient."""
+
+    def __init__(self, name="pearsonr", output_names=None, label_names=None):
+        super().__init__(name, **_fwd(locals()))
+
+    def _accumulate(self, label, pred):
+        check_label_shapes(label, pred, 1)
+        return numpy.corrcoef(pred.ravel(), label.ravel())[0, 1], 1
+
+
+@register
+class Loss(EvalMetric):
+    """Running mean of a loss output (labels are ignored).
+
+    The per-batch reduction stays on the outputs' device: ``pred.sum()``
+    accumulates into a device scalar, so a fit loop logging Loss every
+    batch pays no blocking copy per update — the one copy happens in
+    :meth:`get`."""
+
+    def __init__(self, name="loss", output_names=None, label_names=None):
+        super().__init__(name, **_fwd(locals()))
+
+    def update(self, _, preds):
+        for pred in preds:
+            # reduce in float32 whatever the loss dtype: a bf16 running
+            # sum drops every batch once it crosses ~256 (8-bit mantissa)
+            if isinstance(pred, NDArray):
+                part = pred.astype("float32").sum()
+            else:
+                part = numpy.asarray(pred, dtype=numpy.float64).sum()
+            self.sum_metric = part + self.sum_metric
+            self.num_inst += pred.size
+
+    def get(self):
+        if not self.num_inst:
+            return (self.name, float("nan"))
+        total = self.sum_metric
+        if isinstance(total, NDArray):
+            total = float(total.asnumpy())
+        return (self.name, total / self.num_inst)
+
+
+@register
+class Torch(Loss):
+    """Alias of Loss kept for reference parity (torch plugin outputs)."""
+
+    def __init__(self, name="torch", output_names=None, label_names=None):
+        super().__init__(name, **_fwd(locals()))
+
+
+@register
+class Caffe(Loss):
+    """Alias of Loss kept for reference parity (caffe plugin outputs)."""
+
+    def __init__(self, name="caffe", output_names=None, label_names=None):
+        super().__init__(name, **_fwd(locals()))
+
+
+@register
+class CustomMetric(EvalMetric):
+    """Wrap feval(label, pred) -> value or (sum, count) as a metric."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False,
+                 output_names=None, label_names=None):
+        if name is None:
+            name = feval.__name__
+            if "<" in name:
+                name = "custom(%s)" % name
+        super().__init__(name, **_fwd(locals(), "feval",
+                                      "allow_extra_outputs"))
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            check_label_shapes(labels, preds)
+        for raw_pred, raw_label in zip(preds, labels):
+            outcome = self._feval(_host(raw_label), _host(raw_pred))
+            if isinstance(outcome, tuple):
+                part, weight = outcome
+            else:
+                part, weight = outcome, 1
+            self.sum_metric += part
+            self.num_inst += weight
+
+    def get_config(self):
+        raise NotImplementedError("CustomMetric cannot be serialized")
+
+
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """Lift a plain numpy_feval(label, pred) function into a metric."""
+    import functools
+
+    @functools.wraps(numpy_feval)
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+
+    return CustomMetric(feval, name, allow_extra_outputs)

@@ -1,6 +1,13 @@
 """Module API (counterpart of ``mxnet_tpu/module/``): ``BaseModule``,
-``Module`` on one device and ``BucketingModule``. ``SequentialModule`` and
-``PythonModule`` are not ported yet."""
+``Module`` on one device, ``BucketingModule``, ``SequentialModule``,
+``PythonModule`` / ``PythonLossModule`` and the executor group."""
 from .base_module import BaseModule
 from .bucketing_module import BucketingModule
+from .executor_group import DataParallelExecutorGroup
 from .module import Module
+from .python_module import PythonLossModule, PythonModule
+from .sequential_module import SequentialModule
+
+__all__ = ["BaseModule", "BucketingModule", "DataParallelExecutorGroup",
+           "Module", "PythonLossModule", "PythonModule",
+           "SequentialModule"]

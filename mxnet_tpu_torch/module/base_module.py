@@ -11,9 +11,10 @@ Each fit step runs inside a step-waterfall scope (``observability.perf``:
 data wait, time blocked on the card, kvstore and host time, summing to the
 step's wall) and a ``step`` span, and, under ``MXNET_HEALTH``, the health
 layer's check over the step's outputs, gradients and parameters before the
-update (``skip_step`` withholds the update). Not ported: ``fit(resume=...)``
-(preemption-safe checkpoints, ``ROADMAP.md`` Queue A13); asking for it
-raises.
+update (``skip_step`` withholds the update). ``fit(resume=dir)`` makes the
+run preemption-safe (``resilience/``): it resumes from the newest valid
+checkpoint in ``dir`` and, on SIGTERM, checkpoints at the next step
+boundary and raises ``PreemptedError``.
 """
 from __future__ import annotations
 
@@ -110,7 +111,6 @@ class BaseModule:
         self._symbol = None
         self._total_exec_bytes = 0
         self._health_steps = 0  # monotonic across epochs (flight recorder)
-        self._fit_steps = 0     # completed fit steps (waterfall rows)
 
     # ------------------------------------------------------------------ fit
     def forward_backward(self, data_batch):
@@ -126,16 +126,43 @@ class BaseModule:
             allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None,
             monitor=None, resume=None):
-        """Train over ``train_data`` for ``num_epoch`` epochs."""
+        """Train over ``train_data`` for ``num_epoch`` epochs.
+
+        ``resume`` names a checkpoint directory and makes the run
+        preemption-safe (``resilience/``): the newest *valid* resumable
+        checkpoint there (if any) restores parameters, optimizer state,
+        the random generators and the (epoch, batch) position — bit-exact
+        at the checkpointed step for deterministic input pipelines and
+        kernels — and a SIGTERM during training finishes the in-flight
+        step, writes a fresh checkpoint into the same directory, and
+        unwinds with :class:`~mxnet_tpu_torch.resilience.PreemptedError`.
+        """
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
-        if resume is not None:
-            raise MXNetError("fit(resume=...) is not yet ported (ROADMAP.md "
-                             "Queue A13)")
         if health.active():
             # arm the crash hooks so an OOM or a raise mid-fit still
             # leaves the last-K step records on disk
             flight_recorder.install()
+
+        guard = None
+        resume_state = None
+        if resume is not None:
+            from ..resilience import checkpoint as _ckpt
+            from ..resilience.preemption import PreemptionGuard
+
+            resume_state = _ckpt.load_latest(resume)
+            guard = PreemptionGuard(resume)
+            if resume_state is not None:
+                self.logger.info(
+                    "Resuming from %s (epoch %d, batch %d, step %d)",
+                    resume_state.path, resume_state.epoch,
+                    resume_state.batch, resume_state.step)
+                arg_params = resume_state.arg_params
+                aux_params = resume_state.aux_params
+                allow_missing = False
+                force_init = True
+                begin_epoch = resume_state.epoch
+
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -146,40 +173,143 @@ class BaseModule:
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        restored_iter = False
+        if resume_state is not None:
+            if resume_state.optimizer_states is not None:
+                self.load_optimizer_states(resume_state.optimizer_states)
+            _ckpt.restore_rng(resume_state.rng_state, self.logger)
+            if resume_state.iterator_state is not None:
+                restored_iter = self._restore_iterator(train_data,
+                                                       resume_state)
+        # the current epoch's start-of-stream snapshot rides every
+        # checkpoint written this epoch (see save_resumable's contract:
+        # the lookahead reads one batch past the trained position, so a
+        # mid-epoch get_state() would skip a batch on resume). Captured
+        # only when a guard is armed: the snapshot is O(dataset) for
+        # shuffling iterators
+        iter_state = None
+        if guard is not None:
+            iter_state = (resume_state.iterator_state if restored_iter
+                          else getattr(train_data, "get_state",
+                                       lambda: None)())
+
         train_metric = _resolve_metric(eval_metric)
         validation_metric = (train_metric if validation_metric is None
                              else validation_metric)
-        for epoch in range(begin_epoch, num_epoch):
-            started = time.time()
-            train_metric.reset()
-            self._fit_epoch(train_data, train_metric, monitor,
-                            batch_end_callback, epoch)
-            for name, val in train_metric.get_name_value():
-                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                             time.time() - started)
-            # sync params from the devices so callbacks and eval see them
-            arg_now, aux_now = self.get_params()
-            self.set_params(arg_now, aux_now)
-            _fire(epoch_end_callback, epoch, self.symbol, arg_now, aux_now)
-            if eval_data:
-                scores = self.score(
-                    eval_data, validation_metric,
-                    score_end_callback=eval_end_callback,
-                    batch_end_callback=eval_batch_end_callback, epoch=epoch)
-                for name, val in scores:
-                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
-                                     name, val)
-            train_data.reset()
+
+        completed_steps = resume_state.step if resume_state else 0
+        try:
+            for epoch in range(begin_epoch, num_epoch):
+                started = time.time()
+                train_metric.reset()
+                resumed_here = (resume_state is not None
+                                and epoch == resume_state.epoch)
+                # a restored iterator is already positioned mid-epoch —
+                # only the batch NUMBERING fast-forwards; otherwise the
+                # deterministic replay consumes the leading batches
+                skip = (resume_state.batch
+                        if resumed_here and not restored_iter else 0)
+                start = (resume_state.batch
+                         if resumed_here and restored_iter else 0)
+                completed_steps = self._fit_epoch(
+                    train_data, train_metric, monitor, batch_end_callback,
+                    epoch, skip_batches=skip, start_batch=start,
+                    guard=guard, completed_steps=completed_steps,
+                    iter_state=iter_state)
+                for name, val in train_metric.get_name_value():
+                    self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
+                                     val)
+                self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                                 time.time() - started)
+                # sync params from the devices so callbacks and eval see
+                # them
+                arg_now, aux_now = self.get_params()
+                self.set_params(arg_now, aux_now)
+                _fire(epoch_end_callback, epoch, self.symbol, arg_now,
+                      aux_now)
+                if eval_data:
+                    scores = self.score(
+                        eval_data, validation_metric,
+                        score_end_callback=eval_end_callback,
+                        batch_end_callback=eval_batch_end_callback,
+                        epoch=epoch)
+                    for name, val in scores:
+                        self.logger.info("Epoch[%d] Validation-%s=%f",
+                                         epoch, name, val)
+                train_data.reset()
+                if guard is not None:
+                    # the NEXT epoch's start state: reset() just drew its
+                    # shuffle order, so this snapshot pins it for the
+                    # turnover checkpoint below and any mid-epoch one
+                    iter_state = getattr(train_data, "get_state",
+                                         lambda: None)()
+                    if guard.triggered:
+                        # preempted during eval/epoch turnover: position
+                        # is the top of the next epoch
+                        guard.checkpoint_and_raise(
+                            self, epoch=epoch + 1, batch=0,
+                            step=completed_steps,
+                            iterator_state=iter_state)
+        finally:
+            if guard is not None:
+                guard.disarm()
         if health.active():
             # settle the warn-mode lag-1 stash so the final step's
             # verdict is recorded before fit returns
             health.flush()
 
+    def _restore_iterator(self, train_data, resume_state):
+        """Put the checkpoint's EPOCH-START stream state (shuffle order +
+        cursor) back into ``train_data`` and fast-forward to the
+        checkpointed batch by cursor math — bit-exact in data order even
+        for per-epoch-shuffling iterators. ``save_resumable(data_iter=)``
+        instead tags the iterator's CURRENT position (``{"kind":
+        "exact", "at_batch": b}``): ``set_state`` alone lands on batch
+        ``b``, so only the batches trained after it are skipped. Returns
+        False (the caller then replays the epoch's leading batches) when
+        the iterator cannot take the state."""
+        state = resume_state.iterator_state
+        at_batch = 0
+        if isinstance(state, dict) and state.get("kind") == "exact":
+            at_batch = int(state.get("at_batch", 0))
+            state = state["state"]
+        try:
+            train_data.set_state(state)
+        except (MXNetError, KeyError, TypeError, AttributeError) as err:
+            # AttributeError included: a duck-typed iterator without
+            # set_state falls back rather than failing the resume
+            self.logger.warning(
+                "resume: could not restore iterator state (%s); "
+                "fast-forwarding %d batches instead", err,
+                resume_state.batch)
+            return False
+        delta = max(0, resume_state.batch - at_batch)
+        skip = getattr(train_data, "skip_batches", None)
+        if skip is not None:
+            skip(delta)
+        else:
+            for _ in range(delta):
+                try:
+                    train_data.next()
+                except StopIteration:
+                    break
+        return True
+
     def _fit_epoch(self, train_data, train_metric, monitor,
-                   batch_end_callback, epoch):
-        """One pass over train_data; returns the batches consumed."""
-        nbatch = 0
+                   batch_end_callback, epoch, skip_batches=0, start_batch=0,
+                   guard=None, completed_steps=0, iter_state=None):
+        """One pass over train_data; returns the completed training steps
+        overall.
+
+        ``skip_batches`` fast-forwards a resumed epoch to its
+        checkpointed position (the batches are consumed, not trained —
+        deterministic iterators replay identically after reset);
+        ``start_batch`` instead offsets the batch NUMBERING when the
+        iterator itself was repositioned via ``set_state``. ``guard`` is
+        the :class:`PreemptionGuard` polled between steps: when SIGTERM
+        flagged it, the in-flight step has just finished, so the
+        checkpoint written here is step-consistent."""
+        nbatch = start_batch
         # step-time waterfall (observability.perf): the scope opens
         # BEFORE the lookahead fetches each batch, so data wait, the
         # wait for the card and kvstore time all land in the step that
@@ -188,6 +318,14 @@ class BaseModule:
         try:
             eval_metric = train_metric  # noqa: F841  (read via locals())
             for data_batch, _is_last, upcoming in _lookahead(train_data):
+                if nbatch < skip_batches:
+                    nbatch += 1
+                    # resume fast-forward consumes batches without
+                    # training: restart the scope so its data wait is
+                    # not charged to the first real step
+                    perf.step_abandon()
+                    perf.step_begin()
+                    continue
                 step_started = time.perf_counter()
                 if monitor is not None:
                     monitor.tic()
@@ -213,20 +351,30 @@ class BaseModule:
                 if monitor is not None:
                     monitor.toc_print()
                 record_step(time.perf_counter() - step_started)
-                self._fit_steps += 1
-                perf.step_end(step=self._fit_steps)
+                perf.step_end(step=completed_steps + 1)
                 perf.step_begin()
                 _fire(batch_end_callback,
                       BatchEndParam(epoch=epoch, nbatch=nbatch,
                                     eval_metric=train_metric,
                                     locals=locals()))
                 nbatch += 1
+                completed_steps += 1
+                if guard is not None and guard.triggered:
+                    # the in-flight step just completed; checkpoint at
+                    # this exact position and unwind (PreemptedError).
+                    # The iterator state is the EPOCH-START snapshot:
+                    # resume restores it and skips `nbatch` batches
+                    guard.checkpoint_and_raise(self, epoch=epoch,
+                                               batch=nbatch,
+                                               step=completed_steps,
+                                               iterator_state=iter_state)
         finally:
-            # the epoch end or an exception (a health raise) must not
-            # leave a dangling scope: step_active() would keep timing
-            # every later forward on this thread
+            # the epoch end or an exception (a health raise, the
+            # preemption checkpoint) must not leave a dangling scope:
+            # step_active() would keep timing every later forward on this
+            # thread
             perf.step_abandon()
-        return nbatch
+        return completed_steps
 
     def _health_check(self, wall_s):
         """Hook: run observability.health's per-step check over this

@@ -241,7 +241,8 @@ class BucketingModule(BaseModule):
     def save_optimizer_states(self, fname):
         """Optimizer state of the shared optimizer (every bucket borrows
         the root's updater/kvstore, so the active bucket's view IS the
-        state)."""
+        state); the preemption checkpoint of ``fit(resume=...)`` writes
+        it."""
         self._ready(params=True, optimizer=True)
         self._curr_module.save_optimizer_states(fname)
 

@@ -7,12 +7,33 @@ gathers their outputs; that waits for multi-device training
 context. The name-major array lists keep the reference's per-device form
 (``param_arrays[i]`` is the list of parameter ``i``'s arrays, here one),
 so ``model.py``'s update helpers are the reference's.
+``_split_input_slice`` is the reference's workload-weighted batch
+splitter, kept for ``executor_manager``.
 """
 from __future__ import annotations
 
 import logging
 
 from ..io import DataDesc
+
+
+def _split_input_slice(batch_size, work_load_list):
+    """Proportional batch split: each device's share is its workload
+    fraction (rounded); the final device absorbs rounding error. Raises if
+    any share rounds to zero."""
+    total = sum(work_load_list)
+    shares = [round(batch_size * w / total) for w in work_load_list]
+    shares[-1] += batch_size - sum(shares)
+    cuts = []
+    cursor = 0
+    for share in shares:
+        lo = min(cursor, batch_size)
+        hi = min(lo + share, batch_size)
+        if hi <= lo:
+            raise ValueError("Too many slices. Some splits are empty.")
+        cuts.append(slice(int(lo), int(hi)))
+        cursor = hi
+    return cuts
 
 
 def _normalize_grad_req(grad_req, arg_names, param_names, data_names,

@@ -6,9 +6,10 @@ host-side parameter copies (on the CPU, as MXNet keeps them) and the bound
 executor, the gradients and the update on the module's device.
 ``Module(context=None)`` binds on the CUDA card (and raises where there is
 none); the CPU is used only when the caller passes ``mx.cpu()``. Not
-ported yet: more than one device (``ROADMAP.md`` Queue A10) and resumable
-checkpoints (Queue A13). ``save_checkpoint`` and
-``Module.load`` write and read MXNet's checkpoint files.
+ported yet: more than one device (``ROADMAP.md`` Queue A10).
+``save_checkpoint`` and ``Module.load`` write and read MXNet's checkpoint
+files; ``save_resumable`` writes the resumable checkpoint that
+``fit(resume=)`` restarts from.
 """
 from __future__ import annotations
 
@@ -130,6 +131,23 @@ class Module(BaseModule):
             state_file = f"{prefix}-{epoch:04d}.states"
             self.save_optimizer_states(state_file)
             logging.info('Saved optimizer state to "%s"', state_file)
+
+    def save_resumable(self, directory, epoch=0, batch=0, step=0,
+                       data_iter=None, iterator_state=None):
+        """Write one checksummed resumable checkpoint (params +
+        optimizer state + random generators + position, plus the data
+        stream position when ``data_iter``/``iterator_state`` is given —
+        see ``resilience.checkpoint.save_resumable`` for their contract)
+        into ``directory``: the operational sibling of
+        :meth:`save_checkpoint` that ``fit(resume=directory)`` restarts
+        from. Returns the checkpoint path."""
+        from ..resilience import checkpoint as _ckpt
+
+        self._require(bound=True, initialized=True)
+        return _ckpt.save_resumable(self, directory, epoch=epoch,
+                                    batch=batch, step=step,
+                                    data_iter=data_iter,
+                                    iterator_state=iterator_state)
 
     # ------------------------------------------------------------- shapes
     data_names = property(lambda self: self._data_names)

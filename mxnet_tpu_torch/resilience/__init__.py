@@ -1,16 +1,19 @@
-"""Fault tolerance: the counterpart of ``mxnet_tpu/resilience/``, as far
-as serving needs it.
+"""Fault tolerance: the counterpart of ``mxnet_tpu/resilience/``.
 
 * :mod:`.faults` — deterministic fault injection: call sites declare
-  named points (``serving.replica_execute``) that are no-ops by default
-  and, under a seeded ``MXNET_FAULTS`` spec, deterministically
-  drop/delay/raise.
+  named points (``serving.replica_execute``, ``checkpoint.write``) that
+  are no-ops by default and, under a seeded ``MXNET_FAULTS`` spec,
+  deterministically drop/delay/raise.
+* :mod:`.retry` — the retry primitive (exponential backoff + jitter,
+  attempt- and deadline-capped, per-policy telemetry).
+* :mod:`.checkpoint` / :mod:`.preemption` — SIGTERM-safe training:
+  finish the in-flight step, write an atomic checksummed resumable
+  checkpoint (params + optimizer state + random generators + position +
+  recorder ring), and ``fit(resume=dir)`` restarts from the newest
+  *valid* one.
 * Serving failover lives in :mod:`..serving`: per-request deadlines
   (:class:`DeadlineExceeded`) and a replica circuit breaker with cooldown
   re-admission.
-
-``retry``, ``checkpoint`` and ``preemption`` (resumable training under
-SIGTERM) are not ported yet (ROADMAP A10, A13).
 """
 from ..base import MXNetError
 
@@ -33,10 +36,20 @@ class BarrierTimeoutError(MXNetError):
 
 
 from . import faults  # noqa: E402
+from . import retry  # noqa: E402
+from . import checkpoint  # noqa: E402
+from . import preemption  # noqa: E402
 from .faults import InjectedDrop, InjectedFault  # noqa: E402
+from .retry import RetryPolicy, RetryExhaustedError  # noqa: E402
+from .checkpoint import save_resumable, load_latest  # noqa: E402
+from .preemption import PreemptedError, PreemptionGuard  # noqa: E402
 
-__all__ = ["faults", "DeadlineExceeded", "BarrierTimeoutError",
-           "InjectedFault", "InjectedDrop"]
+__all__ = ["faults", "retry", "checkpoint", "preemption",
+           "DeadlineExceeded", "BarrierTimeoutError",
+           "InjectedFault", "InjectedDrop",
+           "RetryPolicy", "RetryExhaustedError",
+           "save_resumable", "load_latest",
+           "PreemptedError", "PreemptionGuard"]
 
 # the injected-faults section rides every crash dump (providers run
 # best-effort; None when no spec is active keeps clean dumps clean)

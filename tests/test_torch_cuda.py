@@ -22,7 +22,10 @@ shapes against the CPU bit for bit (also replayed from a CUDA graph),
 int8 paged attention against its plain version, and the sampler's draws
 against the exact distribution, and the streaming input pipeline's
 batches staged on the card against the same iterator's on the CPU, bit
-for bit. Every test skips where there is no card.
+for bit, and resumable training: a ``fit(resume=)`` stopped by SIGTERM
+and resumed on the card, bit for bit, and a PythonLossModule's host
+labels handed to its gradient beside the scores. Every test skips where
+there is no card.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 that has only PyTorch with CUDA:
@@ -1948,3 +1951,79 @@ def test_capture_runs_with_the_collector_off(card):
     graph.replay()
     torch.cuda.synchronize()
     assert out.tolist() == [1.0] * 8
+
+
+def _mlp_resume_fit(resume=None, callback=None):
+    """An MLP (fc1 + relu on fused_matmul) fit on the card, 2 epochs of 4
+    batches shuffled from numpy seed 4, SGD 0.1 / 0.9."""
+    rng = np.random.RandomState(2)
+    x = rng.standard_normal((32, 12)).astype(np.float32)
+    y = rng.randint(0, 5, 32).astype(np.float32)
+    net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(mx.sym.Activation(
+        mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=64,
+                              name="fc1"), act_type="relu"),
+        num_hidden=5, name="fc2"), name="softmax")
+    np.random.seed(4)
+    mod = mx.mod.Module(net, context=mx.gpu())
+    mod.fit(mx.io.NDArrayIter(x, y, batch_size=8, shuffle=True),
+            num_epoch=2, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+            initializer=mx.init.Xavier(), resume=resume,
+            batch_end_callback=callback)
+    return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def test_fit_resume_on_the_card_is_bit_exact(card, tmp_path):
+    """SIGTERM from the 6th batch-end callback: the checkpoint holds the
+    card's generator state beside the host's, and the resumed fit ends on
+    the unbroken fit's parameters bit for bit, one fused_matmul launch a
+    step in each run."""
+    import signal
+
+    from mxnet_tpu_torch.resilience import PreemptedError, load_latest
+
+    cuda_build.reset_launch_counts()
+    unbroken = _mlp_resume_fit()
+    assert cuda_build.launch_counts().get("fused_matmul", 0) == 8
+    calls = []
+
+    def preempt(_param):
+        calls.append(1)
+        if len(calls) == 6:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    with pytest.raises(PreemptedError):
+        _mlp_resume_fit(str(tmp_path), preempt)
+    state = load_latest(str(tmp_path))
+    assert (state.epoch, state.batch, state.step) == (1, 2, 6)
+    assert len(state.rng_state) == 1 + torch.cuda.device_count()
+    cuda_build.reset_launch_counts()
+    resumed = _mlp_resume_fit(str(tmp_path))
+    assert cuda_build.launch_counts().get("fused_matmul", 0) == 2
+    for k, v in unbroken.items():
+        assert resumed[k].tobytes() == v.tobytes(), k
+
+
+def test_python_loss_head_takes_host_labels_on_the_card(card):
+    """A PythonLossModule after a Module on the card: the iterator's
+    labels (on the host) reach grad_func beside the scores, and its
+    gradient flows back on the card."""
+    seen = []
+
+    def grad(scores, labels):
+        seen.append((scores.context.device_type, labels.context.device_type))
+        return mx.nd.softmax(scores, axis=1) - mx.nd.one_hot(labels, depth=3)
+
+    seq = mx.mod.SequentialModule()
+    seq.add(mx.mod.Module(mx.sym.FullyConnected(
+        mx.sym.var("data"), num_hidden=3, name="fc"), label_names=None,
+        context=mx.gpu()))
+    seq.add(mx.mod.PythonLossModule(grad_func=grad), take_labels=True,
+            auto_wiring=True)
+    rng = np.random.RandomState(0)
+    seq.fit(mx.io.NDArrayIter(rng.standard_normal((8, 4)).astype(np.float32),
+                              np.arange(8, dtype=np.float32) % 3,
+                              batch_size=4), num_epoch=1, optimizer="sgd")
+    assert seen == [("gpu", "gpu")] * 2
+    assert all(np.isfinite(v.asnumpy()).all()
+               for v in seq.get_params()[0].values())

@@ -48,6 +48,16 @@ import mxnet_tpu_torch.autotune.search, mxnet_tpu_torch.autotune.learned
 import mxnet_tpu_torch.autotune.tuners, mxnet_tpu_torch.parallel.fused
 import mxnet_tpu_torch.executor, mxnet_tpu_torch.runtime.pipeline
 import mxnet_tpu_torch.serving.engine, mxnet_tpu_torch.parallel.mesh
+import mxnet_tpu_torch.resilience.retry, mxnet_tpu_torch.resilience.checkpoint
+import mxnet_tpu_torch.resilience.preemption, mxnet_tpu_torch.graft_entry
+import mxnet_tpu_torch.module.python_module
+import mxnet_tpu_torch.module.sequential_module
+import mxnet_tpu_torch.executor_manager, mxnet_tpu_torch.visualization
+import mxnet_tpu_torch.contrib.autograd, mxnet_tpu_torch.contrib.tensorboard
+import mxnet_tpu_torch.attribute, mxnet_tpu_torch.name
+import mxnet_tpu_torch.registry, mxnet_tpu_torch.fluent
+import mxnet_tpu_torch.engine, mxnet_tpu_torch.storage, mxnet_tpu_torch.log
+import mxnet_tpu_torch.libinfo, mxnet_tpu_torch.symbol_doc
 bad = sorted(m for m in sys.modules
              if m in ("jax", "mxnet_tpu") or m.startswith("jax.")
              or m.startswith("mxnet_tpu."))

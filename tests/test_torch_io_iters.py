@@ -94,7 +94,14 @@ def test_prefetching_iter_rename_and_state():
             rename_label=[{"softmax_label": "lab"}])
     assert [d.name for d in it.provide_data] == ["img"]
     assert [d.name for d in it.provide_label] == ["lab"]
-    assert it.get_state() is None      # NDArrayIter has no position yet
+    # the child NDArrayIter's position, as the JAX package's iterator has it
+    jit = jmx.io.PrefetchingIter([jmx.io.NDArrayIter(x, y, batch_size=4)],
+                                 rename_data=[{"data": "img"}],
+                                 rename_label=[{"softmax_label": "lab"}])
+    try:
+        assert it.get_state() == jit.get_state()
+    finally:
+        jit.close()
     it.skip_batches(2)
     assert sum(1 for _ in it) == 4
     with pytest.raises(tmx.MXNetError):

@@ -433,21 +433,60 @@ def test_local_kvstore_push_pull():
 
 
 def test_not_ported_paths_raise():
-    sym, dshape, _ = _mlp(tmx)
-    mod = tmx.mod.Module(sym, context=tmx.cpu())
-    it = tmx.io.NDArrayIter(np.zeros(dshape, np.float32),
-                            np.zeros(dshape[0], np.float32), batch_size=5)
-    with pytest.raises(tmx.MXNetError, match="A13"):
-        mod.fit(it, num_epoch=1, resume="somewhere")
+    sym, _dshape, _ = _mlp(tmx)
     with pytest.raises(tmx.MXNetError, match="A10"):
         tmx.kv.create("dist_sync")
     with pytest.raises(tmx.MXNetError, match="A10"):
         tmx.mod.Module(sym, context=[tmx.cpu(0), tmx.cpu(1)])
-    with pytest.raises(tmx.MXNetError, match="A4"):
-        tmx.metric.create(lambda label, pred: 0.0)
     if not torch.cuda.is_available():
         with pytest.raises(tmx.MXNetError, match="CUDA"):
             tmx.mod.Module(sym)
+
+
+def test_fit_resume_after_sigterm_equals_the_unbroken_fit(tmp_path):
+    """``fit(resume=)`` on the MLP: a SIGTERM from the 3rd batch-end
+    callback (epoch 0, batch 2 of 4) checkpoints and raises
+    ``PreemptedError``; the resumed fit ends on the unbroken fit's
+    parameters bit for bit, whatever numpy's seed is in between."""
+    import os
+    import signal
+
+    from mxnet_tpu_torch.resilience import PreemptedError, load_latest
+
+    sym, dshape, n_classes = _mlp(tmx)
+    rng = np.random.RandomState(5)
+    x = rng.standard_normal((4 * dshape[0],) + dshape[1:]) \
+        .astype(np.float32)
+    y = rng.randint(0, n_classes, 4 * dshape[0]).astype(np.float32)
+
+    def fit(resume=None, callback=None):
+        np.random.seed(3)
+        mod = tmx.mod.Module(sym, context=tmx.cpu())
+        mod.fit(tmx.io.NDArrayIter(x, y, batch_size=dshape[0],
+                                   shuffle=True),
+                num_epoch=2, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+                initializer=tmx.init.Xavier(), resume=resume,
+                batch_end_callback=callback)
+        return _params(mod)
+
+    unbroken = fit()
+    calls = []
+
+    def preempt(_param):
+        calls.append(1)
+        if len(calls) == 3:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    with pytest.raises(PreemptedError):
+        fit(str(tmp_path), preempt)
+    state = load_latest(str(tmp_path))
+    assert (state.epoch, state.batch, state.step) == (0, 3, 3)
+    np.random.seed(99)
+    resumed = fit(str(tmp_path))
+    assert sorted(resumed) == sorted(unbroken)
+    for k in unbroken:
+        np.testing.assert_array_equal(resumed[k], unbroken[k], err_msg=k)
 
 
 # ------------------------------------------------------ mx.models on MNIST
