@@ -579,13 +579,42 @@ Phases, each fatal on failure (exit code != 0, no result line):
    fit and predict (its parameters on ``cuda``), each 4 steps against
    ``MXNET_FUSION_KERNEL=0`` within 1e-5 of each tensor's max |value|,
    one launch a step.
-23. Print the ``kernels`` JSON line (the flash forward's row also carries
+23. Sparse phase: sparse storage at the width of Avazu as MXNet 1.x's
+   ``example/sparse/linear_classification`` reads it (1,000,001 hashed
+   features), batch 8192, from a seeded libsvm file this phase writes
+   (65,536 rows, 15 fields, labels from a planted weight vector). (a)
+   ``LibSVMIter`` on the native parser (``native.built()`` must show it
+   loaded from ``_build/native/``): its batches equal the Python
+   tokenizer's bit for bit; parse ms, batches/s. (b) Linear logistic
+   regression, the (1,000,001, 1) fp32 weight in a local kvstore with lazy
+   SGD (b1) and lazy FTRL (b2): each of 8 steps ``row_sparse_pull`` of the
+   batch's columns, ``sparse.dot(csr, w)``, the sigmoid gradient,
+   ``sparse.dot(csr, g, transpose_a=True)`` pushed; the final weights
+   within 1e-5 of max |w| of a float64 ``scipy.sparse`` run of the same
+   steps, untouched rows bit-identical to the start, a second run bit for
+   bit; ms/step and the synchronisations of each step (torch's sync debug
+   mode). (c) A 1,000,001 x 64 fp32 table fed each batch's 122,880 ids:
+   (c1) ``sparse_embedding`` with a row_sparse gradient buffer and lazy
+   SGD against ``Embedding``'s dense gradient and dense SGD, within 1e-6
+   of max |w| after 8 steps; (c2) lazy Adam against a float64 numpy
+   update from the card's gradients within 1e-5; each SGD arm twice, bit
+   for bit; ms/step of each arm, the device ms of the gather, the row
+   collapse and the update (torch.profiler), the bytes the update writes.
+   (d) ``cast_storage`` over the six ordered pairs, ``sparse_retain``,
+   ``square_sum`` and csr row slices on the card equal to the CPU's;
+   ``nd.save`` from the card byte for byte the CPU's file, which loads
+   back. (e) ``test_utils.check_consistency`` of FullyConnected + relu
+   over ``mx.cpu()`` and ``mx.gpu(0)``, with the gpu bind's
+   ``fused_matmul`` launches. No kernel of this repo is on (a)-(d): the
+   JAX package computes its sparse ops in plain XLA, and the port in
+   plain torch ops with a fixed summation order.
+24. Print the ``kernels`` JSON line (the flash forward's row also carries
    phase 11's prefill launches, phase 17's and phase 18's int8 Generator's,
    ``fused_matmul``'s phase 3's captures, replays, and the profiled
    replays with the kernels the profiler saw run in them, phase 17
-   (a)'s bf16 figures, phase 19 (b)'s and phase 22's launches; the
-   ``health_stats`` row phase 20's), then the result line ``{"ok": true,
-   "device": {...}}`` last.
+   (a)'s bf16 figures, phase 19 (b)'s, phase 22's and phase 23 (e)'s
+   launches; the ``health_stats`` row phase 20's), then the result line
+   ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero without a result when CUDA is unavailable or the package is
 not beside the script.
@@ -12224,6 +12253,533 @@ def resume_row(resume):
         module_family={n: r["launches"] for n, r in resume["d"].items()})
 
 
+# ------------------------------------------------- phase 23: sparse on the card
+
+# The width of Avazu as MXNet 1.x's example/sparse/linear_classification
+# reads it (1,000,001 hashed features) at its batch size. The data is made
+# here, not downloaded: SP_ROWS seeded rows, one feature in each of
+# SP_FIELDS fields (a field owns SP_FEATURES // SP_FIELDS ids and draws an
+# id skewed toward its low end, u**3, as hashed categorical data is), values
+# in [0.1, 1), labels from a planted weight vector over a tenth of the ids.
+SP_FEATURES, SP_BATCH, SP_ROWS, SP_FIELDS = 1000001, 8192, 65536, 15
+SP_STEPS, SP_EMBED, SP_SEED = 8, 64, 23
+SP_OPT = {"sgd": dict(learning_rate=0.5),
+          "ftrl": dict(learning_rate=0.1, lamda1=0.001, beta=1.0)}
+SP_EMB_LR, SP_ADAM_LR = 1.0, 0.01
+SP_LINEAR_TOL = 1e-5     # (b) vs float64 scipy, over max |w|
+SP_EMBED_TOL = 1e-6      # (c1) lazy vs dense arm, over max |w|
+SP_ADAM_TOL = 1e-5       # (c2) vs float64 numpy, over max(1, max |w|)
+SP_SUM_TOL = 1e-6        # (d) square_sum card vs CPU, relative
+SP_SCOPES = ("sparse.gather", "sparse.collapse", "sparse.update")
+
+
+def sp_write_file(path):
+    """The phase's libsvm file; returns its byte count."""
+    rng = np.random.RandomState(SP_SEED)
+    width = SP_FEATURES // SP_FIELDS
+    u = rng.uniform(0, 1, (SP_ROWS, SP_FIELDS))
+    cols = (np.arange(SP_FIELDS) * width
+            + np.floor(width * u ** 3)).astype(np.int64)
+    vals = rng.uniform(0.1, 1.0, (SP_ROWS, SP_FIELDS))
+    planted = np.zeros(SP_FEATURES)
+    hot = rng.choice(SP_FEATURES, SP_FEATURES // 10, replace=False)
+    planted[hot] = rng.randn(hot.size)
+    logit = (planted[cols] * vals).sum(axis=1)
+    labels = (logit + 0.1 * rng.randn(SP_ROWS) > 0).astype(np.int64)
+    with open(path, "w") as f:
+        for i in range(SP_ROWS):
+            f.write("%d %s\n" % (labels[i], " ".join(
+                "%d:%.6g" % cv for cv in zip(cols[i], vals[i]))))
+    return os.path.getsize(path)
+
+
+def sp_batch_arrays(b):
+    """(indptr, indices, values, labels, pad) of a host CSR batch."""
+    d = b.data[0]
+    return (d.indptr.asnumpy(), d.indices.asnumpy(), d.data.asnumpy(),
+            b.label[0].asnumpy(), b.pad)
+
+
+def sp_reading(mx, path, out):
+    """(a): LibSVMIter on the native parser, its batches against the
+    Python tokenizer's bit for bit. Returns the native batches."""
+    from mxnet_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.libsvm_lib()     # g++ at first use, outside the parse's time
+    build_ms = (time.perf_counter() - t0) * 1e3
+    if not (native.built().get("libsvmparse") or "").startswith(
+            native.BUILD_DIR):
+        raise AssertionError("the native libsvm parser did not load: %s"
+                             % native.built())
+    t0 = time.perf_counter()
+    it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(SP_FEATURES,),
+                          batch_size=SP_BATCH)
+    parse_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    batches = list(it)
+    iter_s = time.perf_counter() - t0
+    real = native.libsvm_lib
+    native.libsvm_lib = lambda: None
+    try:
+        t0 = time.perf_counter()
+        text_it = mx.io.LibSVMIter(data_libsvm=path,
+                                   data_shape=(SP_FEATURES,),
+                                   batch_size=SP_BATCH)
+        text_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        native.libsvm_lib = real
+    text = list(text_it)
+    if len(text) != len(batches) or len(batches) != SP_ROWS // SP_BATCH:
+        raise AssertionError("batches: native %d, tokenizer %d"
+                             % (len(batches), len(text)))
+    for i, (a, b) in enumerate(zip(batches, text)):
+        for name, x, y in zip(("indptr", "indices", "values", "labels",
+                               "pad"), sp_batch_arrays(a),
+                              sp_batch_arrays(b)):
+            if not np.array_equal(x, y) or np.asarray(x).dtype != \
+                    np.asarray(y).dtype:
+                raise AssertionError("batch %d: %s differs between the "
+                                     "native parser and the tokenizer"
+                                     % (i, name))
+    nnz = int(it._indptr[-1])
+    out["a"] = dict(build_ms=build_ms, parse_ms=parse_ms,
+                    tokenizer_ms=text_ms,
+                    parse_speedup=text_ms / parse_ms,
+                    batches=len(batches), batches_per_s=len(batches) / iter_s,
+                    nnz=nnz, native=native.built()["libsvmparse"])
+    log("sparse (a): %d rows, %d nonzeros: native parse %.1f ms (tokenizer "
+        "%.1f ms; the parser's build %.1f ms before), %d batches equal to "
+        "the tokenizer's bit for bit, %.1f batches/s"
+        % (SP_ROWS, nnz, parse_ms, text_ms, build_ms, len(batches),
+           len(batches) / iter_s))
+    return batches
+
+
+def sp_syncs(fn):
+    """(fn's result, the synchronising CUDA calls it made as torch's sync
+    debug mode warns of them: "file:line" of the Python line that made
+    each)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return res, ["%s:%d" % (os.path.relpath(w.filename), w.lineno)
+                 for w in caught if "synchroniz" in str(w.message)]
+
+
+def sp_linear_step(mx, kv, batch):
+    """One step of (b): pull the batch's rows, csr . w, the logistic
+    gradient, csr^T . g (row_sparse) pushed to the store's lazy update."""
+    gpu = mx.gpu()
+    sp = mx.nd.sparse
+    csr = batch.data[0].copyto(gpu)
+    y = batch.label[0].copyto(gpu)
+    w = sp.zeros("row_sparse", (SP_FEATURES, 1), ctx=gpu)
+    kv.row_sparse_pull("w", out=w, row_ids=csr.indices)
+    p = mx.nd.sigmoid(sp.dot(csr, w))
+    g = (p - y.reshape((SP_BATCH, 1))) / SP_BATCH
+    kv.push("w", sp.dot(csr, g, transpose_a=True))
+
+
+def sp_linear_run(mx, batches, w0, opt_name, count_syncs=False):
+    """(final weights on the card, ms/step, syncs per step)."""
+    import torch
+
+    gpu = mx.gpu()
+    kv = mx.kv.create("local")
+    kv.init("w", mx.nd.array(w0, ctx=gpu))
+    kv.set_optimizer(mx.optimizer.create(opt_name, **SP_OPT[opt_name]))
+    syncs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        if count_syncs:
+            syncs.append(sp_syncs(lambda: sp_linear_step(mx, kv, b))[1])
+        else:
+            sp_linear_step(mx, kv, b)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    final = mx.nd.zeros((SP_FEATURES, 1), ctx=gpu)
+    kv.pull("w", out=final)
+    return final._data.clone(), ms, syncs
+
+
+def sp_linear_reference(batches, w0, opt_name):
+    """The same steps in float64 on the host with scipy.sparse."""
+    import scipy.sparse as sps
+
+    cfg = SP_OPT[opt_name]
+    lr = cfg["learning_rate"]
+    w = w0[:, 0].astype(np.float64)
+    z, n = np.zeros_like(w), np.zeros_like(w)
+    for b in batches:
+        indptr, indices, values, labels, _ = sp_batch_arrays(b)
+        x = sps.csr_matrix((values.astype(np.float64), indices, indptr),
+                           shape=(SP_BATCH, SP_FEATURES))
+        p = 1.0 / (1.0 + np.exp(-(x @ w)))
+        grad = x.T @ ((p - labels) / SP_BATCH)
+        rows = np.unique(indices)
+        g = grad[rows]
+        if opt_name == "sgd":
+            w[rows] -= lr * g
+            continue
+        n_new = n[rows] + g * g
+        sigma = (np.sqrt(n_new) - np.sqrt(n[rows])) / lr
+        z[rows] += g - sigma * w[rows]
+        n[rows] = n_new
+        zr = z[rows]
+        w[rows] = np.where(np.abs(zr) > cfg["lamda1"],
+                           -(zr - np.sign(zr) * cfg["lamda1"])
+                           / ((cfg["beta"] + np.sqrt(n_new)) / lr), 0.0)
+    return w
+
+
+def sp_linear(mx, batches, card, out):
+    """(b): linear logistic regression over the width, its weight in a
+    local kvstore with lazy SGD (b1) and lazy FTRL (b2)."""
+    import torch
+
+    rng = np.random.RandomState(SP_SEED + 1)
+    w0 = (rng.randn(SP_FEATURES, 1) * 0.01).astype(np.float32)
+    touched = np.zeros(SP_FEATURES, bool)
+    for b in batches:
+        touched[b.data[0].indices.asnumpy()] = True
+    res = {}
+    for arm, opt_name in (("b1", "sgd"), ("b2", "ftrl")):
+        first, _, syncs = sp_linear_run(mx, batches, w0, opt_name,
+                                        count_syncs=True)
+        second, ms, _ = sp_linear_run(mx, batches, w0, opt_name)
+        if not torch.equal(first, second):
+            raise AssertionError("(%s) two runs of the same steps differ"
+                                 % arm)
+        got = second.cpu().numpy()[:, 0]
+        if not np.array_equal(got[~touched], w0[~touched, 0]):
+            raise AssertionError("(%s) rows no batch touched moved" % arm)
+        ref = sp_linear_reference(batches, w0, opt_name)
+        err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        if not err <= SP_LINEAR_TOL:
+            raise AssertionError("(%s) weights vs float64 scipy: %.3g > %g"
+                                 % (arm, err, SP_LINEAR_TOL))
+        sites = {}
+        for site in syncs[-1]:
+            sites[site] = sites.get(site, 0) + 1
+        res[arm] = dict(optimizer=opt_name, ms_per_step=ms,
+                        syncs_per_step=[len(x) for x in syncs],
+                        sync_sites=sites, rel_err=err,
+                        touched_rows=int(touched.sum()))
+        log("sparse (%s): lazy %s over %d x 1 fp32 in a kvstore, batch "
+            "%d: %.2f ms/step, synchronisations per step %s (the last "
+            "step's by line: %s), vs float64 scipy %.2g of max |w|, %d "
+            "rows touched, untouched rows and a second run bit-identical; "
+            "on %s" % (arm, opt_name, SP_FEATURES, SP_BATCH, ms,
+                       res[arm]["syncs_per_step"], json.dumps(sites), err,
+                       touched.sum(), card))
+    out["b"] = res
+
+
+def sp_embed_step(mx, w, batch, u, lazy, opt, state):
+    """One step of (c): the batch's 122,880 ids through the table, a
+    value-weighted sum per row, a logistic head, the update."""
+    from torch.profiler import record_function
+
+    gpu = mx.gpu()
+    csr = batch.data[0].copyto(gpu)
+    y = batch.label[0].copyto(gpu)
+    ids = csr.indices.reshape((SP_BATCH, SP_FIELDS)).astype("float32")
+    vals = csr.data.reshape((SP_BATCH, SP_FIELDS, 1))
+    with mx.autograd.record():
+        with record_function(SP_SCOPES[0]):
+            e = mx.nd.sparse.sparse_embedding(ids, w) if lazy else \
+                mx.nd.Embedding(ids, w, input_dim=SP_FEATURES,
+                                output_dim=SP_EMBED)
+        s = mx.nd.dot(mx.nd.sum(e * vals, axis=1), u)
+    s.backward((mx.nd.sigmoid(s) - y.reshape((SP_BATCH, 1))) / SP_BATCH)
+    with record_function(SP_SCOPES[2]):
+        opt.update(0, w, w.grad, state)
+
+
+def sp_embed_run(mx, batches, w0, u, lazy, opt_name, lr, grads=None):
+    """(final table on the card, ms/step)."""
+    import torch
+
+    w = mx.nd.array(w0, ctx=mx.gpu())
+    w.attach_grad(stype="row_sparse" if lazy else None)
+    opt = mx.optimizer.create(opt_name, learning_rate=lr)
+    state = opt.create_state(0, w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        sp_embed_step(mx, w, b, u, lazy, opt, state)
+        if grads is not None:   # kept on the card until the clock stops
+            grads.append((w.grad._aux[0], w.grad._data))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    if grads is not None:
+        grads[:] = [(i.cpu().numpy(), g.cpu().numpy().astype(np.float64))
+                    for i, g in grads]
+    return w._data.detach().clone(), ms
+
+
+def sp_adam_reference(w0, grads):
+    """Lazy Adam in float64 over the rows each gradient lists, from the
+    card's gradients: (the rows any step touched, their final values)."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    w = w0.astype(np.float64)
+    m, v = np.zeros_like(w), np.zeros_like(w)
+    for t, (idx, g) in enumerate(grads, 1):
+        lr = SP_ADAM_LR * np.sqrt(1 - b2 ** t) / (1 - b1 ** t)
+        m[idx] = b1 * m[idx] + (1 - b1) * g
+        v[idx] = b2 * v[idx] + (1 - b2) * g * g
+        w[idx] -= lr * m[idx] / (np.sqrt(v[idx]) + eps)
+    ids = np.unique(np.concatenate([idx for idx, _ in grads]))
+    return ids, w[ids]
+
+
+def sp_profile(mx, batches, w0, u):
+    """Device ms of the gather, the row collapse and the update of two
+    lazy steps, by scope, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    sp_mod = mx.nd.sparse
+    real = sp_mod.coo_to_rsp
+
+    def collapse(g):
+        with record_function(SP_SCOPES[1]):
+            return real(g)
+
+    w = mx.nd.array(w0, ctx=mx.gpu())
+    w.attach_grad(stype="row_sparse")
+    opt = mx.optimizer.create("sgd", learning_rate=SP_EMB_LR)
+    sp_embed_step(mx, w, batches[0], u, True, opt, None)
+    sp_mod.coo_to_rsp = collapse
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for b in batches[1:3]:
+                sp_embed_step(mx, w, b, u, True, opt, None)
+            torch.cuda.synchronize()
+    finally:
+        sp_mod.coo_to_rsp = real
+    if not any(ev.device_type == torch.autograd.DeviceType.CUDA
+               for ev in prof.key_averages()):
+        return None, None, []   # the profiler saw no kernel (Queue C2)
+    fams, dev_ms, top, _spans = device_families(
+        prof, 2, scope_family=lambda name: name if name in SP_SCOPES
+        else None, marks=())
+    entered = {ev.key for ev in prof.key_averages()}
+    for k in SP_SCOPES:
+        if k not in entered:
+            raise AssertionError("(c) the profiled steps never entered %s"
+                                 % k)
+        if not fams.get(k, 0.0) > 0.0:
+            raise AssertionError("(c) %s recorded no device time" % k)
+    return {k: fams[k] for k in SP_SCOPES}, dev_ms, top
+
+
+def sp_embedding(mx, batches, card, out):
+    """(c): a 1,000,001 x 64 fp32 table fed each batch's ids: (c1) lazy
+    SGD on a row_sparse gradient against the dense-gradient arm, (c2)
+    lazy Adam against float64 numpy."""
+    import torch
+
+    rng = np.random.RandomState(SP_SEED + 2)
+    w0 = (rng.randn(SP_FEATURES, SP_EMBED) * 0.1).astype(np.float32)
+    u = mx.nd.array(rng.randn(SP_EMBED, 1).astype(np.float32), ctx=mx.gpu())
+    final, ms = {}, {}
+    for arm, lazy in (("lazy", True), ("dense", False)):
+        first, _ = sp_embed_run(mx, batches, w0, u, lazy, "sgd", SP_EMB_LR)
+        final[arm], ms[arm] = sp_embed_run(mx, batches, w0, u, lazy, "sgd",
+                                           SP_EMB_LR)
+        if not torch.equal(first, final[arm]):
+            raise AssertionError("(c1) two runs of the %s arm differ" % arm)
+        del first
+    scale = float(final["dense"].abs().max())
+    err = float((final["lazy"] - final["dense"]).abs().max()) / scale
+    if not err <= SP_EMBED_TOL:
+        raise AssertionError("(c1) lazy vs dense arm: %.3g > %g"
+                             % (err, SP_EMBED_TOL))
+    moved = int((final["lazy"] != torch.from_numpy(w0).to(
+        final["lazy"].device)).any(dim=1).sum())
+    del final
+    gc.collect()
+    torch.cuda.empty_cache()
+    grads = []
+    w_adam, ms["adam"] = sp_embed_run(mx, batches, w0, u, True, "adam",
+                                      SP_ADAM_LR, grads)
+    ids, ref = sp_adam_reference(w0, grads)
+    got = w_adam.cpu().numpy()
+    adam_err = float(np.abs(got[ids] - ref).max()
+                     / max(1.0, np.abs(ref).max()))
+    if not adam_err <= SP_ADAM_TOL:
+        raise AssertionError("(c2) lazy Adam vs float64: %.3g > %g"
+                             % (adam_err, SP_ADAM_TOL))
+    rest = np.ones(SP_FEATURES, bool)
+    rest[ids] = False
+    if not np.array_equal(got[rest], w0[rest]):
+        raise AssertionError("(c2) rows no gradient listed moved")
+    del w_adam, got
+    rows = [g[0].size for g in grads]
+    scopes, dev_ms, top = sp_profile(mx, batches, w0, u)
+    # the weight and state bytes each update writes, from the shapes
+    row_bytes = SP_EMBED * 4
+    written = dict(lazy_sgd=int(np.mean(rows)) * row_bytes,
+                   lazy_adam=3 * int(np.mean(rows)) * row_bytes,
+                   dense_sgd=SP_FEATURES * row_bytes)
+    out["c"] = dict(ms_per_step=ms, rel_err=err, adam_rel_err=adam_err,
+                    rows_per_step=rows, rows_moved=moved,
+                    scope_device_ms=scopes, lazy_step_device_ms=dev_ms,
+                    top_kernels=top, bytes_written_per_step=written)
+    log("sparse (c): %d x %d fp32 table, %d ids a step (%d-%d unique rows): "
+        "ms/step lazy SGD %.2f, dense SGD %.2f, lazy Adam %.2f; lazy vs "
+        "dense %.2g of max |w|, Adam vs float64 %.2g; two runs of each SGD "
+        "arm bit-identical; lazy step device ms %s, by scope %s; weight and "
+        "state bytes the update writes a step (from shapes) %s; on %s"
+        % (SP_FEATURES, SP_EMBED, SP_BATCH * SP_FIELDS, min(rows),
+           max(rows), ms["lazy"], ms["dense"], ms["adam"], err, adam_err,
+           "no record (Queue C2)" if dev_ms is None else "%.3f" % dev_ms,
+           json.dumps(scopes), json.dumps(written), card))
+
+
+def sp_storage(mx, tmp, card, out):
+    """(d): the storage functions on the card against the CPU: casts over
+    all six ordered pairs, sparse_retain, square_sum, csr row slices, and
+    nd.save from the card byte for byte."""
+    rng = np.random.RandomState(SP_SEED + 3)
+    dense = (rng.randn(512, 1000) * (rng.rand(512, 1000) < 0.01)) \
+        .astype(np.float32)
+    dense[::7] = 0
+    keep = rng.choice(512, 100, replace=False)
+
+    def results(ctx):
+        sp = mx.nd.sparse
+        src = {"default": mx.nd.array(dense, ctx=ctx)}
+        src["row_sparse"] = sp.cast_storage(src["default"], "row_sparse")
+        src["csr"] = sp.cast_storage(src["default"], "csr")
+        res = {"%s>%s" % (a, b): sp.cast_storage(src[a], b)
+               for a in src for b in src if a != b}
+        res["retain"] = sp.sparse_retain(src["row_sparse"], keep)
+        res["sum"] = sp.square_sum(src["row_sparse"])
+        res["sum1"] = sp.square_sum(src["row_sparse"], axis=1)
+        for lo, hi in ((0, 100), (137, 411), (511, 512), (5, 5)):
+            res["csr[%d:%d]" % (lo, hi)] = src["csr"][lo:hi]
+        path = os.path.join(tmp, "sparse_%s.params" % ctx.device_type)
+        mx.nd.save(path, {"r": src["row_sparse"], "c": src["csr"]})
+        with open(path, "rb") as f:
+            res["file"] = f.read()
+        back = mx.nd.load(path)
+        for k, a in (("r", src["row_sparse"]), ("c", src["csr"])):
+            if not np.array_equal(back[k].asnumpy(), dense):
+                raise AssertionError("(d) %s did not load back" % k)
+        return res
+
+    cpu, gpu = results(mx.cpu()), results(mx.gpu())
+    if cpu.pop("file") != gpu.pop("file"):
+        raise AssertionError("(d) nd.save from the card differs from the "
+                             "CPU's file")
+    worst = 0.0
+    for k, want in cpu.items():
+        got = gpu[k]
+        if got.stype != want.stype or got.shape != want.shape:
+            raise AssertionError("(d) %s: %s %s vs %s %s" % (
+                k, got.stype, got.shape, want.stype, want.shape))
+        if got.context.device_type != "gpu":
+            raise AssertionError("(d) %s left the card" % k)
+        aux = ([got.indices, got.indptr] if got.stype == "csr" else
+               [got.indices] if got.stype == "row_sparse" else [])
+        waux = ([want.indices, want.indptr] if want.stype == "csr" else
+                [want.indices] if want.stype == "row_sparse" else [])
+        for a, b in zip(aux, waux):
+            if not np.array_equal(a.asnumpy(), b.asnumpy()):
+                raise AssertionError("(d) %s: indices differ" % k)
+        g, w = got.asnumpy(), want.asnumpy()
+        if k.startswith("sum"):
+            rel = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+            worst = max(worst, rel)
+            if not rel <= SP_SUM_TOL:
+                raise AssertionError("(d) %s: %.3g > %g"
+                                     % (k, rel, SP_SUM_TOL))
+        elif not np.array_equal(g, w):
+            raise AssertionError("(d) %s: values differ" % k)
+    out["d"] = dict(cases=sorted(cpu), square_sum_rel_err=worst)
+    log("sparse (d): %d storage results on the card equal to the CPU's "
+        "(square_sum within %.2g), nd.save from the card byte for byte; "
+        "on %s" % (len(cpu), worst, card))
+
+
+def sp_consistency(mx, card, out):
+    """(e): test_utils.check_consistency of FullyConnected + Activation
+    over mx.cpu() and mx.gpu(0), with the gpu bind's fused_matmul
+    launches."""
+    from mxnet_tpu_torch import cuda_build
+
+    net = mx.sym.Activation(mx.sym.FullyConnected(
+        mx.sym.var("data"), num_hidden=256, name="fc"), act_type="relu")
+    ctx_list = [{"ctx": mx.cpu(), "data": (64, 512)},
+                {"ctx": mx.gpu(0), "data": (64, 512)}]
+    np.random.seed(SP_SEED)
+    cuda_build.reset_launch_counts()
+    res = mx.test_utils.check_consistency(net, ctx_list)
+    launches = cuda_build.launch_counts().get("fused_matmul", 0)
+    if len(res) != 2 or res[1][0].context.device_type != "gpu":
+        raise AssertionError("(e) the second bind did not run on the card")
+    if launches < 1:
+        raise AssertionError("(e) the gpu bind launched no fused_matmul")
+    out["e"] = dict(fused_matmul_launches=launches)
+    log("sparse (e): check_consistency of FullyConnected(256) + relu at "
+        "(64, 512) over cpu and gpu(0) passed; the gpu bind launched "
+        "fused_matmul %d times; on %s" % (launches, card))
+
+
+def sparse_phase(mx, card, results):
+    """Phase 23 (see the module docstring)."""
+    import tempfile
+
+    from mxnet_tpu_torch import cuda_build
+
+    t0 = time.perf_counter()
+    out = {"part_s": {}}
+    clock = [t0]
+
+    def tick(part):
+        now = time.perf_counter()
+        out["part_s"][part] = round(now - clock[0], 2)
+        clock[0] = now
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        path = os.path.join(tmp, "avazu_width.libsvm")
+        out["file_bytes"] = sp_write_file(path)
+        tick("write")
+        batches = sp_reading(mx, path, out)
+        tick("a")
+        cuda_build.reset_launch_counts()
+        sp_linear(mx, batches, card, out)
+        tick("b")
+        sp_embedding(mx, batches, card, out)
+        tick("c")
+        out["launches"] = dict(cuda_build.launch_counts())
+        sp_storage(mx, tmp, card, out)
+        tick("d")
+        sp_consistency(mx, card, out)
+        tick("e")
+    out["seconds"] = time.perf_counter() - t0
+    log("sparse: phase 23 took %.1f s (by part %s); kernel launches on (b) "
+        "and (c) %s; on %s" % (out["seconds"], json.dumps(out["part_s"]),
+                               json.dumps(out["launches"]), card))
+    results["sparse"] = out
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the detailed results here")
@@ -12323,6 +12879,9 @@ def main():
     torch.cuda.empty_cache()
     resume = resume_phase(mx, card, results)
     tick("22 resume")
+    torch.cuda.empty_cache()
+    sparse = sparse_phase(mx, card, results)
+    tick("23 sparse")
     log("seconds by phase: %s" % json.dumps(
         {k: round(v, 1) for k, v in results["phase_s"].items()}))
 
@@ -12347,6 +12906,8 @@ def main():
         # phase 19 (b): ResNet-50 trained from records, Module.fit
         "records": {k: io["b"][k] for k in ("launches", "steps",
                                             "launches_per_step")},
+        # phase 23 (e): check_consistency's gpu bind of FC + relu
+        "sparse_consistency": sparse["e"]["fused_matmul_launches"],
         # phase 22: the fits of the resume phase, in this process ((a):
         # unbroken, preempted, resumed) and in the drill's two children
         "resume": resume_row(resume),

@@ -242,11 +242,43 @@ def _backward_impl(heads, head_grads, retain_graph):
         for (_t, arr), g in zip(leaves, grads):
             if g is None or arr._grad is None:
                 continue
+            if g.is_sparse or arr._grad.stype != "default":
+                _write_sparse_grad(arr, g)
+                continue
             buf = arr._grad._data
             if arr._grad_req == "add":
                 buf.add_(g.to(buf.dtype))
             else:
                 buf.copy_(g)
+
+
+def _write_sparse_grad(arr, g):
+    """Write a gradient where a side is sparse (reference: the row-sparse
+    cotangent of SparseEmbedding, indexing_op.cc): a sparse COO gradient
+    into a RowSparseNDArray buffer collapses to its sorted unique rows
+    (``"add"`` merges through ``rsp_add``), into a dense buffer it
+    densifies; a dense gradient into a sparse buffer goes through
+    ``cast_storage``, which keeps every row with a nonzero."""
+    from .ndarray.ndarray import _wrap
+    from .ndarray.sparse import (RowSparseNDArray, cast_storage,
+                                 coo_to_dense, coo_to_rsp, rsp_add)
+
+    buf, add = arr._grad, arr._grad_req == "add"
+    if g.is_sparse and isinstance(buf, RowSparseNDArray):
+        rsp = coo_to_rsp(g).astype(buf._data.dtype)
+        (rsp_add(buf, rsp) if add else rsp).copyto(buf)
+        return
+    dense = coo_to_dense(g) if g.is_sparse else g
+    if buf.stype == "default":
+        if add:
+            buf._data.add_(dense.to(buf._data.dtype))
+        else:
+            buf._data.copy_(dense)
+        return
+    dense = dense.to(buf._data.dtype)
+    if add:
+        dense = dense + buf._dense()
+    cast_storage(_wrap(dense), buf.stype).copyto(buf)
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -271,7 +303,10 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                              retain_graph=bool(retain),
                              create_graph=bool(create_graph),
                              allow_unused=True)
-    return [_wrap(g if g is not None else torch.zeros_like(v._data))
+    from .ndarray.sparse import coo_to_dense
+
+    return [_wrap(torch.zeros_like(v._data) if g is None else
+                  coo_to_dense(g) if g.is_sparse else g)
             for g, v in zip(gs, variables)]
 
 

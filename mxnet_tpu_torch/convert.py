@@ -7,9 +7,10 @@ convolution keeps its HWIO weight, a channels-first one OIHW. Both packages
 then compute on the same numbers. ``gluon_params_from_jax`` does the same
 for a Gluon network: it copies a JAX net's ``collect_params()`` into the
 port's net of the same architecture, matching names with each net's own
-prefix stripped (the two packages number their blocks apart). Nothing of
-the JAX package is imported: only ``asnumpy()`` or numpy's array protocol
-is used.
+prefix stripped (the two packages number their blocks apart).
+``sparse_from_jax`` carries a JAX ``RowSparseNDArray`` or ``CSRNDArray``
+(its values and aux arrays) into the port's. Nothing of the JAX package is
+imported: only ``asnumpy()``, ``stype`` or numpy's array protocol is used.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import torch
 
 from .context import as_device
 
-__all__ = ["params_from_jax", "gluon_params_from_jax", "tensor_from_array"]
+__all__ = ["params_from_jax", "gluon_params_from_jax", "tensor_from_array",
+           "sparse_from_jax"]
 
 
 def tensor_from_array(value, device=None):
@@ -71,3 +73,21 @@ def gluon_params_from_jax(jax_net, net):
             p._load_init(value, p.list_ctx() if p._deferred_init else None)
         else:
             p.set_data(value)
+
+
+def sparse_from_jax(arr, device=None):
+    """The port's sparse array of a JAX package's ``RowSparseNDArray`` or
+    ``CSRNDArray`` (or a dense NDArray, as a dense one), values and index
+    arrays bit for bit, on ``device`` (default: the card)."""
+    from .ndarray.ndarray import _from_data
+    from .ndarray.sparse import CSRNDArray, RowSparseNDArray, _sparse_new
+
+    dev = as_device(device)
+    if arr.stype == "row_sparse":
+        return _sparse_new(RowSparseNDArray, tensor_from_array(arr.data, dev),
+                           (tensor_from_array(arr.indices, dev),), arr.shape)
+    if arr.stype == "csr":
+        return _sparse_new(CSRNDArray, tensor_from_array(arr.data, dev),
+                           (tensor_from_array(arr.indptr, dev),
+                            tensor_from_array(arr.indices, dev)), arr.shape)
+    return _from_data(tensor_from_array(arr, dev))

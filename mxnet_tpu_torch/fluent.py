@@ -92,6 +92,13 @@ def install():
             return sym_ns.Cast(self, dtype=dtype)
 
         Symbol.astype = astype
+    if not hasattr(NDArray, "tostype"):
+        def tostype(self, stype):
+            """This array in storage type ``stype`` (the storage-aware
+            ``nd.cast_storage``)."""
+            return nd_ns.cast_storage(self, stype)
+
+        NDArray.tostype = tostype
     for name in _ND_ONLY:
         if not hasattr(Symbol, name):
             setattr(Symbol, name, _make_stub(name))

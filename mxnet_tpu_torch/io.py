@@ -8,8 +8,10 @@ on the host, as MXNet's iterators keep it, and NDArrays keep their own
 device; ``Module`` copies each batch into its bound arrays on its own
 device. The image iterators decode and augment on the host in numpy and
 PIL and put each finished batch on their device (``device=``, else the
-``with`` scope at construction, else the card). ``LibSVMIter`` produces
-CSR batches and waits for the sparse NDArray (ROADMAP.md Queue A13).
+``with`` scope at construction, else the card). ``LibSVMIter`` parses a
+libsvm text file with the native parser (``native/libsvmparse.cc``; a
+Python tokenizer where no compiler is found) into one host CSR triple,
+and gives each batch as a host ``CSRNDArray``.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from .ndarray import NDArray
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "MXDataIter",
            "ResizeIter", "PrefetchingIter", "NDArrayIter", "MNISTIter",
-           "CSVIter", "ImageRecordIter", "ImageDetRecordIter",
+           "CSVIter", "LibSVMIter", "ImageRecordIter", "ImageDetRecordIter",
            "pad_batch_to_bound", "StreamingIter"]
 
 
@@ -722,6 +724,153 @@ class CSVIter(NDArrayIter):
                 label = label.reshape(label.shape[:-1])
         super().__init__(data, label, batch_size=batch_size,
                          last_batch_handle="discard")
+
+
+def _parse_libsvm_native(lib, path):
+    import ctypes
+
+    h = lib.lsvm_parse(path.encode())
+    if not h:
+        raise MXNetError("cannot open %s" % path)
+    try:
+        bad = lib.lsvm_error_line(h)
+        if bad:
+            raise MXNetError("libsvm parse error at %s:%d" % (path, bad))
+        n, nnz = lib.lsvm_rows(h), lib.lsvm_nnz(h)
+        labels = np.empty(n, np.float32)
+        indptr = np.empty(n + 1, np.int64)
+        indices = np.empty(nnz, np.int64)
+        values = np.empty(nnz, np.float32)
+        fp = ctypes.POINTER(ctypes.c_float)
+        lp = ctypes.POINTER(ctypes.c_longlong)
+        lib.lsvm_fill(h, labels.ctypes.data_as(fp), indptr.ctypes.data_as(lp),
+                      indices.ctypes.data_as(lp), values.ctypes.data_as(fp))
+    finally:
+        lib.lsvm_free(h)
+    return labels, indptr, indices, values
+
+
+def _parse_libsvm_text(path):
+    """The Python tokenizer: the same arrays and errors as the native
+    parser."""
+    labels, indptr, indices, values = [], [0], [], []
+    with open(path) as f:
+        for lineno, line in enumerate(f, 1):
+            parts = line.split()
+            if not parts:
+                continue
+            try:
+                labels.append(float(parts[0].split(",")[0]))
+                for tok in parts[1:]:
+                    i, v = tok.split(":")
+                    indices.append(int(i))
+                    values.append(float(v))
+            except ValueError:
+                raise MXNetError("libsvm parse error at %s:%d"
+                                 % (path, lineno))
+            indptr.append(len(indices))
+    return (np.asarray(labels, np.float32), np.asarray(indptr, np.int64),
+            np.asarray(indices, np.int64), np.asarray(values, np.float32))
+
+
+def _parse_libsvm(path, num_feat):
+    """(labels, indptr, indices, values) of a libsvm file, 0-based
+    feature ids checked against ``num_feat``."""
+    from . import native
+
+    lib = native.libsvm_lib()
+    labels, indptr, indices, values = (
+        _parse_libsvm_native(lib, path) if lib is not None
+        else _parse_libsvm_text(path))
+    if len(indices) and (indices.max() >= num_feat or indices.min() < 0):
+        bad = (int(indices.min()) if indices.min() < 0
+               else int(indices.max()))
+        raise MXNetError("libsvm feature index %d out of range %d"
+                         % (bad, num_feat))
+    return labels, indptr, indices, values
+
+
+class LibSVMIter(DataIter):
+    """Sparse libsvm-format text iterator giving CSR data batches
+    (reference: src/io/iter_libsvm.cc LibSVMIter).
+
+    Line format: ``<label> <index>:<value> ...`` with 0-based indices;
+    ``label_libsvm`` reads the labels from a second file (a multi-valued
+    label row densifies to ``label_shape``). ``num_parts`` /
+    ``part_index`` give each part its contiguous rows, every row to
+    exactly one part. The last batch is padded with empty rows and zero
+    labels (``pad``). Batches live on the host, as ``NDArrayIter``'s."""
+
+    def __init__(self, data_libsvm, data_shape, batch_size,
+                 label_libsvm=None, label_shape=None, num_parts=1,
+                 part_index=0, **kwargs):
+        super().__init__(batch_size)
+        self.batch_size = batch_size
+        feat = int(np.prod(data_shape))
+        labels0, self._indptr, self._indices, self._values = \
+            _parse_libsvm(data_libsvm, feat)
+        n_rows = len(labels0)
+        if label_libsvm is not None:
+            lfeat = int(np.prod(label_shape)) if label_shape else 1
+            _, lptr, lidx, lval = _parse_libsvm(label_libsvm, lfeat)
+            if len(lptr) - 1 != n_rows:
+                raise MXNetError("label file has %d rows but data file has %d"
+                                 % (len(lptr) - 1, n_rows))
+            if lfeat == 1:
+                self._labels = np.zeros(n_rows, np.float32)
+                has = lptr[1:] > lptr[:-1]
+                self._labels[has] = lval[lptr[:-1][has]]
+            else:
+                dense = np.zeros((n_rows, lfeat), np.float32)
+                row_of = np.repeat(np.arange(n_rows), np.diff(lptr))
+                dense[row_of, lidx] = lval
+                self._labels = dense
+        else:
+            self._labels = labels0
+        if num_parts > 1:
+            if not 0 <= part_index < num_parts:
+                raise MXNetError("part_index %d outside [0, %d)"
+                                 % (part_index, num_parts))
+            bounds = np.linspace(0, n_rows, num_parts + 1).astype(int)
+            lo, hi = bounds[part_index], bounds[part_index + 1]
+            base, top = self._indptr[lo], self._indptr[hi]
+            self._indices = self._indices[base:top]
+            self._values = self._values[base:top]
+            self._indptr = self._indptr[lo:hi + 1] - base
+            self._labels = self._labels[lo:hi]
+        self._n_rows = len(self._indptr) - 1
+        self._feat = feat
+        self.cur = 0
+        self.provide_data = [DataDesc("data", (batch_size, feat), "float32")]
+        lshape = ((batch_size,) if self._labels.ndim == 1
+                  else (batch_size,) + self._labels.shape[1:])
+        self.provide_label = [DataDesc("softmax_label", lshape, "float32")]
+
+    def reset(self):
+        self.cur = 0
+
+    def next(self):
+        from .ndarray.sparse import csr_matrix
+
+        if self.cur >= self._n_rows:
+            raise StopIteration
+        lo = self.cur
+        hi = min(lo + self.batch_size, self._n_rows)
+        pad = self.batch_size - (hi - lo)
+        self.cur = hi
+        base, top = self._indptr[lo], self._indptr[hi]
+        indptr = self._indptr[lo:hi + 1] - base
+        labels = self._labels[lo:hi]
+        if pad:
+            indptr = np.concatenate(
+                [indptr, np.full(pad, indptr[-1], np.int64)])
+            labels = np.concatenate(
+                [labels, np.zeros((pad,) + labels.shape[1:], np.float32)])
+        data = csr_matrix((self._values[base:top], self._indices[base:top],
+                           indptr), shape=(self.batch_size, self._feat),
+                          ctx=cpu())
+        return DataBatch(data=[data], label=[nd.array(labels, ctx=cpu())],
+                         pad=pad)
 
 
 def ImageRecordIter(path_imgrec, data_shape, batch_size, path_imgidx=None,

@@ -1,6 +1,7 @@
 """Native (C++) readers, built on demand with the system ``g++`` and
-loaded over ctypes: the RecordIO framing (``recordio.cc``) and the
-threaded record prefetcher (``prefetch.cc``).
+loaded over ctypes: the RecordIO framing (``recordio.cc``), the
+threaded record prefetcher (``prefetch.cc``) and the libsvm text parser
+(``libsvmparse.cc``).
 
 Counterpart of ``mxnet_tpu/native/__init__.py``, with its own copies of
 the sources. A library is compiled at first use into
@@ -17,7 +18,8 @@ import os
 import subprocess
 import threading
 
-__all__ = ["load", "built", "recordio_lib", "prefetch_lib", "BUILD_DIR"]
+__all__ = ["load", "built", "recordio_lib", "prefetch_lib", "libsvm_lib",
+           "BUILD_DIR"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build", "native")
@@ -90,6 +92,27 @@ def recordio_lib():
         lib.rio_flush.restype = ctypes.c_int
         lib.rio_flush.argtypes = [P]
         lib._rio_typed = True
+    return lib
+
+
+def libsvm_lib():
+    lib = load("libsvmparse")
+    if lib is not None and not getattr(lib, "_lsvm_typed", False):
+        LL = ctypes.c_longlong
+        P = ctypes.c_void_p
+        FP = ctypes.POINTER(ctypes.c_float)
+        LP = ctypes.POINTER(LL)
+        lib.lsvm_parse.restype = P
+        lib.lsvm_parse.argtypes = [ctypes.c_char_p]
+        lib.lsvm_rows.restype = LL
+        lib.lsvm_rows.argtypes = [P]
+        lib.lsvm_nnz.restype = LL
+        lib.lsvm_nnz.argtypes = [P]
+        lib.lsvm_error_line.restype = LL
+        lib.lsvm_error_line.argtypes = [P]
+        lib.lsvm_fill.argtypes = [P, FP, LP, LP, FP]
+        lib.lsvm_free.argtypes = [P]
+        lib._lsvm_typed = True
     return lib
 
 

@@ -106,15 +106,19 @@ class NDArray:
 
     # --- autograd -----------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
-        """Attach a zero gradient buffer; this array's tensor becomes a
-        leaf that requires grad (reference: ndarray.py attach_grad)."""
+        """Attach a zero gradient buffer, of storage type ``stype``
+        (default, or row_sparse / csr); this array's tensor becomes a leaf
+        that requires grad (reference: ndarray.py attach_grad)."""
         from .. import autograd
 
         if stype not in (None, "default"):
-            raise MXNetError("sparse gradient buffers are not yet ported "
-                             "(ROADMAP.md Queue A13)")
-        autograd.mark_variables([self], [_wrap(torch.zeros_like(
-            self._data.detach()))], grad_req)
+            from .sparse import zeros as sparse_zeros
+
+            grad = sparse_zeros(stype, self.shape, ctx=self._data.device,
+                                dtype=self._data.dtype)
+        else:
+            grad = _wrap(torch.zeros_like(self._data.detach()))
+        autograd.mark_variables([self], [grad], grad_req)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
         """Gradients of this array into the marked variables it was
@@ -151,9 +155,15 @@ class NDArray:
         return _from_data(self._data.to(torch_dtype(dtype), copy=copy))
 
     def copyto(self, other):
-        """Copy into another NDArray (in place, cast to its dtype) or onto
-        a device."""
+        """Copy into another NDArray (in place, cast to its dtype; into a
+        sparse one through ``cast_storage``) or onto a device."""
         if isinstance(other, NDArray):
+            if other.stype != "default":
+                from .sparse import cast_storage
+
+                src = self.astype(other._data.dtype) \
+                    if self._data.dtype != other._data.dtype else self
+                return cast_storage(src, other.stype).copyto(other)
             if other is not self:
                 other._set_data(self._data)
             return other

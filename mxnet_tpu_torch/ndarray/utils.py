@@ -8,9 +8,12 @@ byte as the JAX package and MXNet write them, so checkpoints move between
 the three in every direction. ``load`` also reads V1 and pre-V1 records
 and the JAX package's earlier ``.npz`` archives.
 
+Sparse records (row_sparse, csr) carry the storage shape, the aux
+arrays' dtypes and shapes, then the values and the aux arrays (rsp:
+indices; csr: indptr, indices), as the reference's ``NDArray::Save``.
 Arrays load into host memory, where ``Module`` keeps its parameter
 copies; the record's context is not read (the writers here store
-``cpu(0)``). Sparse records (row_sparse, csr) are not ported.
+``cpu(0)``).
 """
 from __future__ import annotations
 
@@ -39,7 +42,9 @@ _DTYPE_TO_FLAG = {np.dtype(np.float32): 0, np.dtype(np.float64): 1,
 _FLAG_TO_DTYPE = {v: k for k, v in _DTYPE_TO_FLAG.items()}
 
 # NDArrayStorageType (include/mxnet/ndarray.h)
-_STYPE_DEFAULT = 0
+_STYPE_DEFAULT, _STYPE_RSP, _STYPE_CSR = 0, 1, 2
+_STYPE_CODE = {"default": _STYPE_DEFAULT, "row_sparse": _STYPE_RSP,
+               "csr": _STYPE_CSR}
 _CPU_CONTEXT = (1, 0)     # (dev_type, dev_id) of cpu(0)
 
 
@@ -57,14 +62,18 @@ def _read_shape(f):
 
 def _write_array(f, arr):
     f.write(struct.pack("<I", _V2_MAGIC))
-    f.write(struct.pack("<i", _STYPE_DEFAULT))
+    f.write(struct.pack("<i", _STYPE_CODE[arr.stype]))
     t = arr._data.detach()
     if t.dim() == 0:
         # the reference format cannot represent 0-d arrays (an ndim-0
         # shape on disk means a none/null handle, ndarray.cc:851)
         raise MXNetError("cannot save a 0-d NDArray in the reference "
                          ".params format; reshape to (1,) first")
-    _write_shape(f, t.shape)
+    # csr's aux order on disk is (indptr, indices), the arrays' own
+    auxes = [a.cpu().numpy() for a in getattr(arr, "_aux", ())]
+    if auxes:
+        _write_shape(f, t.shape)      # storage shape
+    _write_shape(f, arr.shape)        # logical shape
     f.write(struct.pack("<ii", *_CPU_CONTEXT))
     if t.dtype == torch.bfloat16:
         raise MXNetError("dtype bfloat16 has no reference save format")
@@ -73,7 +82,12 @@ def _write_array(f, arr):
     if dt not in _DTYPE_TO_FLAG:
         raise MXNetError("dtype %s has no reference save format" % dt)
     f.write(struct.pack("<i", _DTYPE_TO_FLAG[dt]))
+    for aux in auxes:
+        f.write(struct.pack("<i", _DTYPE_TO_FLAG[np.dtype(aux.dtype)]))
+        _write_shape(f, aux.shape)
     f.write(np.ascontiguousarray(values).tobytes())
+    for aux in auxes:
+        f.write(np.ascontiguousarray(aux).tobytes())
 
 
 def _host(values):
@@ -82,20 +96,27 @@ def _host(values):
     return _from_data(torch.from_numpy(values.copy()))
 
 
+def _read_values(f, dt, shape):
+    n = int(np.prod(shape)) if shape else 1
+    return np.frombuffer(f.read(n * dt.itemsize), dtype=dt).reshape(shape)
+
+
 def _read_array(f):
     (magic,) = struct.unpack("<I", f.read(4))
     shape = None
+    stype = _STYPE_DEFAULT
     if magic == _V2_MAGIC:
         (stype,) = struct.unpack("<i", f.read(4))
-        if stype != _STYPE_DEFAULT:
-            raise MXNetError("sparse NDArray records are not yet ported "
-                             "(ROADMAP.md Queue A13)")
+        if stype not in (_STYPE_DEFAULT, _STYPE_RSP, _STYPE_CSR):
+            raise MXNetError("unknown NDArray storage type %d" % stype)
     elif magic != _V1_MAGIC:
         # pre-V1 record: the "magic" IS the ndim (ndarray.cc:900
         # LegacyTShapeLoad), as in tests/fixtures/legacy_ndarray.v0
         if magic > 32:
             raise MXNetError("bad NDArray record magic 0x%x" % magic)
         shape = tuple(struct.unpack("<%dI" % magic, f.read(4 * magic)))
+    n_aux = stype  # rsp has one aux array, csr two
+    storage_shape = _read_shape(f) if n_aux else None
     if shape is None:
         shape = _read_shape(f)
     if len(shape) == 0:
@@ -103,9 +124,19 @@ def _read_array(f):
     f.read(8)  # context
     (type_flag,) = struct.unpack("<i", f.read(4))
     dt = _FLAG_TO_DTYPE[type_flag]
-    n = int(np.prod(shape))
-    values = np.frombuffer(f.read(n * dt.itemsize), dtype=dt).reshape(shape)
-    return _host(values)
+    aux_meta = []
+    for _ in range(n_aux):
+        (aux_flag,) = struct.unpack("<i", f.read(4))
+        aux_meta.append((_FLAG_TO_DTYPE[aux_flag], _read_shape(f)))
+    values = _read_values(f, dt, storage_shape if n_aux else shape)
+    if not n_aux:
+        return _host(values)
+    from .sparse import CSRNDArray, RowSparseNDArray, _sparse_new
+
+    auxes = [torch.from_numpy(_read_values(f, adt, ashape).copy())
+             for adt, ashape in aux_meta]
+    cls = RowSparseNDArray if stype == _STYPE_RSP else CSRNDArray
+    return _sparse_new(cls, torch.from_numpy(values.copy()), auxes, shape)
 
 
 def save(fname, data):

@@ -5,8 +5,8 @@
 
 Counterpart of ``mxnet_tpu/ops/contrib.py`` (reference: contrib/ctc_loss.cc,
 fft-inl.h, ifft-inl.h, count_sketch-inl.h, quantize-inl.h,
-dequantize-inl.h). ``_contrib_SparseEmbedding`` comes with the sparse
-types (ROADMAP.md Queue A13).
+dequantize-inl.h). ``_contrib_SparseEmbedding`` is an alias of
+``Embedding`` registered in ``legacy_ops.py``.
 
 CTC keeps the JAX package's conventions: pre-softmax ``(T, N, C)`` input,
 the per-sample loss ``(N,)`` in float64 (the JAX package runs its

@@ -1,13 +1,17 @@
 """Legacy and internal graph ops: ``Crop``, ``IdentityAttachKLSparseReg``,
 the ``_scatter_*`` nodes, ``_grad_add``, ``_identity_with_attr_like_rhs``,
-and the ``*_v1`` and ``_linalg_*`` names as aliases.
+the storage ops ``cast_storage``, ``_sparse_retain`` and ``_square_sum``,
+and the ``*_v1``, ``_linalg_*`` and ``_contrib_SparseEmbedding`` names as
+aliases.
 
 Counterpart of ``mxnet_tpu/ops/legacy_ops.py`` (reference: crop.cc,
-identity_attach_KL_sparse_reg-inl.h, elemwise_scatter_op.cc). The sparse
-storage ops of that file (``cast_storage``, ``_sparse_retain``,
-``_square_sum``), ``_contrib_SparseEmbedding`` and ``_CrossDeviceCopy``
-are not ported: they come with the sparse types and model-parallel binds
-(ROADMAP.md Queue A13). ``_slice_assign`` lives in ``matrix.py``.
+identity_attach_KL_sparse_reg-inl.h, elemwise_scatter_op.cc,
+cast_storage-inl.h, sparse_retain.cc, square_sum-inl.h). The storage ops
+give the dense value semantics inside a graph (a cast is the identity,
+retain zeroes the unlisted rows); the storage-aware versions are
+``mx.nd.cast_storage`` / ``sparse_retain`` / ``square_sum`` of
+``ndarray/sparse.py``. ``_CrossDeviceCopy`` comes with the model-parallel
+binds (ROADMAP.md Queue A). ``_slice_assign`` lives in ``matrix.py``.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
-from .param import Bool, Float, Int, Shape
+from .param import Bool, Enum, Float, Int, Shape
 from .registry import alias_op, register_op
 
 
@@ -106,6 +110,25 @@ def _lhs_shape(attrs, ins, auxs):
     return None if ins[0] is None else (ins, [ins[0]], auxs)
 
 
+def _cast_storage(attrs, data):
+    return data
+
+
+def _sparse_retain(attrs, data, indices):
+    idx = indices.to(torch.int64).reshape(-1)
+    out = torch.zeros_like(data)
+    out[idx] = data[idx]
+    return out
+
+
+def _square_sum(attrs, data):
+    sq = torch.square(data)
+    if attrs.axis is None:
+        return torch.sum(sq).reshape((1,) * data.dim()) if attrs.keepdims \
+            else torch.sum(sq)
+    return torch.sum(sq, dim=tuple(attrs.axis), keepdim=bool(attrs.keepdims))
+
+
 def _register():
     register_op(
         "Crop", _crop,
@@ -143,6 +166,24 @@ def _register():
     register_op("_scatter_elemwise_div", lambda attrs, lhs, rhs: lhs / rhs,
                 num_inputs=2, input_names=["lhs", "rhs"],
                 doc="elemwise div keeping lhs's sparse storage (dense here)")
+    # --- sparse storage ops: dense value semantics in a graph -----------
+    register_op("cast_storage", _cast_storage,
+                params={"stype": Enum(["default", "row_sparse", "csr"])},
+                num_inputs=1, input_names=["data"],
+                doc="storage cast: the identity on values in a graph; "
+                    "mx.nd.cast_storage changes the storage")
+    register_op("_sparse_retain", _sparse_retain,
+                num_inputs=2, input_names=["data", "indices"],
+                infer_shape=_lhs_shape,
+                doc="keep only the listed rows, zeroing the rest")
+    register_op("_square_sum", _square_sum,
+                params={"axis": Shape(default=None),
+                        "keepdims": Bool(default=False)},
+                num_inputs=1, input_names=["data"],
+                doc="sum of squares over axis")
+    # the row-sparse gradient is the NDArray layer's
+    # (ndarray/sparse.py sparse_embedding); in a graph it is Embedding
+    alias_op("Embedding", "_contrib_SparseEmbedding")
     # the pre-NNVM layer names and the la_op registrations' own names
     alias_op("Convolution", "Convolution_v1")
     alias_op("Pooling", "Pooling_v1")

@@ -134,14 +134,29 @@ class Optimizer:
         count advanced): Adam folds its bias correction in."""
         return self._get_lr(index)
 
+    def update_rsp(self, index, weight, grad, state, lr):
+        """One step from a row-sparse gradient. Optimizers with a lazy
+        path (SGD, Adam, Ftrl) touch only the gradient's rows; the others
+        take the densified gradient, as the reference's storage fallback
+        does."""
+        from .ndarray.sparse import cast_storage
+
+        self._update_dense(index, weight, cast_storage(grad, "default"),
+                           state, lr)
+
     def update(self, index, weight, grad, state):
         """One step of ``weight`` and ``state``, written in place."""
         self._update_count(index)
+        step = self.update_rsp if grad.stype == "row_sparse" \
+            else self._update_dense
+        step(index, weight, grad, state, self.step_lr(index))
+
+    def _update_dense(self, index, weight, grad, state, lr):
         arrays = flat_state(state)
         with torch.no_grad():
             new_w, new_states = self.step_tensors(
                 index, weight._data, grad._data, [a._data for a in arrays],
-                self.step_lr(index), self.rescale_grad, self.clip_gradient)
+                lr, self.rescale_grad, self.clip_gradient)
             for arr, value in zip([weight] + arrays, [new_w] + new_states):
                 arr._set_data(value)
 
@@ -206,7 +221,8 @@ def create(name, **kwargs):
 @register
 class SGD(Optimizer):
     """(Momentum) SGD with optional fp16 master weights, through the
-    sgd_update / sgd_mom_update / mp_sgd_* ops."""
+    sgd_update / sgd_mom_update / mp_sgd_* ops; a row-sparse gradient
+    takes the lazy row path."""
 
     def __init__(self, momentum=0.0, multi_precision=False, **kwargs):
         super().__init__(**kwargs)
@@ -237,6 +253,21 @@ class SGD(Optimizer):
         name = ("mp_" if master else "") + \
             ("sgd_mom_update" if self.momentum > 0 else "sgd_update")
         return _apply_op(name, weight, grad, states, **kw)
+
+    def update_rsp(self, index, weight, grad, state, lr):
+        from .ndarray import sparse as sp
+
+        common = dict(lr=lr, wd=self._get_wd(index),
+                      rescale_grad=self.rescale_grad,
+                      clip_gradient=self.clip_gradient)
+        if isinstance(state, (list, tuple)):
+            sp.mp_sgd_update_rsp(weight, grad, state[0], state[1],
+                                 momentum=self.momentum, **common)
+        elif state is not None:
+            sp.sgd_mom_update_rsp(weight, grad, state,
+                                  momentum=self.momentum, **common)
+        else:
+            sp.sgd_update_rsp(weight, grad, **common)
 
 
 @register
@@ -311,7 +342,11 @@ class SGLD(Optimizer):
 
 @register
 class NAG(SGD):
-    """Nesterov accelerated gradient."""
+    """Nesterov accelerated gradient. It has no lazy row path: a
+    row-sparse gradient is densified, so every row takes the Nesterov
+    step, momentum decay and weight decay (not SGD's lazy update)."""
+
+    update_rsp = Optimizer.update_rsp
 
     def step_tensors(self, index, weight, grad, states, lr, rescale_grad,
                      clip_gradient):
@@ -352,6 +387,15 @@ class Adam(Optimizer):
                          wd=self._get_wd(index), rescale_grad=rescale_grad,
                          clip_gradient=clip_gradient, beta1=self.beta1,
                          beta2=self.beta2, epsilon=self.epsilon)
+
+    def update_rsp(self, index, weight, grad, state, lr):
+        from .ndarray import sparse as sp
+
+        sp.adam_update_rsp(weight, grad, state[0], state[1], lr=lr,
+                           beta1=self.beta1, beta2=self.beta2,
+                           epsilon=self.epsilon, wd=self._get_wd(index),
+                           rescale_grad=self.rescale_grad,
+                           clip_gradient=self.clip_gradient)
 
 
 @register
@@ -443,6 +487,15 @@ class Ftrl(Optimizer):
                          wd=self._get_wd(index), rescale_grad=rescale_grad,
                          clip_gradient=clip_gradient, lamda1=self.lamda1,
                          beta=self.beta)
+
+    def update_rsp(self, index, weight, grad, state, lr):
+        from .ndarray import sparse as sp
+
+        sp.ftrl_update_rsp(weight, grad, state[0], state[1], lr=lr,
+                           lamda1=self.lamda1, beta=self.beta,
+                           wd=self._get_wd(index),
+                           rescale_grad=self.rescale_grad,
+                           clip_gradient=self.clip_gradient)
 
 
 def _decayed_grad(opt, index, weight, grad, rescale_grad, clip_gradient):
@@ -536,6 +589,9 @@ class Test(Optimizer):
         return nd.zeros(weight.shape, weight.context)
 
     def update(self, index, weight, grad, state):
+        if grad.stype != "default":
+            from .ndarray.sparse import cast_storage
+            grad = cast_storage(grad, "default")
         with torch.no_grad():
             weight._set_data(weight._data + grad._data * self.rescale_grad)
             state._set_data(weight._data)

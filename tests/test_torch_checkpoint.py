@@ -127,12 +127,27 @@ def test_unsavable_arrays_raise_as_the_reference(tmp_path):
 
 
 def test_sparse_records_are_not_ported(tmp_path):
-    path = str(tmp_path / "sparse.params")
-    jmx.nd.save(path, [jmx.nd.sparse.csr_matrix(
-        np.eye(3, dtype=np.float32))])
-    assert len(jmx.nd.load(path)) == 1
-    with pytest.raises(tmx.MXNetError, match="A13"):
-        tmx.nd.load(path)
+    """Sparse records (the name is from before they were ported): the
+    port loads the JAX package's csr and row_sparse records, values and
+    indices bit for bit, and writes them back byte for byte."""
+    rng = np.random.RandomState(3)
+    dense = rng.randn(6, 4).astype(np.float32) * (rng.rand(6, 4) < 0.4)
+    dense[2] = 0
+    jpath, tpath = str(tmp_path / "j.params"), str(tmp_path / "t.params")
+    jmx.nd.save(jpath, {"c": jmx.nd.sparse.csr_matrix(dense),
+                        "r": jmx.nd.sparse.row_sparse_array(dense)})
+    got = tmx.nd.load(jpath)
+    assert (got["c"].stype, got["r"].stype) == ("csr", "row_sparse")
+    want = jmx.nd.load(jpath)
+    for k in ("c", "r"):
+        np.testing.assert_array_equal(got[k].asnumpy(), dense)
+        np.testing.assert_array_equal(got[k].indices.asnumpy(),
+                                      want[k].indices.asnumpy())
+    np.testing.assert_array_equal(got["c"].indptr.asnumpy(),
+                                  want["c"].indptr.asnumpy())
+    tmx.nd.save(tpath, got)
+    with open(jpath, "rb") as a, open(tpath, "rb") as b:
+        assert a.read() == b.read()
 
 
 # ------------------------------------------------------------ checkpoints

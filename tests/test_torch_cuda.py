@@ -24,8 +24,12 @@ against the exact distribution, and the streaming input pipeline's
 batches staged on the card against the same iterator's on the CPU, bit
 for bit, and resumable training: a ``fit(resume=)`` stopped by SIGTERM
 and resumed on the card, bit for bit, and a PythonLossModule's host
-labels handed to its gradient beside the scores. Every test skips where
-there is no card.
+labels handed to its gradient beside the scores, and sparse storage: each
+sparse function on the card against the CPU, ``dot``, the gradient's row
+collapse and ``rsp_add`` repeating bit for bit, the lazy optimizers from
+a ``sparse_embedding`` gradient, ``row_sparse_pull``, the native libsvm
+parser and ``check_consistency`` over the CPU and the card. Every test
+skips where there is no card.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 that has only PyTorch with CUDA:
@@ -2027,3 +2031,156 @@ def test_python_loss_head_takes_host_labels_on_the_card(card):
     assert seen == [("gpu", "gpu")] * 2
     assert all(np.isfinite(v.asnumpy()).all()
                for v in seq.get_params()[0].values())
+
+
+# ------------------------------------------------------------ sparse storage
+
+def _sparse_inputs(seed=0, shape=(300, 500), density=0.02):
+    rng = np.random.RandomState(seed)
+    dense = (rng.randn(*shape) * (rng.rand(*shape) < density)) \
+        .astype(np.float32)
+    dense[::5] = 0
+    return rng, dense
+
+
+def _sparse_parts(x):
+    """(stype, values, index arrays) of a result, as numpy."""
+    if x.stype == "default":
+        return (x.stype, x.asnumpy())
+    aux = [a.cpu().numpy() for a in x._aux]
+    return (x.stype, x._data.cpu().numpy(), *aux)
+
+
+_SPARSE_OPS = {
+    "cast_storage": lambda mx, sp, d, r: [
+        sp.cast_storage(sp.cast_storage(mx.nd.array(d, ctx=r), a), b)
+        for a in ("default", "row_sparse", "csr")
+        for b in ("default", "row_sparse", "csr") if a != b],
+    "sparse_retain": lambda mx, sp, d, r: [sp.sparse_retain(
+        sp.row_sparse_array(d, ctx=r), np.arange(0, 300, 3))],
+    "square_sum": lambda mx, sp, d, r: [
+        sp.square_sum(sp.row_sparse_array(d, ctx=r)),
+        sp.square_sum(sp.row_sparse_array(d, ctx=r), axis=1)],
+    "csr_slice": lambda mx, sp, d, r: [
+        sp.csr_matrix(d, ctx=r)[a:b] for a, b in ((0, 7), (13, 299),
+                                                   (40, 40))],
+    "dot": lambda mx, sp, d, r: [
+        sp.dot(sp.csr_matrix(d, ctx=r), mx.nd.array(
+            np.ones((500, 3), np.float32), ctx=r)),
+        sp.dot(sp.csr_matrix(d, ctx=r), mx.nd.array(
+            np.linspace(-1, 1, 900, dtype=np.float32).reshape(300, 3),
+            ctx=r), transpose_a=True)],
+    "rsp_add": lambda mx, sp, d, r: [
+        sp.row_sparse_array(d, ctx=r) + sp.row_sparse_array(d[::-1].copy(),
+                                                            ctx=r)],
+}
+
+
+@pytest.mark.parametrize("op", sorted(_SPARSE_OPS))
+def test_sparse_op_on_card_matches_cpu(card, op):
+    """Each sparse function on the card: the same storage type and index
+    arrays as on the CPU, values equal (a sum in another order within
+    1e-6 of the CPU's max)."""
+    _, dense = _sparse_inputs()
+    got = _SPARSE_OPS[op](mx, mx.nd.sparse, dense, mx.gpu())
+    want = _SPARSE_OPS[op](mx, mx.nd.sparse, dense, mx.cpu())
+    for g, w in zip(got, want):
+        assert g.context.device_type == "gpu"
+        gp, wp = _sparse_parts(g), _sparse_parts(w)
+        assert gp[0] == wp[0]
+        for a, b in zip(gp[2:], wp[2:]):
+            np.testing.assert_array_equal(a, b)
+        scale = max(1e-30, float(np.abs(wp[1]).max()) if wp[1].size else 0)
+        assert np.abs(gp[1] - wp[1]).max(initial=0) <= 1e-6 * scale
+
+
+def test_sparse_reductions_repeat_bit_for_bit(card):
+    """dot, the row collapse of a gradient and rsp_add give the same bits
+    in two runs (fixed summation order, no atomics)."""
+    from mxnet_tpu_torch.ndarray.sparse import collapse_rows
+
+    sp = mx.nd.sparse
+    rng, dense = _sparse_inputs(1, (4096, 20000), 0.002)
+    csr = sp.csr_matrix(dense, ctx=mx.gpu())
+    rhs = mx.nd.array(rng.randn(20000, 16).astype(np.float32), ctx=mx.gpu())
+    rhs_t = mx.nd.array(rng.randn(4096, 16).astype(np.float32),
+                        ctx=mx.gpu())
+    ids = torch.from_numpy(rng.randint(0, 50, 20000)).cuda()
+    vals = torch.from_numpy(rng.randn(20000, 16).astype(np.float32)).cuda()
+    a = sp.row_sparse_array(dense[:, :16], ctx=mx.gpu())
+    b = sp.row_sparse_array(dense[::-1, 16:32].copy(), ctx=mx.gpu())
+
+    def run():
+        return [sp.dot(csr, rhs), sp.dot(csr, rhs_t, transpose_a=True),
+                collapse_rows(ids, vals, (50, 16)), a + b]
+
+    first, second = run(), run()
+    for x, y in zip(first, second):
+        assert torch.equal(x._data, y._data)
+
+
+def test_sparse_embedding_lazy_updates_on_card_match_cpu(card):
+    """sparse_embedding's row_sparse gradient and the lazy SGD / Adam /
+    FTRL steps on the card against the same steps on the CPU."""
+    rng = np.random.RandomState(5)
+    w0 = rng.randn(1000, 8).astype(np.float32)
+    ids = rng.randint(0, 1000, (64, 6)).astype(np.float32)
+    head = rng.randn(64, 6, 8).astype(np.float32)
+    for name in ("sgd", "adam", "ftrl"):
+        outs = []
+        for ctx in (mx.gpu(), mx.cpu()):
+            w = mx.nd.array(w0, ctx=ctx)
+            w.attach_grad(stype="row_sparse")
+            opt = mx.optimizer.create(name, learning_rate=0.1)
+            state = opt.create_state(0, w)
+            for _ in range(3):
+                with mx.autograd.record():
+                    e = mx.nd.sparse.sparse_embedding(
+                        mx.nd.array(ids, ctx=ctx), w)
+                e.backward(mx.nd.array(head, ctx=ctx))
+                opt.update(0, w, w.grad, state)
+            outs.append((w.asnumpy(), w.grad.indices.asnumpy()))
+        np.testing.assert_array_equal(outs[0][1], outs[1][1])
+        np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=0,
+                                   atol=1e-6 * np.abs(outs[1][0]).max())
+
+
+def test_kvstore_row_sparse_pull_on_card(card):
+    sp = mx.nd.sparse
+    kv = mx.kv.create("local")
+    w = np.arange(3000, dtype=np.float32).reshape(1000, 3)
+    kv.init("w", mx.nd.array(w, ctx=mx.gpu()))
+    out = sp.zeros("row_sparse", (1000, 3), ctx=mx.gpu())
+    kv.row_sparse_pull("w", out=out, row_ids=mx.nd.array(
+        [7, 3, 7, 999], ctx=mx.gpu()))
+    assert out._data.is_cuda and out._aux[0].is_cuda
+    np.testing.assert_array_equal(out.indices.asnumpy(), [3, 7, 999])
+    np.testing.assert_array_equal(out.data.asnumpy(), w[[3, 7, 999]])
+    with pytest.raises(MXNetError):
+        kv.row_sparse_pull("w", out=out, row_ids=mx.nd.array(
+            [1000], ctx=mx.gpu()))
+
+
+def test_libsvm_native_parser_loads_from_the_build_dir(card, tmp_path):
+    from mxnet_tpu_torch import native
+
+    path = tmp_path / "d.libsvm"
+    path.write_text("1 0:1.5 3:2\n0 1:0.5\n")
+    it = mx.io.LibSVMIter(data_libsvm=str(path), data_shape=(4,),
+                          batch_size=2)
+    assert native.built()["libsvmparse"].startswith(native.BUILD_DIR)
+    csr = it.next().data[0].copyto(mx.gpu())
+    np.testing.assert_array_equal(csr.asnumpy(),
+                                  [[1.5, 0, 0, 2], [0, 0.5, 0, 0]])
+
+
+def test_check_consistency_over_cpu_and_card(card):
+    net = mx.sym.Activation(mx.sym.FullyConnected(
+        mx.sym.var("data"), num_hidden=32, name="fc"), act_type="tanh")
+    np.random.seed(0)
+    outs = mx.test_utils.check_consistency(
+        net, [{"ctx": mx.cpu(), "data": (16, 24)},
+              {"ctx": mx.gpu(0), "data": (16, 24)}])
+    assert outs[1][0].context.device_type == "gpu"
+    assert mx.test_utils.list_gpus() == list(range(
+        torch.cuda.device_count()))

@@ -22,34 +22,25 @@ import mxnet_tpu_torch as tmx
 # process comes with distribution (A10)
 MX_UNPORTED = frozenset({"kvstore_server"})
 
-# ``mx.io``: the LibSVM reader produces CSR batches (A13's sparse item)
-IO_UNPORTED = frozenset({"LibSVMIter"})
+# ``mx.io``: every iterator is ported
+IO_UNPORTED = frozenset()
 
-# ops of the registry not ported yet (both ``mx.sym`` and ``mx.nd``):
-# the storage cast comes with the sparse types (A13)
-OPS_UNPORTED = frozenset({"cast_storage"})
+# ops of the registry not ported yet (both ``mx.sym`` and ``mx.nd``)
+OPS_UNPORTED = frozenset()
 
-# ``mx.nd.contrib`` / ``mx.sym.contrib`` ops not ported yet: the
-# row-sparse embedding (A13)
-CONTRIB_UNPORTED = frozenset({"SparseEmbedding"})
+# ``mx.nd.contrib`` / ``mx.sym.contrib`` ops not ported yet
+CONTRIB_UNPORTED = frozenset()
 
 # every name of the JAX package's op registry that the port's lacks,
 # private names included (the public-name tests skip ``_``-names), each
 # with the ROADMAP.md Queue A item it waits for
 REGISTRY_UNPORTED = {
-    "_contrib_SparseEmbedding": "A13", "cast_storage": "A13",
-    "_sparse_retain": "A13", "_square_sum": "A13",
     "_CrossDeviceCopy": "A13 (group2ctx)",
 }
 
 # beyond the ops: ``mx.sym`` only, ``mx.nd`` only
-SYM_UNPORTED = frozenset({
-
-})
-ND_UNPORTED = frozenset({
-    "BaseSparseNDArray", "CSRNDArray", "RowSparseNDArray", "sparse",
-    "sparse_retain", "square_sum"
-})
+SYM_UNPORTED = frozenset()
+ND_UNPORTED = frozenset()
 
 UNPORTED = {"": MX_UNPORTED, "sym": OPS_UNPORTED | SYM_UNPORTED,
             "nd": OPS_UNPORTED | ND_UNPORTED, "base": frozenset(),

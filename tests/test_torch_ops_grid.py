@@ -297,7 +297,8 @@ def test_every_new_op_has_a_case():
     # fork ops (and the nn.py / init_ops.py ops and *_v1 aliases of the
     # same slice) theirs in tests/test_torch_linalg.py,
     # test_torch_legacy_ops.py, test_torch_ctc.py and
-    # test_torch_fork_ops.py
+    # test_torch_fork_ops.py; the sparse slice's Embedding alias its case
+    # in tests/test_torch_sparse.py
     from mxnet_tpu_torch.ops import (contrib, detection, fork_ops,
                                      legacy_ops, linalg, spatial)
 
@@ -311,7 +312,7 @@ def test_every_new_op_has_a_case():
               "L2Normalization", "LRN",
               "InstanceNorm", "SequenceMask", "SequenceLast",
               "SequenceReverse", "_full", "_arange", "Convolution_v1",
-              "Pooling_v1", "BatchNorm_v1"}
+              "Pooling_v1", "BatchNorm_v1", "_contrib_SparseEmbedding"}
     assert new - covered - later == {"_scatter_set_nd", "RNN"}, \
         sorted(new - covered - later)
 
